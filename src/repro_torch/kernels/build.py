@@ -1,0 +1,110 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, loaded with ``ctypes``. Builds
+happen at first use, from the sources in the checkout only, into
+``build/kernels/`` at the repository root (listed in ``.gitignore``). A
+library's file name carries a hash of its source and flags, so an edited
+source is rebuilt and a stale library is never loaded. ``build_all``
+starts one ``nvcc`` per source together and waits for all of them.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("decode_attention", "router_scores")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> Path:
+    """``build/kernels`` under the repository root (src/repro_torch/kernels
+    → three levels up)."""
+    return Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): the "
+                       "CUDA kernels are built from source at first use")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()) \
+        .hexdigest()[:12]
+    return build_dir() / f"lib{name}-{digest}.so"
+
+
+def build_all(names=SOURCES) -> Dict[str, Path]:
+    """Compile every library that is not built yet, one ``nvcc`` per source,
+    all started together. Raises with the compiler's output on failure.
+    The compiler's resource report (``-Xptxas -v``) goes to
+    ``build/kernels/<name>.log``."""
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    targets = {n: _target(n) for n in names}
+    procs = {}
+    for name, so in targets.items():
+        if so.exists():
+            continue
+        tmp = so.parent / f"{so.stem}.{os.getpid()}.tmp.so"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp)
+    failed = []
+    for name, (proc, tmp) in procs.items():
+        log, _ = proc.communicate()
+        (out_dir / f"{name}.log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+            continue
+        os.replace(tmp, targets[name])     # atomic: readers see whole files
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return targets
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library ``name`` (built first if needed), with every C
+    entry point's ``argtypes``/``restype`` declared."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    path = build_all((name,))[name]
+    lib = ctypes.CDLL(str(path))
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if name == "decode_attention":
+        lib.paged_decode_attention.argtypes = [P, P, P, P, P, P, I, I, I, I,
+                                               I, I, I, I, F, P]
+        lib.paged_decode_attention.restype = I
+        lib.chunk_prefill_attention.argtypes = [P, P, P, P, P, I, I, I, I,
+                                                I, I, I, I, F, P]
+        lib.chunk_prefill_attention.restype = I
+    elif name == "router_scores":
+        lib.router_scores.argtypes = [P, P, P, I, I, I, I, F, P]
+        lib.router_scores.restype = I
+    lib.kernel_error_string.argtypes = [I]
+    lib.kernel_error_string.restype = ctypes.c_char_p
+    _loaded[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise when a launch returned a CUDA error (a refused launch never
+    runs, and a later synchronize would not report it)."""
+    if err != 0:
+        msg = lib.kernel_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")

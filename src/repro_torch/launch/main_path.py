@@ -1,0 +1,83 @@
+"""The port's main-path deployment, built in one place for ``chip_smoke.py``
+and ``launch/profile_serve.py``: full-width Qwen3-8B (bf16), 2 experts of
+seeded random weights behind the Eq. 28 centroid router (top-1), 8 slots
+per pod over a paged pool of 16-position blocks, 256-token prefill chunks,
+the fused decode step; 16 greedy requests of 256–1024 prompt tokens and
+64 new tokens each. ``smoke=True`` builds the same deployment at smoke
+size (2 layers, 8–32 prompt tokens, 8-position blocks and chunks).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.router import CentroidRouter
+from repro_torch.data.synthetic import SyntheticConfig, SyntheticMultimodal
+from repro_torch.device import resolve_device
+from repro_torch.models import build_model
+from repro_torch.models.model import Model
+from repro_torch.serve.api import EngineConfig, SamplingParams
+from repro_torch.serve.scheduler import DecentralizedSlotServer, make_engine
+
+ARCH = "qwen3_8b"
+N_EXPERTS = 2
+N_REQUESTS = 16
+NEW_TOKENS = 64
+N_SLOTS = 8
+# (shortest prompt, longest prompt, page block, prefill chunk)
+FULL_SHAPE = (256, 1024, 16, 256)
+SMOKE_SHAPE = (8, 32, 8, 8)
+CORPUS_SEED = 7       # request features
+PROMPT_SEED = 2       # router centroids, then prompt lengths and tokens
+
+
+@dataclass
+class MainPath:
+    cfg: ModelConfig
+    model: Model
+    engine: DecentralizedSlotServer
+    prompts: List[np.ndarray]
+    features: np.ndarray
+    sampling: SamplingParams
+
+    def warm(self) -> None:
+        """Serve one short request to completion (allocator, library
+        handles) before anything is counted or timed."""
+        rid = len(self.prompts)
+        self.engine.add_request(self.prompts[0], SamplingParams(max_new=2),
+                                features=self.features[0], rid=rid)
+        while self.engine.has_unfinished():
+            self.engine.step()
+
+    def submit(self) -> None:
+        """Submit every request (rid = its index); the router places each."""
+        for i, p in enumerate(self.prompts):
+            self.engine.add_request(p, self.sampling,
+                                    features=self.features[i], rid=i)
+
+
+def build(device="cuda", *, smoke: bool = False) -> MainPath:
+    dev = resolve_device(device)
+    cfg = get_smoke_config(ARCH) if smoke else get_config(ARCH)
+    model = build_model(cfg)
+    experts = [model.init(torch.Generator(device=dev).manual_seed(k))
+               for k in range(N_EXPERTS)]
+    features = SyntheticMultimodal(SyntheticConfig(seed=CORPUS_SEED)) \
+        .sample_batch(N_REQUESTS, step=0)["features"]
+    rng = np.random.default_rng(PROMPT_SEED)
+    router = CentroidRouter(torch.as_tensor(
+        rng.normal(size=(N_EXPERTS, features.shape[1])).astype(np.float32)))
+    lo, hi, block, chunk = SMOKE_SHAPE if smoke else FULL_SHAPE
+    lens = rng.integers(lo, hi + 1, N_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
+    engine = make_engine(
+        model, experts=experts, router=router, device=dev,
+        config=EngineConfig(n_slots=N_SLOTS, cache_len=hi + NEW_TOKENS,
+                            page_block=block, chunk=chunk))
+    return MainPath(cfg, model, engine, prompts, features,
+                    SamplingParams(max_new=NEW_TOKENS))

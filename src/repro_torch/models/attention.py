@@ -1,0 +1,130 @@
+"""Grouped-query attention over the paged KV pool (port of the paged paths
+of ``repro.models.attention``).
+
+Public functions keep the reference's einsum layouts: ``wq`` (D,H,dh),
+``wk``/``wv`` (D,KV,dh), ``wo`` (H,dh,D), pools (P,block,KV,dh). Where the
+reference scatters new K/V with ``.at[].set`` and returns a new pool, the
+port writes the pool IN PLACE with ``index_put_`` and returns the same
+tensors — the pools are the serving state and are never shared with a
+caller that expects the old contents. The attention itself goes through
+``repro_torch.kernels.ops``: the CUDA kernel for tensors on the card, the
+plain version on the CPU.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import ops as kops
+
+from .layers import apply_rope, rms_norm
+from .params import ParamSpec
+
+Tensor = torch.Tensor
+
+NEG_INF = -1e30
+
+
+def attention_specs(cfg) -> Dict[str, ParamSpec]:
+    D, H, KV, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    specs = {
+        "wq": ParamSpec((D, H, dh), ("embed", "heads", "head_dim"), "scaled"),
+        "wk": ParamSpec((D, KV, dh), ("embed", "kv_heads", "head_dim"), "scaled"),
+        "wv": ParamSpec((D, KV, dh), ("embed", "kv_heads", "head_dim"), "scaled"),
+        "wo": ParamSpec((H, dh, D), ("heads", "head_dim", "embed"), "scaled"),
+    }
+    if cfg.qk_norm:
+        specs["q_norm"] = ParamSpec((dh,), (None,), "ones")
+        specs["k_norm"] = ParamSpec((dh,), (None,), "ones")
+    return specs
+
+
+def _qkv(params, x: Tensor, cfg, positions: Tensor,
+         rope: bool = True) -> Tuple[Tensor, Tensor, Tensor]:
+    dt = x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(dt))
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def gqa_sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor],
+             softmax_dtype=torch.float32) -> Tensor:
+    """Grouped-query attention without materializing repeated KV heads.
+    q: (B,Sq,H,dh); k,v: (B,Sk,KV,dh), H % KV == 0; mask broadcastable to
+    (B,Sq,Sk) or None. Head h uses KV head h // (H/KV)."""
+    B, Sq, H, dh = q.shape
+    KV = k.shape[2]
+    g = H // KV
+    qg = q.reshape(B, Sq, KV, g, dh)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k).to(softmax_dtype)
+    logits = logits / math.sqrt(dh)
+    if mask is not None:
+        logits = logits.masked_fill(~mask[:, None, None, :, :], NEG_INF)
+    weights = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", weights, v)
+    return out.reshape(B, Sq, H, dh)
+
+
+def _project_out(params, out: Tensor, dt) -> Tensor:
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt))
+
+
+def paged_decode_attention(params, x: Tensor, cfg,
+                           pool: Tuple[Tensor, Tensor], pos: Tensor,
+                           block_tables: Tensor, *, rope: bool = True):
+    """One-token decode against the paged cache. x: (B,1,D); pool K/V:
+    (P,block,KV,dh); pos: (B,) int32; block_tables: (B,NB) int32. Returns
+    (out (B,1,D), pool) — the new token's K/V written into the pool in
+    place (inactive slots all write scratch block 0, offset 0)."""
+    B = x.shape[0]
+    k_pool, v_pool = pool
+    bs = k_pool.shape[1]
+    NB = block_tables.shape[1]
+    S_log = NB * bs
+    q, k_new, v_new = _qkv(params, x, cfg, pos[:, None], rope=rope)
+    r = pos % S_log if cfg.sliding_window > 0 else pos
+    col = (r // bs).clamp(max=NB - 1).long()
+    blk = block_tables.gather(1, col[:, None])[:, 0].long()
+    off = (r % bs).long()
+    k_pool.index_put_((blk, off), k_new[:, 0].to(k_pool.dtype))
+    v_pool.index_put_((blk, off), v_new[:, 0].to(v_pool.dtype))
+    out = kops.paged_decode_attention(q[:, 0].contiguous(), k_pool, v_pool,
+                                      pos, block_tables,
+                                      window=cfg.sliding_window)
+    return _project_out(params, out[:, None], x.dtype), (k_pool, v_pool)
+
+
+def chunk_attention(params, x: Tensor, cfg, pool: Tuple[Tensor, Tensor],
+                    start: int, length: int, block_table: Tensor):
+    """Chunked-prefill self-attention through the paged pool. x: (1,C,D)
+    whose row c sits at absolute position ``start + c``; ``length`` valid
+    rows (a final partial chunk is right-padded to C); block_table: (NB,)
+    int32. ``start`` and ``length`` are host ints. The chunk's K/V are
+    written into the pool first (in place; padded rows go to scratch block
+    0), so one fence — key position ≤ query position — covers the prefix
+    and the chunk. Returns (out (1,C,D), pool)."""
+    C = x.shape[1]
+    k_pool, v_pool = pool
+    bs = k_pool.shape[1]
+    NB = block_table.shape[0]
+    offs = torch.arange(C, device=x.device)
+    pos_c = start + offs
+    q, k_new, v_new = _qkv(params, x, cfg, pos_c[None, :])
+    valid = offs < length
+    blk = torch.where(valid, block_table[(pos_c // bs).clamp(0, NB - 1)],
+                      0).long()
+    off = torch.where(valid, pos_c % bs, 0)
+    k_pool.index_put_((blk, off), k_new[0].to(k_pool.dtype))
+    v_pool.index_put_((blk, off), v_new[0].to(v_pool.dtype))
+    out = kops.chunk_prefill_attention(q[0].contiguous(), k_pool, v_pool,
+                                       start, block_table)
+    return _project_out(params, out[None], x.dtype), (k_pool, v_pool)

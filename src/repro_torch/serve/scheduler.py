@@ -1,0 +1,775 @@
+"""Continuous batching over the paged KV pool (port of the §5.2 serving
+path of ``repro.serve.scheduler``).
+
+``make_engine(model, experts=[...], router=r, config=cfg, device="cuda")``
+builds the paper's decentralized deployment: the Eq. 28 centroid router
+runs at submission on each request's features and sends it to its top-1
+expert's pod, a ``SlotServer`` over a paged KV pool. A pod admits requests
+FCFS into free slots, reserves the prompt's KV blocks, consumes the prompt
+``chunk`` positions per step (``Model.prefill_chunk``) co-scheduled with
+the lockstep decode of every decoding slot under a token budget, and
+decodes with the fused step (``Model.fused_decode_step``).
+
+**The single-dispatch contract.** Each step is one forward (decode, plus
+at most one prefill chunk) and its on-device epilogue, followed by ONE
+host readback: ``(next_tok, done)`` — plus the chunk's first token on a
+prompt's final chunk, read in the same transfer. The per-slot device
+state is rebuilt from the host mirrors only on admission, retirement or
+block-table growth. No ``.item()`` sits in the layer loop.
+
+What this port does not run yet is refused by ``EngineConfig.validate``:
+the mixture core, speculation, QoS and preemption, the prefix cache, the
+sanitizer, tracing and metrics export, sampling, and the unpaged,
+unchunked and unfused paths (see ROADMAP.md).
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.model import Model
+from repro_torch.serve.api import (EngineConfig, RequestOutput,
+                                   SamplingParams, TokenDelta,
+                                   effective_page_block, stop_id_row)
+from repro_torch.serve.fused import DONE_REASONS, pick_first
+
+Tensor = torch.Tensor
+
+#: Admission skip-ahead past a queue head the pool cannot take yet.
+DEFAULT_ADMIT_LOOKAHEAD = 8
+
+
+@dataclass
+class Request:
+    """One in-flight request; ``params`` is the canonical carrier of the
+    decoding controls (the flat fields mirror it)."""
+
+    rid: int
+    tokens: np.ndarray            # (prompt_len,) int32
+    max_new: int
+    features: Optional[np.ndarray] = None   # frozen-encoder routing features
+    params: Optional[SamplingParams] = None
+    out: List[int] = field(default_factory=list)
+    finish_reason: Optional[str] = None
+    t_submit: float = 0.0
+    t_admit: float = 0.0
+    t_first: float = 0.0
+    t_done: float = 0.0
+    t_tok: List[float] = field(default_factory=list)
+    emitted: int = 0
+
+    def __post_init__(self):
+        if self.params is None:
+            self.params = SamplingParams(max_new=self.max_new)
+        else:
+            self.max_new = self.params.max_new
+
+    @property
+    def done(self) -> bool:
+        return len(self.out) >= self.max_new
+
+    @property
+    def hit_stop(self) -> bool:
+        s = self.params.stop_set
+        return bool(s) and bool(self.out) and self.out[-1] in s
+
+    def reason_now(self) -> Optional[str]:
+        if self.hit_stop:
+            return "stop"
+        if self.done:
+            return "length"
+        return None
+
+    def record(self, tok: int, t: Optional[float] = None) -> None:
+        t = time.perf_counter() if t is None else t
+        self.out.append(int(tok))
+        self.t_tok.append(t)
+        self.t_first = self.t_first or t
+
+    def batch(self, device, pad_to: int = 0) -> Dict[str, Tensor]:
+        """Single-row prefill batch, the token row right-padded to
+        ``pad_to`` (padded rows are masked by the chunk length)."""
+        toks = self.tokens
+        if pad_to > len(toks):
+            toks = np.concatenate(
+                [toks, np.zeros(pad_to - len(toks), np.int32)])
+        return {"tokens": torch.as_tensor(toks[None, :].astype(np.int64),
+                                          device=device)}
+
+
+_FEATURES_MSG = ("request {rid}: this engine routes on frozen-encoder "
+                 "features — pass features= to add_request")
+
+
+def _as_request(prompt, params: Optional[SamplingParams], features,
+                rid: int) -> Request:
+    if isinstance(prompt, Request):
+        return prompt
+    sp = params if params is not None else SamplingParams()
+    return Request(rid, np.asarray(prompt, dtype=np.int32), sp.max_new,
+                   features=features, params=sp)
+
+
+class BlockAllocator:
+    """Free-list allocator over the shared pool of KV blocks. Block 0 is the
+    reserved scratch block (idle and mid-prefill rows of the lockstep
+    decode write there); ``alloc`` is all-or-nothing; ``free`` rejects
+    out-of-range ids and double frees; each block carries a generation
+    counter bumped at free, so a stale reference is caught
+    (``assert_live``)."""
+
+    def __init__(self, n_blocks: int):
+        if n_blocks < 2:
+            raise ValueError(f"pool needs >= 2 blocks (one is the reserved "
+                             f"scratch block), got {n_blocks}")
+        self.n_blocks = n_blocks
+        self._free = list(range(n_blocks - 1, 0, -1))   # pop() → low ids
+        self._free_set = set(self._free)
+        self.gen = [0] * n_blocks
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        if n > len(self._free):
+            return None
+        out = [self._free.pop() for _ in range(n)]
+        self._free_set.difference_update(out)
+        return out
+
+    def free(self, blocks: List[int]) -> None:
+        if len(set(blocks)) != len(blocks):
+            raise ValueError(f"double free within one call: {blocks}")
+        for b in blocks:
+            if not 0 < b < self.n_blocks:
+                raise ValueError(
+                    f"freeing block {b} outside the pool range "
+                    f"1..{self.n_blocks - 1} (block 0 is the reserved "
+                    f"scratch block)")
+            if b in self._free_set:
+                raise ValueError(
+                    f"double free of block {b} — it is already on the free "
+                    f"list; block bookkeeping is corrupt")
+        self._free.extend(blocks)
+        self._free_set.update(blocks)
+        for b in blocks:
+            self.gen[b] += 1
+
+    def assert_live(self, block: int, gen: int, *, owner: str = "") -> None:
+        cur = self.gen[block]
+        if cur != gen:
+            who = f" held by {owner}" if owner else ""
+            raise ValueError(
+                f"use-after-free: block {block}{who} was freed since its "
+                f"reservation (generation {cur} != held {gen})")
+
+
+class _SlotTable:
+    """Slot bookkeeping, the paged block tables and allocator, and the
+    chunked-prefill drive loop: each step co-schedules one prefill chunk
+    (FCFS over mid-prefill slots) with the lockstep decode of every
+    decoding slot, subject to ``token_budget`` (decoding slots count 1
+    each, the chunk counts ``chunk``)."""
+
+    def __init__(self, n_slots: int, cache_len: int, *, block_size: int,
+                 n_blocks: int, chunk: int, token_budget: int, device):
+        self.n_slots, self.cache_len = n_slots, cache_len
+        self.device = device
+        self.pos = np.zeros(n_slots, dtype=np.int32)      # next position
+        self.slot_req: List[Optional[Request]] = [None] * n_slots
+        self.last_tok = np.zeros(n_slots, dtype=np.int32)
+        self.waiting: List[Request] = []
+        self._next_rid = 0
+        self.n_aborted = 0
+        self.n_stopped = 0
+        self.n_chunks = 0          # prefill chunks consumed
+        self.chunk = chunk
+        self.token_budget = token_budget if token_budget > 0 \
+            else n_slots + chunk
+        self.prefilling = [False] * n_slots
+        self.prefill_pos = np.zeros(n_slots, dtype=np.int32)
+        self.prefill_width = np.zeros(n_slots, dtype=np.int32)
+        self.prefill_x: List[Any] = [None] * n_slots   # per-chunk tensors
+        self.prefill_carry: List[Any] = [None] * n_slots
+        self.prefill_order: List[int] = []
+        self._dstate = None        # persistent per-slot device state
+        self._tables_dirty = False
+        self._stop_width = 1       # stop-id matrix width (monotone, pow2)
+        self.block_size = block_size
+        self.nb_slot = -(-cache_len // block_size)
+        if n_blocks <= 0:          # full capacity + scratch
+            n_blocks = n_slots * self.nb_slot + 1
+        self.allocator = BlockAllocator(n_blocks)
+        self.block_tables = np.zeros((n_slots, self.nb_slot), np.int32)
+        self.n_alloc = np.zeros(n_slots, dtype=np.int32)
+        self.block_gens = np.zeros((n_slots, self.nb_slot), np.int64)
+
+    def free_slots(self) -> List[int]:
+        return [i for i, r in enumerate(self.slot_req) if r is None]
+
+    @property
+    def active(self) -> List[int]:
+        return [i for i, r in enumerate(self.slot_req) if r is not None]
+
+    @property
+    def decoding(self) -> List[int]:
+        return [i for i, r in enumerate(self.slot_req)
+                if r is not None and not self.prefilling[i]]
+
+    # ------------------------------------------------------------------
+    # The incremental request-lifecycle API
+    # ------------------------------------------------------------------
+
+    def add_request(self, prompt, params: Optional[SamplingParams] = None,
+                    *, features: Optional[np.ndarray] = None,
+                    rid: Optional[int] = None) -> int:
+        """Submit a prompt (token ids) — or a prebuilt ``Request`` — to the
+        waiting queue and return its rid. Never dispatches device work. A
+        request no capacity could ever admit raises ValueError here."""
+        req = _as_request(prompt, params, features,
+                          self._next_rid if rid is None else rid)
+        self._reject_unservable(req)
+        self._next_rid = max(self._next_rid, req.rid + 1)
+        req.t_submit = req.t_submit or time.perf_counter()
+        self.waiting.append(req)
+        return req.rid
+
+    def _reject_unservable(self, req: Request) -> None:
+        width = len(req.tokens)
+        if width > self.cache_len:
+            raise ValueError(
+                f"request {req.rid}: prompt needs {width} positions but the "
+                f"serving context is cache_len={self.cache_len} — reject "
+                f"the request or raise cache_len")
+        need = max(min(-(-width // self.block_size), self.nb_slot), 1)
+        usable = self.allocator.n_blocks - 1
+        if need > usable:
+            raise ValueError(
+                f"request {req.rid}: its prompt reservation needs {need} KV "
+                f"blocks but the pool has only {usable} usable "
+                f"(pool_blocks={self.allocator.n_blocks}, "
+                f"page_block={self.block_size})")
+
+    def step(self) -> List[RequestOutput]:
+        """Admit from the waiting queue, then run one co-scheduled prefill
+        chunk / lockstep decode dispatch. Streams back an output for every
+        request that progressed: this step's retirements first, then the
+        live deltas in slot order."""
+        self._admit_waiting()
+        finished = self._decode_step_fused() if self.active else []
+        outs = [self._output(r) for r in finished]
+        for req in self.slot_req:
+            if req is not None and req.emitted < len(req.out):
+                outs.append(self._output(req))
+        return outs
+
+    def abort(self, rid: int) -> Optional[RequestOutput]:
+        """Cancel a request wherever it is (queued, mid-prefill or
+        mid-decode); frees its slot and blocks. None for an unknown or
+        finished rid."""
+        for i, req in enumerate(self.waiting):
+            if req.rid == rid:
+                self.waiting.pop(i)
+                return self._finish_aborted(req)
+        for slot, req in enumerate(self.slot_req):
+            if req is None or req.rid != rid:
+                continue
+            if self.prefilling[slot]:
+                self.prefill_order.remove(slot)
+                self.prefilling[slot] = False
+                self.prefill_x[slot] = None
+                self.prefill_carry[slot] = None
+                self.prefill_pos[slot] = 0
+                self.prefill_width[slot] = 0
+            self._release(slot)
+            return self._finish_aborted(req)
+        return None
+
+    def has_unfinished(self) -> bool:
+        return bool(self.waiting) or bool(self.active)
+
+    def _finish_aborted(self, req: Request) -> RequestOutput:
+        req.finish_reason = "aborted"
+        req.t_done = time.perf_counter()
+        self.n_aborted += 1
+        return self._output(req)
+
+    def _admit_waiting(self) -> None:
+        """FCFS admission with a bounded skip-ahead past a queue head the
+        pool cannot take yet; raises when even an idle server cannot."""
+        while self.waiting and self.free_slots():
+            for i in range(min(len(self.waiting), DEFAULT_ADMIT_LOOKAHEAD)):
+                req = self.waiting[i]
+                t0 = time.perf_counter()
+                if self.admit(req):
+                    self.waiting.pop(i)
+                    req.t_admit = req.t_admit or t0
+                    break            # restart the scan from the head
+            else:
+                break                # wait for blocks to free up
+        if self.waiting and not self.active:
+            raise RuntimeError(
+                f"cannot admit request {self.waiting[0].rid} even on an "
+                f"idle server — the KV block pool is too small for it")
+
+    def admit(self, req: Request) -> bool:
+        raise NotImplementedError
+
+    def _output(self, req: Request) -> RequestOutput:
+        new = req.out[req.emitted:]
+        stamps = req.t_tok[req.emitted:]
+        deltas = [TokenDelta(tok, req.emitted + i, t)
+                  for i, (tok, t) in enumerate(zip(new, stamps))]
+        req.emitted = len(req.out)
+        return RequestOutput(
+            rid=req.rid, deltas=deltas, token_ids=list(req.out),
+            finished=req.finish_reason is not None,
+            finish_reason=req.finish_reason, t_submit=req.t_submit,
+            t_first=req.t_first, t_done=req.t_done, t_admit=req.t_admit)
+
+    # ------------------------------------------------------------------
+    # Paged-cache bookkeeping
+    # ------------------------------------------------------------------
+
+    def _reserve(self, slot: int, upto: int) -> bool:
+        """Grow ``slot``'s reservation to cover positions [0, upto);
+        all-or-nothing, False when the pool can't satisfy it."""
+        need = max(min(-(-upto // self.block_size), self.nb_slot), 1)
+        have = int(self.n_alloc[slot])
+        if need <= have:
+            return True
+        blocks = self.allocator.alloc(need - have)
+        if blocks is None:
+            return False
+        self.block_tables[slot, have:need] = blocks
+        self.n_alloc[slot] = need
+        gen = self.allocator.gen
+        for i in range(have, need):
+            self.block_gens[slot, i] = gen[int(self.block_tables[slot, i])]
+        self._tables_dirty = True     # only the table changed
+        return True
+
+    def _grow_active(self) -> None:
+        """Before a lockstep decode: every decoding slot must own the block
+        its next write lands in."""
+        need = np.minimum(-(-(self.pos + 1) // self.block_size),
+                          self.nb_slot)
+        if not np.any((need > self.n_alloc) & (self.n_alloc > 0)):
+            return
+        for slot in self.decoding:
+            if not self._reserve(slot, int(self.pos[slot]) + 1):
+                req = self.slot_req[slot]
+                raise RuntimeError(
+                    f"KV block pool exhausted growing slot {slot} (request "
+                    f"{req.rid}): {self.allocator.n_free} free of "
+                    f"{self.allocator.n_blocks} blocks — provision more "
+                    f"pool_blocks or fewer slots")
+
+    def _release(self, slot: int) -> None:
+        self.slot_req[slot] = None
+        self.pos[slot] = 0           # free slots write the scratch block
+        self.last_tok[slot] = 0
+        self._dstate = None
+        n = int(self.n_alloc[slot])
+        if n:
+            blocks = self.block_tables[slot, :n].tolist()
+            for i, b in enumerate(blocks):
+                self.allocator.assert_live(
+                    b, int(self.block_gens[slot, i]),
+                    owner=f"slot {slot} entry {i}")
+            self.allocator.free(blocks)
+        self.block_tables[slot, :] = 0
+        self.block_gens[slot, :] = 0
+        self.n_alloc[slot] = 0
+
+    def _set_reason(self, req: Request, reason: str) -> None:
+        req.finish_reason = reason
+        self.n_stopped += reason == "stop"
+
+    def _occupy(self, slot: int, req: Request, first_tok: int,
+                prompt_len: int) -> None:
+        req.record(first_tok)
+        self.slot_req[slot] = req
+        self.pos[slot] = prompt_len
+        self.last_tok[slot] = first_tok
+        self._dstate = None
+
+    def _retire_from_slot(self, slot: int, req: Request,
+                          reason: str) -> None:
+        self._set_reason(req, reason)
+        req.t_done = time.perf_counter()
+        self._release(slot)
+
+    # ------------------------------------------------------------------
+    # The fused step
+    # ------------------------------------------------------------------
+
+    def _device_state(self) -> Dict[str, Tensor]:
+        """Per-slot device state for the fused dispatch, rebuilt from the
+        host mirrors only after admission/retirement; pure table growth
+        re-uploads the tables alone. Between those events the state the
+        previous dispatch returned is passed straight back in."""
+        dev = self.device
+        if self._dstate is not None:
+            nbl = self._nb_live()
+            if self._tables_dirty or self._dstate["tables"].shape[1] != nbl:
+                self._dstate = dict(self._dstate, tables=torch.as_tensor(
+                    self._decode_tables()[:, :nbl], device=dev))
+                self._tables_dirty = False
+            return self._dstate
+        self._tables_dirty = False
+        n = self.n_slots
+        counts = np.zeros(n, np.int32)
+        max_new = np.full(n, np.iinfo(np.int32).max, np.int32)
+        active = np.zeros(n, np.bool_)
+        dec = self.decoding
+        for s in dec:
+            need = len(self.slot_req[s].params.stop_set)
+            while need > self._stop_width:
+                self._stop_width *= 2
+        stops = np.full((n, self._stop_width), -1, np.int32)
+        for s in dec:
+            r = self.slot_req[s]
+            active[s] = True
+            counts[s] = len(r.out)
+            max_new[s] = r.max_new
+            stops[s] = stop_id_row(r.params, self._stop_width)
+        host = {"tok": self.last_tok, "pos": self.pos, "active": active,
+                "counts": counts, "max_new": max_new, "stop_ids": stops,
+                "tables": self._decode_tables()[:, :self._nb_live()]}
+        self._dstate = {k: torch.as_tensor(np.ascontiguousarray(v),
+                                           device=dev)
+                        for k, v in host.items()}
+        return self._dstate
+
+    def _advance_fused(self, dec: List[int], nxt: np.ndarray,
+                       done: np.ndarray) -> List[Request]:
+        """Host half of the fused step: record each decoding slot's token
+        and retire the slots the device-side ``done`` bitmap flagged."""
+        retired = []
+        t = time.perf_counter()
+        for slot in dec:
+            req = self.slot_req[slot]
+            req.record(int(nxt[slot]), t)
+            self.pos[slot] += 1
+            self.last_tok[slot] = nxt[slot]
+            d = int(done[slot])
+            if d:
+                reason = DONE_REASONS[d]
+                if reason != (req.reason_now() or "truncated"):
+                    raise RuntimeError(
+                        f"slot {slot}: device finish reason {reason} "
+                        f"disagrees with the host's {req.reason_now()}")
+                self._retire_from_slot(slot, req, reason)
+                retired.append(req)
+        return retired
+
+    def _decode_step_fused(self) -> List[Request]:
+        """One scheduler step: the fused decode of every decoding slot plus,
+        when the budget allows, one prefill chunk — then ONE readback."""
+        dec = self.decoding
+        do_chunk = self._schedule_chunk()
+        if not dec and not do_chunk:
+            return []
+        if do_chunk:
+            slot, xc, start, length, cbt = self._chunk_args()
+            if not dec:
+                first = self._run_chunk_only(slot, xc, start, length, cbt)
+                return self._after_chunk_tok(
+                    slot, length, lambda: int(first.cpu()[0]))
+            self._grow_active()
+            st = self._device_state()
+            nxt, done, first = self._run_fused_chunk(st, slot, xc, start,
+                                                     length, cbt)
+            host = torch.cat([nxt, done, first]).cpu().numpy()
+            n = self.n_slots
+            retired = self._advance_fused(dec, host[:n], host[n:2 * n])
+            retired += self._after_chunk_tok(slot, length,
+                                             lambda: int(host[2 * n]))
+            return retired
+        self._grow_active()
+        st = self._device_state()
+        nxt, done = self._run_fused(st)
+        host = torch.stack([nxt, done]).cpu().numpy()
+        return self._advance_fused(dec, host[0], host[1])
+
+    # ------------------------------------------------------------------
+    # Chunked prefill
+    # ------------------------------------------------------------------
+
+    def _admit_chunked(self, req: Request, slot: int, width: int,
+                       prep) -> bool:
+        """Reserve the whole prompt's blocks, embed it, pre-split it into
+        per-chunk tensors and park the slot mid-prefill. False → the pool
+        can't reserve right now."""
+        if not self._reserve(slot, width):
+            return False
+        pad = -width % self.chunk
+        x, carry = prep(req.batch(self.device, pad_to=width + pad))
+        self.slot_req[slot] = req
+        self.prefilling[slot] = True
+        self.prefill_pos[slot] = 0
+        self.prefill_width[slot] = width
+        self.prefill_x[slot] = x.split(self.chunk, dim=1)
+        self.prefill_carry[slot] = carry
+        self.prefill_order.append(slot)
+        self.pos[slot] = 0
+        self.last_tok[slot] = 0
+        self._dstate = None          # table masking changed for this slot
+        return True
+
+    def _decode_tables(self) -> np.ndarray:
+        """Block tables as the decode dispatch sees them: mid-prefill slots
+        masked to the scratch block."""
+        if not self.prefill_order:
+            return self.block_tables
+        bt = self.block_tables.copy()
+        bt[self.prefill_order] = 0
+        return bt
+
+    def _nb_live(self) -> int:
+        """Logical-block horizon of the decode dispatch: the tables are cut
+        to ``max(pos) // block + 1`` columns; no slot attends past it."""
+        mx = int(self.pos.max(initial=0))
+        return min(mx // self.block_size + 1, self.nb_slot)
+
+    def _schedule_chunk(self) -> bool:
+        if not self.prefill_order:
+            return False
+        n_dec = len(self.decoding)
+        return n_dec == 0 or n_dec + self.chunk <= self.token_budget
+
+    def _chunk_args(self):
+        """(slot, x_chunk, start, length, block_table) of the FCFS head of
+        the mid-prefill slots."""
+        slot = self.prefill_order[0]
+        start = int(self.prefill_pos[slot])
+        length = min(self.chunk, int(self.prefill_width[slot]) - start)
+        xc = self.prefill_x[slot][start // self.chunk]
+        cbt = torch.as_tensor(self.block_tables[slot], device=self.device)
+        return slot, xc, start, length, cbt
+
+    def _after_chunk_tok(self, slot: int, length: int,
+                         first_fn) -> List[Request]:
+        """Advance a slot's prefill by one chunk; on the final chunk take
+        the first token from ``first_fn`` and move the slot to decode (or
+        retire it: context-filling prompts, max_new == 1, a stop token)."""
+        self.n_chunks += 1
+        self.prefill_pos[slot] += length
+        if int(self.prefill_pos[slot]) < int(self.prefill_width[slot]):
+            return []
+        req = self.slot_req[slot]
+        first = int(first_fn())
+        width = int(self.prefill_width[slot])
+        self.prefill_order.remove(slot)
+        self.prefilling[slot] = False
+        self.prefill_x[slot] = None
+        self.prefill_carry[slot] = None
+        if width >= self.cache_len:      # prompt fills the context bound
+            req.record(first)
+            self._retire_from_slot(slot, req,
+                                   req.reason_now() or "truncated")
+            return [req]
+        self._occupy(slot, req, first, width)
+        reason = req.reason_now()        # max_new == 1, or first tok stops
+        if reason:
+            self._retire_from_slot(slot, req, reason)
+            return [req]
+        return []
+
+    def stats(self) -> Dict[str, Any]:
+        return {"active": len(self.active), "waiting": len(self.waiting),
+                "aborted": self.n_aborted, "stopped": self.n_stopped,
+                "prefill_chunks": self.n_chunks,
+                "pool_free_blocks": self.allocator.n_free,
+                "pool_blocks": self.allocator.n_blocks}
+
+
+def make_chunk_fns(model: Model, cache_len: int):
+    """Admission prep for chunked prefill: embed the padded prompt and build
+    the carry (the port's chunk steps live in ``make_fused_fns``)."""
+    def prep(p, b):
+        return model.embed_prompt(p, b), model.init_chunk_carry(p, b,
+                                                                cache_len)
+    return prep
+
+
+def make_fused_fns(model: Model, cache_len: int):
+    """``(step, step_chunk, chunk_only)`` — plain functions one SlotServer
+    runs on (shared by the pods of a top-1 deployment):
+
+    * ``step(params, cache, state)`` → ``(cache, state, next_tok, done)``;
+    * ``step_chunk(params, cache, state, carry, xc, start, length, cbt)``
+      → the same plus ``first`` (the chunk's greedy first-token pick) and
+      the carry — the decode and one prefill chunk in one step;
+    * ``chunk_only(params, cache, carry, xc, start, length, cbt)`` →
+      ``(first, carry, cache)`` when nothing is decoding.
+    """
+    def step(p, c, st):
+        return model.fused_decode_step(p, c, st, cache_len=cache_len)
+
+    def step_chunk(p, c, st, carry, xc, start, ln, cbt):
+        c, st, nxt, done = model.fused_decode_step(p, c, st,
+                                                   cache_len=cache_len)
+        c_out, carry, c = model.prefill_chunk(p, c, carry, xc, start, ln, cbt)
+        return c, st, nxt, done, pick_first(c_out), carry
+
+    def chunk_only(p, c, carry, xc, start, ln, cbt):
+        c_out, carry, c = model.prefill_chunk(p, c, carry, xc, start, ln, cbt)
+        return pick_first(c_out), carry, c
+
+    return step, step_chunk, chunk_only
+
+
+class SlotServer(_SlotTable):
+    """Continuous batching over ONE expert: paged KV pool, chunked prefill
+    and the fused decode step (greedy)."""
+
+    def __init__(self, model: Model, params, *, config: EngineConfig,
+                 device="cuda", fused_fns=None):
+        config.validate(model)
+        self.config = config
+        device = resolve_device(device)
+        block = effective_page_block(model, config.page_block)
+        super().__init__(config.n_slots, config.cache_len, block_size=block,
+                         n_blocks=config.pool_blocks, chunk=config.chunk,
+                         token_budget=config.token_budget, device=device)
+        self.model, self.params = model, params
+        self.cache = model.init_paged_cache(
+            self.n_slots, self.allocator.n_blocks, block, self.cache_len,
+            device=device)
+        self._prep = make_chunk_fns(model, self.cache_len)
+        self._fstep, self._fstep_chunk, self._fchunk_only = \
+            fused_fns or make_fused_fns(model, self.cache_len)
+
+    def admit(self, req: Request) -> bool:
+        free = self.free_slots()
+        if not free:
+            return False
+        return self._admit_chunked(req, free[0], len(req.tokens),
+                                   lambda b: self._prep(self.params, b))
+
+    def _run_fused(self, st):
+        self.cache, self._dstate, nxt, done = self._fstep(
+            self.params, self.cache, st)
+        return nxt, done
+
+    def _run_fused_chunk(self, st, slot, xc, start, length, cbt):
+        (self.cache, self._dstate, nxt, done, first,
+         self.prefill_carry[slot]) = self._fstep_chunk(
+            self.params, self.cache, st, self.prefill_carry[slot], xc,
+            start, length, cbt)
+        return nxt, done, first
+
+    def _run_chunk_only(self, slot, xc, start, length, cbt):
+        first, self.prefill_carry[slot], self.cache = self._fchunk_only(
+            self.params, self.cache, self.prefill_carry[slot], xc, start,
+            length, cbt)
+        return first
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+class DecentralizedSlotServer:
+    """Front-end centroid router over continuously batched expert pods
+    (strategy "top1"): one ``SlotServer`` per expert; each request decodes
+    on exactly the expert the router assigns it."""
+
+    def __init__(self, model: Model, expert_params: List[Any], router, *,
+                 config: EngineConfig, device="cuda"):
+        config.validate(model)
+        self.config = config
+        self.device = resolve_device(device)
+        self.model = model
+        self.router = router.to(self.device)
+        self.K = len(expert_params)
+        if self.K != router.K:
+            raise ValueError(f"{self.K} experts but the router has "
+                             f"{router.K} centroids")
+        self.strategy = config.strategy
+        self._next_rid = 0
+        fns = make_fused_fns(model, config.cache_len)
+        self.pods = [SlotServer(model, _tree_to(p, self.device),
+                                config=config, device=self.device,
+                                fused_fns=fns)
+                     for p in expert_params]
+
+    def _features(self, feats: np.ndarray) -> Tensor:
+        return torch.as_tensor(np.asarray(feats, np.float32),
+                               device=self.device).to(
+                                   self.router.centroids.dtype)
+
+    def route(self, queue: List[Request]) -> np.ndarray:
+        """Top-1 pod of each request, one batched router launch."""
+        feats = np.stack([r.features for r in queue])
+        return self.router.top1(self._features(feats)).cpu().numpy()
+
+    def add_request(self, prompt, params: Optional[SamplingParams] = None,
+                    *, features: Optional[np.ndarray] = None,
+                    rid: Optional[int] = None) -> int:
+        """Submit a request: the Eq. 28 router (B = 1) picks its pod."""
+        req = _as_request(prompt, params, features,
+                          self._next_rid if rid is None else rid)
+        if req.features is None:
+            raise ValueError(_FEATURES_MSG.format(rid=req.rid))
+        self._next_rid = max(self._next_rid, req.rid + 1)
+        # submission is now: the routing dispatch counts toward TTFT
+        req.t_submit = req.t_submit or time.perf_counter()
+        k = int(self.router.top1(self._features(req.features[None])).cpu()[0])
+        return self.pods[k].add_request(req)
+
+    def step(self) -> List[RequestOutput]:
+        """One step of every pod, in pod order."""
+        outs: List[RequestOutput] = []
+        for pod in self.pods:
+            outs += pod.step()
+        return outs
+
+    def abort(self, rid: int) -> Optional[RequestOutput]:
+        for pod in self.pods:
+            out = pod.abort(rid)
+            if out is not None:
+                return out
+        return None
+
+    def has_unfinished(self) -> bool:
+        return any(pod.has_unfinished() for pod in self.pods)
+
+    def occupancy(self) -> List[Dict[str, Any]]:
+        return [p.stats() for p in self.pods]
+
+
+def make_engine(model: Model, params: Any = None, *,
+                experts: Optional[List[Any]] = None, router=None,
+                config: Optional[EngineConfig] = None, device="cuda"):
+    """Build the serving engine from ONE validated ``EngineConfig``:
+    ``make_engine(model, params, config=cfg)`` → a ``SlotServer``;
+    ``make_engine(model, experts=[...], router=r, config=cfg)`` → the
+    top-1 decentralized deployment. Runs on ``device`` (the card unless
+    the caller passes ``device="cpu"``); params and router move there."""
+    config = config if config is not None else EngineConfig()
+    config.validate(model)
+    if experts is not None:
+        if router is None:
+            raise ValueError(
+                "decentralized serving routes on the centroid router — "
+                "pass router= alongside experts=")
+        return DecentralizedSlotServer(model, experts, router, config=config,
+                                       device=device)
+    if params is None:
+        raise ValueError(
+            "single-model serving needs the model's params (or pass "
+            "experts= and router= for the decentralized deployment)")
+    dev = resolve_device(device)
+    return SlotServer(model, _tree_to(params, dev), config=config,
+                      device=dev)

@@ -1,0 +1,84 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+They have no CPU mode, so every test here is marked ``gpu`` and skips
+without a card. This file imports neither JAX nor ``repro``, so it runs on
+a machine that has only the port's dependencies:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_cuda.py
+
+(``--noconftest`` skips ``tests/conftest.py``, which configures JAX.)
+Tolerances: float32 5e-5 (summation order and the blocked online
+softmax), bf16 2e-2 (the plain version rounds the softmax weights to bf16
+before the PV product, as ``repro/kernels/ref.py`` does).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import decode_attention as dk  # noqa: E402
+from repro_torch.kernels import router_scores as rk  # noqa: E402
+
+
+def f32(rng, *shape):
+    return rng.normal(size=shape).astype(np.float32)
+
+
+def paged_inputs(seed, B, NB, block, H, KV, dh, pos, unallocated):
+    rng = np.random.default_rng(seed)
+    P = B * NB + 3
+    q, kp, vp = f32(rng, B, H, dh), f32(rng, P, block, KV, dh), \
+        f32(rng, P, block, KV, dh)
+    bt = rng.permutation(np.arange(1, P))[:B * NB].reshape(B, NB) \
+        .astype(np.int32)
+    pos = np.asarray(pos, np.int32)
+    if unallocated:                       # past-horizon entries → scratch 0
+        bt = np.where(np.arange(NB)[None, :] <= pos[:, None] // block, bt,
+                      0).astype(np.int32)
+    return q, kp, vp, pos, bt
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_paged_decode_kernel_on_card(cuda, window, dtype, tol):
+    q, kp, vp, pos, bt = paged_inputs(5, 3, 4, 16, 8, 2, 64,
+                                      pos=(3, 63, 200 if window else 50),
+                                      unallocated=not window)
+    args = [torch.as_tensor(a, device=cuda) for a in (q, kp, vp)]
+    args = [a.to(dtype) for a in args] + [torch.as_tensor(a, device=cuda)
+                                          for a in (pos, bt)]
+    got = dk.paged_decode_attention(*args, window=window)
+    want = dk.paged_decode_attention_ref(*args, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_chunk_prefill_kernel_on_card(cuda, dtype, tol):
+    rng = np.random.default_rng(6)
+    q = torch.as_tensor(f32(rng, 20, 8, 64), device=cuda).to(dtype)
+    kp = torch.as_tensor(f32(rng, 9, 8, 2, 64), device=cuda).to(dtype)
+    vp = torch.as_tensor(f32(rng, 9, 8, 2, 64), device=cuda).to(dtype)
+    bt = torch.tensor([4, 2, 7, 1, 8, 0], dtype=torch.int32, device=cuda)
+    got = dk.chunk_prefill_attention(q, kp, vp, 19, bt)
+    want = dk.chunk_prefill_attention_ref(q, kp, vp, 19, bt)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_router_kernel_on_card(cuda):
+    x = torch.randn(37, 48, device=cuda)
+    c = torch.randn(5, 48, device=cuda)
+    torch.testing.assert_close(rk.router_scores(x, c, 10.0),
+                               rk.router_scores_ref(x, c, 10.0),
+                               rtol=5e-5, atol=5e-5)

@@ -1,0 +1,156 @@
+"""The kernels' plain PyTorch versions against the reference: the
+``repro/kernels/ref.py`` oracles and the Pallas kernels run in interpret
+mode (tiny shapes — interpret mode is slow). Float32 on both sides;
+rtol = atol = 2e-5 because the two differ only in summation order (the
+oracles repeat KV heads and take one softmax, the Pallas kernels run a
+blocked online softmax).
+
+The CUDA kernels themselves have no CPU mode: their tests are in
+``test_torch_cuda.py``, marked ``gpu``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ref  # noqa: E402
+from repro.kernels.decode_attention import (  # noqa: E402
+    chunk_prefill_attention as pallas_chunk,
+    paged_decode_attention as pallas_paged)
+from repro.kernels.router_scores import router_scores as pallas_router  # noqa: E402
+from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import decode_attention as dk  # noqa: E402
+from repro_torch.kernels import router_scores as rk  # noqa: E402
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def f32(rng, *shape):
+    return rng.normal(size=shape).astype(np.float32)
+
+
+def paged_inputs(seed, B, NB, block, H, KV, dh, pos=None, unallocated=True):
+    rng = np.random.default_rng(seed)
+    P = B * NB + 3                        # pool bigger than needed
+    q, kp, vp = f32(rng, B, H, dh), f32(rng, P, block, KV, dh), \
+        f32(rng, P, block, KV, dh)
+    bt = rng.permutation(np.arange(1, P))[:B * NB].reshape(B, NB) \
+        .astype(np.int32)
+    if pos is None:
+        pos = rng.integers(0, NB * block, B)
+    pos = np.asarray(pos, np.int32)
+    if unallocated:                       # past-horizon entries → scratch 0
+        bt = np.where(np.arange(NB)[None, :] <= pos[:, None] // block, bt,
+                      0).astype(np.int32)
+    return q, kp, vp, pos, bt
+
+
+def check(got, *wants):
+    for want in wants:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                                   **TOL)
+
+
+@pytest.mark.parametrize("B,NB,block,H,KV,dh", [
+    (2, 4, 32, 4, 4, 64),     # MHA
+    (3, 8, 16, 8, 2, 64),     # GQA 4:1
+    (1, 4, 64, 4, 1, 128),    # MQA
+])
+def test_paged_decode_plain_matches_reference(B, NB, block, H, KV, dh):
+    q, kp, vp, pos, bt = paged_inputs(0, B, NB, block, H, KV, dh)
+    got = dk.paged_decode_attention_ref(*map(torch.as_tensor,
+                                            (q, kp, vp, pos, bt)))
+    j = [jnp.asarray(a) for a in (q, kp, vp, pos, bt)]
+    check(got, ref.paged_decode_attention_ref(*j),
+          pallas_paged(*j, interpret=True))
+
+
+@pytest.mark.parametrize("pos_vals", [(3, 60), (64, 200), (63, 64)])
+def test_paged_decode_plain_ring_matches_reference(pos_vals):
+    """window > 0: the slot's logical span NB·block is a ring."""
+    B, NB, block, H, KV, dh = 2, 4, 16, 4, 2, 64
+    q, kp, vp, pos, bt = paged_inputs(1, B, NB, block, H, KV, dh, pos_vals,
+                                      unallocated=False)
+    got = dk.paged_decode_attention_ref(
+        *map(torch.as_tensor, (q, kp, vp, pos, bt)), window=NB * block)
+    j = [jnp.asarray(a) for a in (q, kp, vp, pos, bt)]
+    check(got, ref.paged_decode_attention_ref(*j, window=NB * block),
+          pallas_paged(*j, window=NB * block, interpret=True))
+
+
+@pytest.mark.parametrize("C,NB,block,H,KV,dh,start", [
+    (8, 4, 16, 4, 4, 64, 24),     # MHA, mid-prompt chunk
+    (6, 8, 8, 8, 2, 64, 34),      # GQA 4:1, chunk straddles a block
+    (16, 4, 32, 4, 1, 128, 112),  # MQA, final chunk ends at capacity
+])
+def test_chunk_prefill_plain_matches_reference(C, NB, block, H, KV, dh,
+                                               start):
+    rng = np.random.default_rng(0)
+    P = NB + 3
+    q, kp, vp = f32(rng, C, H, dh), f32(rng, P, block, KV, dh), \
+        f32(rng, P, block, KV, dh)
+    bt = rng.permutation(np.arange(1, P))[:NB].astype(np.int32)
+    # entries past the chunk's horizon are unallocated (scratch block 0)
+    bt[np.arange(NB) > (start + C - 1) // block] = 0
+    got = dk.chunk_prefill_attention_ref(
+        torch.as_tensor(q), torch.as_tensor(kp), torch.as_tensor(vp), start,
+        torch.as_tensor(bt))
+    j = [jnp.asarray(a) for a in (q, kp, vp)]
+    check(got,
+          ref.chunk_prefill_attention_ref(*j, jnp.int32(start),
+                                          jnp.asarray(bt)),
+          pallas_chunk(*j, jnp.int32(start), jnp.asarray(bt),
+                       interpret=True))
+
+
+@pytest.mark.parametrize("B,K,D,tau", [(8, 2, 32, 10.0), (100, 6, 64, 1.0),
+                                       (1, 2, 32, 10.0)])
+def test_router_plain_matches_reference(B, K, D, tau):
+    rng = np.random.default_rng(4)
+    x, c = f32(rng, B, D), f32(rng, K, D)
+    got = rk.router_scores_ref(torch.as_tensor(x), torch.as_tensor(c), tau)
+    check(got, ref.router_scores_ref(jnp.asarray(x), jnp.asarray(c), tau),
+          pallas_router(jnp.asarray(x), jnp.asarray(c), tau, block_b=64,
+                        interpret=True))
+
+
+def test_ops_take_plain_version_on_cpu_without_launching():
+    ops.reset_launch_counts()
+    q, kp, vp, pos, bt = map(torch.as_tensor,
+                             paged_inputs(2, 2, 4, 8, 4, 2, 16))
+    torch.testing.assert_close(
+        ops.paged_decode_attention(q, kp, vp, pos, bt),
+        dk.paged_decode_attention_ref(q, kp, vp, pos, bt), rtol=0, atol=0)
+    torch.testing.assert_close(
+        ops.chunk_prefill_attention(q, kp, vp, 3, bt[0]),
+        dk.chunk_prefill_attention_ref(q, kp, vp, 3, bt[0]), rtol=0, atol=0)
+    x = torch.randn(3, 8)
+    torch.testing.assert_close(ops.router_scores(x, x[:2], 5.0),
+                               rk.router_scores_ref(x, x[:2], 5.0),
+                               rtol=0, atol=0)
+    assert all(fn.launches == 0 for fn in ops.KERNELS.values())
+
+
+def test_kernel_wrappers_refuse_cpu_tensors_and_other_devices():
+    """A CUDA wrapper never takes the plain path; ops has no path for a
+    device that is neither cuda nor cpu."""
+    q, kp, vp, pos, bt = map(torch.as_tensor,
+                             paged_inputs(3, 1, 2, 8, 2, 1, 8))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        dk.paged_decode_attention(q, kp, vp, pos, bt)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        dk.chunk_prefill_attention(q, kp, vp, 0, bt[0])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rk.router_scores(q[0], q[0], 1.0)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.router_scores(torch.zeros(2, 4, device="meta"),
+                          torch.zeros(2, 4, device="meta"), 1.0)
+
+
+def test_build_dir_is_ignored_and_sources_exist():
+    root = build.build_dir().parents[1]
+    assert (root / ".gitignore").read_text().splitlines().count("build/")
+    for name in build.SOURCES:
+        assert (build.CSRC / f"{name}.cu").is_file()

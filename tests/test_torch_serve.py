@@ -1,0 +1,279 @@
+"""The port's serving slice against the JAX reference: the top-1
+decentralized deployment over 2 expert pods with the paged pool, chunked
+prefill and the fused decode step must emit exactly the reference's greedy
+tokens, finish reasons and per-request routing on the same weights. Plus
+the router, checkpoints, the launcher twin and the options the port
+refuses.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.checkpoint import ckpt as jckpt  # noqa: E402
+from repro.configs.base import get_smoke_config as jax_smoke  # noqa: E402
+from repro.core.router import CentroidRouter as JaxRouter  # noqa: E402
+from repro.core.router import RouterConfig as JaxRouterConfig  # noqa: E402
+from repro.models import build_model as jax_build  # noqa: E402
+from repro.serve import api as japi  # noqa: E402
+from repro.serve.scheduler import make_engine as jax_make_engine  # noqa: E402
+from repro_torch.checkpoint import ckpt  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.core.router import CentroidRouter, RouterConfig  # noqa: E402
+from repro_torch.launch import profile_serve  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.serve.api import EngineConfig, SamplingParams  # noqa: E402
+from repro_torch.serve.scheduler import BlockAllocator, make_engine  # noqa: E402
+from repro_torch.weights import from_npz, from_tree, to_tensor  # noqa: E402
+
+ECFG = dict(n_slots=2, cache_len=40, paged=True, page_block=8,
+            chunked_prefill=True, chunk=8, fused_step=True)
+LENS = [5, 13, 19, 8, 30, 3, 16]        # straddle chunks and blocks; 30 + 12
+#                                        # runs past cache_len → truncated
+
+
+@pytest.fixture(scope="module")
+def deployment():
+    jm = jax_build(jax_smoke("qwen3_8b"))
+    jexperts = [jm.init(jax.random.PRNGKey(k)) for k in (0, 1)]
+    rng = np.random.default_rng(0)
+    cent = rng.normal(size=(2, 32)).astype(np.float32)
+    prompts = [rng.integers(0, 512, n).astype(np.int32) for n in LENS]
+    feats = rng.normal(size=(len(LENS), 32)).astype(np.float32)
+    texperts = [from_tree(jax.tree.map(np.asarray, p)) for p in jexperts]
+    return jm, jexperts, texperts, cent, prompts, feats
+
+
+def _drive(engine, sp_cls, prompts, feats, stops):
+    for i, p in enumerate(prompts):
+        engine.add_request(p, sp_cls(max_new=12,
+                                     stop_token_ids=stops.get(i, ())),
+                           features=feats[i], rid=i)
+    routing = [[r.rid for r in pod.waiting] for pod in engine.pods]
+    res = {}
+    while engine.has_unfinished():
+        for o in engine.step():
+            if o.finished:
+                res[o.rid] = (o.token_ids, o.finish_reason)
+    return res, routing
+
+
+def _port_engine(deployment, **over):
+    _, _, texperts, cent, _, _ = deployment
+    return make_engine(build_model(get_smoke_config("qwen3_8b")),
+                       experts=texperts,
+                       router=CentroidRouter(torch.as_tensor(cent)),
+                       config=EngineConfig(**dict(ECFG, **over)),
+                       device="cpu")
+
+
+def test_top1_slice_matches_reference_token_for_token(deployment):
+    jm, jexperts, _, cent, prompts, feats = deployment
+    # stop ids: a token request 1 generates mid-stream, so it retires on
+    # "stop" (the reference must agree on where)
+    free, _ = _drive(_port_engine(deployment), SamplingParams, prompts,
+                     feats, {})
+    stops = {1: (free[1][0][4],), 3: (free[3][0][0],)}
+    got, got_route = _drive(_port_engine(deployment), SamplingParams,
+                            prompts, feats, stops)
+    jeng = jax_make_engine(
+        jm, experts=jexperts,
+        router=JaxRouter(jnp.asarray(cent), JaxRouterConfig()),
+        config=japi.EngineConfig(**ECFG, use_kernel=False))
+    want, want_route = _drive(jeng, japi.SamplingParams, prompts, feats,
+                              stops)
+    assert got_route == want_route
+    assert all(got_route)                # both pods serve traffic
+    assert got == want
+    reasons = {r for _, r in got.values()}
+    assert {"stop", "length", "truncated"} <= reasons
+
+
+@pytest.mark.parametrize("override,option", [
+    (dict(strategy="mixture"), "strategy='mixture'"),
+    (dict(speculative="ngram"), "speculative='ngram'"),
+    (dict(qos=object()), "qos"),
+    (dict(preemption="swap"), "preemption='swap'"),
+    (dict(prefix_cache=True), "prefix_cache=True"),
+    (dict(sanitize=True), "sanitize=True"),
+    (dict(trace=True), "trace=True"),
+    (dict(metrics=True), "metrics=True"),
+    (dict(paged=False), "paged=False"),
+    (dict(chunked_prefill=False), "chunked_prefill=False"),
+    (dict(fused_step=False), "fused_step=False"),
+])
+def test_validate_refuses_unported_options(override, option):
+    cfg = EngineConfig(**dict(ECFG, **override))
+    with pytest.raises(ValueError) as e:
+        cfg.validate()
+    assert str(e.value) == \
+        f"{option} is not ported to repro_torch yet (see ROADMAP.md)"
+
+
+def test_validate_refuses_other_families_and_sampling():
+    cfg = get_smoke_config("qwen3_8b")
+    with pytest.raises(ValueError, match="family 'moe' is not ported"):
+        build_model(dataclasses.replace(cfg, family="moe"))
+    with pytest.raises(ValueError, match="temperature > 0 sampling is not "
+                                         "ported to repro_torch yet"):
+        SamplingParams(temperature=0.7)
+    with pytest.raises(ValueError, match="cache_len must be >= 2"):
+        EngineConfig(**dict(ECFG, cache_len=1)).validate()
+
+
+def test_card_is_the_default_and_its_absence_raises(deployment):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        make_engine(build_model(get_smoke_config("qwen3_8b")),
+                    experts=deployment[2],
+                    router=CentroidRouter(torch.as_tensor(deployment[3])),
+                    config=EngineConfig(**ECFG))
+
+
+def test_single_model_engine_matches_its_pod(deployment):
+    """make_engine(model, params) — one SlotServer — serves the requests
+    the router sends to pod 0 exactly as pod 0 of the deployment does."""
+    _, _, texperts, _, prompts, feats = deployment
+    dec = _port_engine(deployment)
+    res, routing = _drive(dec, SamplingParams, prompts, feats, {})
+    single = make_engine(build_model(get_smoke_config("qwen3_8b")),
+                         texperts[0], config=EngineConfig(**ECFG),
+                         device="cpu")
+    for rid in routing[0]:
+        single.add_request(prompts[rid], SamplingParams(max_new=12), rid=rid)
+    got = {}
+    while single.has_unfinished():
+        for o in single.step():
+            if o.finished:
+                got[o.rid] = (o.token_ids, o.finish_reason)
+    assert got == {rid: res[rid] for rid in routing[0]}
+    assert dec.occupancy()[0]["pool_free_blocks"] == \
+        single.stats()["pool_free_blocks"]
+
+
+def test_default_engine_config_is_the_ported_path(deployment):
+    """EngineConfig() validates, and make_engine without a config serves:
+    each option the port has one value for defaults to that value."""
+    EngineConfig().validate()
+    eng = make_engine(build_model(get_smoke_config("qwen3_8b")),
+                      deployment[2][0], device="cpu")
+    assert eng.config == EngineConfig()
+    eng.add_request(deployment[4][1], SamplingParams(max_new=4), rid=0)
+    out = []
+    while eng.has_unfinished():
+        out += [o for o in eng.step() if o.finished]
+    assert [(o.rid, len(o.token_ids), o.finish_reason) for o in out] == \
+        [(0, 4, "length")]
+    assert eng.stats()["prefill_chunks"] == 1
+
+
+def test_profile_script_rehearses_main_path_on_cpu():
+    """``launch/profile_serve.py --smoke --device cpu``: both windows hold
+    only steps of their kind (mixed prefill + decode, decode only), and
+    every step is counted."""
+    rep = profile_serve.main(["--smoke", "--device", "cpu"])
+    assert rep["requests"] == 16
+    assert sum(rep["steps_by_kind"].values()) == rep["steps"]
+    assert rep["steps_by_kind"]["chunk"] >= 1
+    for kind in ("mixed", "decode"):
+        assert rep["windows"][kind]["kinds"] == [kind] * profile_serve.WINDOW
+        assert rep["windows"][kind]["unprofiled_wall_ms"] > 0
+    assert rep["run_busy_share_est"] == "not measured (CPU run)"
+
+
+def test_abort_and_features_required(deployment):
+    eng = _port_engine(deployment)
+    prompts, feats = deployment[4], deployment[5]
+    with pytest.raises(ValueError, match="pass features="):
+        eng.add_request(prompts[0], SamplingParams(max_new=3))
+    for i in range(3):
+        eng.add_request(prompts[i], SamplingParams(max_new=6),
+                        features=feats[i], rid=i)
+    eng.step()
+    outs = [eng.abort(i) for i in range(3)]
+    assert all(o.finish_reason == "aborted" for o in outs)
+    assert eng.abort(0) is None and not eng.has_unfinished()
+    for pod in eng.pods:                  # every block back on the free list
+        assert pod.allocator.n_free == pod.allocator.n_blocks - 1
+
+
+def test_block_allocator_guards():
+    a = BlockAllocator(4)
+    assert a.alloc(5) is None and a.n_free == 3
+    got = a.alloc(2)
+    assert got == [1, 2]
+    a.free([1])
+    with pytest.raises(ValueError, match="double free"):
+        a.free([1])
+    with pytest.raises(ValueError, match="outside the pool"):
+        a.free([0])
+    with pytest.raises(ValueError, match="use-after-free"):
+        a.assert_live(1, 0)
+
+
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_router_matches_reference(top_k):
+    rng = np.random.default_rng(5)
+    cent = rng.normal(size=(3, 16)).astype(np.float32)
+    x = rng.normal(size=(7, 16)).astype(np.float32)
+    r = CentroidRouter(torch.as_tensor(cent), RouterConfig(10.0, top_k))
+    jr = JaxRouter(jnp.asarray(cent), JaxRouterConfig(10.0, top_k))
+    tx, jx = torch.as_tensor(x), jnp.asarray(x)
+    np.testing.assert_allclose(r.cluster_probs(tx).numpy(),
+                               np.asarray(jr.cluster_probs(jx)),
+                               rtol=2e-5, atol=2e-6)
+    np.testing.assert_allclose(r.route(tx).numpy(), np.asarray(jr.route(jx)),
+                               rtol=2e-5, atol=2e-6)
+    np.testing.assert_array_equal(r.top1(tx).numpy(), np.asarray(jr.top1(jx)))
+
+
+@pytest.fixture(scope="module")
+def run_dir(tmp_path_factory, deployment):
+    """A training run dir written by the REFERENCE's checkpoint code."""
+    out = str(tmp_path_factory.mktemp("run"))
+    for k in range(2):
+        jckpt.save_expert(out, k, 10, {"params": deployment[1][k]})
+    jckpt.save_router(out, deployment[3], 10.0, 1)
+    return out
+
+
+def test_checkpoints_written_by_reference_load(run_dir, deployment):
+    state, step = ckpt.restore_expert(run_dir, 1)
+    assert step == 10
+    params = from_tree(state["params"])
+    want = deployment[2][1]
+    got_npz = from_npz(f"{run_dir}/expert_1/step_10.npz")
+    for tree in (params, got_npz):
+        assert torch.equal(tree["final_norm"], want["final_norm"])
+        assert torch.equal(tree["blocks"]["attn"]["wq"],
+                           want["blocks"]["attn"]["wq"])
+    cent, tau, top_k = ckpt.load_router(run_dir)
+    np.testing.assert_array_equal(cent, deployment[3])
+    assert (tau, top_k) == (10.0, 1)
+    assert ckpt.restore_expert(run_dir, 2) == (None, None)
+
+
+def test_launcher_twin_serves_and_refuses(run_dir):
+    base = ["--run", run_dir, "--requests", "3", "--prompt-len", "10",
+            "--new-tokens", "5", "--slots", "2", "--device", "cpu"]
+    report = launch_serve.main(base + ["--paged", "--page-block", "8",
+                                       "--chunked-prefill",
+                                       "--prefill-chunk", "8"])
+    assert report["finish_reasons"] == ["length"] * 3
+    assert all(len(t) == 5 for t in report["tokens"].values())
+    with pytest.raises(ValueError, match="paged=False is not ported"):
+        launch_serve.main(base)
+
+
+def test_bfloat16_weights_cross_bit_exactly():
+    vals = [1.5, -2.25, 3.0e-3, 65280.0]
+    t = to_tensor(np.asarray(jnp.asarray(vals, jnp.bfloat16)))
+    assert t.dtype == torch.bfloat16
+    assert torch.equal(t, torch.tensor(vals, dtype=torch.bfloat16))
