@@ -10,18 +10,33 @@ Phases, each fatal on failure:
 1. device — prints the card's ``nvidia-smi`` name and power limit;
 2. build — one ``nvcc`` per kernel source, all started together;
 3. kernels — each kernel against its plain PyTorch version at the main
-   path's shapes (bf16) and at small float32 edge shapes, with the stated
-   tolerances, and timed (kernel, plain version, one library call) with
-   CUDA events;
+   paths' shapes (bf16 and float32) and at small float32 edge shapes, with
+   the stated tolerances, and timed (kernel, plain version, one library
+   call) with CUDA events;
 4. parity — the smoke-size float32 Qwen3 deployment (2 pods, top-1) served
-   on the card (kernels) and on the CPU (plain versions): greedy tokens,
-   finish reasons and routing must be equal;
+   on the card (kernels) and on the CPU (plain versions) in three
+   configurations (paged + chunked, paged + monolithic, contiguous +
+   monolithic): greedy tokens, finish reasons and routing must be equal;
 5. main path — full-width Qwen3-8B (36 layers, bf16, 2 experts of seeded
    random weights) served through ``make_engine`` → ``add_request``/
    ``step`` with the paged pool, chunked prefill and the fused decode
    step; every request must finish, every logit the engine sampled from
-   (each decode step and each prefill chunk) must be finite, and every
-   kernel's launch counter must be > 0.
+   (each decode step and each prefill chunk) must be finite, and each of
+   the path's kernels (paged decode, chunk prefill, router) must have
+   launched;
+6. contiguous path — the reference's default serving configuration over
+   the same model, experts and requests: contiguous per-slot caches,
+   monolithic prefill at admission, the fused step; the same checks (the
+   sampled logits are each decode step's and each prefill's last row), with
+   the flash-attention, contiguous decode and router kernels launched. It
+   prints how many requests got the same tokens, and the same first token,
+   on both paths (information only: in bf16 the two paths' logits differ
+   by rounding, and greedy picks with close runners-up fall either way);
+7. float32 agreement — one expert of full-width Qwen3-8B in float32: the
+   monolithic prefill (flash-attention kernel) and the chunked prefill
+   (chunk-prefill kernel over the paged pool) of two prompts, then one
+   decode step on each cache (contiguous and paged decode kernels), must
+   give the same last-row logits within ``F32_LOGIT_TOL``.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record, the last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
@@ -59,7 +74,21 @@ KERNEL_META = {
     "router_scores": (
         "src/repro_torch/kernels/csrc/router_scores.cu",
         "src/repro/kernels/router_scores.py:34"),
+    "flash_attention": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:83"),
+    "decode_attention": (
+        "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:85"),
 }
+# full-width float32 logits (std ~1) of two paths that differ only by
+# summation order: measured within 1e-4 of each other; ten times that
+F32_LOGIT_TOL = 1e-3
+# the kernels each full-width path runs (its launch counts go in the record)
+MAIN_KERNELS = ("paged_decode_attention", "chunk_prefill_attention",
+                "router_scores")
+CONTIGUOUS_KERNELS = ("flash_attention", "decode_attention",
+                      "router_scores")
 
 
 def log(msg: str) -> None:
@@ -134,12 +163,44 @@ def _chunk_case(C, NB, block, H, KV, dh, start, dtype, gen):
     return q, kp, vp, start, bt
 
 
+def _flash_case(B, S, H, KV, dh, dtype, gen):
+    import torch
+    q = torch.randn((B, S, H, dh), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, S, KV, dh), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, S, KV, dh), generator=gen, device="cuda").to(dtype)
+    return q, k, v
+
+
+def _decode_case(B, S, H, KV, dh, pos, dtype, gen):
+    import torch
+    q = torch.randn((B, H, dh), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, S, KV, dh), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, S, KV, dh), generator=gen, device="cuda").to(dtype)
+    return q, k, v, torch.tensor(pos, dtype=torch.int32, device="cuda")
+
+
+def _heads_first(t, group):
+    """(B,S,KV,dh) → contiguous (B,H,S,dh) with each KV head repeated for
+    its query heads: the library call's layout (made outside its timing)."""
+    return t.permute(0, 2, 1, 3).repeat_interleave(group, dim=1).contiguous()
+
+
+def _check_flash(fk, cases, dtype_name, q, k, v, causal=True, window=0):
+    out, lse = fk.flash_attention_with_lse(q, k, v, causal=causal,
+                                           window=window)
+    want, want_lse = fk.flash_attention_with_lse_ref(q, k, v, causal=causal,
+                                                     window=window)
+    compare("flash_attention", out, want, dtype_name, cases)
+    compare("flash_attention", lse, want_lse, dtype_name, cases)
+
+
 def phase_kernels():
     """Compare and time every kernel; returns {name: record}."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import router_scores as rk
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -284,6 +345,88 @@ def phase_kernels():
     xb, cb = x[:8, :32].to(bf16).contiguous(), c6[:2, :32].to(bf16)
     compare("router_scores", rk.router_scores(xb, cb.contiguous(), 10.0),
             rk.router_scores_ref(xb, cb, 10.0), "bfloat16", cases)
+
+    # -- flash attention at the contiguous path's shapes: one Qwen3-8B
+    #    prompt of 1024 tokens (timed) and a ragged 777, causal, bf16 then
+    #    float32; out and lse are both compared
+    B, H, KV, dh = 1, 32, 8, 128
+    for dtype, name in ((bf16, "bfloat16"), (f32, "float32")):
+        for S in (1024, 777):
+            q, k, v = _flash_case(B, S, H, KV, dh, dtype, gen)
+            _check_flash(fk, cases, name, q, k, v)
+            if dtype is bf16 and S == 1024:
+                qh, kh, vh = (_heads_first(t, g) for t, g in
+                              ((q, 1), (k, H // KV), (v, H // KV)))
+                pairs = S * (S + 1) // 2
+                rec["flash_attention"] = {
+                    "shape": f"B={B} S={S} H={H} KV={KV} dh={dh} causal "
+                             f"bf16",
+                    "ms": cuda_ms(lambda: fk.flash_attention_with_lse(
+                        q, k, v)),
+                    "plain_ms": cuda_ms(
+                        lambda: fk.flash_attention_with_lse_ref(q, k, v)),
+                    "library_ms": cuda_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            qh, kh, vh, is_causal=True)),
+                    "bytes": (2 * B * S * H * dh + 2 * B * S * KV * dh) * 2
+                    + B * S * H * 4,
+                    "flops": 4 * B * H * dh * pairs, "dtype": "bfloat16"}
+
+    # -- contiguous decode at the contiguous path's shapes: 8 slots of
+    #    Qwen3-8B heads over cache rows of 1088 (the main path's
+    #    cache_len), positions up to 1087
+    B, S = 8, 1088
+    pos = np.random.default_rng(1).integers(200, S, B)
+    pos[0] = S - 1
+    for dtype, name in ((bf16, "bfloat16"), (f32, "float32")):
+        q, k, v, pos_t = _decode_case(B, S, H, KV, dh, pos.tolist(), dtype,
+                                      gen)
+        compare("decode_attention", dk.decode_attention(q, k, v, pos_t),
+                dk.decode_attention_ref(q, k, v, pos_t), name, cases)
+        if dtype is bf16:
+            kh, vh = _heads_first(k, H // KV), _heads_first(v, H // KV)
+            dmask = (torch.arange(S, device="cuda")[None, :]
+                     <= pos_t[:, None].long())[:, None, None, :]
+            keys = int((pos + 1).sum())
+            rec["decode_attention"] = {
+                "shape": f"B={B} S={S} H={H} KV={KV} dh={dh} "
+                         f"pos<= {int(pos.max())} bf16",
+                "ms": cuda_ms(lambda: dk.decode_attention(q, k, v, pos_t)),
+                "plain_ms": cuda_ms(lambda: dk.decode_attention_ref(
+                    q, k, v, pos_t)),
+                "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q[:, :, None], kh, vh, attn_mask=dmask)),
+                "bytes": 2 * B * H * dh * 2 + keys * KV * dh * 2 * 2 + B * 4,
+                "flops": 4 * H * dh * keys, "dtype": "bfloat16"}
+
+    # -- their small float32 edge shapes
+    edge_flash = [
+        # B, S, H, KV, dh, causal, window
+        (1, 1, 4, 2, 64, True, 0),          # one position
+        (2, 77, 8, 2, 64, True, 0),         # ragged last key tile
+        (1, 200, 4, 1, 128, True, 0),       # MQA, > 48 KB shared memory
+        (1, 150, 8, 8, 64, False, 0),       # MHA, not causal
+        (1, 300, 8, 2, 64, True, 50),       # window across key tiles
+        (2, 64, 4, 4, 32, True, 16),        # window inside one key tile
+    ]
+    for B, S, H, KV, dh, causal, window in edge_flash:
+        q, k, v = _flash_case(B, S, H, KV, dh, f32, gen)
+        _check_flash(fk, cases, "float32", q, k, v, causal, window)
+    edge_decode = [
+        # B, S, H, KV, dh, pos, window
+        (3, 100, 8, 2, 64, [0, 63, 99], 0),     # ragged, tile boundary
+        (2, 128, 4, 4, 64, [64, 127], 0),       # MHA
+        (1, 300, 4, 1, 128, [299], 0),          # MQA, ragged
+        (2, 100, 4, 2, 64, [50, 99], 100),      # ring, not wrapped
+        (2, 100, 4, 2, 64, [100, 350], 100),    # ring, pos >= S
+        (2, 8, 4, 2, 64, [3, 20], 8),           # ring shorter than a tile
+    ]
+    for B, S, H, KV, dh, pos_e, window in edge_decode:
+        q, k, v, pos_t = _decode_case(B, S, H, KV, dh, pos_e, f32, gen)
+        compare("decode_attention",
+                dk.decode_attention(q, k, v, pos_t, window=window),
+                dk.decode_attention_ref(q, k, v, pos_t, window=window),
+                "float32", cases)
     torch.cuda.synchronize()
 
     for name, r in rec.items():
@@ -332,7 +475,9 @@ def _serve(engine, prompts, feats, params):
 
 
 def phase_parity():
-    """Smoke-size float32 deployment: card (kernels) vs CPU (plain)."""
+    """Smoke-size float32 deployment: card (kernels) vs CPU (plain), in the
+    paged + chunked, paged + monolithic and contiguous + monolithic
+    configurations."""
     import numpy as np
     import torch
     from repro_torch.configs import get_smoke_config
@@ -350,72 +495,74 @@ def phase_parity():
     lens = [5, 13, 19, 8, 30, 3, 40, 17]
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
     feats = rng.normal(size=(len(lens), 32)).astype(np.float32)
-    ecfg = EngineConfig(n_slots=2, cache_len=56, paged=True, page_block=8,
-                        chunked_prefill=True, chunk=16)
     sp = SamplingParams(max_new=12)
-    runs = {dev: _serve(make_engine(model, experts=experts, router=router,
-                                    config=ecfg, device=dev),
-                        prompts, feats, sp)
-            for dev in ("cuda", "cpu")}
-    (gpu, groute, *_), (cpu, croute, *_) = runs["cuda"], runs["cpu"]
-    if groute != croute or gpu != cpu:
-        diff = [i for i in cpu if gpu.get(i) != cpu[i]]
-        raise AssertionError(f"card and CPU disagree: routing {groute} vs "
-                             f"{croute}; requests {diff}: "
-                             f"{[(gpu.get(i), cpu[i]) for i in diff]}")
-    log(f"parity: {len(cpu)} requests, routing {groute}, greedy tokens and "
-        f"finish reasons equal on the card and the CPU")
+    for kind, over in (
+            ("paged + chunked", dict(paged=True, chunked_prefill=True)),
+            ("paged + monolithic", dict(paged=True)),
+            ("contiguous + monolithic", {})):
+        ecfg = EngineConfig(n_slots=2, cache_len=56, page_block=8, chunk=16,
+                            **over)
+        runs = {dev: _serve(make_engine(model, experts=experts,
+                                        router=router, config=ecfg,
+                                        device=dev),
+                            prompts, feats, sp)
+                for dev in ("cuda", "cpu")}
+        (gpu, groute, *_), (cpu, croute, *_) = runs["cuda"], runs["cpu"]
+        if groute != croute or gpu != cpu:
+            diff = [i for i in cpu if gpu.get(i) != cpu[i]]
+            raise AssertionError(
+                f"{kind}: card and CPU disagree: routing {groute} vs "
+                f"{croute}; requests {diff}: "
+                f"{[(gpu.get(i), cpu[i]) for i in diff]}")
+        log(f"parity ({kind}): {len(cpu)} requests, routing {groute}, "
+            f"greedy tokens and finish reasons equal on the card and the "
+            f"CPU")
 
 
-def phase_main_path():
-    """Full-width Qwen3-8B, 2 experts, top-1, paged + chunked + fused
-    (``repro_torch/launch/main_path.py``)."""
+def _serve_watched(label, mp, watch, kernels):
+    """Serve ``mp``'s requests on its engine after a warm-up, with every
+    logit the engine samples from — the first element returned by each
+    ``(method, rows)`` of ``watch`` (``rows`` picks the sampled rows) —
+    folded into one finiteness flag kept on the card and read once after
+    the run. The launch counts are zeroed just before the run and read
+    just after; each of ``kernels`` must have launched. Returns (results,
+    launches)."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.launch import main_path
 
-    t0 = time.perf_counter()
-    mp = main_path.build("cuda")
-    torch.cuda.synchronize()
-    cfg, model = mp.cfg, mp.model
-    log(f"main path: {main_path.N_EXPERTS} experts of {cfg.arch_id} "
-        f"({cfg.n_layers} layers, D={cfg.d_model}, bf16) initialized in "
-        f"{time.perf_counter() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    model = mp.model
     mp.warm()
     torch.cuda.synchronize()
-
-    # every logit the engine samples from (the decode forward inside each
-    # fused step, the last row of each prefill chunk) is folded into one
-    # flag kept on the card and read once after the run
+    torch.cuda.reset_peak_memory_stats()
     finite = torch.ones((), dtype=torch.bool, device="cuda")
 
-    def watched(fn):
+    def watched(fn, rows):
         def run(*args, **kwargs):
             out = fn(*args, **kwargs)
-            finite.logical_and_(torch.isfinite(out[0]).all())
+            finite.logical_and_(torch.isfinite(rows(out[0])).all())
             return out
         return run
 
-    model.decode_step_paged = watched(model.decode_step_paged)
-    model.prefill_chunk = watched(model.prefill_chunk)
+    for name, rows in watch:
+        setattr(model, name, watched(getattr(model, name), rows))
     try:
         ops.reset_launch_counts()
         res, routing, outs, steps, wall = _serve(
             mp.engine, mp.prompts, mp.features, mp.sampling)
         launches = {n: fn.launches for n, fn in ops.KERNELS.items()}
     finally:
-        del model.decode_step_paged, model.prefill_chunk
+        for name, _ in watch:
+            delattr(model, name)
     n_req = len(mp.prompts)
     if len(res) != n_req or any(r is None for _, r in res.values()):
-        raise AssertionError(f"unfinished requests: {sorted(res)}")
-    zero = [n for n, c in launches.items() if c == 0]
+        raise AssertionError(f"{label}: unfinished requests: {sorted(res)}")
+    zero = [n for n in kernels if launches[n] == 0]
     if zero:
-        raise AssertionError(f"kernels never launched on the main path: "
+        raise AssertionError(f"kernels never launched on the {label}: "
                              f"{zero}")
     if not bool(finite):
-        raise AssertionError("non-finite logits on the main path")
+        raise AssertionError(f"non-finite logits on the {label}")
     n_tok = sum(len(t) for t, _ in res.values())
     stats = {"requests": n_req,
              "prompt_tokens": int(sum(len(p) for p in mp.prompts)),
@@ -427,8 +574,107 @@ def phase_main_path():
              "mean_ttft_s": float(np.mean([o.ttft for o in outs.values()])),
              "step_ms": wall / steps * 1e3, "launches": launches,
              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
-    log("main path: " + json.dumps(stats))
+    log(f"{label}: " + json.dumps(stats))
+    return res, launches
+
+
+def phase_main_path():
+    """Full-width Qwen3-8B, 2 experts, top-1, paged + chunked + fused
+    (``repro_torch/launch/main_path.py``). Returns the deployment, its
+    results and its launch counts."""
+    import torch
+    from repro_torch.launch import main_path
+
+    t0 = time.perf_counter()
+    mp = main_path.build("cuda")
+    torch.cuda.synchronize()
+    cfg = mp.cfg
+    log(f"main path: {main_path.N_EXPERTS} experts of {cfg.arch_id} "
+        f"({cfg.n_layers} layers, D={cfg.d_model}, bf16) initialized in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    # the decode forward inside each fused step, the last row of each
+    # prefill chunk
+    res, launches = _serve_watched(
+        "main path", mp, (("decode_step_paged", lambda x: x),
+                          ("prefill_chunk", lambda x: x)), MAIN_KERNELS)
+    return mp, res, launches
+
+
+def phase_contiguous_path(mp, main_res):
+    """The same model, experts and requests on contiguous caches with
+    monolithic prefill and the fused step (``main_path.contiguous``)."""
+    import torch
+    from repro_torch.launch import main_path
+
+    cp = main_path.contiguous(mp)
+    mp.engine = None                 # its paged pool is not needed again
+    torch.cuda.empty_cache()
+    # the decode forward inside each fused step, each prefill's last row
+    res, launches = _serve_watched(
+        "contiguous path", cp, (("decode_step", lambda x: x),
+                                ("prefill", lambda x: x[:, -1])),
+        CONTIGUOUS_KERNELS)
+    same = sum(res[i][0] == main_res[i][0] for i in main_res)
+    first = sum(res[i][0][0] == main_res[i][0][0] for i in main_res)
+    log(f"contiguous path: {same} of {len(main_res)} requests got the same "
+        f"tokens as on the main path, {first} the same first token "
+        f"(information only: bf16 rounding differs between the paths)")
     return launches
+
+
+def phase_float32_agreement():
+    """Full-width Qwen3-8B, one expert in float32: monolithic prefill then
+    a contiguous decode step, against chunked prefill then a paged decode
+    step, on two prompts."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import main_path
+    from repro_torch.models import build_model
+
+    cfg = get_config(main_path.ARCH).reduced(param_dtype="float32",
+                                             compute_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    lo, hi, block, chunk = main_path.FULL_SHAPE
+    cache_len = hi + main_path.NEW_TOKENS
+    nb = -(-cache_len // block)
+    table = torch.arange(1, nb + 1, dtype=torch.int32, device="cuda")
+    rng = np.random.default_rng(3)
+    worst, agree, widths = 0.0, 0, (700, hi)
+    for width in widths:
+        toks = rng.integers(0, cfg.vocab, width)
+        batch = {"tokens": torch.as_tensor(toks[None], device="cuda")}
+        logits, row = model.prefill(params, batch, cache_len)
+        mono = logits[0, -1]
+        cache = model.cache_spec().insert(
+            model.init_cache(1, cache_len, device="cuda"), row, 0)
+        pool = model.init_paged_cache(1, nb + 1, block, cache_len,
+                                      device="cuda")
+        x = model.embed_prompt(params, {"tokens": torch.nn.functional.pad(
+            batch["tokens"], (0, -width % chunk))})
+        carry = model.init_chunk_carry(params, batch, cache_len)
+        for start in range(0, width, chunk):
+            chunked, carry, pool = model.prefill_chunk(
+                params, pool, carry, x[:, start:start + chunk], start,
+                min(chunk, width - start), table)
+        tok = mono.argmax()[None].to(torch.int32)
+        pos = torch.tensor([width], dtype=torch.int32, device="cuda")
+        dec, _ = model.decode_step(params, cache, tok, pos)
+        dec_paged, _ = model.decode_step_paged(params, pool, tok, pos,
+                                               table[None])
+        agree += int(mono.argmax() == chunked[0].argmax()) \
+            + int(dec[0].argmax() == dec_paged[0].argmax())
+        worst = max(worst, (mono - chunked[0]).abs().max().item(),
+                    (dec - dec_paged).abs().max().item())
+    log(f"float32 agreement: full-width {cfg.arch_id}, prompts of {widths} "
+        f"tokens: monolithic + contiguous vs chunked + paged last-row logits "
+        f"max abs diff {worst:.3e} (tolerance {F32_LOGIT_TOL}), greedy "
+        f"picks equal {agree} of 4")
+    if not worst <= F32_LOGIT_TOL:
+        raise AssertionError(f"float32 paths disagree: {worst:.3e} > "
+                             f"{F32_LOGIT_TOL}")
 
 
 def main() -> int:
@@ -465,7 +711,14 @@ def main() -> int:
 
     rec = phase_kernels()
     phase_parity()
-    launches = phase_main_path()
+    mp, main_res, main_launches = phase_main_path()
+    contiguous_launches = phase_contiguous_path(mp, main_res)
+    del mp                           # the bf16 experts
+    torch.cuda.empty_cache()
+    phase_float32_agreement()
+    # each kernel's launches on the full-width path that runs it
+    launches = dict(contiguous_launches,
+                    **{n: main_launches[n] for n in MAIN_KERNELS})
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():

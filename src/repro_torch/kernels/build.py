@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``. Builds
 happen at first use, from the sources in the checkout only, into
 ``build/kernels/`` at the repository root (listed in ``.gitignore``). A
-library's file name carries a hash of its source and flags, so an edited
-source is rebuilt and a stale library is never loaded. ``build_all``
+library's file name carries a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and a stale
+library is never loaded. ``build_all``
 starts one ``nvcc`` per source together and waits for all of them.
 """
 from __future__ import annotations
@@ -19,7 +20,7 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("decode_attention", "router_scores")
+SOURCES = ("decode_attention", "flash_attention", "router_scores")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -42,6 +43,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()) \
         .hexdigest()[:12]
     return build_dir() / f"lib{name}-{digest}.so"
@@ -93,6 +95,13 @@ def load(name: str) -> ctypes.CDLL:
         lib.chunk_prefill_attention.argtypes = [P, P, P, P, P, I, I, I, I,
                                                 I, I, I, I, F, P]
         lib.chunk_prefill_attention.restype = I
+        lib.decode_attention.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I,
+                                         F, P]
+        lib.decode_attention.restype = I
+    elif name == "flash_attention":
+        lib.flash_attention.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I,
+                                        I, F, P]
+        lib.flash_attention.restype = I
     elif name == "router_scores":
         lib.router_scores.argtypes = [P, P, P, I, I, I, I, F, P]
         lib.router_scores.restype = I

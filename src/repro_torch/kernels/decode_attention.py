@@ -1,17 +1,20 @@
-"""Paged attention kernels (CUDA, ``csrc/decode_attention.cu``) beside their
-plain PyTorch versions.
+"""Decode and chunk-prefill attention kernels (CUDA,
+``csrc/decode_attention.cu``) beside their plain PyTorch versions.
 
 * ``paged_decode_attention`` — port of the Pallas kernel of the same name
   (``repro/kernels/decode_attention.py:454``): one query token per slot
   attends over its logical KV span through a (B, NB) block table.
+* ``decode_attention`` — port of ``decode_attention.py:85``: the same over
+  each slot's contiguous (S, KV, dh) cache row.
 * ``chunk_prefill_attention`` — port of ``decode_attention.py:240``: a
   prompt chunk's queries attend over the request's paged prefix plus the
   chunk itself (its K/V already scattered into the pool).
 
 The CUDA wrappers take CUDA tensors only and count their launches in
 ``<wrapper>.launches``; the ``*_ref`` plain versions (named after
-``repro/kernels/ref.py``) gather the logical span out of the pool and run
-the grouped softmax attention of ``models.attention.gqa_sdpa``. The CPU
+``repro/kernels/ref.py``) run the grouped softmax attention of
+``models.attention.gqa_sdpa`` over the cache row, or over the logical span
+they gather out of the pool. The CPU
 path and the on-card comparison use the plain versions; ``kernels.ops``
 picks one by the tensors' device.
 """
@@ -27,9 +30,9 @@ Tensor = torch.Tensor
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _check_operands(q: Tensor, k_pool: Tensor, v_pool: Tensor,
-                    ints, what: str) -> int:
-    """Validate device, dtype and contiguity before pointers reach C."""
+def check_operands(q: Tensor, k: Tensor, v: Tensor, ints, what: str) -> int:
+    """Validate device, dtype and contiguity before pointers reach C;
+    returns the C side's dtype code."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: the CUDA kernel needs CUDA tensors, got "
                          f"{q.device}")
@@ -37,17 +40,17 @@ def _check_operands(q: Tensor, k_pool: Tensor, v_pool: Tensor,
     if code is None:
         raise TypeError(f"{what}: dtype {q.dtype} not supported "
                         f"(float32 or bfloat16)")
-    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+    for name, t in (("k", k), ("v", v)):
         if t.dtype != q.dtype or t.device != q.device:
             raise TypeError(f"{what}: {name} is {t.dtype} on {t.device}, "
                             f"q is {q.dtype} on {q.device}")
-    if k_pool.shape != v_pool.shape:
-        raise ValueError(f"{what}: k/v pool shapes differ")
+    if k.shape != v.shape:
+        raise ValueError(f"{what}: k/v shapes differ")
     for name, t in ints:
         if t.dtype != torch.int32 or t.device != q.device:
             raise TypeError(f"{what}: {name} must be int32 on {q.device}, "
                             f"got {t.dtype} on {t.device}")
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool), *ints):
+    for name, t in (("q", q), ("k", k), ("v", v), *ints):
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
     return code
@@ -63,7 +66,7 @@ def paged_decode_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
     span NB·block is a ring: all keys are live once pos ≥ NB·block). Table
     entries must be pool block ids < P; unallocated ones point at the
     scratch block 0 and are killed by the position fence."""
-    code = _check_operands(q, k_pool, v_pool,
+    code = check_operands(q, k_pool, v_pool,
                            (("pos", pos), ("block_tables", block_tables)),
                            "paged_decode_attention")
     B, H, dh = q.shape
@@ -91,13 +94,44 @@ def paged_decode_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
 paged_decode_attention.launches = 0
 
 
+def decode_attention(q: Tensor, k: Tensor, v: Tensor, pos: Tensor, *,
+                     window: int = 0) -> Tensor:
+    """CUDA kernel. q: (B,H,dh); k,v: (B,S,KV,dh) contiguous cache rows;
+    pos: (B,) int32 → (B,H,dh) in q.dtype.
+
+    Keys at index ≤ pos are live; with ``window > 0`` the row is a ring of
+    S positions and every key is live once pos ≥ S. Any S (the kernel
+    masks a ragged last key tile)."""
+    code = check_operands(q, k, v, (("pos", pos),), "decode_attention")
+    B, H, dh = q.shape
+    _, S, KV, _ = k.shape
+    if H % KV or k.shape != (B, S, KV, dh) or pos.shape != (B,):
+        raise ValueError(
+            f"decode_attention: shapes q {tuple(q.shape)}, k/v "
+            f"{tuple(k.shape)}, pos {tuple(pos.shape)} do not agree")
+    out = torch.empty_like(q)
+    lib = build.load("decode_attention")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.decode_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+            out.data_ptr(), code, B, H, KV, dh, S, window,
+            1.0 / math.sqrt(dh), stream)
+    build.check(lib, err, "decode_attention")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0
+
+
 def chunk_prefill_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
                             start: int, block_table: Tensor) -> Tensor:
     """CUDA kernel. q: (C,H,dh) one request's chunk queries (row c at
     absolute position ``start + c``, a host int); k_pool,v_pool:
     (P,block,KV,dh) with the chunk's K/V already scattered in;
     block_table: (NB,) int32 → (C,H,dh) in q.dtype."""
-    code = _check_operands(q, k_pool, v_pool,
+    code = check_operands(q, k_pool, v_pool,
                            (("block_table", block_table),),
                            "chunk_prefill_attention")
     C, H, dh = q.shape
@@ -142,6 +176,20 @@ def paged_decode_attention_ref(q: Tensor, k_pool: Tensor, v_pool: Tensor,
     if window > 0:
         valid = valid | (p >= S_log)
     return gqa_sdpa(q[:, None], kf, vf, valid[:, None, :])[:, 0]
+
+
+def decode_attention_ref(q: Tensor, k: Tensor, v: Tensor, pos: Tensor, *,
+                         window: int = 0) -> Tensor:
+    """Plain version (after ``repro/kernels/ref.py:38``): grouped softmax
+    attention of each slot's query over its cache row under the position
+    (or ring) rule."""
+    from repro_torch.models.attention import gqa_sdpa
+    keys = torch.arange(k.shape[1], device=q.device)[None, :]
+    p = pos.long()[:, None]
+    valid = keys <= p
+    if window > 0:
+        valid = valid | (p >= k.shape[1])
+    return gqa_sdpa(q[:, None], k, v, valid[:, None, :])[:, 0]
 
 
 def chunk_prefill_attention_ref(q: Tensor, k_pool: Tensor, v_pool: Tensor,

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from . import decode_attention as _decode
+from . import flash_attention as _flash
 from . import router_scores as _router
 
 Tensor = torch.Tensor
@@ -24,6 +25,20 @@ def _on_card(t: Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                    window: int = 0) -> Tensor:
+    if _on_card(q):
+        return _flash.flash_attention(q, k, v, causal=causal, window=window)
+    return _flash.flash_attention_ref(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q: Tensor, k: Tensor, v: Tensor, pos: Tensor, *,
+                     window: int = 0) -> Tensor:
+    if _on_card(q):
+        return _decode.decode_attention(q, k, v, pos, window=window)
+    return _decode.decode_attention_ref(q, k, v, pos, window=window)
 
 
 def paged_decode_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
@@ -58,9 +73,12 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-#: Every CUDA kernel wrapper of the port, by name.
+#: Every CUDA kernel wrapper of the port, by name (``flash_attention``
+#: launches, and counts, through ``flash_attention_with_lse``).
 KERNELS = {
     "paged_decode_attention": _decode.paged_decode_attention,
     "chunk_prefill_attention": _decode.chunk_prefill_attention,
     "router_scores": _router.router_scores,
+    "flash_attention": _flash.flash_attention_with_lse,
+    "decode_attention": _decode.decode_attention,
 }

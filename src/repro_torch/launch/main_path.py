@@ -5,11 +5,15 @@ per pod over a paged pool of 16-position blocks, 256-token prefill chunks,
 the fused decode step; 16 greedy requests of 256–1024 prompt tokens and
 64 new tokens each. ``smoke=True`` builds the same deployment at smoke
 size (2 layers, 8–32 prompt tokens, 8-position blocks and chunks).
+
+``contiguous(mp)`` builds the second deployment over the same model,
+experts, router and requests: the reference's default serving path,
+contiguous per-slot caches with monolithic prefill at admission.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import List
+from dataclasses import dataclass, replace
+from typing import Any, List
 
 import numpy as np
 import torch
@@ -44,6 +48,8 @@ class MainPath:
     prompts: List[np.ndarray]
     features: np.ndarray
     sampling: SamplingParams
+    experts: List[Any]
+    router: CentroidRouter
 
     def warm(self) -> None:
         """Serve one short request to completion (allocator, library
@@ -78,6 +84,20 @@ def build(device="cuda", *, smoke: bool = False) -> MainPath:
     engine = make_engine(
         model, experts=experts, router=router, device=dev,
         config=EngineConfig(n_slots=N_SLOTS, cache_len=hi + NEW_TOKENS,
-                            page_block=block, chunk=chunk))
+                            paged=True, page_block=block,
+                            chunked_prefill=True, chunk=chunk))
     return MainPath(cfg, model, engine, prompts, features,
-                    SamplingParams(max_new=NEW_TOKENS))
+                    SamplingParams(max_new=NEW_TOKENS), experts, router)
+
+
+def contiguous(mp: MainPath) -> MainPath:
+    """The same deployment on contiguous per-slot caches (cache_len as the
+    main path's) with monolithic prefill and the fused step, over ``mp``'s
+    model, expert params, router and requests: nothing is initialized
+    again."""
+    engine = make_engine(
+        mp.model, experts=mp.experts, router=mp.router,
+        device=mp.engine.device,
+        config=EngineConfig(n_slots=N_SLOTS,
+                            cache_len=mp.engine.config.cache_len))
+    return replace(mp, engine=engine)

@@ -35,9 +35,13 @@ from repro_torch.launch import main_path
 
 WINDOW = 4            # engine steps under the profiler, per kind of step
 
+# lower-case pieces of the demangled kernel names (the paged and contiguous
+# decode kernels are one template, told apart by its addressing argument)
 KERNEL_GROUPS = {
-    "paged_decode_attention": ("paged_decode_kernel",),
+    "paged_decode_attention": ("pagedrows",),
+    "decode_attention": ("contiguousrows",),
     "chunk_prefill_attention": ("chunk_prefill_kernel",),
+    "flash_attention": ("flash_kernel",),
     "router_scores": ("router_kernel",),
     "matmul": ("gemm", "xmma", "cutlass", "cublas", "nvjet"),
 }

@@ -4,18 +4,20 @@ on the port (twin of ``repro.launch.serve``).
 Loads the per-expert checkpoints and the centroid router of a training
 run, and serves synthetic multimodal requests through the top-1
 ``DecentralizedSlotServer``: the Eq. 28 router picks each request's pod at
-submission; each pod runs the paged pool, chunked prefill and the fused
-decode step. Runs on the card unless ``--device cpu``.
+submission; each pod serves contiguous per-slot KV caches with monolithic
+prefill at admission (``--paged`` / ``--chunked-prefill`` switch to the
+paged pool and to chunked prefill) and decodes with the fused step. Runs
+on the card unless ``--device cpu``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --run /tmp/run \\
         --arch qwen3_8b --requests 16 --new-tokens 24 --slots 8 \\
-        --paged --page-block 16 --chunked-prefill --prefill-chunk 16
+        [--paged --page-block 16 [--chunked-prefill --prefill-chunk 16]]
 
 The flags are the reference launcher's for this slice. Every serving flag
 lands in ONE ``EngineConfig``; what the port has not reached yet (mixture,
 speculation, prefix cache, preemption, sanitizer, tracing, metrics,
-sampling, unpaged or unchunked serving, the unfused step) is refused by
-``EngineConfig.validate`` with one ValueError before any work starts.
+sampling, the unfused step) is refused by ``EngineConfig.validate`` with
+one ValueError before any work starts.
 """
 from __future__ import annotations
 
@@ -50,12 +52,13 @@ def main(argv=None) -> dict:
     ap.add_argument("--slots", type=int, default=8,
                     help="cache slots per pod")
     ap.add_argument("--paged", action="store_true",
-                    help="paged KV cache (required by the port)")
+                    help="block-table paged KV cache")
     ap.add_argument("--page-block", type=int, default=16)
     ap.add_argument("--pool-blocks", type=int, default=0,
                     help="physical blocks per pod (0 → full capacity)")
     ap.add_argument("--chunked-prefill", action="store_true",
-                    help="chunked prefill (required by the port)")
+                    help="chunked prefill co-scheduled with decode (needs "
+                         "--paged)")
     ap.add_argument("--prefill-chunk", type=int, default=16)
     ap.add_argument("--token-budget", type=int, default=0)
     ap.add_argument("--prefix-cache", action="store_true")

@@ -1,12 +1,15 @@
-"""Grouped-query attention over the paged KV pool (port of the paged paths
-of ``repro.models.attention``).
+"""Grouped-query attention: full-sequence prefill, one-token decode against
+contiguous cache rows, and the paged paths (port of
+``repro.models.attention``; ``cross_attention``/``encode_kv`` are not
+ported yet, see ROADMAP.md).
 
 Public functions keep the reference's einsum layouts: ``wq`` (D,H,dh),
-``wk``/``wv`` (D,KV,dh), ``wo`` (H,dh,D), pools (P,block,KV,dh). Where the
-reference scatters new K/V with ``.at[].set`` and returns a new pool, the
-port writes the pool IN PLACE with ``index_put_`` and returns the same
-tensors — the pools are the serving state and are never shared with a
-caller that expects the old contents. The attention itself goes through
+``wk``/``wv`` (D,KV,dh), ``wo`` (H,dh,D), caches (B,S,KV,dh), pools
+(P,block,KV,dh). Where the reference writes new K/V functionally and
+returns a new cache or pool, the port writes it IN PLACE with
+``index_put_`` and returns the same tensors — caches and pools are the
+serving state and are never shared with a caller that expects the old
+contents. The attention itself goes through
 ``repro_torch.kernels.ops``: the CUDA kernel for tensors on the card, the
 plain version on the CPU.
 """
@@ -16,6 +19,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 
@@ -76,6 +80,74 @@ def gqa_sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor],
 
 def _project_out(params, out: Tensor, dt) -> Tensor:
     return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt))
+
+
+def causal_mask(S: int, window: int = 0, device=None) -> Tensor:
+    """(1, S, S) bool: row i sees column j iff j ≤ i (and i − j < window
+    when window > 0)."""
+    i = torch.arange(S, device=device)[:, None]
+    j = torch.arange(S, device=device)[None, :]
+    m = j <= i
+    if window > 0:
+        m &= (i - j) < window
+    return m[None]
+
+
+def full_attention(params, x: Tensor, cfg, *, causal: bool = True,
+                   positions: Optional[Tensor] = None) -> Tensor:
+    """Self-attention over the whole sequence. x: (B,S,D) → (B,S,D)."""
+    S = x.shape[1]
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _qkv(params, x, cfg, positions)
+    out = kops.flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=causal,
+                               window=cfg.sliding_window)
+    return _project_out(params, out, x.dtype)
+
+
+def prefill_attention(params, x: Tensor, cfg, cache_len: int):
+    """Like ``full_attention`` (causal) but also returns the (K, V) to seed
+    the cache, right-padded to ``cache_len``: (out, (k, v)) with k, v
+    (B, cache_len, KV, dh)."""
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _qkv(params, x, cfg, positions)
+    out = kops.flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=True,
+                               window=cfg.sliding_window)
+    pad = (0, 0, 0, 0, 0, cache_len - S)
+    return _project_out(params, out, x.dtype), (F.pad(k, pad), F.pad(v, pad))
+
+
+def decode_attention(params, x: Tensor, cfg, cache: Tuple[Tensor, Tensor],
+                     pos: Tensor, *, rope: bool = True):
+    """One-token decode against contiguous cache rows. x: (B,1,D); cache
+    K/V: (B,S_cache,KV,dh); pos: () or (B,) int32. Returns (out (B,1,D),
+    cache) with each row's new K/V written in place at ``pos`` — or, when
+    ``cfg.sliding_window > 0`` (the row is a ring of S_cache = window
+    positions), at ``pos % S_cache``.
+
+    The reference rewrites the whole cache through a one-hot mask because
+    the scheduler passes a per-slot ``pos`` (B,); scattering one row per
+    slot with ``index_put_`` writes the same values. A position past the
+    row, which the scheduler never passes (a slot retires at cache_len),
+    writes the row's last position, as the reference's scalar-``pos`` path
+    does."""
+    B = x.shape[0]
+    k_cache, v_cache = cache
+    S_cache = k_cache.shape[1]
+    pos_b = pos.to(torch.int32).expand(B)
+    q, k_new, v_new = _qkv(params, x, cfg, pos_b[:, None], rope=rope)
+    slot = pos_b % S_cache if cfg.sliding_window > 0 \
+        else pos_b.clamp(max=S_cache - 1)
+    rows = torch.arange(B, device=x.device)
+    k_cache.index_put_((rows, slot.long()), k_new[:, 0].to(k_cache.dtype))
+    v_cache.index_put_((rows, slot.long()), v_new[:, 0].to(v_cache.dtype))
+    out = kops.decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
+                                pos_b.contiguous(),
+                                window=cfg.sliding_window)
+    return _project_out(params, out[:, None], x.dtype), (k_cache, v_cache)
 
 
 def paged_decode_attention(params, x: Tensor, cfg,

@@ -1,4 +1,4 @@
-"""Model assembly, dense family, paged serving path (port of
+"""Model assembly, dense family, serving paths (port of
 ``repro.models.model``).
 
 Parameters are nested dicts of tensors in the reference's pytree layout —
@@ -10,10 +10,12 @@ params explicitly, as in the reference, so the pods of a decentralized
 deployment share one ``Model``. Everything runs on the device of the
 params and caches it is given.
 
-Ported: ``cache_spec``, ``init_paged_cache``, ``embed_prompt``,
-``init_chunk_carry``, ``prefill_chunk``, ``decode_step_paged`` and the
-paged ``fused_decode_step``. The other families and the monolithic,
-contiguous and speculative paths are not ported yet (see ROADMAP.md).
+Ported: ``cache_spec`` (with ``CacheSpec.insert``/``insert_paged``),
+``init_cache``, ``init_paged_cache``, the monolithic ``prefill``,
+``embed_prompt``, ``init_chunk_carry``, ``prefill_chunk``, ``decode_step``,
+``decode_step_paged`` and ``fused_decode_step`` over either cache. The
+other families, ``forward`` (training) and the speculative paths are not
+ported yet (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from dataclasses import dataclass
 from typing import Any, Dict
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 
@@ -62,9 +65,41 @@ class PagedLayout:
 @dataclass(frozen=True)
 class CacheSpec:
     """Layout descriptor of a family's decode cache: the slot axis of each
-    leaf, plus the paged layout when the cache pages through a pool."""
+    leaf, plus the paged layout when the cache pages through a pool. The
+    splices write the batched cache IN PLACE (the reference returns a new
+    one) and return it; like the reference they write the whole padded
+    row, so cache contents compare equal between the two."""
     batch_axes: Any
     paged: PagedLayout = None
+
+    def insert(self, cache, row_cache, slot: int):
+        """Write a single-request cache (extent 1 on each leaf's batch
+        axis) into ``cache`` at slot index ``slot``."""
+        for name, ax in self.batch_axes.items():
+            full = cache[name]
+            full.narrow(ax, slot, 1).copy_(row_cache[name].to(full.dtype))
+        return cache
+
+    def insert_paged(self, cache, row_cache, slot: int, blocks: Tensor):
+        """Splice a single-request contiguous prefill cache into the paged
+        cache: each pool leaf takes the row's first ``len(blocks) *
+        block_size`` positions (zero-padded when the row is shorter) into
+        the physical blocks listed in ``blocks`` ((nb,) int). Every leaf of
+        the dense family pages, so ``slot`` (kept for the reference's
+        signature) addresses nothing here."""
+        bs, nb = self.paged.block_size, blocks.shape[0]
+        idx = blocks.long()
+        for name, ax in self.batch_axes.items():
+            full = cache[name]
+            row = row_cache[name].squeeze(ax)          # seq now at ax
+            take = min(nb * bs, row.shape[ax])
+            row = row.narrow(ax, 0, take)
+            if take < nb * bs:                         # cache_len ∤ block
+                pad = [0, 0] * (row.dim() - ax - 1) + [0, nb * bs - take]
+                row = F.pad(row, pad)
+            row = row.reshape(row.shape[:ax] + (nb, bs) + row.shape[ax + 1:])
+            full[(slice(None),) * ax + (idx,)] = row.to(full.dtype)
+        return cache
 
 
 class Model:
@@ -108,6 +143,18 @@ class Model:
             if block_size > 0 else None
         return CacheSpec({"k": 1, "v": 1}, paged)
 
+    def init_cache(self, batch: int, cache_len: int,
+                   device="cuda") -> Dict[str, Tensor]:
+        """Zeroed contiguous (L, batch, S_kv, KV, dh) K and V caches in the
+        compute dtype; S_kv = min(cache_len, window) for a sliding window
+        (a ring of slot = pos % S_kv), else cache_len."""
+        cfg = self.cfg
+        win = cfg.sliding_window
+        S_kv = min(cache_len, win) if win > 0 else cache_len
+        shape = (self.n_groups, batch, S_kv, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
+                "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}
+
     def init_paged_cache(self, n_slots: int, n_blocks: int, block_size: int,
                          cache_len: int, device="cuda") -> Dict[str, Tensor]:
         """Zeroed (L, n_blocks, block_size, KV, dh) K and V pools in the
@@ -118,6 +165,43 @@ class Model:
                  cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
                 "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}
+
+    # ------------------------------------------------------------------
+    # Prefill: the whole prompt in one forward
+    # ------------------------------------------------------------------
+
+    def prefill(self, params, batch, cache_len: int):
+        """Returns (logits (B,S,V) float32, cache) with the cache leaves
+        (L, B, S_kv, KV, dh): the prompt's K/V right-padded to S_kv, or,
+        windowed, its last S_kv positions in the ring layout (slot =
+        pos % S_kv)."""
+        cfg = self.cfg
+        x = embed(params["embed"], batch["tokens"], cfg.cdtype)
+        S = x.shape[1]
+        win = cfg.sliding_window
+        S_kv = min(cache_len, win) if win > 0 else cache_len
+
+        def pad_kv(k):
+            """(B,S,KV,dh) → ring/right-padded (B,S_kv,KV,dh)."""
+            if win > 0 and S >= S_kv:
+                return torch.roll(k[:, S - S_kv:], (S - S_kv) % S_kv, dims=1)
+            return F.pad(k, (0, 0, 0, 0, 0, S_kv - S))
+
+        ks, vs = [], []
+        blocks = params["blocks"]
+        for i in range(self.n_groups):
+            layer = layer_slice(blocks, i)
+            a, (k, v) = attn.prefill_attention(
+                layer["attn"], rms_norm(x, layer["ln1"], cfg.norm_eps), cfg,
+                S)
+            h = x + a
+            x = h + swiglu(layer["ffn"], rms_norm(h, layer["ln2"],
+                                                  cfg.norm_eps))
+            ks.append(pad_kv(k))
+            vs.append(pad_kv(v))
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = unembed(params["embed"], x, cfg.tie_embeddings, cfg.vocab)
+        return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
     # ------------------------------------------------------------------
     # Chunked prefill
@@ -161,6 +245,25 @@ class Model:
     # Decode
     # ------------------------------------------------------------------
 
+    def decode_step(self, params, cache, tokens: Tensor, pos: Tensor):
+        """One token per slot against the contiguous cache (written in
+        place). tokens: (B,) int32; pos: (B,) (or ()) int32. Returns
+        (logits (B, V), cache)."""
+        cfg = self.cfg
+        x = embed(params["embed"], tokens[:, None], cfg.cdtype)   # (B,1,D)
+        blocks = params["blocks"]
+        for i in range(self.n_groups):
+            layer = layer_slice(blocks, i)
+            a, _ = attn.decode_attention(
+                layer["attn"], rms_norm(x, layer["ln1"], cfg.norm_eps), cfg,
+                (cache["k"][i], cache["v"][i]), pos)
+            h = x + a
+            x = h + swiglu(layer["ffn"], rms_norm(h, layer["ln2"],
+                                                  cfg.norm_eps))
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = unembed(params["embed"], x, cfg.tie_embeddings, cfg.vocab)
+        return logits[:, 0], cache
+
     def decode_step_paged(self, params, cache, tokens: Tensor, pos: Tensor,
                           block_tables: Tensor):
         """One token per slot against the paged cache. tokens, pos: (B,)
@@ -180,13 +283,19 @@ class Model:
         logits = unembed(params["embed"], x, cfg.tie_embeddings, cfg.vocab)
         return logits[:, 0], cache
 
-    def fused_decode_step(self, params, cache, state, *, cache_len: int):
-        """One whole decode token: the paged forward followed by the serving
-        epilogue (greedy pick, stop ids, budget and context bound, position
-        advance). Returns (cache, new_state, next_tok, done)."""
+    def fused_decode_step(self, params, cache, state, *, cache_len: int,
+                          paged: bool = False):
+        """One whole decode token: the forward (contiguous, or paged through
+        ``state["tables"]``) followed by the serving epilogue (greedy pick,
+        stop ids, budget and context bound, position advance). Returns
+        (cache, new_state, next_tok, done)."""
         from repro_torch.serve.fused import decode_epilogue
-        scores, cache = self.decode_step_paged(
-            params, cache, state["tok"], state["pos"], state["tables"])
+        if paged:
+            scores, cache = self.decode_step_paged(
+                params, cache, state["tok"], state["pos"], state["tables"])
+        else:
+            scores, cache = self.decode_step(params, cache, state["tok"],
+                                             state["pos"])
         state, nxt, done = decode_epilogue(scores, state, cache_len=cache_len)
         return cache, state, nxt, done
 

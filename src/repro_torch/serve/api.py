@@ -83,18 +83,17 @@ def stop_id_row(params: SamplingParams, width: int) -> np.ndarray:
 
 @dataclass(frozen=True)
 class EngineConfig:
-    """Engine deployment knobs (the reference's fields; the reference's
-    ``use_kernel`` is gone — the port dispatches kernels on the tensors'
-    device) and the ONE place their dependency matrix and the port's
-    not-yet-ported options are enforced. ``paged`` and ``chunked_prefill``
-    default on: the port serves only that way."""
+    """Engine deployment knobs (the reference's fields and defaults; the
+    reference's ``use_kernel`` is gone — the port dispatches kernels on the
+    tensors' device) and the ONE place their dependency matrix and the
+    port's not-yet-ported options are enforced."""
 
     n_slots: int = 8
     cache_len: int = 128
-    paged: bool = True
+    paged: bool = False
     page_block: int = 16
     pool_blocks: int = 0          # 0 → full capacity
-    chunked_prefill: bool = True
+    chunked_prefill: bool = False
     chunk: int = 16
     token_budget: int = 0         # 0 → n_slots + chunk
     prefix_cache: bool = False
@@ -119,21 +118,29 @@ class EngineConfig:
             raise ValueError(
                 f"cache_len must be >= 2 (one prompt position plus one "
                 f"decodable position), got {self.cache_len}")
-        if self.page_block < 1:
+        if self.paged and self.page_block < 1:
             raise ValueError(
                 f"paged serving needs page_block >= 1 positions per KV "
                 f"block, got {self.page_block}")
-        if self.pool_blocks == 1:
+        if self.pool_blocks and not self.paged:
+            raise ValueError(
+                "pool_blocks sizes the paged block pool — it needs "
+                "paged=True (page_block > 0)")
+        if self.paged and self.pool_blocks == 1:
             raise ValueError(
                 "pool_blocks=1 is only the reserved scratch block — a "
                 "paged pool needs >= 2 blocks (or 0 for full capacity)")
-        if self.chunk < 1:
+        if self.chunked_prefill and self.chunk < 1:
             raise ValueError(
                 f"chunked prefill needs chunk >= 1 prompt positions per "
                 f"step, got {self.chunk}")
         if self.token_budget < 0:
             raise ValueError(
                 f"token_budget must be >= 0, got {self.token_budget}")
+        if self.token_budget and not self.chunked_prefill:
+            raise ValueError(
+                "token_budget bounds the chunked-prefill step loop — it "
+                "needs chunked_prefill=True (chunk > 0)")
         if self.strategy not in ("top1", "mixture"):
             raise ValueError(
                 f"strategy must be 'top1' or 'mixture', got "
@@ -157,8 +164,6 @@ class EngineConfig:
             (self.sanitize, "sanitize=True"),
             (self.trace, "trace=True"),
             (self.metrics, "metrics=True"),
-            (not self.paged, "paged=False"),
-            (not self.chunked_prefill, "chunked_prefill=False"),
             (not self.fused_step, "fused_step=False"),
         ]
         for bad, option in refused:
@@ -171,11 +176,18 @@ class EngineConfig:
         cfg = model.cfg
         if cfg.family != "dense":
             raise not_ported(f"family {cfg.family!r}")
+        if not self.chunked_prefill:
+            return
         if cfg.sliding_window > 0:
             raise ValueError(
                 "chunked prefill does not support sliding-window (ring) "
                 "caches yet — serve windowed configs with monolithic "
                 "admission")
+        if effective_page_block(
+                model, self.page_block if self.paged else 0) == 0:
+            raise ValueError(
+                "chunked prefill writes prompt KV through the paged pool — "
+                "enable paging (page_block > 0)")
 
 
 def effective_page_block(model, page_block: int) -> int:

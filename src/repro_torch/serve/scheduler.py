@@ -1,26 +1,32 @@
-"""Continuous batching over the paged KV pool (port of the §5.2 serving
-path of ``repro.serve.scheduler``).
+"""Continuous batching (port of the §5.2 serving path of
+``repro.serve.scheduler``).
 
 ``make_engine(model, experts=[...], router=r, config=cfg, device="cuda")``
 builds the paper's decentralized deployment: the Eq. 28 centroid router
 runs at submission on each request's features and sends it to its top-1
-expert's pod, a ``SlotServer`` over a paged KV pool. A pod admits requests
-FCFS into free slots, reserves the prompt's KV blocks, consumes the prompt
-``chunk`` positions per step (``Model.prefill_chunk``) co-scheduled with
-the lockstep decode of every decoding slot under a token budget, and
-decodes with the fused step (``Model.fused_decode_step``).
+expert's pod, a ``SlotServer``. A pod admits requests FCFS into free slots
+and decodes every decoding slot in lockstep with the fused step
+(``Model.fused_decode_step``). Its KV state is either contiguous per-slot
+cache rows or, with ``paged``, a shared pool of blocks reached through
+per-slot block tables. Its admission either prefills the whole prompt at
+once (``Model.prefill``, then a splice into the slot's cache row or
+blocks) or, with ``chunked_prefill`` (paged only), reserves the prompt's
+blocks and consumes it ``chunk`` positions per step
+(``Model.prefill_chunk``) co-scheduled with the decode under a token
+budget.
 
 **The single-dispatch contract.** Each step is one forward (decode, plus
 at most one prefill chunk) and its on-device epilogue, followed by ONE
 host readback: ``(next_tok, done)`` — plus the chunk's first token on a
-prompt's final chunk, read in the same transfer. The per-slot device
-state is rebuilt from the host mirrors only on admission, retirement or
-block-table growth. No ``.item()`` sits in the layer loop.
+prompt's final chunk, read in the same transfer. A monolithic admission
+reads back its first token once. The per-slot device state is rebuilt
+from the host mirrors only on admission, retirement or block-table
+growth. No ``.item()`` sits in the layer loop.
 
 What this port does not run yet is refused by ``EngineConfig.validate``:
 the mixture core, speculation, QoS and preemption, the prefix cache, the
-sanitizer, tracing and metrics export, sampling, and the unpaged,
-unchunked and unfused paths (see ROADMAP.md).
+sanitizer, tracing and metrics export, sampling, and the unfused step
+(see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -171,25 +177,30 @@ class BlockAllocator:
 
 
 class _SlotTable:
-    """Slot bookkeeping, the paged block tables and allocator, and the
-    chunked-prefill drive loop: each step co-schedules one prefill chunk
-    (FCFS over mid-prefill slots) with the lockstep decode of every
-    decoding slot, subject to ``token_budget`` (decoding slots count 1
-    each, the chunk counts ``chunk``)."""
+    """Slot bookkeeping and the drive loop. With ``block_size > 0`` it also
+    owns the paged block tables and allocator (a sliding-window model's
+    slot reserves its whole ring of ``window`` positions at admission);
+    with ``chunk > 0`` each step co-schedules one prefill chunk (FCFS over
+    mid-prefill slots) with the lockstep decode of every decoding slot,
+    subject to ``token_budget`` (decoding slots count 1 each, the chunk
+    counts ``chunk``)."""
 
-    def __init__(self, n_slots: int, cache_len: int, *, block_size: int,
-                 n_blocks: int, chunk: int, token_budget: int, device):
+    def __init__(self, n_slots: int, cache_len: int, *, block_size: int = 0,
+                 n_blocks: int = 0, window: int = 0, chunk: int = 0,
+                 token_budget: int = 0, device):
         self.n_slots, self.cache_len = n_slots, cache_len
         self.device = device
         self.pos = np.zeros(n_slots, dtype=np.int32)      # next position
         self.slot_req: List[Optional[Request]] = [None] * n_slots
         self.last_tok = np.zeros(n_slots, dtype=np.int32)
         self.waiting: List[Request] = []
+        self.admit_retired: List[Request] = []   # retired without decoding
         self._next_rid = 0
         self.n_aborted = 0
         self.n_stopped = 0
         self.n_chunks = 0          # prefill chunks consumed
         self.chunk = chunk
+        self.chunked = chunk > 0
         self.token_budget = token_budget if token_budget > 0 \
             else n_slots + chunk
         self.prefilling = [False] * n_slots
@@ -202,13 +213,24 @@ class _SlotTable:
         self._tables_dirty = False
         self._stop_width = 1       # stop-id matrix width (monotone, pow2)
         self.block_size = block_size
-        self.nb_slot = -(-cache_len // block_size)
-        if n_blocks <= 0:          # full capacity + scratch
-            n_blocks = n_slots * self.nb_slot + 1
-        self.allocator = BlockAllocator(n_blocks)
-        self.block_tables = np.zeros((n_slots, self.nb_slot), np.int32)
-        self.n_alloc = np.zeros(n_slots, dtype=np.int32)
-        self.block_gens = np.zeros((n_slots, self.nb_slot), np.int64)
+        self.paged = block_size > 0
+        self.ring = self.paged and window > 0
+        if self.paged:
+            if self.ring:
+                s_kv = min(cache_len, window)
+                if s_kv % block_size:
+                    raise ValueError(
+                        f"sliding-window ring length {s_kv} must be a "
+                        f"multiple of page_block={block_size}")
+                self.nb_slot = s_kv // block_size
+            else:
+                self.nb_slot = -(-cache_len // block_size)
+            if n_blocks <= 0:      # full capacity + scratch
+                n_blocks = n_slots * self.nb_slot + 1
+            self.allocator = BlockAllocator(n_blocks)
+            self.block_tables = np.zeros((n_slots, self.nb_slot), np.int32)
+            self.n_alloc = np.zeros(n_slots, dtype=np.int32)
+            self.block_gens = np.zeros((n_slots, self.nb_slot), np.int64)
 
     def free_slots(self) -> List[int]:
         return [i for i, r in enumerate(self.slot_req) if r is None]
@@ -241,20 +263,27 @@ class _SlotTable:
         return req.rid
 
     def _reject_unservable(self, req: Request) -> None:
+        """Fail at submission on a request no idle server could admit."""
         width = len(req.tokens)
+        self._reject_overlong(req, width)
+        # a monolithic context-filling prompt retires at admission without
+        # reserving; every other paged admission reserves the whole prompt
+        if self.paged and (self.chunked or width < self.cache_len):
+            need = self._blocks_for(width)
+            usable = self.allocator.n_blocks - 1
+            if need > usable:
+                raise ValueError(
+                    f"request {req.rid}: its prompt reservation needs "
+                    f"{need} KV blocks but the pool has only {usable} "
+                    f"usable (pool_blocks={self.allocator.n_blocks}, "
+                    f"page_block={self.block_size})")
+
+    def _reject_overlong(self, req: Request, width: int) -> None:
         if width > self.cache_len:
             raise ValueError(
                 f"request {req.rid}: prompt needs {width} positions but the "
                 f"serving context is cache_len={self.cache_len} — reject "
                 f"the request or raise cache_len")
-        need = max(min(-(-width // self.block_size), self.nb_slot), 1)
-        usable = self.allocator.n_blocks - 1
-        if need > usable:
-            raise ValueError(
-                f"request {req.rid}: its prompt reservation needs {need} KV "
-                f"blocks but the pool has only {usable} usable "
-                f"(pool_blocks={self.allocator.n_blocks}, "
-                f"page_block={self.block_size})")
 
     def step(self) -> List[RequestOutput]:
         """Admit from the waiting queue, then run one co-scheduled prefill
@@ -262,7 +291,9 @@ class _SlotTable:
         request that progressed: this step's retirements first, then the
         live deltas in slot order."""
         self._admit_waiting()
-        finished = self._decode_step_fused() if self.active else []
+        finished, self.admit_retired = self.admit_retired, []
+        if self.active:
+            finished += self._decode_step_fused()
         outs = [self._output(r) for r in finished]
         for req in self.slot_req:
             if req is not None and req.emitted < len(req.out):
@@ -334,13 +365,60 @@ class _SlotTable:
             t_first=req.t_first, t_done=req.t_done, t_admit=req.t_admit)
 
     # ------------------------------------------------------------------
+    # Monolithic admission
+    # ------------------------------------------------------------------
+
+    def _admission_precheck(self, req: Request, slot: int,
+                            width: int) -> bool:
+        """Runs before the prefill is paid for. False → the pool has no
+        blocks for it right now (the request stays waiting)."""
+        self._reject_overlong(req, width)
+        return not (self.paged and width < self.cache_len
+                    and not self._reserve(slot, width))
+
+    def _admit_prefilled(self, slot: int, req: Request, first: int,
+                         width: int, row_cache) -> None:
+        """Splice an admitted request's prefill cache into its slot (row or
+        blocks) and occupy the slot. A request whose whole budget is the
+        prefill token (max_new == 1), or whose first token stops it,
+        retires at once."""
+        if self.paged:
+            blocks = torch.as_tensor(
+                self.block_tables[slot, :int(self.n_alloc[slot])],
+                device=self.device)
+            self.cache = self.spec.insert_paged(self.cache, row_cache, slot,
+                                                blocks)
+        else:
+            self.cache = self.spec.insert(self.cache, row_cache, slot)
+        self._occupy(slot, req, first, width)
+        reason = req.reason_now()
+        if reason:
+            self._retire_from_slot(slot, req, reason)
+            self.admit_retired.append(req)
+
+    def _retire_at_admission(self, req: Request, first_tok: int) -> None:
+        """The prompt already fills the context bound: the request keeps its
+        single prefill token and retires without ever holding a slot."""
+        req.record(first_tok)
+        req.t_done = time.perf_counter()
+        self._set_reason(req, req.reason_now() or "truncated")
+        self.admit_retired.append(req)
+
+    # ------------------------------------------------------------------
     # Paged-cache bookkeeping
     # ------------------------------------------------------------------
+
+    def _blocks_for(self, upto: int) -> int:
+        """Blocks covering positions [0, upto): a ring slot always holds
+        its whole span."""
+        if self.ring:
+            return self.nb_slot
+        return max(min(-(-upto // self.block_size), self.nb_slot), 1)
 
     def _reserve(self, slot: int, upto: int) -> bool:
         """Grow ``slot``'s reservation to cover positions [0, upto);
         all-or-nothing, False when the pool can't satisfy it."""
-        need = max(min(-(-upto // self.block_size), self.nb_slot), 1)
+        need = self._blocks_for(upto)
         have = int(self.n_alloc[slot])
         if need <= have:
             return True
@@ -357,7 +435,9 @@ class _SlotTable:
 
     def _grow_active(self) -> None:
         """Before a lockstep decode: every decoding slot must own the block
-        its next write lands in."""
+        its next write lands in (a ring slot already holds its span)."""
+        if not self.paged or self.ring:
+            return
         need = np.minimum(-(-(self.pos + 1) // self.block_size),
                           self.nb_slot)
         if not np.any((need > self.n_alloc) & (self.n_alloc > 0)):
@@ -376,6 +456,8 @@ class _SlotTable:
         self.pos[slot] = 0           # free slots write the scratch block
         self.last_tok[slot] = 0
         self._dstate = None
+        if not self.paged:
+            return
         n = int(self.n_alloc[slot])
         if n:
             blocks = self.block_tables[slot, :n].tolist()
@@ -414,14 +496,17 @@ class _SlotTable:
         """Per-slot device state for the fused dispatch, rebuilt from the
         host mirrors only after admission/retirement; pure table growth
         re-uploads the tables alone. Between those events the state the
-        previous dispatch returned is passed straight back in."""
+        previous dispatch returned is passed straight back in. Unpaged
+        state has no tables."""
         dev = self.device
         if self._dstate is not None:
-            nbl = self._nb_live()
-            if self._tables_dirty or self._dstate["tables"].shape[1] != nbl:
-                self._dstate = dict(self._dstate, tables=torch.as_tensor(
-                    self._decode_tables()[:, :nbl], device=dev))
-                self._tables_dirty = False
+            if self.paged:
+                nbl = self._nb_live()
+                if self._tables_dirty or \
+                        self._dstate["tables"].shape[1] != nbl:
+                    self._dstate = dict(self._dstate, tables=torch.as_tensor(
+                        self._decode_tables()[:, :nbl], device=dev))
+                    self._tables_dirty = False
             return self._dstate
         self._tables_dirty = False
         n = self.n_slots
@@ -441,8 +526,9 @@ class _SlotTable:
             max_new[s] = r.max_new
             stops[s] = stop_id_row(r.params, self._stop_width)
         host = {"tok": self.last_tok, "pos": self.pos, "active": active,
-                "counts": counts, "max_new": max_new, "stop_ids": stops,
-                "tables": self._decode_tables()[:, :self._nb_live()]}
+                "counts": counts, "max_new": max_new, "stop_ids": stops}
+        if self.paged:
+            host["tables"] = self._decode_tables()[:, :self._nb_live()]
         self._dstate = {k: torch.as_tensor(np.ascontiguousarray(v),
                                            device=dev)
                         for k, v in host.items()}
@@ -474,7 +560,7 @@ class _SlotTable:
         """One scheduler step: the fused decode of every decoding slot plus,
         when the budget allows, one prefill chunk — then ONE readback."""
         dec = self.decoding
-        do_chunk = self._schedule_chunk()
+        do_chunk = self.chunked and self._schedule_chunk()
         if not dec and not do_chunk:
             return []
         if do_chunk:
@@ -535,7 +621,10 @@ class _SlotTable:
 
     def _nb_live(self) -> int:
         """Logical-block horizon of the decode dispatch: the tables are cut
-        to ``max(pos) // block + 1`` columns; no slot attends past it."""
+        to ``max(pos) // block + 1`` columns; no slot attends past it. A
+        ring addresses its whole span and is never cut."""
+        if self.ring:
+            return self.nb_slot
         mx = int(self.pos.max(initial=0))
         return min(mx // self.block_size + 1, self.nb_slot)
 
@@ -584,11 +673,13 @@ class _SlotTable:
         return []
 
     def stats(self) -> Dict[str, Any]:
-        return {"active": len(self.active), "waiting": len(self.waiting),
-                "aborted": self.n_aborted, "stopped": self.n_stopped,
-                "prefill_chunks": self.n_chunks,
-                "pool_free_blocks": self.allocator.n_free,
-                "pool_blocks": self.allocator.n_blocks}
+        out = {"active": len(self.active), "waiting": len(self.waiting),
+               "aborted": self.n_aborted, "stopped": self.n_stopped,
+               "prefill_chunks": self.n_chunks}
+        if self.paged:
+            out["pool_free_blocks"] = self.allocator.n_free
+            out["pool_blocks"] = self.allocator.n_blocks
+        return out
 
 
 def make_chunk_fns(model: Model, cache_len: int):
@@ -600,9 +691,10 @@ def make_chunk_fns(model: Model, cache_len: int):
     return prep
 
 
-def make_fused_fns(model: Model, cache_len: int):
+def make_fused_fns(model: Model, cache_len: int, *, paged: bool):
     """``(step, step_chunk, chunk_only)`` — plain functions one SlotServer
-    runs on (shared by the pods of a top-1 deployment):
+    runs on (shared by the pods of a top-1 deployment); the chunk steps
+    run on the paged pool only:
 
     * ``step(params, cache, state)`` → ``(cache, state, next_tok, done)``;
     * ``step_chunk(params, cache, state, carry, xc, start, length, cbt)``
@@ -612,11 +704,13 @@ def make_fused_fns(model: Model, cache_len: int):
       ``(first, carry, cache)`` when nothing is decoding.
     """
     def step(p, c, st):
-        return model.fused_decode_step(p, c, st, cache_len=cache_len)
+        return model.fused_decode_step(p, c, st, cache_len=cache_len,
+                                       paged=paged)
 
     def step_chunk(p, c, st, carry, xc, start, ln, cbt):
         c, st, nxt, done = model.fused_decode_step(p, c, st,
-                                                   cache_len=cache_len)
+                                                   cache_len=cache_len,
+                                                   paged=True)
         c_out, carry, c = model.prefill_chunk(p, c, carry, xc, start, ln, cbt)
         return c, st, nxt, done, pick_first(c_out), carry
 
@@ -628,32 +722,62 @@ def make_fused_fns(model: Model, cache_len: int):
 
 
 class SlotServer(_SlotTable):
-    """Continuous batching over ONE expert: paged KV pool, chunked prefill
-    and the fused decode step (greedy)."""
+    """Continuous batching over ONE expert with the fused decode step
+    (greedy). ``config.paged`` puts the KV cache in a pool of
+    ``page_block``-position blocks (``pool_blocks`` of them, 0 → full
+    capacity) instead of contiguous per-slot rows; ``config.
+    chunked_prefill`` (paged only) consumes prompts ``chunk`` positions per
+    step instead of prefilling each whole at admission."""
 
     def __init__(self, model: Model, params, *, config: EngineConfig,
                  device="cuda", fused_fns=None):
         config.validate(model)
         self.config = config
         device = resolve_device(device)
-        block = effective_page_block(model, config.page_block)
+        block = effective_page_block(
+            model, config.page_block if config.paged else 0)
         super().__init__(config.n_slots, config.cache_len, block_size=block,
-                         n_blocks=config.pool_blocks, chunk=config.chunk,
+                         n_blocks=config.pool_blocks,
+                         window=model.cfg.sliding_window,
+                         chunk=config.chunk if config.chunked_prefill else 0,
                          token_budget=config.token_budget, device=device)
         self.model, self.params = model, params
-        self.cache = model.init_paged_cache(
-            self.n_slots, self.allocator.n_blocks, block, self.cache_len,
-            device=device)
+        if self.paged:
+            self.cache = model.init_paged_cache(
+                self.n_slots, self.allocator.n_blocks, block, self.cache_len,
+                device=device)
+        else:
+            self.cache = model.init_cache(self.n_slots, self.cache_len,
+                                          device=device)
+        self.spec = model.cache_spec(block)
         self._prep = make_chunk_fns(model, self.cache_len)
         self._fstep, self._fstep_chunk, self._fchunk_only = \
-            fused_fns or make_fused_fns(model, self.cache_len)
+            fused_fns or make_fused_fns(model, self.cache_len,
+                                        paged=self.paged)
 
     def admit(self, req: Request) -> bool:
+        """Admit a request into a free slot. Chunked: reserve its blocks
+        and park the slot mid-prefill. Monolithic: prefill the whole prompt
+        (``Model.prefill``), pick its first token, and splice its cache into
+        the slot — or retire it at once when the prompt fills the context.
+        False when no slot, or (paged) not enough free blocks."""
         free = self.free_slots()
         if not free:
             return False
-        return self._admit_chunked(req, free[0], len(req.tokens),
-                                   lambda b: self._prep(self.params, b))
+        slot, width = free[0], len(req.tokens)
+        if self.chunked:
+            return self._admit_chunked(req, slot, width,
+                                       lambda b: self._prep(self.params, b))
+        if not self._admission_precheck(req, slot, width):
+            return False
+        logits, row_cache = self.model.prefill(
+            self.params, req.batch(self.device), self.cache_len)
+        first = int(pick_first(logits[0, -1:]).cpu()[0])
+        if width == self.cache_len:
+            self._retire_at_admission(req, first)
+            return True
+        self._admit_prefilled(slot, req, first, width, row_cache)
+        return True
 
     def _run_fused(self, st):
         self.cache, self._dstate, nxt, done = self._fstep(
@@ -698,7 +822,7 @@ class DecentralizedSlotServer:
                              f"{router.K} centroids")
         self.strategy = config.strategy
         self._next_rid = 0
-        fns = make_fused_fns(model, config.cache_len)
+        fns = make_fused_fns(model, config.cache_len, paged=config.paged)
         self.pods = [SlotServer(model, _tree_to(p, self.device),
                                 config=config, device=self.device,
                                 fused_fns=fns)

@@ -17,6 +17,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import decode_attention as dk  # noqa: E402
+from repro_torch.kernels import flash_attention as fk  # noqa: E402
 from repro_torch.kernels import router_scores as rk  # noqa: E402
 
 
@@ -72,6 +73,41 @@ def test_chunk_prefill_kernel_on_card(cuda, dtype, tol):
     bt = torch.tensor([4, 2, 7, 1, 8, 0], dtype=torch.int32, device=cuda)
     got = dk.chunk_prefill_attention(q, kp, vp, 19, bt)
     want = dk.chunk_prefill_attention_ref(q, kp, vp, 19, bt)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,causal,window", [(77, True, 0), (96, False, 0),
+                                             (70, True, 20)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_attention_kernel_on_card(cuda, S, causal, window, dtype, tol):
+    """Ragged S (no whole key tile at the end), GQA 4:1; out and lse."""
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.as_tensor(f32(rng, 2, S, h, 64), device=cuda).to(dtype)
+               for h in (8, 2, 2))
+    got, got_lse = fk.flash_attention_with_lse(q, k, v, causal=causal,
+                                               window=window)
+    want, want_lse = fk.flash_attention_with_lse_ref(q, k, v, causal=causal,
+                                                     window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(got_lse, want_lse, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window,pos", [(0, (0, 63, 99)), (100, (5, 100, 400))])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_contiguous_decode_kernel_on_card(cuda, window, pos, dtype, tol):
+    """S = 100 (a ragged last key tile), MQA; with a window the rows are
+    rings, wrapped and not."""
+    rng = np.random.default_rng(8)
+    q = torch.as_tensor(f32(rng, 3, 4, 64), device=cuda).to(dtype)
+    k, v = (torch.as_tensor(f32(rng, 3, 100, 1, 64), device=cuda).to(dtype)
+            for _ in range(2))
+    p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    got = dk.decode_attention(q, k, v, p, window=window)
+    want = dk.decode_attention_ref(q, k, v, p, window=window)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 

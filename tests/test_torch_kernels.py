@@ -1,6 +1,7 @@
 """The kernels' plain PyTorch versions against the reference: the
 ``repro/kernels/ref.py`` oracles and the Pallas kernels run in interpret
-mode (tiny shapes — interpret mode is slow). Float32 on both sides;
+mode (tiny shapes — interpret mode is slow), at ragged shapes the Pallas
+wrappers refuse against the oracles alone. Float32 on both sides;
 rtol = atol = 2e-5 because the two differ only in summation order (the
 oracles repeat KV heads and take one softmax, the Pallas kernels run a
 blocked online softmax).
@@ -18,10 +19,14 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ref  # noqa: E402
 from repro.kernels.decode_attention import (  # noqa: E402
     chunk_prefill_attention as pallas_chunk,
+    decode_attention as pallas_decode,
     paged_decode_attention as pallas_paged)
+from repro.kernels.flash_attention import (  # noqa: E402
+    flash_attention_with_lse as pallas_flash)
 from repro.kernels.router_scores import router_scores as pallas_router  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import decode_attention as dk  # noqa: E402
+from repro_torch.kernels import flash_attention as fk  # noqa: E402
 from repro_torch.kernels import router_scores as rk  # noqa: E402
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -105,6 +110,98 @@ def test_chunk_prefill_plain_matches_reference(C, NB, block, H, KV, dh,
                        interpret=True))
 
 
+def flash_inputs(seed, B, S, H, KV, dh):
+    rng = np.random.default_rng(seed)
+    return f32(rng, B, S, H, dh), f32(rng, B, S, KV, dh), \
+        f32(rng, B, S, KV, dh)
+
+
+def lse_oracle(q, k, causal, window):
+    """Log-sum-exp of each row's masked scaled scores, in float64 numpy
+    (the reference's ``ref.py`` oracle returns the output only)."""
+    B, S, H, dh = q.shape
+    kf = np.repeat(k, H // k.shape[2], axis=2).astype(np.float64)
+    s = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64), kf) / np.sqrt(dh)
+    if causal:
+        i, j = np.arange(S)[:, None], np.arange(S)[None, :]
+        m = j <= i
+        if window:
+            m &= (i - j) < window
+        s = np.where(m, s, -np.inf)
+    top = s.max(-1, keepdims=True)
+    lse = (top + np.log(np.exp(s - top).sum(-1, keepdims=True)))[..., 0]
+    return lse.transpose(0, 2, 1)                          # (B, S, H)
+
+
+@pytest.mark.parametrize("B,S,H,KV,dh,causal,window", [
+    (1, 64, 4, 4, 32, True, 0),       # MHA, one tile
+    (1, 128, 8, 2, 32, True, 0),      # GQA 4:1, two tiles
+    (2, 64, 4, 1, 32, False, 0),      # MQA, not causal
+    (1, 128, 4, 2, 32, True, 48),     # window straddling tiles
+])
+def test_flash_plain_matches_pallas_kernel(B, S, H, KV, dh, causal, window):
+    """Output and lse against the Pallas kernel (interpret mode, 64-row
+    blocks)."""
+    q, k, v = flash_inputs(0, B, S, H, KV, dh)
+    out, lse = fk.flash_attention_with_lse_ref(
+        *map(torch.as_tensor, (q, k, v)), causal=causal, window=window)
+    jout, jlse = pallas_flash(*map(jnp.asarray, (q, k, v)), causal=causal,
+                              window=window, block_q=64, block_k=64,
+                              interpret=True)
+    check(out, jout)
+    check(lse, jlse)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 10),
+                                           (False, 0)])
+def test_flash_plain_ragged_matches_oracle(causal, window):
+    """S = 77, which the Pallas wrapper refuses (S % 64 != 0): the output
+    against ``ref.flash_attention_ref``, the lse against a float64 one."""
+    q, k, v = flash_inputs(1, 2, 77, 8, 2, 32)
+    out, lse = fk.flash_attention_with_lse_ref(
+        *map(torch.as_tensor, (q, k, v)), causal=causal, window=window)
+    check(out, ref.flash_attention_ref(*map(jnp.asarray, (q, k, v)),
+                                       causal=causal, window=window))
+    check(lse, lse_oracle(q, k, causal, window))
+    torch.testing.assert_close(
+        fk.flash_attention_ref(*map(torch.as_tensor, (q, k, v)),
+                               causal=causal, window=window), out,
+        rtol=0, atol=0)
+
+
+def decode_inputs(seed, B, S, H, KV, dh, pos):
+    rng = np.random.default_rng(seed)
+    return f32(rng, B, H, dh), f32(rng, B, S, KV, dh), \
+        f32(rng, B, S, KV, dh), np.asarray(pos, np.int32)
+
+
+@pytest.mark.parametrize("B,S,H,KV,dh,pos,window", [
+    (3, 256, 8, 2, 64, (0, 100, 255), 0),     # GQA 4:1, fence at both ends
+    (2, 128, 4, 4, 64, (63, 64), 0),          # MHA, a block boundary
+    (2, 128, 4, 2, 64, (40, 4000), 128),      # ring: one pre-, one post-wrap
+    (2, 128, 4, 2, 64, (127, 128), 128),      # ring: the wrap boundary
+])
+def test_decode_plain_matches_pallas_kernel(B, S, H, KV, dh, pos, window):
+    """Against ``ref.decode_attention_ref`` and the Pallas kernel
+    (interpret mode, 64-key blocks); the ring cases are those of
+    ``tests/test_kernels.py``."""
+    a = decode_inputs(2, B, S, H, KV, dh, pos)
+    got = dk.decode_attention_ref(*map(torch.as_tensor, a), window=window)
+    j = [jnp.asarray(x) for x in a]
+    check(got, ref.decode_attention_ref(*j, window=window),
+          pallas_decode(*j, window=window, block_k=64, interpret=True))
+
+
+@pytest.mark.parametrize("pos,window", [((0, 299, 157), 0),
+                                        ((299, 300, 1000), 300)])
+def test_decode_plain_ragged_matches_oracle(pos, window):
+    """S = 300, which the Pallas wrapper refuses (300 % min(256, 300) !=
+    0); against ``ref.decode_attention_ref``."""
+    a = decode_inputs(3, 3, 300, 4, 1, 32, pos)
+    check(dk.decode_attention_ref(*map(torch.as_tensor, a), window=window),
+          ref.decode_attention_ref(*map(jnp.asarray, a), window=window))
+
+
 @pytest.mark.parametrize("B,K,D,tau", [(8, 2, 32, 10.0), (100, 6, 64, 1.0),
                                        (1, 2, 32, 10.0)])
 def test_router_plain_matches_reference(B, K, D, tau):
@@ -130,6 +227,15 @@ def test_ops_take_plain_version_on_cpu_without_launching():
     torch.testing.assert_close(ops.router_scores(x, x[:2], 5.0),
                                rk.router_scores_ref(x, x[:2], 5.0),
                                rtol=0, atol=0)
+    fq, fkk, fv = map(torch.as_tensor, flash_inputs(4, 1, 9, 4, 2, 16))
+    torch.testing.assert_close(
+        ops.flash_attention(fq, fkk, fv, window=3),
+        fk.flash_attention_ref(fq, fkk, fv, window=3), rtol=0, atol=0)
+    dq, dkc, dv, dpos = map(torch.as_tensor,
+                            decode_inputs(5, 2, 12, 4, 2, 16, (3, 11)))
+    torch.testing.assert_close(
+        ops.decode_attention(dq, dkc, dv, dpos),
+        dk.decode_attention_ref(dq, dkc, dv, dpos), rtol=0, atol=0)
     assert all(fn.launches == 0 for fn in ops.KERNELS.values())
 
 
@@ -144,6 +250,11 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_other_devices():
         dk.chunk_prefill_attention(q, kp, vp, 0, bt[0])
     with pytest.raises(ValueError, match="CUDA tensors"):
         rk.router_scores(q[0], q[0], 1.0)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        dk.decode_attention(q, kp[:1], vp[:1], pos)
+    fq = q[None]
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fk.flash_attention(fq, fq, fq)
     with pytest.raises(ValueError, match="no kernel"):
         ops.router_scores(torch.zeros(2, 4, device="meta"),
                           torch.zeros(2, 4, device="meta"), 1.0)

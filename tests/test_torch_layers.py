@@ -201,3 +201,65 @@ def test_paged_decode_attention_matches_reference(layer0):
     close(out[:2], jout[:2])
     _close_pool(k, jk)
     _close_pool(v, jv)
+
+
+# ---------------------------------------------------------------------------
+# full-sequence and contiguous-cache attention (layer 0, reference weights)
+# ---------------------------------------------------------------------------
+
+def _windowed(layer0, window):
+    jcfg, cfg, jl, tl = layer0
+    return jcfg.reduced(sliding_window=window), \
+        cfg.reduced(sliding_window=window), jl, tl
+
+
+def test_causal_mask_matches_reference():
+    for window in (0, 3):
+        np.testing.assert_array_equal(
+            attn.causal_mask(7, window).numpy(),
+            np.asarray(jattn.causal_mask(7, window)))
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 4)])
+def test_full_attention_matches_reference(layer0, causal, window):
+    jcfg, cfg, jl, tl = _windowed(layer0, window)
+    x = f32(np.random.default_rng(8), 2, 11, cfg.d_model)
+    close(attn.full_attention(tl, torch.as_tensor(x), cfg, causal=causal),
+          jattn.full_attention(jl, jnp.asarray(x), jcfg, causal=causal))
+
+
+@pytest.mark.parametrize("window", [0, 4])
+def test_prefill_attention_matches_reference(layer0, window):
+    """Output and the K/V right-padded to cache_len."""
+    jcfg, cfg, jl, tl = _windowed(layer0, window)
+    x = f32(np.random.default_rng(9), 1, 9, cfg.d_model)
+    out, (k, v) = attn.prefill_attention(tl, torch.as_tensor(x), cfg, 16)
+    jout, (jk, jv) = jattn.prefill_attention(jl, jnp.asarray(x), jcfg, 16)
+    close(out, jout)
+    close(k, jk)
+    close(v, jv)
+    assert k.shape[1] == 16 and not k[:, 9:].any()
+
+
+@pytest.mark.parametrize("window,pos", [(0, (9, 0, 15)), (16, (3, 16, 40))])
+def test_decode_attention_matches_reference(layer0, window, pos):
+    """Per-slot positions over contiguous rows of 16 — with a window of 16
+    the rows are rings (slot 1 writes wrapped to 0, slot 2 to 8, and both
+    attend every key); slot 1 of the unwindowed case is idle at 0. The
+    whole cache is compared: each row's write lands in its own row."""
+    jcfg, cfg, jl, tl = _windowed(layer0, window)
+    rng = np.random.default_rng(10)
+    shape = (3, 16, cfg.n_kv_heads, cfg.head_dim)
+    kc, vc = f32(rng, *shape), f32(rng, *shape)
+    x = f32(rng, 3, 1, cfg.d_model)
+    pos = np.asarray(pos, np.int32)
+    out, (k, v) = attn.decode_attention(
+        tl, torch.as_tensor(x), cfg, (torch.as_tensor(kc),
+                                      torch.as_tensor(vc)),
+        torch.as_tensor(pos))
+    jout, (jk, jv) = jattn.decode_attention(
+        jl, jnp.asarray(x), jcfg, (jnp.asarray(kc), jnp.asarray(vc)),
+        jnp.asarray(pos), use_kernel=False)
+    close(out, jout)
+    close(k, jk)
+    close(v, jv)

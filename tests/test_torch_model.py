@@ -1,6 +1,7 @@
-"""The port's dense model and fused epilogue against the JAX reference, on
-the float32 qwen3_8b smoke config with the reference's weights carried
-across by ``repro_torch.weights``.
+"""The port's dense model (chunked and monolithic prefill, paged and
+contiguous decode, the cache splices) and fused epilogue against the JAX
+reference, on the float32 qwen3_8b smoke config with the reference's
+weights carried across by ``repro_torch.weights``.
 
 Logits and pools are compared at rtol = atol = 2e-5: both sides run the
 same float32 arithmetic through two layers, and differ only in summation
@@ -38,6 +39,11 @@ def models():
 
 def close(got, want):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def close_caches(cache, jcache):
+    for leaf in ("k", "v"):
+        close(cache[leaf], jcache[leaf])
 
 
 def close_pools(cache, jcache):
@@ -94,6 +100,69 @@ def test_prefill_chunks_then_decode_match_reference(models):
         close_pools(cache, jcache)
         tok = int(argmax_tokens(logits)[0])
         assert tok == int(jnp.argmax(jlogits[0]))
+
+
+@pytest.mark.parametrize("window", [0, 8])
+def test_prefill_then_contiguous_decode_match_reference(models, window):
+    """Monolithic prefill of a 13-token prompt (logits and the row cache:
+    right-padded, or with a window of 8 the last 8 positions rolled into
+    the ring), its splice into slot 0 of a 2-slot contiguous cache, then
+    decode steps of slot 0 beside an idle slot 1 (parked at position 0,
+    which writes its own row, as in the reference; with the window the
+    ring wraps): per-step logits and the whole cache after every step."""
+    jm, jp, tm, tp = models
+    jm = jax_build(jm.cfg.reduced(sliding_window=window))
+    tm = build_model(tm.cfg.reduced(sliding_window=window))
+    cache_len = 24
+    prompt = np.random.default_rng(1).integers(0, tm.cfg.vocab, 13) \
+        .astype(np.int32)
+    logits, row = tm.prefill(tp, {"tokens": torch.as_tensor(prompt[None])
+                                  .long()}, cache_len)
+    jlogits, jrow = jm.prefill(jp, {"tokens": jnp.asarray(prompt[None])},
+                               cache_len)
+    close(logits, jlogits)
+    close_caches(row, jrow)
+    assert row["k"].shape == (tm.n_groups, 1, window or cache_len,
+                              tm.cfg.n_kv_heads, tm.cfg.head_dim)
+    cache = tm.cache_spec().insert(
+        tm.init_cache(2, cache_len, device="cpu"), row, 0)
+    jcache = jm.cache_spec().insert(jm.init_cache(2, cache_len), jrow, 0)
+    close_caches(cache, jcache)
+    tok = int(argmax_tokens(logits[:, -1])[0])
+    for pos in range(13, 19):
+        toks = np.array([tok, 0], np.int32)
+        pos_v = np.array([pos, 0], np.int32)
+        logits, cache = tm.decode_step(tp, cache, torch.as_tensor(toks),
+                                       torch.as_tensor(pos_v))
+        jlogits, jcache = jm.decode_step(jp, jcache, jnp.asarray(toks),
+                                         jnp.asarray(pos_v))
+        close(logits, jlogits)
+        close_caches(cache, jcache)
+        tok = int(argmax_tokens(logits)[0])
+        assert tok == int(jnp.argmax(jlogits[0]))
+
+
+def test_insert_paged_matches_reference(models):
+    """A 20-position row cache spliced into 3 blocks of 8 (the last one
+    part-filled, zero-padded) of a 6-block pool, and a contiguous splice
+    into slot 1."""
+    jm, _, tm, _ = models
+    rng = np.random.default_rng(2)
+    shape = (tm.n_groups, 1, 20, tm.cfg.n_kv_heads, tm.cfg.head_dim)
+    row = {k: rng.normal(size=shape).astype(np.float32) for k in "kv"}
+    trow = {k: torch.as_tensor(v) for k, v in row.items()}
+    jrow = {k: jnp.asarray(v) for k, v in row.items()}
+    blocks = np.array([4, 1, 3], np.int32)
+    pool = tm.cache_spec(8).insert_paged(
+        tm.init_paged_cache(2, 6, 8, 20, device="cpu"), trow, 0,
+        torch.as_tensor(blocks))
+    jpool = jm.cache_spec(8).insert_paged(jm.init_paged_cache(2, 6, 8, 20),
+                                          jrow, 0, jnp.asarray(blocks))
+    close_caches(pool, jpool)
+    flat = tm.cache_spec(0).insert(tm.init_cache(2, 20, device="cpu"), trow,
+                                   1)
+    jflat = jm.cache_spec().insert(jm.init_cache(2, 20), jrow, 1)
+    close_caches(flat, jflat)
 
 
 def _state(n, **kw):

@@ -2,8 +2,10 @@
 decentralized deployment over 2 expert pods with the paged pool, chunked
 prefill and the fused decode step must emit exactly the reference's greedy
 tokens, finish reasons and per-request routing on the same weights. Plus
-the router, checkpoints, the launcher twin and the options the port
-refuses.
+the router, checkpoints, the default engine, the launcher twin, the
+reference's dependency errors and the options the port refuses. (The
+monolithic paths are held against the reference in
+``test_torch_monolithic.py``.)
 """
 import dataclasses
 
@@ -104,8 +106,6 @@ def test_top1_slice_matches_reference_token_for_token(deployment):
     (dict(sanitize=True), "sanitize=True"),
     (dict(trace=True), "trace=True"),
     (dict(metrics=True), "metrics=True"),
-    (dict(paged=False), "paged=False"),
-    (dict(chunked_prefill=False), "chunked_prefill=False"),
     (dict(fused_step=False), "fused_step=False"),
 ])
 def test_validate_refuses_unported_options(override, option):
@@ -114,6 +114,25 @@ def test_validate_refuses_unported_options(override, option):
         cfg.validate()
     assert str(e.value) == \
         f"{option} is not ported to repro_torch yet (see ROADMAP.md)"
+
+
+@pytest.mark.parametrize("override,window", [
+    (dict(paged=False), 0),                      # chunked prefill, no pool
+    (dict(paged=False, chunked_prefill=False, pool_blocks=4), 0),
+    (dict(chunked_prefill=False, token_budget=8), 0),
+    (dict(), 8),                                 # chunked prefill, ring
+])
+def test_validate_dependency_errors_match_reference(override, window):
+    """Combinations the reference refuses raise the reference's own
+    message (model-dependent checks included)."""
+    cfg = get_smoke_config("qwen3_8b").reduced(sliding_window=window)
+    jcfg = jax_smoke("qwen3_8b").reduced(sliding_window=window)
+    with pytest.raises(ValueError) as want:
+        japi.EngineConfig(**dict(ECFG, **override)).validate(
+            jax_build(jcfg))
+    with pytest.raises(ValueError) as got:
+        EngineConfig(**dict(ECFG, **override)).validate(build_model(cfg))
+    assert str(got.value) == str(want.value)
 
 
 def test_validate_refuses_other_families_and_sampling():
@@ -159,19 +178,34 @@ def test_single_model_engine_matches_its_pod(deployment):
 
 
 def test_default_engine_config_is_the_ported_path(deployment):
-    """EngineConfig() validates, and make_engine without a config serves:
-    each option the port has one value for defaults to that value."""
+    """EngineConfig() has the reference's defaults, and make_engine(model,
+    params) without a config serves the reference's default path —
+    contiguous caches, monolithic prefill, the fused step — token for
+    token as the reference's make_engine(model, params) does."""
+    jm, jexperts, texperts, _, prompts, _ = deployment
+    defaults = {f.name: f.default for f in dataclasses.fields(EngineConfig)}
+    want_defaults = {f.name: f.default
+                     for f in dataclasses.fields(japi.EngineConfig)}
+    assert defaults == {k: v for k, v in want_defaults.items()
+                        if k != "use_kernel"}
     EngineConfig().validate()
     eng = make_engine(build_model(get_smoke_config("qwen3_8b")),
-                      deployment[2][0], device="cpu")
+                      texperts[0], device="cpu")
     assert eng.config == EngineConfig()
-    eng.add_request(deployment[4][1], SamplingParams(max_new=4), rid=0)
-    out = []
-    while eng.has_unfinished():
-        out += [o for o in eng.step() if o.finished]
-    assert [(o.rid, len(o.token_ids), o.finish_reason) for o in out] == \
-        [(0, 4, "length")]
-    assert eng.stats()["prefill_chunks"] == 1
+    assert not eng.paged and not eng.chunked
+    jeng = jax_make_engine(jm, jexperts[0])
+    res = []
+    for e, sp in ((eng, SamplingParams), (jeng, japi.SamplingParams)):
+        for rid in (1, 4):
+            e.add_request(prompts[rid], sp(max_new=4), rid=rid)
+        out = {}
+        while e.has_unfinished():
+            out.update({o.rid: (o.token_ids, o.finish_reason)
+                        for o in e.step() if o.finished})
+        res.append(out)
+    assert res[0] == res[1]
+    assert {r for _, r in res[0].values()} == {"length"}
+    assert eng.stats()["prefill_chunks"] == 0
 
 
 def test_profile_script_rehearses_main_path_on_cpu():
@@ -261,6 +295,8 @@ def test_checkpoints_written_by_reference_load(run_dir, deployment):
 
 
 def test_launcher_twin_serves_and_refuses(run_dir):
+    """Without --paged/--chunked-prefill the twin serves the contiguous,
+    monolithic path, and the paged + chunked run gives the same tokens."""
     base = ["--run", run_dir, "--requests", "3", "--prompt-len", "10",
             "--new-tokens", "5", "--slots", "2", "--device", "cpu"]
     report = launch_serve.main(base + ["--paged", "--page-block", "8",
@@ -268,8 +304,11 @@ def test_launcher_twin_serves_and_refuses(run_dir):
                                        "--prefill-chunk", "8"])
     assert report["finish_reasons"] == ["length"] * 3
     assert all(len(t) == 5 for t in report["tokens"].values())
-    with pytest.raises(ValueError, match="paged=False is not ported"):
-        launch_serve.main(base)
+    plain = launch_serve.main(base)
+    assert "pool_blocks" not in plain["pods"][0]
+    assert plain["tokens"] == report["tokens"]
+    with pytest.raises(ValueError, match="fused_step=False is not ported"):
+        launch_serve.main(base + ["--no-fused-step"])
 
 
 def test_bfloat16_weights_cross_bit_exactly():
