@@ -14,9 +14,11 @@ Phases, each fatal on failure:
    the stated tolerances, and timed (kernel, plain version, one library
    call) with CUDA events;
 4. parity — the smoke-size float32 Qwen3 deployment (2 pods, top-1) served
-   on the card (kernels) and on the CPU (plain versions) in three
-   configurations (paged + chunked, paged + monolithic, contiguous +
-   monolithic): greedy tokens, finish reasons and routing must be equal;
+   on the card (kernels) and on the CPU (plain versions) in four
+   configurations (paged + chunked, paged + chunked + n-gram speculation,
+   paged + monolithic, contiguous + monolithic): greedy tokens, finish
+   reasons and routing must be equal, and the speculative one must accept
+   drafts (``spec_tokens > spec_steps``) with equal counts on both;
 5. main path — full-width Qwen3-8B (36 layers, bf16, 2 experts of seeded
    random weights) served through ``make_engine`` → ``add_request``/
    ``step`` with the paged pool, chunked prefill and the fused decode
@@ -24,7 +26,13 @@ Phases, each fatal on failure:
    (each decode step and each prefill chunk) must be finite, and each of
    the path's kernels (paged decode, chunk prefill, router) must have
    launched;
-6. contiguous path — the reference's default serving configuration over
+6. speculative path — the main path's deployment with n-gram speculation
+   (``spec_len`` 4) over the same model, experts and requests; the same
+   checks (the sampled logits now include every row of each span verify),
+   with the paged verify kernel launched besides the main path's three. It
+   prints the spec counters, the accept rate and how many requests got the
+   same tokens as on the main path (information only, as below);
+7. contiguous path — the reference's default serving configuration over
    the same model, experts and requests: contiguous per-slot caches,
    monolithic prefill at admission, the fused step; the same checks (the
    sampled logits are each decode step's and each prefill's last row), with
@@ -32,11 +40,19 @@ Phases, each fatal on failure:
    prints how many requests got the same tokens, and the same first token,
    on both paths (information only: in bf16 the two paths' logits differ
    by rounding, and greedy picks with close runners-up fall either way);
-7. float32 agreement — one expert of full-width Qwen3-8B in float32: the
+8. float32 agreement — one expert of full-width Qwen3-8B in float32: the
    monolithic prefill (flash-attention kernel) and the chunked prefill
    (chunk-prefill kernel over the paged pool) of two prompts, then one
    decode step on each cache (contiguous and paged decode kernels), must
-   give the same last-row logits within ``F32_LOGIT_TOL``.
+   give the same last-row logits within ``F32_LOGIT_TOL``; and a span
+   verify of ``SPEC_LEN`` positions over the paged cache (verify kernel)
+   must give, in row j, the logits of paged decode steps at pos + j after
+   the drafts are committed, within the same tolerance and with the same
+   greedy picks. The drafts are the decode steps' own greedy chain, so the
+   fused verify step run on them must accept every draft: it must emit
+   ``SPEC_LEN`` tokens and leave pos and tok where the decode steps leave
+   them, and stop where a stop id, the token budget or the context end
+   falls inside the span.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record, the last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
@@ -80,6 +96,9 @@ KERNEL_META = {
     "decode_attention": (
         "src/repro_torch/kernels/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention.py:85"),
+    "paged_verify_attention": (
+        "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:381"),
 }
 # full-width float32 logits (std ~1) of two paths that differ only by
 # summation order: measured within 1e-4 of each other; ten times that
@@ -89,6 +108,8 @@ MAIN_KERNELS = ("paged_decode_attention", "chunk_prefill_attention",
                 "router_scores")
 CONTIGUOUS_KERNELS = ("flash_attention", "decode_attention",
                       "router_scores")
+SPEC_KERNELS = MAIN_KERNELS + ("paged_verify_attention",)
+SPEC_LEN = 4          # positions a speculative step verifies per slot
 
 
 def log(msg: str) -> None:
@@ -161,6 +182,31 @@ def _chunk_case(C, NB, block, H, KV, dh, start, dtype, gen):
     perm = torch.randperm(P - 1, generator=gen, device=dev) + 1
     bt = perm[:NB].to(torch.int32).contiguous()
     return q, kp, vp, start, bt
+
+
+def _verify_case(B, NB, block, L, H, KV, dh, pos, dtype, gen, *,
+                 inactive=(), scratch_tail=True):
+    """(B, L, H, dh) span queries, pools, pos and tables on the card; table
+    entries past a slot's span horizon (pos + L - 1) // block point at the
+    scratch block; ``inactive`` slots sit at pos 0 with zeroed tables, as
+    the scheduler leaves idle ones."""
+    import torch
+    dev = "cuda"
+    P = B * NB + 1
+    q = torch.randn((B, L, H, dh), generator=gen, device=dev).to(dtype)
+    kp = torch.randn((P, block, KV, dh), generator=gen, device=dev).to(dtype)
+    vp = torch.randn((P, block, KV, dh), generator=gen, device=dev).to(dtype)
+    perm = torch.randperm(P - 1, generator=gen, device=dev) + 1
+    bt = perm[:B * NB].reshape(B, NB).to(torch.int32)
+    pos = list(pos)
+    for b in inactive:
+        pos[b] = 0
+        bt[b] = 0
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+    if scratch_tail:
+        cols = torch.arange(NB, device=dev)[None, :]
+        bt = torch.where(cols <= (pos_t[:, None] + L - 1) // block, bt, 0)
+    return q, kp, vp, pos_t, bt.to(torch.int32).contiguous()
 
 
 def _flash_case(B, S, H, KV, dh, dtype, gen):
@@ -399,7 +445,81 @@ def phase_kernels():
                 "bytes": 2 * B * H * dh * 2 + keys * KV * dh * 2 * 2 + B * 4,
                 "flops": 4 * H * dh * keys, "dtype": "bfloat16"}
 
+    # -- paged verify at the speculative path's shapes: 8 slots of Qwen3-8B
+    #    heads, spans of SPEC_LEN at positions up to 1023 (slot 0's span
+    #    ends on the table's last position), 16-position blocks; in float32
+    #    row j is also held against the paged decode kernel at pos + j
+    B, NB, block, L, H, KV, dh = 8, 64, 16, SPEC_LEN, 32, 8, 128
+    pos = np.random.default_rng(2).integers(200, NB * block - L + 1, B)
+    pos[0] = NB * block - L
+    for dtype, name in ((bf16, "bfloat16"), (f32, "float32")):
+        q, kp, vp, pos_t, bt = _verify_case(B, NB, block, L, H, KV, dh,
+                                            pos.tolist(), dtype, gen)
+        got = dk.paged_verify_attention(q, kp, vp, pos_t, bt)
+        compare("paged_verify_attention", got,
+                dk.paged_verify_attention_ref(q, kp, vp, pos_t, bt), name,
+                cases)
+        if dtype is f32:
+            for j in range(L):
+                compare("paged_verify_attention", got[:, j],
+                        dk.paged_decode_attention(q[:, j].contiguous(), kp,
+                                                  vp, pos_t + j, bt),
+                        name, cases)
+            continue
+        S = NB * block
+        kf = _heads_first(kp[bt.long()].reshape(B, S, KV, dh), H // KV)
+        vf = _heads_first(vp[bt.long()].reshape(B, S, KV, dh), H // KV)
+        rows = pos_t[:, None].long() + torch.arange(L, device="cuda")
+        vmask = (torch.arange(S, device="cuda")[None, None, :]
+                 <= rows[:, :, None])[:, None]              # (B,1,L,S)
+        qh = q.permute(0, 2, 1, 3).contiguous()             # (B,H,L,dh)
+        keys = int((pos + L).sum())         # positions 0..pos+L-1 per slot
+        pairs = int(sum(p * L + L * (L + 1) // 2 for p in pos))
+        live = int(((pos + L - 1) // block + 1).sum())
+        rec["paged_verify_attention"] = {
+            "shape": f"B={B} L={L} H={H} KV={KV} dh={dh} block={block} "
+                     f"NB={NB} pos+L-1<= {int(pos.max()) + L - 1} bf16",
+            "ms": cuda_ms(lambda: dk.paged_verify_attention(q, kp, vp, pos_t,
+                                                            bt)),
+            "plain_ms": cuda_ms(lambda: dk.paged_verify_attention_ref(
+                q, kp, vp, pos_t, bt)),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                qh, kf, vf, attn_mask=vmask)),
+            "bytes": 2 * B * L * H * dh * 2 + keys * KV * dh * 2 * 2 + B * 4
+            + live * 4,
+            "flops": 4 * H * dh * pairs, "dtype": "bfloat16"}
+
     # -- their small float32 edge shapes
+    edge_verify = [
+        # B, NB, block, L, H, KV, dh, pos, inactive, scratch_tail
+        (2, 4, 16, 4, 4, 4, 64, [5, 40], (), True),          # MHA
+        (2, 4, 32, 4, 4, 1, 128, [100, 7], (), True),        # MQA, > 48 KB
+        (3, 8, 16, 2, 8, 2, 64, [0, 63, 100], (), True),     # L = 2
+        (2, 8, 16, 8, 8, 2, 64, [10, 120], (), True),        # two row tiles
+        (3, 4, 16, 4, 8, 2, 64, [62, 63, 61], (), False),    # past horizon
+        (4, 4, 16, 4, 8, 2, 64, [15, 16, 31, 32], (), True),  # block edges
+        (4, 4, 16, 4, 8, 2, 64, [30, 0, 45, 0], (1, 3), True),  # idle slots
+    ]
+    from repro_torch.models.attention import scatter_span
+    for B, NB, block, L, H, KV, dh, pos_e, idle, tail in edge_verify:
+        q, kp, vp, pos_t, bt = _verify_case(B, NB, block, L, H, KV, dh,
+                                            pos_e, f32, gen, inactive=idle,
+                                            scratch_tail=tail)
+        if idle:
+            # the layer's scatter of a whole span, idle slots included, on
+            # the card and on the CPU: the pools agree outside block 0
+            kn = torch.randn((B, L, KV, dh), generator=gen, device="cuda")
+            vn = torch.randn((B, L, KV, dh), generator=gen, device="cuda")
+            host = scatter_span((kp.cpu(), vp.cpu()), kn.cpu(), vn.cpu(),
+                                pos_t.cpu(), bt.cpu())
+            scatter_span((kp, vp), kn, vn, pos_t, bt)
+            for dev_pool, cpu_pool in zip((kp, vp), host):
+                compare("paged_verify_attention", dev_pool[1:].cpu(),
+                        cpu_pool[1:], "float32", cases)
+        compare("paged_verify_attention",
+                dk.paged_verify_attention(q, kp, vp, pos_t, bt),
+                dk.paged_verify_attention_ref(q, kp, vp, pos_t, bt),
+                "float32", cases)
     edge_flash = [
         # B, S, H, KV, dh, causal, window
         (1, 1, 4, 2, 64, True, 0),          # one position
@@ -476,8 +596,10 @@ def _serve(engine, prompts, feats, params):
 
 def phase_parity():
     """Smoke-size float32 deployment: card (kernels) vs CPU (plain), in the
-    paged + chunked, paged + monolithic and contiguous + monolithic
-    configurations."""
+    paged + chunked, paged + chunked + speculative, paged + monolithic and
+    contiguous + monolithic configurations. The speculative one serves
+    period-4 prompts of the same lengths (the traffic n-gram drafts
+    target), so drafts are accepted."""
     import numpy as np
     import torch
     from repro_torch.configs import get_smoke_config
@@ -494,29 +616,50 @@ def phase_parity():
         rng.normal(size=(2, 32)).astype(np.float32)))
     lens = [5, 13, 19, 8, 30, 3, 40, 17]
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
+    periodic = [np.tile(rng.integers(1, cfg.vocab, 4), n // 4 + 1)[:n]
+                .astype(np.int32) for n in lens]
     feats = rng.normal(size=(len(lens), 32)).astype(np.float32)
     sp = SamplingParams(max_new=12)
-    for kind, over in (
-            ("paged + chunked", dict(paged=True, chunked_prefill=True)),
-            ("paged + monolithic", dict(paged=True)),
-            ("contiguous + monolithic", {})):
+    chunked = dict(paged=True, chunked_prefill=True)
+    for kind, over, reqs in (
+            ("paged + chunked", chunked, prompts),
+            ("paged + chunked + speculative",
+             dict(chunked, speculative="ngram", spec_len=SPEC_LEN), periodic),
+            ("paged + monolithic", dict(paged=True), prompts),
+            ("contiguous + monolithic", {}, prompts)):
         ecfg = EngineConfig(n_slots=2, cache_len=56, page_block=8, chunk=16,
                             **over)
-        runs = {dev: _serve(make_engine(model, experts=experts,
-                                        router=router, config=ecfg,
-                                        device=dev),
-                            prompts, feats, sp)
-                for dev in ("cuda", "cpu")}
-        (gpu, groute, *_), (cpu, croute, *_) = runs["cuda"], runs["cpu"]
+        card, host = (make_engine(model, experts=experts, router=router,
+                                  config=ecfg, device=dev)
+                      for dev in ("cuda", "cpu"))
+        gpu, groute, *_ = _serve(card, reqs, feats, sp)
+        cpu, croute, *_ = _serve(host, reqs, feats, sp)
         if groute != croute or gpu != cpu:
             diff = [i for i in cpu if gpu.get(i) != cpu[i]]
             raise AssertionError(
                 f"{kind}: card and CPU disagree: routing {groute} vs "
                 f"{croute}; requests {diff}: "
                 f"{[(gpu.get(i), cpu[i]) for i in diff]}")
+        extra = ""
+        if "speculative" in over:
+            on_card, on_cpu = _spec_counts(card), _spec_counts(host)
+            steps, toks = on_card
+            if on_card != on_cpu or not toks > steps:
+                raise AssertionError(
+                    f"{kind}: (spec_steps, spec_tokens) card {on_card}, "
+                    f"CPU {on_cpu}: they must be equal, with "
+                    f"spec_tokens > spec_steps")
+            extra = f"; spec_steps {steps}, spec_tokens {toks} on both"
         log(f"parity ({kind}): {len(cpu)} requests, routing {groute}, "
             f"greedy tokens and finish reasons equal on the card and the "
-            f"CPU")
+            f"CPU{extra}")
+
+
+def _spec_counts(engine):
+    """(spec_steps, spec_tokens) summed over the pods."""
+    pods = engine.occupancy()
+    return (sum(p["spec_steps"] for p in pods),
+            sum(p["spec_tokens"] for p in pods))
 
 
 def _serve_watched(label, mp, watch, kernels):
@@ -574,6 +717,12 @@ def _serve_watched(label, mp, watch, kernels):
              "mean_ttft_s": float(np.mean([o.ttft for o in outs.values()])),
              "step_ms": wall / steps * 1e3, "launches": launches,
              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if mp.engine.config.speculative is not None:
+        steps, toks = _spec_counts(mp.engine)
+        stats.update(spec_steps=steps, spec_tokens=toks,
+                     spec_tokens_per_step=toks / steps if steps else 0.0,
+                     accept_rate=(toks - steps) / (steps * (SPEC_LEN - 1))
+                     if steps else 0.0)
     log(f"{label}: " + json.dumps(stats))
     return res, launches
 
@@ -601,6 +750,29 @@ def phase_main_path():
     return mp, res, launches
 
 
+def phase_speculative_path(mp, main_res):
+    """The main path's deployment with n-gram speculation over the same
+    model, experts and requests (``main_path.speculative``)."""
+    import torch
+    from repro_torch.launch import main_path
+
+    sp = main_path.speculative(mp, spec_len=SPEC_LEN)
+    torch.cuda.empty_cache()
+    # each span verify's rows, the decode forward of the steps that carry a
+    # chunk or fall back, the last row of each prefill chunk
+    res, launches = _serve_watched(
+        "speculative path", sp, (("verify_step_paged", lambda x: x),
+                                 ("decode_step_paged", lambda x: x),
+                                 ("prefill_chunk", lambda x: x)),
+        SPEC_KERNELS)
+    same = sum(res[i][0] == main_res[i][0] for i in main_res)
+    log(f"speculative path: {same} of {len(main_res)} requests got the same "
+        f"tokens as on the main path (information only: in bf16 a span's "
+        f"{SPEC_LEN}-row products round otherwise than one-row decode)")
+    sp.engine = None                 # its paged pool is not needed again
+    return launches
+
+
 def phase_contiguous_path(mp, main_res):
     """The same model, experts and requests on contiguous caches with
     monolithic prefill and the fused step (``main_path.contiguous``)."""
@@ -626,7 +798,8 @@ def phase_contiguous_path(mp, main_res):
 def phase_float32_agreement():
     """Full-width Qwen3-8B, one expert in float32: monolithic prefill then
     a contiguous decode step, against chunked prefill then a paged decode
-    step, on two prompts."""
+    step, on two prompts; then a span verify against paged decode steps,
+    and the fused verify step with oracle drafts."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -642,7 +815,10 @@ def phase_float32_agreement():
     nb = -(-cache_len // block)
     table = torch.arange(1, nb + 1, dtype=torch.int32, device="cuda")
     rng = np.random.default_rng(3)
-    worst, agree, widths = 0.0, 0, (700, hi)
+    # the span at 702 crosses a block edge (704), the one at 1024 starts on
+    # one
+    worst, agree, widths = 0.0, 0, (702, hi)
+    v_worst, v_agree, fused_bad = 0.0, 0, []
     for width in widths:
         toks = rng.integers(0, cfg.vocab, width)
         batch = {"tokens": torch.as_tensor(toks[None], device="cuda")}
@@ -668,13 +844,102 @@ def phase_float32_agreement():
             + int(dec[0].argmax() == dec_paged[0].argmax())
         worst = max(worst, (mono - chunked[0]).abs().max().item(),
                     (dec - dec_paged).abs().max().item())
+        # the greedy chain from `tok`: paged decode steps that each commit
+        # the previous step's pick, from a copy of the pool as the chunked
+        # prefill left it (the decode step above wrote position `width`
+        # with the same token); its picks are the oracle drafts
+        span, rows = [tok], []
+        step_pool = {k: v.clone() for k, v in pool.items()}
+        for j in range(SPEC_LEN):
+            row, step_pool = model.decode_step_paged(
+                params, step_pool, span[j], pos + j, table[None])
+            rows.append(row[0])
+            span.append(row[0].argmax()[None].to(torch.int32))
+        picks = torch.cat(span[1:])
+        ver, _ = model.verify_step_paged(
+            params, {k: v.clone() for k, v in pool.items()},
+            torch.cat(span[:-1])[None], pos, table[None])
+        for j in range(SPEC_LEN):
+            v_worst = max(v_worst, (ver[0, j] - rows[j]).abs().max().item())
+            v_agree += int(ver[0, j].argmax() == picks[j])
+        fused_bad += _check_fused_verify(model, params, pool, table, tok,
+                                         pos, picks, cache_len)
     log(f"float32 agreement: full-width {cfg.arch_id}, prompts of {widths} "
         f"tokens: monolithic + contiguous vs chunked + paged last-row logits "
         f"max abs diff {worst:.3e} (tolerance {F32_LOGIT_TOL}), greedy "
         f"picks equal {agree} of 4")
+    n_rows = SPEC_LEN * len(widths)
+    log(f"float32 agreement: span verify of {SPEC_LEN} positions vs paged "
+        f"decode at pos + j after the drafts are committed: logits max abs "
+        f"diff {v_worst:.3e} (tolerance {F32_LOGIT_TOL}), greedy picks "
+        f"equal {v_agree} of {n_rows}")
+    n_fused = len(FUSED_VERIFY_CASES) * len(widths)
+    log(f"float32 agreement: fused verify step with the greedy chain as "
+        f"drafts: {n_fused - len(fused_bad)} of {n_fused} cases (full accept, "
+        f"stop, length and context halts mid-span) gave the decode steps' "
+        f"tokens, emit count, done code, pos and tok")
     if not worst <= F32_LOGIT_TOL:
         raise AssertionError(f"float32 paths disagree: {worst:.3e} > "
                              f"{F32_LOGIT_TOL}")
+    if not v_worst <= F32_LOGIT_TOL or v_agree != n_rows:
+        raise AssertionError(
+            f"float32 span verify disagrees with decode: {v_worst:.3e} "
+            f"(tolerance {F32_LOGIT_TOL}), picks equal {v_agree} of "
+            f"{n_rows}")
+    if fused_bad:
+        raise AssertionError(f"fused verify step: {fused_bad}")
+
+
+# (case, stop id: the pick at this offset or none, max_new, context left
+# after the span's first position or none)
+FUSED_VERIFY_CASES = (("full accept", None, None, None),
+                      ("stop", 1, None, None),
+                      ("length", None, 3, None),
+                      ("truncated", None, None, 2))
+
+
+def _check_fused_verify(model, params, pool, table, tok, pos, picks,
+                        cache_len):
+    """``Model.fused_verify_step`` at one slot with the greedy chain
+    ``picks`` (SPEC_LEN,) as drafts, so every draft is accepted: with no
+    halt it must emit all SPEC_LEN picks and leave pos and tok where
+    SPEC_LEN decode steps leave them; with a stop id, a token budget or a
+    context end inside the span it must stop there and retire the slot.
+    Returns the cases that disagree."""
+    import torch
+
+    dev, i32 = pos.device, torch.int32
+    width, p = int(pos[0]), picks.tolist()
+    bad = []
+    for label, stop_at, max_new, room in FUSED_VERIFY_CASES:
+        stop = -1 if stop_at is None else p[stop_at]
+        clen = cache_len if room is None else width + room
+        # the first halting offset, as the decode steps would meet it
+        halts = [j for j in range(SPEC_LEN)
+                 if p[j] == stop or (max_new is not None and j + 1 >= max_new)
+                 or width + 1 + j >= clen]
+        m = halts[0] + 1 if halts else SPEC_LEN
+        code = 0 if not halts else 1 if p[halts[0]] == stop else \
+            2 if max_new is not None and halts[0] + 1 >= max_new else 3
+        state = {"tok": tok, "pos": pos,
+                 "active": torch.ones(1, dtype=torch.bool, device=dev),
+                 "counts": torch.zeros(1, dtype=i32, device=dev),
+                 "max_new": torch.tensor([max_new or 2**31 - 1], dtype=i32,
+                                         device=dev),
+                 "stop_ids": torch.tensor([[stop]], dtype=i32, device=dev),
+                 "tables": table[None]}
+        _, new, toks, n_emit, done = model.fused_verify_step(
+            params, {k: v.clone() for k, v in pool.items()}, state,
+            picks[None, :SPEC_LEN - 1], cache_len=clen)
+        got = (toks[0, :int(n_emit[0])].tolist(), int(n_emit[0]),
+               int(done[0]), int(new["pos"][0]), int(new["tok"][0]),
+               bool(new["active"][0]))
+        want = (p[:m], m, code, 0 if code else width + m,
+                0 if code else p[m - 1], not code)
+        if got != want:
+            bad.append(f"{label} at {width}: (toks, n_emit, done, pos, tok, "
+                       f"active) {got}, want {want}")
+    return bad
 
 
 def main() -> int:
@@ -712,13 +977,17 @@ def main() -> int:
     rec = phase_kernels()
     phase_parity()
     mp, main_res, main_launches = phase_main_path()
+    spec_launches = phase_speculative_path(mp, main_res)
     contiguous_launches = phase_contiguous_path(mp, main_res)
     del mp                           # the bf16 experts
     torch.cuda.empty_cache()
     phase_float32_agreement()
-    # each kernel's launches on the full-width path that runs it
+    # each kernel's launches on the full-width path that runs it (the
+    # verify kernel runs on the speculative path only)
     launches = dict(contiguous_launches,
-                    **{n: main_launches[n] for n in MAIN_KERNELS})
+                    **{n: main_launches[n] for n in MAIN_KERNELS},
+                    paged_verify_attention=spec_launches[
+                        "paged_verify_attention"])
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():

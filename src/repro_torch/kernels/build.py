@@ -98,6 +98,9 @@ def load(name: str) -> ctypes.CDLL:
         lib.decode_attention.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I,
                                          F, P]
         lib.decode_attention.restype = I
+        lib.paged_verify_attention.argtypes = [P, P, P, P, P, P, I, I, I, I,
+                                               I, I, I, I, F, P]
+        lib.paged_verify_attention.restype = I
     elif name == "flash_attention":
         lib.flash_attention.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I,
                                         I, F, P]

@@ -9,6 +9,10 @@
 * ``chunk_prefill_attention`` — port of ``decode_attention.py:240``: a
   prompt chunk's queries attend over the request's paged prefix plus the
   chunk itself (its K/V already scattered into the pool).
+* ``paged_verify_attention`` — port of ``decode_attention.py:381``: a
+  speculative span of L candidate tokens per slot attends over the slot's
+  paged span (the span's K/V already scattered in), row ℓ fenced to keys
+  ≤ pos + ℓ.
 
 The CUDA wrappers take CUDA tensors only and count their launches in
 ``<wrapper>.launches``; the ``*_ref`` plain versions (named after
@@ -158,6 +162,44 @@ def chunk_prefill_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
 chunk_prefill_attention.launches = 0
 
 
+def paged_verify_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
+                           pos: Tensor, block_tables: Tensor) -> Tensor:
+    """CUDA kernel. q: (B,L,H,dh) span queries (row ℓ of slot b at absolute
+    position pos[b] + ℓ, its K/V already in the pool); k_pool,v_pool:
+    (P,block,KV,dh); pos: (B,) int32, read on the device; block_tables:
+    (B,NB) int32 → (B,L,H,dh) in q.dtype.
+
+    Row ℓ sees keys at logical index ≤ pos + ℓ among the table's NB·block
+    positions (a span past the table horizon sees all of them, as the
+    plain version does). Windowless caches only."""
+    code = check_operands(q, k_pool, v_pool,
+                           (("pos", pos), ("block_tables", block_tables)),
+                           "paged_verify_attention")
+    B, L, H, dh = q.shape
+    _, block, KV, _ = k_pool.shape
+    NB = block_tables.shape[1]
+    if H % KV or k_pool.shape[3] != dh or pos.shape != (B,) \
+            or block_tables.shape[0] != B:
+        raise ValueError(
+            f"paged_verify_attention: shapes q {tuple(q.shape)}, pool "
+            f"{tuple(k_pool.shape)}, pos {tuple(pos.shape)}, tables "
+            f"{tuple(block_tables.shape)} do not agree")
+    out = torch.empty_like(q)
+    lib = build.load("decode_attention")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.paged_verify_attention(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            pos.data_ptr(), block_tables.data_ptr(), out.data_ptr(), code,
+            B, L, H, KV, dh, block, NB, 1.0 / math.sqrt(dh), stream)
+    build.check(lib, err, "paged_verify_attention")
+    paged_verify_attention.launches += 1
+    return out
+
+
+paged_verify_attention.launches = 0
+
+
 def paged_decode_attention_ref(q: Tensor, k_pool: Tensor, v_pool: Tensor,
                                pos: Tensor, block_tables: Tensor, *,
                                window: int = 0) -> Tensor:
@@ -206,3 +248,21 @@ def chunk_prefill_attention_ref(q: Tensor, k_pool: Tensor, v_pool: Tensor,
     pos_c = int(start) + torch.arange(C, device=q.device)
     mask = torch.arange(S_log, device=q.device)[None, :] <= pos_c[:, None]
     return gqa_sdpa(q[None], kf, vf, mask[None])[0]
+
+
+def paged_verify_attention_ref(q: Tensor, k_pool: Tensor, v_pool: Tensor,
+                               pos: Tensor, block_tables: Tensor) -> Tensor:
+    """Plain version (the reference's jnp branch, ``models/attention.py
+    :270-275``): gather each slot's logical span, then grouped softmax
+    attention under a (B, L, S) mask, row ℓ fenced to keys ≤ pos + ℓ."""
+    from repro_torch.models.attention import gqa_sdpa
+    B, L = q.shape[:2]
+    NB, block = block_tables.shape[1], k_pool.shape[1]
+    S_log = NB * block
+    idx = block_tables.long()
+    kf = k_pool[idx].reshape(B, S_log, *k_pool.shape[2:])
+    vf = v_pool[idx].reshape(B, S_log, *v_pool.shape[2:])
+    rows = pos.long()[:, None] + torch.arange(L, device=q.device)[None, :]
+    valid = torch.arange(S_log, device=q.device)[None, None, :] \
+        <= rows[:, :, None]
+    return gqa_sdpa(q, kf, vf, valid)

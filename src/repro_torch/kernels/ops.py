@@ -51,6 +51,15 @@ def paged_decode_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
                                               block_tables, window=window)
 
 
+def paged_verify_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
+                           pos: Tensor, block_tables: Tensor) -> Tensor:
+    if _on_card(q):
+        return _decode.paged_verify_attention(q, k_pool, v_pool, pos,
+                                              block_tables)
+    return _decode.paged_verify_attention_ref(q, k_pool, v_pool, pos,
+                                              block_tables)
+
+
 def chunk_prefill_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
                             start: int, block_table: Tensor) -> Tensor:
     if _on_card(q):
@@ -81,4 +90,5 @@ KERNELS = {
     "router_scores": _router.router_scores,
     "flash_attention": _flash.flash_attention_with_lse,
     "decode_attention": _decode.decode_attention,
+    "paged_verify_attention": _decode.paged_verify_attention,
 }

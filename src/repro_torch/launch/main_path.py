@@ -9,6 +9,8 @@ size (2 layers, 8–32 prompt tokens, 8-position blocks and chunks).
 ``contiguous(mp)`` builds the second deployment over the same model,
 experts, router and requests: the reference's default serving path,
 contiguous per-slot caches with monolithic prefill at admission.
+``speculative(mp)`` builds the third: the main path's paged + chunked
+config with n-gram speculative decoding (``spec_len`` 4).
 """
 from __future__ import annotations
 
@@ -100,4 +102,17 @@ def contiguous(mp: MainPath) -> MainPath:
         device=mp.engine.device,
         config=EngineConfig(n_slots=N_SLOTS,
                             cache_len=mp.engine.config.cache_len))
+    return replace(mp, engine=engine)
+
+
+def speculative(mp: MainPath, spec_len: int = 4) -> MainPath:
+    """The main path's deployment (paged pool, chunked prefill, the fused
+    step) with ``speculative="ngram"``: decode-only steps verify
+    ``spec_len`` positions per slot. Over ``mp``'s model, expert params,
+    router and requests: nothing is initialized again."""
+    engine = make_engine(
+        mp.model, experts=mp.experts, router=mp.router,
+        device=mp.engine.device,
+        config=replace(mp.engine.config, speculative="ngram",
+                       spec_len=spec_len))
     return replace(mp, engine=engine)

@@ -2,25 +2,28 @@
 over the deployment of ``launch/main_path.py`` (the one ``chip_smoke.py``
 serves: full-width Qwen3-8B, 2 experts, 16 requests).
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_serve
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--speculative]
 
 Serves every request to completion and times each engine step on the
 host. Each step is of one kind: ``chunk`` (some pod consumed a prefill
-chunk and none decoded: the first steps of the run), ``mixed`` (a prefill
-chunk and a decode forward ran: the rest of the prefill phase) or
-``decode`` (decode forwards only). Two windows of ``WINDOW`` steps run
-under the profiler: the first mixed steps and the first decode steps
-after the last prompt was consumed. For each window it prints the device
-time by kernel group (the port's CUDA kernels, matrix products,
-everything else), the top kernels, and the device busy share: kernel time
-over wall time, one stream, so kernels never overlap. The profiler slows
-the host, so the wall time of a window is taken as its steps times the
-unprofiled median of the ``WINDOW`` steps of the same kind that follow
-it. ``run_busy_share_est`` weighs each window's device time per step by
-the run's count of steps of its kind, over the wall time of those steps
-(the few chunk steps are left out). ``--smoke --device cpu`` runs the
-same path at smoke size on the CPU to check the script; it reports no
-device numbers there.
+chunk and none decoded: the first steps of the run), ``mixed`` (a
+prefill chunk and a decode forward ran: the rest of the prefill phase),
+``spec_verify`` (no chunk, and some pod verified a speculative span) or
+``decode`` (vanilla decode forwards only). ``--speculative`` profiles
+the main path's deployment with n-gram speculation (``main_path.
+speculative``). Two windows of ``WINDOW`` steps run under the profiler:
+the first mixed steps and the first steps after the last prompt was
+consumed (``decode``, or ``spec_verify`` with ``--speculative``). For
+each window it prints the device time by kernel group (the port's CUDA
+kernels, matrix products, everything else), the top kernels, and the
+device busy share: kernel time over wall time, one stream, so kernels
+never overlap. The profiler slows the host, so the wall time of a window
+is taken as its steps times the unprofiled median of the ``WINDOW``
+steps of the same kind that follow it. ``run_busy_share_est`` weighs
+each window's device time per step by the run's count of steps of its
+kind, over the wall time of those steps (the few chunk steps are left
+out). ``--smoke --device cpu`` runs the same path at smoke size on the
+CPU to check the script; it reports no device numbers there.
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ KERNEL_GROUPS = {
     "paged_decode_attention": ("pagedrows",),
     "decode_attention": ("contiguousrows",),
     "chunk_prefill_attention": ("chunk_prefill_kernel",),
+    "paged_verify_attention": ("paged_verify_kernel",),
     "flash_attention": ("flash_kernel",),
     "router_scores": ("router_kernel",),
     "matmul": ("gemm", "xmma", "cutlass", "cublas", "nvjet"),
@@ -87,8 +91,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--smoke", action="store_true",
                     help="smoke-size config (script check on the CPU)")
+    ap.add_argument("--speculative", action="store_true",
+                    help="the main path with n-gram speculation")
     args = ap.parse_args(argv)
     mp = main_path.build(args.device, smoke=args.smoke)
+    if args.speculative:
+        mp = main_path.speculative(mp)
     engine = mp.engine
     on_card = engine.device.type == "cuda"
     mp.warm()
@@ -99,13 +107,16 @@ def main(argv=None) -> dict:
         # step (admission adds none; a finished prefill decodes next step)
         decoded = any(pod.decoding for pod in engine.pods)
         n0 = sum(pod.n_chunks for pod in engine.pods)
+        v0 = sum(pod.n_spec_steps for pod in engine.pods)
         t0 = time.perf_counter()
         engine.step()
         if on_card:
             torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         chunked = sum(pod.n_chunks for pod in engine.pods) > n0
-        kind = ("mixed" if decoded else "chunk") if chunked else "decode"
+        verified = sum(pod.n_spec_steps for pod in engine.pods) > v0
+        kind = ("mixed" if decoded else "chunk") if chunked \
+            else "spec_verify" if verified else "decode"
         steps.append((kind, ms, window))
 
     def prefill_left():
@@ -131,11 +142,11 @@ def main(argv=None) -> dict:
     while engine.has_unfinished() and prefill_left():
         timed_step(None)
     if engine.has_unfinished():
-        profiled("decode")
+        profiled("spec_verify" if args.speculative else "decode")
     while engine.has_unfinished():
         timed_step(None)
 
-    kinds = ("chunk", "mixed", "decode")
+    kinds = ("chunk", "mixed", "decode", "spec_verify")
     plain = {k: [ms for kind, ms, w in steps if kind == k and w is None]
              for k in kinds}
     report = {

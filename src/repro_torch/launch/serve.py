@@ -6,18 +6,20 @@ run, and serves synthetic multimodal requests through the top-1
 ``DecentralizedSlotServer``: the Eq. 28 router picks each request's pod at
 submission; each pod serves contiguous per-slot KV caches with monolithic
 prefill at admission (``--paged`` / ``--chunked-prefill`` switch to the
-paged pool and to chunked prefill) and decodes with the fused step. Runs
-on the card unless ``--device cpu``.
+paged pool and to chunked prefill; ``--speculative ngram`` adds n-gram
+speculative decoding on the paged pool) and decodes with the fused step.
+Runs on the card unless ``--device cpu``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --run /tmp/run \\
         --arch qwen3_8b --requests 16 --new-tokens 24 --slots 8 \\
-        [--paged --page-block 16 [--chunked-prefill --prefill-chunk 16]]
+        [--paged --page-block 16 [--chunked-prefill --prefill-chunk 16]
+         [--speculative ngram --spec-len 4]]
 
 The flags are the reference launcher's for this slice. Every serving flag
-lands in ONE ``EngineConfig``; what the port has not reached yet (mixture,
-speculation, prefix cache, preemption, sanitizer, tracing, metrics,
-sampling, the unfused step) is refused by ``EngineConfig.validate`` with
-one ValueError before any work starts.
+lands in ONE ``EngineConfig``; what the port has not reached yet (mixture
+and expert-0 drafting, prefix cache, preemption, sanitizer, tracing,
+metrics, sampling, the unfused step) is refused by
+``EngineConfig.validate`` with one ValueError before any work starts.
 """
 from __future__ import annotations
 
@@ -146,6 +148,14 @@ def main(argv=None) -> dict:
             routed, minlength=len(experts)).tolist(),
         "finish_reasons": [reasons[i] for i in range(args.requests)],
     }
+    if args.speculative is not None:
+        pods = report["pods"]
+        steps = sum(p["spec_steps"] for p in pods)
+        toks = sum(p["spec_tokens"] for p in pods)
+        report["spec"] = {"spec_len": args.spec_len, "spec_steps": steps,
+                          "spec_tokens": toks,
+                          "spec_tokens_per_step": toks / steps if steps
+                          else 0.0}
     print(json.dumps(report, indent=1))
     for i in range(min(4, args.requests)):
         print(f"req {i} → expert {routed[i]}: "

@@ -175,6 +175,58 @@ def paged_decode_attention(params, x: Tensor, cfg,
     return _project_out(params, out[:, None], x.dtype), (k_pool, v_pool)
 
 
+def paged_verify_attention(params, x: Tensor, cfg,
+                           pool: Tuple[Tensor, Tensor], pos: Tensor,
+                           block_tables: Tensor, *, rope: bool = True):
+    """Speculative multi-token verify against the paged cache. x: (B,L,D),
+    row ℓ of slot b the candidate token at absolute position pos[b] + ℓ
+    (row 0 the committed next token, rows 1..L-1 drafts); pool K/V:
+    (P,block,KV,dh); pos: (B,) int32; block_tables: (B,NB) int32. Returns
+    (out (B,L,D), pool).
+
+    All B·L candidate K/V are written into the pool first (in place), then
+    every row attends under the one fence key position ≤ pos + ℓ, which
+    covers the committed prefix and the span's own causality. Rejected-tail
+    writes sit past the post-accept position, hidden by the same fence,
+    and the next span or vanilla step overwrites them before anything
+    attends there. Positions past the table horizon NB·block write scratch
+    block 0 (as do inactive slots: pos 0, zeroed tables). Windowless
+    caches only (``Model.speculative_capable``)."""
+    L = x.shape[1]
+    positions = pos[:, None] + torch.arange(L, device=x.device,
+                                            dtype=pos.dtype)[None, :]
+    q, k_new, v_new = _qkv(params, x, cfg, positions, rope=rope)
+    k_pool, v_pool = scatter_span(pool, k_new, v_new, pos, block_tables)
+    out = kops.paged_verify_attention(q.contiguous(), k_pool, v_pool, pos,
+                                      block_tables)
+    return _project_out(params, out, x.dtype), (k_pool, v_pool)
+
+
+def scatter_span(pool: Tuple[Tensor, Tensor], k_new: Tensor, v_new: Tensor,
+                 pos: Tensor, block_tables: Tensor):
+    """Write a span's K/V (B,L,KV,dh), row ℓ of slot b at position
+    pos[b] + ℓ, into the pool in place through the (B,NB) tables;
+    positions past NB·block go to scratch block 0 (offset 0). Live slots
+    own distinct blocks, so only block 0 takes more than one write.
+    Returns the pool."""
+    B, L = k_new.shape[:2]
+    k_pool, v_pool = pool
+    bs = k_pool.shape[1]
+    NB = block_tables.shape[1]
+    flat = (pos[:, None] + torch.arange(L, device=pos.device,
+                                        dtype=pos.dtype)).reshape(-1)
+    rows = torch.arange(B, device=pos.device).repeat_interleave(L)
+    safe = flat < NB * bs
+    col = (flat // bs).clamp(0, NB - 1).long()
+    blk = torch.where(safe, block_tables[rows, col], 0).long()
+    off = torch.where(safe, flat % bs, 0).long()
+    k_pool.index_put_((blk, off), k_new.reshape(B * L, *k_new.shape[2:])
+                      .to(k_pool.dtype))
+    v_pool.index_put_((blk, off), v_new.reshape(B * L, *v_new.shape[2:])
+                      .to(v_pool.dtype))
+    return k_pool, v_pool
+
+
 def chunk_attention(params, x: Tensor, cfg, pool: Tuple[Tensor, Tensor],
                     start: int, length: int, block_table: Tensor):
     """Chunked-prefill self-attention through the paged pool. x: (1,C,D)

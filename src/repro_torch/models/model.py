@@ -13,9 +13,11 @@ params and caches it is given.
 Ported: ``cache_spec`` (with ``CacheSpec.insert``/``insert_paged``),
 ``init_cache``, ``init_paged_cache``, the monolithic ``prefill``,
 ``embed_prompt``, ``init_chunk_carry``, ``prefill_chunk``, ``decode_step``,
-``decode_step_paged`` and ``fused_decode_step`` over either cache. The
-other families, ``forward`` (training) and the speculative paths are not
-ported yet (see ROADMAP.md).
+``decode_step_paged`` and ``fused_decode_step`` over either cache, and
+the speculative span verify over the paged cache
+(``speculative_capable``, ``verify_step_paged``, ``fused_verify_step``).
+The other families and ``forward`` (training) are not ported yet (see
+ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -133,6 +135,16 @@ class Model:
         """Random parameters on ``gen.device`` (shape and scale parity with
         the reference's init; not its values)."""
         return init_params(gen, self.param_specs(), dtype or self.cfg.pdtype)
+
+    @property
+    def speculative_capable(self) -> bool:
+        """True when a multi-token verify span can be rolled back by
+        position: rejected-tail K/V writes sit at positions the causal
+        fence hides, and the next span overwrites them. A sliding-window
+        (ring) cache would overwrite live slots when the span wraps, so
+        windowed configs degrade to the vanilla one-token step (the
+        scheduler consults this flag)."""
+        return self.cfg.sliding_window <= 0
 
     # ------------------------------------------------------------------
     # Decode cache
@@ -282,6 +294,50 @@ class Model:
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = unembed(params["embed"], x, cfg.tie_embeddings, cfg.vocab)
         return logits[:, 0], cache
+
+    def verify_step_paged(self, params, cache, tokens: Tensor, pos: Tensor,
+                          block_tables: Tensor):
+        """Speculative span verify against the paged cache: score L
+        candidate positions per slot in one forward. tokens: (B, L) int32,
+        column 0 each slot's committed next token, columns 1..L-1 its
+        drafts; pos: (B,) int32, where column 0 writes; block_tables:
+        (B, NB) int32. Returns (logits (B, L, V), cache): logits row j is
+        what ``decode_step_paged`` at position pos + j would give had
+        drafts 0..j-1 been committed."""
+        cfg = self.cfg
+        if not self.speculative_capable:
+            raise ValueError(
+                f"family '{cfg.family}' (window={cfg.sliding_window}) "
+                "cannot verify speculative spans — check "
+                "speculative_capable before dispatching")
+        x = embed(params["embed"], tokens, cfg.cdtype)            # (B,L,D)
+        blocks = params["blocks"]
+        for i in range(self.n_groups):
+            layer = layer_slice(blocks, i)
+            a, _ = attn.paged_verify_attention(
+                layer["attn"], rms_norm(x, layer["ln1"], cfg.norm_eps), cfg,
+                (cache["k"][i], cache["v"][i]), pos, block_tables)
+            h = x + a
+            x = h + swiglu(layer["ffn"], rms_norm(h, layer["ln2"],
+                                                  cfg.norm_eps))
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = unembed(params["embed"], x, cfg.tie_embeddings, cfg.vocab)
+        return logits, cache
+
+    def fused_verify_step(self, params, cache, state, drafts: Tensor, *,
+                          cache_len: int):
+        """One whole speculative step: the span verify forward over
+        ``[committed token, drafts]`` followed by the greedy accept/reject
+        epilogue (per-offset stop, budget and context checks, the
+        variable-length position advance). drafts: (B, L-1) int32.
+        Returns (cache, new_state, toks, n_emit, done)."""
+        from repro_torch.serve.fused import verify_epilogue
+        tokens = torch.cat([state["tok"][:, None], drafts], dim=1)
+        scores, cache = self.verify_step_paged(
+            params, cache, tokens, state["pos"], state["tables"])
+        state, toks, n_emit, done = verify_epilogue(
+            scores, drafts, state, cache_len=cache_len)
+        return cache, state, toks, n_emit, done
 
     def fused_decode_step(self, params, cache, state, *, cache_len: int,
                           paged: bool = False):

@@ -145,19 +145,40 @@ class EngineConfig:
             raise ValueError(
                 f"strategy must be 'top1' or 'mixture', got "
                 f"{self.strategy!r}")
+        if self.speculative is not None:
+            if self.speculative not in ("ngram", "expert"):
+                raise ValueError(
+                    f"speculative must be 'ngram' or 'expert', got "
+                    f"{self.speculative!r}")
+            if not self.paged:
+                raise ValueError(
+                    "speculative decoding verifies a multi-token span "
+                    "through the paged block pool — enable paging "
+                    "(page_block > 0)")
+            if not self.fused_step:
+                raise ValueError(
+                    "speculative decoding runs draft + verify + accept "
+                    "inside the fused dispatch — it needs fused_step=True")
+            if self.speculative == "expert" and self.strategy != "mixture":
+                raise ValueError(
+                    "speculative='expert' drafts with the stacked "
+                    "mixture's expert 0 — it needs strategy='mixture' "
+                    "(single-model and top-1 engines have no expert "
+                    "stack to draft from; use speculative='ngram')")
+        if self.spec_len < 1:
+            raise ValueError(
+                f"spec_len must be >= 1 (1 = vanilla decode, L > 1 "
+                f"verifies L - 1 drafts per step), got {self.spec_len}")
+        if self.trace_ring < 1:
+            raise ValueError(
+                f"trace_ring must be >= 1 (the span recorder is a bounded "
+                f"ring buffer), got {self.trace_ring}")
         if self.preemption not in ("off", "recompute", "swap"):
             raise ValueError(
                 f"preemption must be 'off', 'recompute' or 'swap', got "
                 f"{self.preemption!r}")
-        if self.spec_len < 1:
-            raise ValueError(f"spec_len must be >= 1, got {self.spec_len}")
-        if self.trace_ring < 1:
-            raise ValueError(f"trace_ring must be >= 1, got "
-                             f"{self.trace_ring}")
         refused = [
             (self.strategy == "mixture", "strategy='mixture'"),
-            (self.speculative is not None,
-             f"speculative={self.speculative!r}"),
             (self.qos is not None, "qos"),
             (self.preemption != "off", f"preemption={self.preemption!r}"),
             (self.prefix_cache, "prefix_cache=True"),

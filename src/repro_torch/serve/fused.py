@@ -3,6 +3,8 @@ branch): pick the next token, check stop ids, the token budget and the
 context bound, and advance the per-slot position — as tensor ops on the
 device of the scores, so one decode token needs one forward plus this
 epilogue and ONE host readback of ``(next_tok, done)``.
+``verify_epilogue`` is its speculative sibling: the accept rule over a
+verified span, read back as ``(toks, n_emit, done)`` in one transfer.
 
 Semantics are exactly the reference's:
 
@@ -63,3 +65,66 @@ def decode_epilogue(scores: Tensor, state, *, cache_len: int):
                      counts=counts,
                      active=active & ~fin)
     return new_state, nxt, done
+
+
+def verify_epilogue(scores: Tensor, drafts: Tensor, state, *,
+                    cache_len: int):
+    """The speculative span's accept/reject and bookkeeping as tensor ops.
+
+    scores: (n_slots, L, V), row j the next-token scores at position
+    ``pos + j`` (after the committed token and ``drafts[:, :j]``); drafts:
+    (n_slots, L-1) int32; state: as for ``decode_epilogue``.
+
+    The token the vanilla trajectory would emit at offset j is
+    ``argmax_tokens(scores[:, j])``; a draft is accepted while it equals
+    it (a cumulative product of matches), so offset j's scores count only
+    when drafts 1..j all matched and every emitted token saw the vanilla
+    prefix. Each offset replays ``decode_epilogue``'s finish checks (count
+    ``c0+j+1`` against the budget, position ``p0+j+1`` against the
+    context, stop-id membership; precedence stop > length > truncated) and
+    the span stops at the first halting offset: ``m = min(n_acc + 1,
+    first_halt + 1)`` tokens are emitted, so a stop accepted mid-span
+    retires the request once and the dead tail never reaches the host.
+
+    Returns ``(new_state, toks, n_emit, done)``: ``toks`` (n_slots, L) the
+    candidate tokens left-aligned (rows of inactive slots zeroed),
+    ``n_emit`` (n_slots,) how many are real (≥ 1 for an active slot, ≤ L),
+    ``done`` the ``DONE_REASONS`` bitmap; all int32."""
+    B, L, _ = scores.shape
+    active = state["active"]
+    i32 = torch.int32
+    dev = scores.device
+    true = argmax_tokens(scores)                                  # (B, L)
+    if L > 1:
+        match = (drafts == true[:, :L - 1]).to(i32)
+        n_acc = torch.cumprod(match, dim=1).sum(dim=1).to(i32)
+    else:
+        n_acc = torch.zeros(B, dtype=i32, device=dev)
+    m_max = n_acc + 1            # accepted drafts + the free bonus token
+    offs = torch.arange(L, dtype=i32, device=dev)[None, :]
+    cnt_after = state["counts"][:, None] + 1 + offs               # (B, L)
+    pos_after = state["pos"][:, None] + 1 + offs
+    is_stop = (true[:, :, None] == state["stop_ids"][:, None, :]).any(-1)
+    is_len = cnt_after >= state["max_new"][:, None]
+    is_trunc = pos_after >= cache_len
+    halt = is_stop | is_len | is_trunc
+    first_halt = torch.where(halt, offs, L).min(dim=1).values.to(i32)
+    zero = torch.zeros_like(n_acc)
+    m = torch.where(active, torch.minimum(m_max, first_halt + 1), zero)
+    halted = active & (first_halt < m_max)
+    code = torch.where(is_stop, 1, torch.where(
+        is_len, 2, torch.full_like(true, 3))).to(i32)
+    h = first_halt.clamp(0, L - 1).long()
+    done = torch.where(halted, code.gather(1, h[:, None])[:, 0], zero)
+    fin = done > 0
+    counts = state["counts"] + m
+    pos = state["pos"] + m
+    last = true.gather(1, (m - 1).clamp(min=0).long()[:, None])[:, 0]
+    nxt = torch.where(active, last, state["tok"])
+    new_state = dict(state,
+                     tok=torch.where(fin, zero, nxt),
+                     pos=torch.where(fin, zero, pos),
+                     counts=counts,
+                     active=active & ~fin)
+    toks = torch.where(active[:, None], true, 0).to(i32)
+    return new_state, toks, m, done

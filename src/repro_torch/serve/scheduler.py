@@ -13,20 +13,25 @@ once (``Model.prefill``, then a splice into the slot's cache row or
 blocks) or, with ``chunked_prefill`` (paged only), reserves the prompt's
 blocks and consumes it ``chunk`` positions per step
 (``Model.prefill_chunk``) co-scheduled with the decode under a token
-budget.
+budget. With ``speculative="ngram"`` (paged only) a pod's decode-only
+steps verify a span of ``spec_len`` positions per slot, the committed
+token plus host n-gram drafts (``serve.speculate``), in one forward
+(``Model.fused_verify_step``) and emit the accepted run: the same tokens
+as vanilla decode, up to ``spec_len`` of them per step.
 
-**The single-dispatch contract.** Each step is one forward (decode, plus
-at most one prefill chunk) and its on-device epilogue, followed by ONE
-host readback: ``(next_tok, done)`` — plus the chunk's first token on a
-prompt's final chunk, read in the same transfer. A monolithic admission
-reads back its first token once. The per-slot device state is rebuilt
-from the host mirrors only on admission, retirement or block-table
-growth. No ``.item()`` sits in the layer loop.
+**The single-dispatch contract.** Each step is one forward (decode or
+span verify, plus at most one prefill chunk beside a decode) and its
+on-device epilogue, followed by ONE host readback: ``(next_tok, done)``,
+or ``(toks, n_emit, done)`` for a verify — plus the chunk's first token
+on a prompt's final chunk, read in the same transfer. A monolithic
+admission reads back its first token once. The per-slot device state is
+rebuilt from the host mirrors only on admission, retirement or
+block-table growth. No ``.item()`` sits in the layer loop.
 
 What this port does not run yet is refused by ``EngineConfig.validate``:
-the mixture core, speculation, QoS and preemption, the prefix cache, the
-sanitizer, tracing and metrics export, sampling, and the unfused step
-(see ROADMAP.md).
+the mixture core (and with it expert-0 drafting), QoS and preemption, the
+prefix cache, the sanitizer, tracing and metrics export, sampling, and the
+unfused step (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ from repro_torch.serve.api import (EngineConfig, RequestOutput,
                                    SamplingParams, TokenDelta,
                                    effective_page_block, stop_id_row)
 from repro_torch.serve.fused import DONE_REASONS, pick_first
+from repro_torch.serve.speculate import NGramProposer
 
 Tensor = torch.Tensor
 
@@ -212,6 +218,12 @@ class _SlotTable:
         self._dstate = None        # persistent per-slot device state
         self._tables_dirty = False
         self._stop_width = 1       # stop-id matrix width (monotone, pow2)
+        self._step_span = 1        # positions the current step writes
+        self.speculative = None    # set by _init_speculation
+        self.spec_len = 1
+        self._can_spec = False
+        self.n_spec_steps = 0      # slot-steps of speculative verify
+        self.n_spec_tokens = 0     # tokens they emitted
         self.block_size = block_size
         self.paged = block_size > 0
         self.ring = self.paged and window > 0
@@ -451,6 +463,39 @@ class _SlotTable:
                     f"{self.allocator.n_blocks} blocks — provision more "
                     f"pool_blocks or fewer slots")
 
+    def _grow_active_span(self, span: int) -> bool:
+        """Span variant of ``_grow_active``: every decoding slot must own
+        the blocks of all ``span`` positions a speculative step may write.
+        False → the pool cannot cover the span now; the caller takes the
+        vanilla one-token step instead of raising. Slots reserved before
+        the failing one keep their blocks (they would need them within
+        ``span`` vanilla steps anyway). Never a ring: windowed models are
+        not ``speculative_capable``."""
+        need = np.minimum(-(-(self.pos + span) // self.block_size),
+                          self.nb_slot)
+        if not np.any((need > self.n_alloc) & (self.n_alloc > 0)):
+            return True
+        for slot in self.decoding:
+            if not self._reserve(slot, int(self.pos[slot]) + span):
+                return False
+        return True
+
+    def _init_speculation(self, config: EngineConfig, model,
+                          vstep) -> None:
+        """Arm speculative decoding when the config asks for it and the
+        server can roll a span back: paged, ``spec_len > 1``, a
+        ``speculative_capable`` model (windowed ones degrade silently to
+        vanilla decode). ``vstep`` is the verify step
+        (``make_verify_fns``)."""
+        self.speculative = config.speculative
+        self.spec_len = config.spec_len
+        self._can_spec = (config.speculative is not None
+                          and config.spec_len > 1 and self.paged
+                          and model.speculative_capable)
+        if self._can_spec:
+            self._vstep = vstep
+            self._ngram = NGramProposer(self.spec_len)
+
     def _release(self, slot: int) -> None:
         self.slot_req[slot] = None
         self.pos[slot] = 0           # free slots write the scratch block
@@ -560,6 +605,7 @@ class _SlotTable:
         """One scheduler step: the fused decode of every decoding slot plus,
         when the budget allows, one prefill chunk — then ONE readback."""
         dec = self.decoding
+        self._step_span = 1          # chunk and vanilla steps write one
         do_chunk = self.chunked and self._schedule_chunk()
         if not dec and not do_chunk:
             return []
@@ -579,11 +625,84 @@ class _SlotTable:
             retired += self._after_chunk_tok(slot, length,
                                              lambda: int(host[2 * n]))
             return retired
+        if self._can_spec:
+            retired = self._decode_step_spec(dec)
+            if retired is not None:
+                return retired
+            # the pool cannot cover the span this step: one vanilla token
         self._grow_active()
         st = self._device_state()
         nxt, done = self._run_fused(st)
         host = torch.stack([nxt, done]).cpu().numpy()
         return self._advance_fused(dec, host[0], host[1])
+
+    # ------------------------------------------------------------------
+    # Speculative decoding: n-gram drafts + one span verify
+    # ------------------------------------------------------------------
+
+    def _decode_step_spec(self, dec: List[int]) -> Optional[List[Request]]:
+        """One speculative step, still one forward and one readback:
+        reserve every decoding slot's span blocks, draft on the host, run
+        the fused verify and advance each slot by its accepted run. None →
+        the pool cannot cover the span; the caller takes the vanilla step
+        (the trajectory is the same either way)."""
+        span = self.spec_len
+        if not self._grow_active_span(span):
+            return None
+        self._step_span = span       # widens the _nb_live horizon
+        st = self._device_state()
+        drafts = self._draft_tokens(dec)
+        toks, n_emit, done = self._run_verify(st, drafts)
+        n = self.n_slots
+        host = torch.cat([toks.reshape(-1), n_emit, done]).cpu().numpy()
+        return self._advance_span(dec, host[:n * span].reshape(n, span),
+                                  host[n * span:n * span + n],
+                                  host[n * span + n:])
+
+    def _draft_tokens(self, dec: List[int]) -> Tensor:
+        """Host n-gram drafts, one row per slot; idle and mid-prefill rows
+        stay zero (their writes land in the scratch block and the epilogue
+        masks their outputs)."""
+        drafts = np.zeros((self.n_slots, self.spec_len - 1), np.int32)
+        drafts[dec] = self._ngram.propose_batch(
+            [np.concatenate([self.slot_req[s].tokens,
+                             np.asarray(self.slot_req[s].out, np.int32)])
+             for s in dec])
+        return torch.as_tensor(drafts, device=self.device)
+
+    def _run_verify(self, st, drafts):
+        raise NotImplementedError
+
+    def _advance_span(self, dec: List[int], toks: np.ndarray,
+                      n_emit: np.ndarray, done: np.ndarray
+                      ) -> List[Request]:
+        """Host half of the speculative step: record each decoding slot's
+        accepted run (1..spec_len tokens) and retire the slots the device
+        ``done`` bitmap flagged. The device already cut each span at its
+        first stop, budget or context halt, so a request finishing
+        mid-span records nothing past its last token and retires once."""
+        retired = []
+        t = time.perf_counter()
+        for slot in dec:
+            req = self.slot_req[slot]
+            n = int(n_emit[slot])
+            for j in range(n):
+                req.record(int(toks[slot, j]), t)
+            self.pos[slot] += n
+            if n:
+                self.last_tok[slot] = toks[slot, n - 1]
+            self.n_spec_steps += 1
+            self.n_spec_tokens += n
+            d = int(done[slot])
+            if d:
+                reason = DONE_REASONS[d]
+                if reason != (req.reason_now() or "truncated"):
+                    raise RuntimeError(
+                        f"slot {slot}: device finish reason {reason} "
+                        f"disagrees with the host's {req.reason_now()}")
+                self._retire_from_slot(slot, req, reason)
+                retired.append(req)
+        return retired
 
     # ------------------------------------------------------------------
     # Chunked prefill
@@ -621,11 +740,13 @@ class _SlotTable:
 
     def _nb_live(self) -> int:
         """Logical-block horizon of the decode dispatch: the tables are cut
-        to ``max(pos) // block + 1`` columns; no slot attends past it. A
-        ring addresses its whole span and is never cut."""
+        to the block of ``max(pos)`` plus the positions the step writes
+        past it (``_step_span - 1`` on a speculative step); no slot
+        attends past it. A ring addresses its whole span and is never
+        cut."""
         if self.ring:
             return self.nb_slot
-        mx = int(self.pos.max(initial=0))
+        mx = int(self.pos.max(initial=0)) + self._step_span - 1
         return min(mx // self.block_size + 1, self.nb_slot)
 
     def _schedule_chunk(self) -> bool:
@@ -679,6 +800,12 @@ class _SlotTable:
         if self.paged:
             out["pool_free_blocks"] = self.allocator.n_free
             out["pool_blocks"] = self.allocator.n_blocks
+        if self.speculative is not None:
+            out["spec_steps"] = self.n_spec_steps
+            out["spec_tokens"] = self.n_spec_tokens
+            out["spec_tokens_per_step"] = (
+                self.n_spec_tokens / self.n_spec_steps
+                if self.n_spec_steps else 0.0)
         return out
 
 
@@ -721,13 +848,26 @@ def make_fused_fns(model: Model, cache_len: int, *, paged: bool):
     return step, step_chunk, chunk_only
 
 
+def make_verify_fns(model: Model, cache_len: int):
+    """The speculative verify step a SlotServer runs on:
+    ``verify(params, cache, state, drafts)``
+    → ``(cache, state, toks, n_emit, done)``, the span forward over
+    ``[committed token, drafts]`` plus the accept/reject epilogue
+    (``Model.fused_verify_step``)."""
+    def verify(p, c, st, drafts):
+        return model.fused_verify_step(p, c, st, drafts, cache_len=cache_len)
+    return verify
+
+
 class SlotServer(_SlotTable):
     """Continuous batching over ONE expert with the fused decode step
     (greedy). ``config.paged`` puts the KV cache in a pool of
     ``page_block``-position blocks (``pool_blocks`` of them, 0 → full
     capacity) instead of contiguous per-slot rows; ``config.
     chunked_prefill`` (paged only) consumes prompts ``chunk`` positions per
-    step instead of prefilling each whole at admission."""
+    step instead of prefilling each whole at admission; ``config.
+    speculative="ngram"`` (paged only) verifies ``spec_len``-position
+    spans on decode-only steps."""
 
     def __init__(self, model: Model, params, *, config: EngineConfig,
                  device="cuda", fused_fns=None):
@@ -754,6 +894,8 @@ class SlotServer(_SlotTable):
         self._fstep, self._fstep_chunk, self._fchunk_only = \
             fused_fns or make_fused_fns(model, self.cache_len,
                                         paged=self.paged)
+        self._init_speculation(config, model,
+                               make_verify_fns(model, self.cache_len))
 
     def admit(self, req: Request) -> bool:
         """Admit a request into a free slot. Chunked: reserve its blocks
@@ -783,6 +925,11 @@ class SlotServer(_SlotTable):
         self.cache, self._dstate, nxt, done = self._fstep(
             self.params, self.cache, st)
         return nxt, done
+
+    def _run_verify(self, st, drafts):
+        self.cache, self._dstate, toks, n_emit, done = self._vstep(
+            self.params, self.cache, st, drafts)
+        return toks, n_emit, done
 
     def _run_fused_chunk(self, st, slot, xc, start, length, cbt):
         (self.cache, self._dstate, nxt, done, first,

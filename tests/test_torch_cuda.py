@@ -112,6 +112,31 @@ def test_contiguous_decode_kernel_on_card(cuda, window, pos, dtype, tol):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("L,H,KV,pos", [
+    (4, 8, 2, (3, 47, 16)),          # GQA 4:1, one row tile, block boundary
+    (8, 8, 2, (0, 40, 20)),          # 32 rows: two row tiles
+    (4, 4, 4, (62, 63, 61)),         # MHA, spans past the table horizon
+])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_paged_verify_kernel_on_card(cuda, L, H, KV, pos, dtype, tol):
+    """Every row against the plain version; each slot's table is full, so
+    no row reads the scratch block."""
+    rng = np.random.default_rng(9)
+    B, NB, block, dh = 3, 4, 16, 64
+    P = B * NB + 1
+    q = torch.as_tensor(f32(rng, B, L, H, dh), device=cuda).to(dtype)
+    kp, vp = (torch.as_tensor(f32(rng, P, block, KV, dh), device=cuda)
+              .to(dtype) for _ in range(2))
+    bt = torch.as_tensor(rng.permutation(np.arange(1, P)).reshape(B, NB)
+                         .astype(np.int32), device=cuda)
+    p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    got = dk.paged_verify_attention(q, kp, vp, p, bt)
+    want = dk.paged_verify_attention_ref(q, kp, vp, p, bt)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
 def test_router_kernel_on_card(cuda):
     x = torch.randn(37, 48, device=cuda)
     c = torch.randn(5, 48, device=cuda)

@@ -99,7 +99,6 @@ def test_top1_slice_matches_reference_token_for_token(deployment):
 
 @pytest.mark.parametrize("override,option", [
     (dict(strategy="mixture"), "strategy='mixture'"),
-    (dict(speculative="ngram"), "speculative='ngram'"),
     (dict(qos=object()), "qos"),
     (dict(preemption="swap"), "preemption='swap'"),
     (dict(prefix_cache=True), "prefix_cache=True"),
