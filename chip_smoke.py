@@ -10,15 +10,20 @@ Phases, each fatal on failure:
 1. device — prints the card's ``nvidia-smi`` name and power limit;
 2. build — one ``nvcc`` per kernel source, all started together;
 3. kernels — each kernel against its plain PyTorch version at the main
-   paths' shapes (bf16 and float32) and at small float32 edge shapes, with
-   the stated tolerances, and timed (kernel, plain version, one library
-   call) with CUDA events;
+   paths' shapes (bf16 and float32), at the hybrid family's shapes (the
+   chunk scan at the chunked and the monolithic prefill's shapes; the four
+   attention kernels at Zamba2's MHA heads, H = KV = 32, dh = 80) and at
+   small float32 edge shapes (the chunk scan's include mLSTM's H = 4,
+   dk = 384, dv = 385), with the stated tolerances, and timed (kernel,
+   plain version, one library call) with CUDA events;
 4. parity — the smoke-size float32 Qwen3 deployment (2 pods, top-1) served
    on the card (kernels) and on the CPU (plain versions) in four
    configurations (paged + chunked, paged + chunked + n-gram speculation,
    paged + monolithic, contiguous + monolithic): greedy tokens, finish
    reasons and routing must be equal, and the speculative one must accept
-   drafts (``spec_tokens > spec_steps``) with equal counts on both;
+   drafts (``spec_tokens > spec_steps``) with equal counts on both; then
+   the smoke-size float32 Zamba2 deployment in the three configurations
+   without speculation, with the same checks;
 5. main path — full-width Qwen3-8B (36 layers, bf16, 2 experts of seeded
    random weights) served through ``make_engine`` → ``add_request``/
    ``step`` with the paged pool, chunked prefill and the fused decode
@@ -52,7 +57,22 @@ Phases, each fatal on failure:
    fused verify step run on them must accept every draft: it must emit
    ``SPEC_LEN`` tokens and leave pos and tok where the decode steps leave
    them, and stop where a stop id, the token budget or the context end
-   falls inside the span.
+   falls inside the span;
+9. hybrid path — full-width Zamba2-2.7B (54 Mamba2 layers in 9 groups
+   with one shared attention block, bf16, 2 experts of seeded random
+   weights) on the main path's deployment and traffic, after the Qwen3
+   tensors are freed: the main path's checks, with the chunk-scan,
+   chunk-prefill, paged-decode and router kernels launched;
+10. hybrid float32 agreement — one expert of full-width Zamba2-2.7B in
+   float32: the monolithic prefill (chunk scan over 3 and 4 chunks, flash
+   attention) and the chunked prefill (the chunk scan one chunk at a time
+   with the recurrent carry between chunks, chunk-prefill attention) of
+   prompts of 702 and 1024 tokens, then one decode step on each cache
+   (contiguous and paged decode, the Mamba2 step), must give the same
+   greedy picks and last-row logits within ``HYBRID_F32_LOGIT_TOL``, and
+   the first Mamba2 layer's final SSM state within ``HYBRID_STATE_TOL``
+   (the tolerances and why they differ from Qwen3's are stated where they
+   are defined).
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record, the last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
@@ -79,6 +99,10 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # which is one bf16 ulp (3.9e-3 for outputs in [0.5, 1)) on these inputs:
 # the bf16 tolerance is twice that
 TOL = {"float32": 5e-5, "bfloat16": 8e-3}
+# the chunk scan and its plain version both upcast q, k, v to float32 before
+# every product and write float32, so they differ by summation order only
+# whatever the input dtype: both dtypes are held at the float32 tolerance
+SCAN_TOL = TOL["float32"]
 
 KERNEL_META = {
     "paged_decode_attention": (
@@ -99,16 +123,34 @@ KERNEL_META = {
     "paged_verify_attention": (
         "src/repro_torch/kernels/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention.py:381"),
+    "chunk_scan": (
+        "src/repro_torch/kernels/csrc/chunk_scan.cu",
+        "src/repro/kernels/chunk_scan.py:50"),
 }
 # full-width float32 logits (std ~1) of two paths that differ only by
 # summation order: measured within 1e-4 of each other; ten times that
 F32_LOGIT_TOL = 1e-3
+# Full-width random Zamba2 in float32 is far more sensitive to rounding:
+# the chunkwise scan forms its decays from log-decay sums over 256 steps,
+# which multiply a relative rounding of its inputs by about L * dt (~200)
+# in each of 54 layers. On the card a 1e-7 relative perturbation of the
+# embedding moved the last-row logits (std ~1) of the monolithic path
+# alone by 0.0135, and monolithic and chunked prefill, whose products
+# differ in shape and so in rounding, ended 0.0144 apart (PERF.md). A
+# fault in the carry, the conv window or the padded tail moves them by
+# O(1). The logits are held at seven times that sensitivity, which the
+# phase measures again and prints, and the first Mamba2 layer's final SSM
+# state, which carries one layer's rounding only (measured 1.8e-6), at
+# HYBRID_STATE_TOL of its largest element.
+HYBRID_F32_LOGIT_TOL = 0.1
+HYBRID_STATE_TOL = 1e-3
 # the kernels each full-width path runs (its launch counts go in the record)
 MAIN_KERNELS = ("paged_decode_attention", "chunk_prefill_attention",
                 "router_scores")
 CONTIGUOUS_KERNELS = ("flash_attention", "decode_attention",
                       "router_scores")
 SPEC_KERNELS = MAIN_KERNELS + ("paged_verify_attention",)
+HYBRID_KERNELS = ("chunk_scan",) + MAIN_KERNELS
 SPEC_LEN = 4          # positions a speculative step verifies per slot
 
 
@@ -133,10 +175,10 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def compare(name, got, want, dtype_name, cases):
+def compare(name, got, want, dtype_name, cases, tol=None):
     import torch
     err = (got.float() - want.float()).abs()
-    tol = TOL[dtype_name]
+    tol = TOL[dtype_name] if tol is None else tol
     bad = (err > tol + tol * want.float().abs()).sum().item()
     finite = bool(torch.isfinite(got.float()).all())
     cases.append({"kernel": name, "max_abs_err": err.max().item(),
@@ -238,6 +280,116 @@ def _check_flash(fk, cases, dtype_name, q, k, v, causal=True, window=0):
                                                      window=window)
     compare("flash_attention", out, want, dtype_name, cases)
     compare("flash_attention", lse, want_lse, dtype_name, cases)
+
+
+def _scan_case(B, NC, L, H, dk, dv, dtype, gen):
+    """qc, kc (B,NC,L,H,dk), vc (B,NC,L,H,dv) in ``dtype`` and cum
+    (B,NC,L,H) float32 on the card: q and k scaled by dk^-1/4 so q·k is of
+    unit size, decays as ``tests/test_kernels.py``'s (cumulative sums of
+    −|N|·0.1)."""
+    import torch
+    dev = "cuda"
+    s = dk ** -0.25
+    qc = (torch.randn((B, NC, L, H, dk), generator=gen, device=dev) * s)
+    kc = (torch.randn((B, NC, L, H, dk), generator=gen, device=dev) * s)
+    vc = torch.randn((B, NC, L, H, dv), generator=gen, device=dev)
+    logg = -torch.randn((B, NC, L, H), generator=gen, device=dev).abs() * 0.1
+    return (qc.to(dtype), kc.to(dtype), vc.to(dtype),
+            torch.cumsum(logg, dim=2).contiguous())
+
+
+def _check_scan(cs, cases, dtype_name, args):
+    got = cs.chunk_scan(*args)
+    want = cs.chunk_scan_ref(*args)
+    for g, w in zip(got, want):
+        compare("chunk_scan", g, w, dtype_name, cases, tol=SCAN_TOL)
+
+
+def _hybrid_kernel_cases(cases, rec, gen):
+    """The chunk scan against its plain version (timed at the chunked
+    prefill's shape), and the four attention kernels of the hybrid paths at
+    Zamba2's heads (MHA, H = KV = 32, dh = 80) at the main paths' other
+    dimensions."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import chunk_scan as cs
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    # -- chunk scan at Zamba2's shapes: one 256-position chunk (chunked
+    #    prefill, timed) and the four chunks of a 1024-token monolithic
+    #    prefill; bf16 then float32
+    H, N, P = 32, 64, 160
+    for dtype, name in ((bf16, "bfloat16"), (f32, "float32")):
+        for NC in (1, 4):
+            args = _scan_case(1, NC, 256, H, N, P, dtype, gen)
+            _check_scan(cs, cases, name, args)
+            if dtype is not bf16 or NC != 1:
+                continue
+            L = 256
+            pairs = L * (L + 1) // 2
+            rec["chunk_scan"] = {
+                "shape": f"B=1 NC=1 L={L} H={H} dk={N} dv={P} bf16",
+                "ms": cuda_ms(lambda: cs.chunk_scan(*args)),
+                "plain_ms": cuda_ms(lambda: cs.chunk_scan_ref(*args)),
+                "library_ms": None,   # no single PyTorch call computes it
+                "bytes": L * H * (2 * N * 2 + P * 2 + 4 + P * 4)
+                + H * N * P * 4,
+                # causal q·k and P·v products, the dk x dv summary; all
+                # float32 arithmetic on upcast inputs
+                "flops": H * (pairs * 2 * (N + P) + 2 * L * N * P),
+                "dtype": "bfloat16", "rate_dtype": "float32",
+                "tol": SCAN_TOL}
+    edge_scan = [
+        # B, NC, L, H, dk, dv
+        (1, 2, 16, 4, 16, 16),        # L = 16, the smoke config's chunk
+        (2, 3, 32, 4, 16, 48),        # dk != dv
+        (1, 1, 128, 2, 64, 65),       # odd dv
+        (1, 2, 100, 2, 16, 24),       # ragged row and key tiles
+        (1, 1, 256, 4, 384, 385),     # mLSTM's full-width shape
+        (2, 3, 64, 4, 32, 32),        # B > 1, NC > 1
+    ]
+    for B, NC, L, Hh, dkk, dvv in edge_scan:
+        _check_scan(cs, cases, "float32",
+                    _scan_case(B, NC, L, Hh, dkk, dvv, f32, gen))
+
+    # -- the attention kernels at Zamba2's heads. The plain versions run in
+    #    float32 on the same (bf16) input values: in bf16 they round the
+    #    softmax weights before the PV product, which at outputs near 0 can
+    #    put them further from the exact value than the bf16 tolerance
+    #    allows there (the first run of these shapes failed one flash
+    #    element by 0.0156 so). Against the float32 values the kernel's
+    #    error is its one rounding of the output to bf16.
+    H = KV = 32
+    dh, block = 80, 16
+    pos = np.random.default_rng(4).integers(200, 64 * block, 8)
+    pos[0] = 64 * block - 1
+
+    def up(*ts):
+        return [t.float() if t.is_floating_point() else t for t in ts]
+
+    for dtype, name in ((bf16, "bfloat16"), (f32, "float32")):
+        args = _paged_case(8, 64, block, H, KV, dh, pos.tolist(), dtype, gen)
+        compare("paged_decode_attention", dk.paged_decode_attention(*args),
+                dk.paged_decode_attention_ref(*up(*args)), name, cases)
+        q, kp, vp, start, bt = _chunk_case(256, 48, block, H, KV, dh, 512,
+                                           dtype, gen)
+        compare("chunk_prefill_attention",
+                dk.chunk_prefill_attention(q, kp, vp, start, bt),
+                dk.chunk_prefill_attention_ref(*up(q, kp, vp), start, bt),
+                name, cases)
+        for S in (1024, 702):
+            q, k, v = _flash_case(1, S, H, KV, dh, dtype, gen)
+            out, lse = fk.flash_attention_with_lse(q, k, v)
+            want, want_lse = fk.flash_attention_with_lse_ref(*up(q, k, v))
+            compare("flash_attention", out, want, name, cases)
+            compare("flash_attention", lse, want_lse, name, cases)
+        args = _decode_case(8, 1088, H, KV, dh,
+                            [1087, 300, 702, 1023, 256, 999, 500, 1024],
+                            dtype, gen)
+        compare("decode_attention", dk.decode_attention(*args),
+                dk.decode_attention_ref(*up(*args)), name, cases)
 
 
 def phase_kernels():
@@ -547,6 +699,7 @@ def phase_kernels():
                 dk.decode_attention(q, k, v, pos_t, window=window),
                 dk.decode_attention_ref(q, k, v, pos_t, window=window),
                 "float32", cases)
+    _hybrid_kernel_cases(cases, rec, gen)
     torch.cuda.synchronize()
 
     for name, r in rec.items():
@@ -559,7 +712,8 @@ def phase_kernels():
             for d in sorted({c["dtype"] for c in mine})}
         r["max_abs_err"] = r["max_abs_err_by_dtype"][r["dtype"]]
         t_bytes = r["bytes"] / HBM_BPS * 1e3
-        t_ops = r["flops"] / PEAK_FLOPS[r["dtype"]] * 1e3
+        t_ops = r["flops"] / PEAK_FLOPS[r.get("rate_dtype", r["dtype"])] \
+            * 1e3
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         log(f"kernel {name}: {r['shape']}: {r['cases']} cases within "
@@ -594,12 +748,13 @@ def _serve(engine, prompts, feats, params):
     return res, routing, outs, steps, time.perf_counter() - t0
 
 
-def phase_parity():
-    """Smoke-size float32 deployment: card (kernels) vs CPU (plain), in the
-    paged + chunked, paged + chunked + speculative, paged + monolithic and
-    contiguous + monolithic configurations. The speculative one serves
-    period-4 prompts of the same lengths (the traffic n-gram drafts
-    target), so drafts are accepted."""
+def phase_parity(arch="qwen3_8b"):
+    """Smoke-size float32 deployment of ``arch``: card (kernels) vs CPU
+    (plain), in the paged + chunked, paged + chunked + speculative (a
+    ``speculative_capable`` model only), paged + monolithic and contiguous
+    + monolithic configurations. The speculative one serves period-4
+    prompts of the same lengths (the traffic n-gram drafts target), so
+    drafts are accepted."""
     import numpy as np
     import torch
     from repro_torch.configs import get_smoke_config
@@ -608,7 +763,7 @@ def phase_parity():
     from repro_torch.serve.api import EngineConfig, SamplingParams
     from repro_torch.serve.scheduler import make_engine
 
-    cfg = get_smoke_config("qwen3_8b")
+    cfg = get_smoke_config(arch)
     model = build_model(cfg)
     experts = [model.init(torch.Generator().manual_seed(k)) for k in (0, 1)]
     rng = np.random.default_rng(1)
@@ -621,12 +776,15 @@ def phase_parity():
     feats = rng.normal(size=(len(lens), 32)).astype(np.float32)
     sp = SamplingParams(max_new=12)
     chunked = dict(paged=True, chunked_prefill=True)
-    for kind, over, reqs in (
-            ("paged + chunked", chunked, prompts),
-            ("paged + chunked + speculative",
-             dict(chunked, speculative="ngram", spec_len=SPEC_LEN), periodic),
-            ("paged + monolithic", dict(paged=True), prompts),
-            ("contiguous + monolithic", {}, prompts)):
+    configs = [("paged + chunked", chunked, prompts),
+               ("paged + chunked + speculative",
+                dict(chunked, speculative="ngram", spec_len=SPEC_LEN),
+                periodic),
+               ("paged + monolithic", dict(paged=True), prompts),
+               ("contiguous + monolithic", {}, prompts)]
+    if not model.speculative_capable:
+        configs.pop(1)
+    for kind, over, reqs in configs:
         ecfg = EngineConfig(n_slots=2, cache_len=56, page_block=8, chunk=16,
                             **over)
         card, host = (make_engine(model, experts=experts, router=router,
@@ -637,7 +795,8 @@ def phase_parity():
         if groute != croute or gpu != cpu:
             diff = [i for i in cpu if gpu.get(i) != cpu[i]]
             raise AssertionError(
-                f"{kind}: card and CPU disagree: routing {groute} vs "
+                f"{cfg.arch_id}, {kind}: card and CPU disagree: routing "
+                f"{groute} vs "
                 f"{croute}; requests {diff}: "
                 f"{[(gpu.get(i), cpu[i]) for i in diff]}")
         extra = ""
@@ -650,7 +809,8 @@ def phase_parity():
                     f"CPU {on_cpu}: they must be equal, with "
                     f"spec_tokens > spec_steps")
             extra = f"; spec_steps {steps}, spec_tokens {toks} on both"
-        log(f"parity ({kind}): {len(cpu)} requests, routing {groute}, "
+        log(f"parity ({cfg.arch_id}, {kind}): {len(cpu)} requests, "
+            f"routing {groute}, "
             f"greedy tokens and finish reasons equal on the card and the "
             f"CPU{extra}")
 
@@ -890,6 +1050,108 @@ def phase_float32_agreement():
         raise AssertionError(f"fused verify step: {fused_bad}")
 
 
+def phase_hybrid_path():
+    """Full-width Zamba2-2.7B, 2 experts, top-1, paged + chunked + fused:
+    the main path's deployment and traffic (``main_path.build(arch=
+    HYBRID_ARCH)``). Returns its launch counts."""
+    import torch
+    from repro_torch.launch import main_path
+
+    t0 = time.perf_counter()
+    mp = main_path.build("cuda", arch=main_path.HYBRID_ARCH)
+    torch.cuda.synchronize()
+    cfg = mp.cfg
+    log(f"hybrid path: {main_path.N_EXPERTS} experts of {cfg.arch_id} "
+        f"({cfg.n_layers} Mamba2 layers in {mp.model.n_groups} groups + a "
+        f"shared attention block, D={cfg.d_model}, bf16) initialized in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    _, launches = _serve_watched(
+        "hybrid path", mp, (("decode_step_paged", lambda x: x),
+                            ("prefill_chunk", lambda x: x)), HYBRID_KERNELS)
+    return launches
+
+
+def phase_hybrid_float32_agreement():
+    """Full-width Zamba2-2.7B, one expert in float32: monolithic prefill
+    then a contiguous decode step, against chunked prefill (the recurrent
+    carry spliced into the slot after the last chunk) then a paged decode
+    step, on prompts of 702 and 1024 tokens: last-row logits within
+    ``HYBRID_F32_LOGIT_TOL``, equal greedy picks, and the first Mamba2
+    layer's final SSM state within ``HYBRID_STATE_TOL``. Also prints the
+    rounding sensitivity of the monolithic path (its logits under a 1e-7
+    relative perturbation of the embedding), for information."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import main_path
+    from repro_torch.models import build_model
+
+    cfg = get_config(main_path.HYBRID_ARCH).reduced(
+        param_dtype="float32", compute_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    lo, hi, block, chunk = main_path.FULL_SHAPE
+    cache_len = hi + main_path.NEW_TOKENS
+    nb = -(-cache_len // block)
+    table = torch.arange(1, nb + 1, dtype=torch.int32, device="cuda")
+    rng = np.random.default_rng(4)
+    worst, agree, state_worst, widths = 0.0, 0, 0.0, (702, hi)
+    for width in widths:
+        toks = rng.integers(0, cfg.vocab, width)
+        batch = {"tokens": torch.as_tensor(toks[None], device="cuda")}
+        logits, row = model.prefill(params, batch, cache_len)
+        mono = logits[0, -1]
+        del logits
+        cache = model.cache_spec().insert(
+            model.init_cache(1, cache_len, device="cuda"), row, 0)
+        pool = model.init_paged_cache(1, nb + 1, block, cache_len,
+                                      device="cuda")
+        x = model.embed_prompt(params, {"tokens": torch.nn.functional.pad(
+            batch["tokens"], (0, -width % chunk))})
+        carry = model.init_chunk_carry(params, batch, cache_len)
+        for start in range(0, width, chunk):
+            chunked, carry, pool = model.prefill_chunk(
+                params, pool, carry, x[:, start:start + chunk], start,
+                min(chunk, width - start), table)
+        first = row["ssm"][0, 0]
+        state_worst = max(state_worst, ((first - carry["ssm"][0, 0]).abs()
+                                        .max() / first.abs().max()).item())
+        del row
+        pool = model.cache_spec(block).insert_direct(pool, carry, 0)
+        tok = mono.argmax()[None].to(torch.int32)
+        pos = torch.tensor([width], dtype=torch.int32, device="cuda")
+        dec, _ = model.decode_step(params, cache, tok, pos)
+        dec_paged, _ = model.decode_step_paged(params, pool, tok, pos,
+                                               table[None])
+        agree += int(mono.argmax() == chunked[0].argmax()) \
+            + int(dec[0].argmax() == dec_paged[0].argmax())
+        worst = max(worst, (mono - chunked[0]).abs().max().item(),
+                    (dec - dec_paged).abs().max().item())
+        del cache, pool, carry
+    emb = params["embed"]["embedding"]
+    noise = torch.randn(emb.shape, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(9)) * (1e-7 * emb.abs().max())
+    params["embed"]["embedding"] = emb + noise
+    moved, _ = model.prefill(params, batch, cache_len)
+    sensitivity = (moved[0, -1] - mono).abs().max().item()
+    log(f"hybrid float32 agreement: full-width {cfg.arch_id}, prompts of "
+        f"{widths} tokens: monolithic + contiguous vs chunked + paged "
+        f"last-row logits max abs diff {worst:.3e} (tolerance "
+        f"{HYBRID_F32_LOGIT_TOL}; the monolithic path alone moves "
+        f"{sensitivity:.3e} under a 1e-7 relative perturbation of its "
+        f"embedding), greedy picks equal {agree} of 4; first Mamba2 layer's "
+        f"final SSM state max diff {state_worst:.3e} of its largest element "
+        f"(tolerance {HYBRID_STATE_TOL})")
+    if not worst <= HYBRID_F32_LOGIT_TOL or agree != 4 \
+            or not state_worst <= HYBRID_STATE_TOL:
+        raise AssertionError(
+            f"hybrid float32 paths disagree: logits {worst:.3e} (tolerance "
+            f"{HYBRID_F32_LOGIT_TOL}), picks equal {agree} of 4, first "
+            f"layer's state {state_worst:.3e} (tolerance "
+            f"{HYBRID_STATE_TOL})")
+
+
 # (case, stop id: the pick at this offset or none, max_new, context left
 # after the span's first position or none)
 FUSED_VERIFY_CASES = (("full accept", None, None, None),
@@ -975,19 +1237,26 @@ def main() -> int:
                     log(f"  {name}: {line.strip()}")
 
     rec = phase_kernels()
-    phase_parity()
+    phase_parity("qwen3_8b")
+    phase_parity("zamba2_2_7b")
     mp, main_res, main_launches = phase_main_path()
     spec_launches = phase_speculative_path(mp, main_res)
     contiguous_launches = phase_contiguous_path(mp, main_res)
     del mp                           # the bf16 experts
     torch.cuda.empty_cache()
     phase_float32_agreement()
+    torch.cuda.empty_cache()
+    hybrid_launches = phase_hybrid_path()
+    torch.cuda.empty_cache()
+    phase_hybrid_float32_agreement()
     # each kernel's launches on the full-width path that runs it (the
-    # verify kernel runs on the speculative path only)
+    # verify kernel runs on the speculative path only, the chunk scan on
+    # the hybrid path only)
     launches = dict(contiguous_launches,
                     **{n: main_launches[n] for n in MAIN_KERNELS},
                     paged_verify_attention=spec_launches[
-                        "paged_verify_attention"])
+                        "paged_verify_attention"],
+                    chunk_scan=hybrid_launches["chunk_scan"])
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
@@ -995,7 +1264,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": r["max_abs_err"], "tol": TOL[r["dtype"]],
+            "max_abs_err": r["max_abs_err"],
+            "tol": r.get("tol", TOL[r["dtype"]]),
             "max_abs_err_by_dtype": r["max_abs_err_by_dtype"],
             "shape": r["shape"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

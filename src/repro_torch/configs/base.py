@@ -108,7 +108,7 @@ INPUT_SHAPES = {
 
 #: Architectures whose config module the port has (the others arrive with
 #: their families — see ROADMAP.md).
-PORTED_ARCH_IDS = ["qwen3_8b"]
+PORTED_ARCH_IDS = ["qwen3_8b", "zamba2_2_7b"]
 
 
 def _module(arch_id: str):

@@ -20,7 +20,8 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("decode_attention", "flash_attention", "router_scores")
+SOURCES = ("decode_attention", "flash_attention", "router_scores",
+           "chunk_scan")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -108,6 +109,11 @@ def load(name: str) -> ctypes.CDLL:
     elif name == "router_scores":
         lib.router_scores.argtypes = [P, P, P, I, I, I, I, F, P]
         lib.router_scores.restype = I
+    elif name == "chunk_scan":
+        lib.chunk_scan.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P]
+        lib.chunk_scan.restype = I
+        lib.chunk_scan_smem_bytes.argtypes = [I, I]
+        lib.chunk_scan_smem_bytes.restype = ctypes.c_longlong
     lib.kernel_error_string.argtypes = [I]
     lib.kernel_error_string.restype = ctypes.c_char_p
     _loaded[name] = lib

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from . import chunk_scan as _scan
 from . import decode_attention as _decode
 from . import flash_attention as _flash
 from . import router_scores as _router
@@ -76,6 +77,12 @@ def router_scores(x: Tensor, centroids: Tensor,
     return _router.router_scores_ref(x, centroids, temperature)
 
 
+def chunk_scan(qc: Tensor, kc: Tensor, vc: Tensor, cum: Tensor):
+    if _on_card(qc):
+        return _scan.chunk_scan(qc, kc, vc, cum)
+    return _scan.chunk_scan_ref(qc, kc, vc, cum)
+
+
 def reset_launch_counts() -> None:
     """Zero every kernel wrapper's launch counter."""
     for fn in KERNELS.values():
@@ -91,4 +98,5 @@ KERNELS = {
     "flash_attention": _flash.flash_attention_with_lse,
     "decode_attention": _decode.decode_attention,
     "paged_verify_attention": _decode.paged_verify_attention,
+    "chunk_scan": _scan.chunk_scan,
 }

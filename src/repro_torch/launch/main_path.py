@@ -3,8 +3,11 @@ and ``launch/profile_serve.py``: full-width Qwen3-8B (bf16), 2 experts of
 seeded random weights behind the Eq. 28 centroid router (top-1), 8 slots
 per pod over a paged pool of 16-position blocks, 256-token prefill chunks,
 the fused decode step; 16 greedy requests of 256–1024 prompt tokens and
-64 new tokens each. ``smoke=True`` builds the same deployment at smoke
-size (2 layers, 8–32 prompt tokens, 8-position blocks and chunks).
+64 new tokens each. ``arch="zamba2_2_7b"`` serves the hybrid family
+(Zamba2-2.7B) on the same deployment and traffic. ``smoke=True`` builds
+it at smoke size (2 layers, 8–32 prompt tokens, 8-position blocks and
+chunks; a recurrent family's chunk is rounded up to a multiple of its
+chunkwise-scan length, 16 at smoke size).
 
 ``contiguous(mp)`` builds the second deployment over the same model,
 experts, router and requests: the reference's default serving path,
@@ -31,6 +34,7 @@ from repro_torch.serve.api import EngineConfig, SamplingParams
 from repro_torch.serve.scheduler import DecentralizedSlotServer, make_engine
 
 ARCH = "qwen3_8b"
+HYBRID_ARCH = "zamba2_2_7b"
 N_EXPERTS = 2
 N_REQUESTS = 16
 NEW_TOKENS = 64
@@ -69,9 +73,10 @@ class MainPath:
                                     features=self.features[i], rid=i)
 
 
-def build(device="cuda", *, smoke: bool = False) -> MainPath:
+def build(device="cuda", *, smoke: bool = False, arch: str = ARCH
+          ) -> MainPath:
     dev = resolve_device(device)
-    cfg = get_smoke_config(ARCH) if smoke else get_config(ARCH)
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
     model = build_model(cfg)
     experts = [model.init(torch.Generator(device=dev).manual_seed(k))
                for k in range(N_EXPERTS)]
@@ -81,6 +86,8 @@ def build(device="cuda", *, smoke: bool = False) -> MainPath:
     router = CentroidRouter(torch.as_tensor(
         rng.normal(size=(N_EXPERTS, features.shape[1])).astype(np.float32)))
     lo, hi, block, chunk = SMOKE_SHAPE if smoke else FULL_SHAPE
+    if cfg.family == "hybrid":      # chunks whole in the scan's chunks
+        chunk = -(-chunk // cfg.ssm.chunk) * cfg.ssm.chunk
     lens = rng.integers(lo, hi + 1, N_REQUESTS)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
     engine = make_engine(

@@ -1,8 +1,10 @@
 """Where the time goes on the port's main path: ``torch.profiler`` windows
 over the deployment of ``launch/main_path.py`` (the one ``chip_smoke.py``
-serves: full-width Qwen3-8B, 2 experts, 16 requests).
+serves: full-width Qwen3-8B, or Zamba2-2.7B with ``--arch zamba2_2_7b``,
+2 experts, 16 requests).
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve [--speculative]
+        [--arch zamba2_2_7b]
 
 Serves every request to completion and times each engine step on the
 host. Each step is of one kind: ``chunk`` (some pod consumed a prefill
@@ -11,9 +13,11 @@ prefill chunk and a decode forward ran: the rest of the prefill phase),
 ``spec_verify`` (no chunk, and some pod verified a speculative span) or
 ``decode`` (vanilla decode forwards only). ``--speculative`` profiles
 the main path's deployment with n-gram speculation (``main_path.
-speculative``). Two windows of ``WINDOW`` steps run under the profiler:
-the first mixed steps and the first steps after the last prompt was
-consumed (``decode``, or ``spec_verify`` with ``--speculative``). For
+speculative``); ``--arch zamba2_2_7b`` the same deployment of the hybrid
+family (Mamba2 layers through the ``chunk_scan`` kernel, a shared
+attention block through the paged kernels). Two windows of ``WINDOW``
+steps run under the profiler: the first mixed steps and the first steps
+after the last prompt was consumed (``decode``, or ``spec_verify`` with ``--speculative``). For
 each window it prints the device time by kernel group (the port's CUDA
 kernels, matrix products, everything else), the top kernels, and the
 device busy share: kernel time over wall time, one stream, so kernels
@@ -34,6 +38,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.configs.base import PORTED_ARCH_IDS
 from repro_torch.launch import main_path
 
 WINDOW = 4            # engine steps under the profiler, per kind of step
@@ -45,6 +50,7 @@ KERNEL_GROUPS = {
     "decode_attention": ("contiguousrows",),
     "chunk_prefill_attention": ("chunk_prefill_kernel",),
     "paged_verify_attention": ("paged_verify_kernel",),
+    "chunk_scan": ("chunk_scan",),
     "flash_attention": ("flash_kernel",),
     "router_scores": ("router_kernel",),
     "matmul": ("gemm", "xmma", "cutlass", "cublas", "nvjet"),
@@ -93,8 +99,10 @@ def main(argv=None) -> dict:
                     help="smoke-size config (script check on the CPU)")
     ap.add_argument("--speculative", action="store_true",
                     help="the main path with n-gram speculation")
+    ap.add_argument("--arch", choices=PORTED_ARCH_IDS,
+                    default=main_path.ARCH)
     args = ap.parse_args(argv)
-    mp = main_path.build(args.device, smoke=args.smoke)
+    mp = main_path.build(args.device, smoke=args.smoke, arch=args.arch)
     if args.speculative:
         mp = main_path.speculative(mp)
     engine = mp.engine

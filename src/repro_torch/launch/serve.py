@@ -8,7 +8,10 @@ submission; each pod serves contiguous per-slot KV caches with monolithic
 prefill at admission (``--paged`` / ``--chunked-prefill`` switch to the
 paged pool and to chunked prefill; ``--speculative ngram`` adds n-gram
 speculative decoding on the paged pool) and decodes with the fused step.
-Runs on the card unless ``--device cpu``.
+``--arch`` takes every ported config: ``qwen3_8b`` (dense) and
+``zamba2_2_7b`` (hybrid, whose prefill chunk must be a multiple of its
+chunkwise-scan length, 16 at smoke size). Runs on the card unless
+``--device cpu``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --run /tmp/run \\
         --arch qwen3_8b --requests 16 --new-tokens 24 --slots 8 \\

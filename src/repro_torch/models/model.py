@@ -1,23 +1,25 @@
-"""Model assembly, dense family, serving paths (port of
+"""Model assembly, dense and hybrid families, serving paths (port of
 ``repro.models.model``).
 
 Parameters are nested dicts of tensors in the reference's pytree layout —
 ``{"embed": {...}, "blocks": {...}, "final_norm": ...}`` with every
-``blocks`` leaf stacked on a leading layer dim — so weights cross between
-the packages without transposes (``repro_torch.weights``). The reference's
-``scan_layers`` over that dim is a Python loop here. Methods take the
-params explicitly, as in the reference, so the pods of a decentralized
-deployment share one ``Model``. Everything runs on the device of the
-params and caches it is given.
+``blocks`` leaf stacked on a leading layer dim (the hybrid family's
+Mamba2 leaves on (G, gm, ...), plus the plain ``shared_attn`` dict) — so
+weights cross between the packages without transposes
+(``repro_torch.weights``). The reference's ``scan_layers`` over that dim
+is a Python loop here. Methods take the params explicitly, as in the
+reference, so the pods of a decentralized deployment share one ``Model``.
+Everything runs on the device of the params and caches it is given.
 
-Ported: ``cache_spec`` (with ``CacheSpec.insert``/``insert_paged``),
-``init_cache``, ``init_paged_cache``, the monolithic ``prefill``,
-``embed_prompt``, ``init_chunk_carry``, ``prefill_chunk``, ``decode_step``,
-``decode_step_paged`` and ``fused_decode_step`` over either cache, and
-the speculative span verify over the paged cache
-(``speculative_capable``, ``verify_step_paged``, ``fused_verify_step``).
-The other families and ``forward`` (training) are not ported yet (see
-ROADMAP.md).
+Ported: ``cache_spec`` (with ``CacheSpec.insert``/``insert_paged``/
+``insert_direct``), ``init_cache``, ``init_paged_cache``, the monolithic
+``prefill``, ``embed_prompt``, ``init_chunk_carry``, ``prefill_chunk``,
+``decode_step``, ``decode_step_paged`` and ``fused_decode_step`` over
+either cache, for the dense and hybrid (Zamba2: Mamba2 groups + one shared
+attention block) families; the speculative span verify over the paged
+cache for the dense family (``speculative_capable``,
+``verify_step_paged``, ``fused_verify_step``). The other families and
+``forward`` (training) are not ported yet (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 
 from . import attention as attn
+from . import ssm as ssm_lib
 from .layers import embed, embedding_specs, rms_norm, swiglu, swiglu_specs, unembed
 from .params import ParamSpec, init_params, is_spec
 
@@ -67,32 +70,44 @@ class PagedLayout:
 @dataclass(frozen=True)
 class CacheSpec:
     """Layout descriptor of a family's decode cache: the slot axis of each
-    leaf, plus the paged layout when the cache pages through a pool. The
+    leaf, plus the paged layout when the cache pages through a pool (pool
+    leaves have a sequence axis >= 0, direct per-slot leaves −1). The
     splices write the batched cache IN PLACE (the reference returns a new
     one) and return it; like the reference they write the whole padded
     row, so cache contents compare equal between the two."""
     batch_axes: Any
     paged: PagedLayout = None
 
+    @staticmethod
+    def _write_row(full: Tensor, row: Tensor, ax: int, slot: int) -> None:
+        """``full``'s extent-1 slice at ``slot`` on axis ``ax`` takes
+        ``row``, written at offset 0 of every other axis — the reference's
+        ``dynamic_update_slice``, which also takes a row shorter than the
+        slot (a prompt shorter than the conv window leaves a shorter conv
+        carry)."""
+        dst = full.narrow(ax, slot, 1)
+        dst[tuple(slice(0, n) for n in row.shape)] = row.to(full.dtype)
+
     def insert(self, cache, row_cache, slot: int):
         """Write a single-request cache (extent 1 on each leaf's batch
         axis) into ``cache`` at slot index ``slot``."""
         for name, ax in self.batch_axes.items():
-            full = cache[name]
-            full.narrow(ax, slot, 1).copy_(row_cache[name].to(full.dtype))
+            self._write_row(cache[name], row_cache[name], ax, slot)
         return cache
 
     def insert_paged(self, cache, row_cache, slot: int, blocks: Tensor):
         """Splice a single-request contiguous prefill cache into the paged
         cache: each pool leaf takes the row's first ``len(blocks) *
         block_size`` positions (zero-padded when the row is shorter) into
-        the physical blocks listed in ``blocks`` ((nb,) int). Every leaf of
-        the dense family pages, so ``slot`` (kept for the reference's
-        signature) addresses nothing here."""
+        the physical blocks listed in ``blocks`` ((nb,) int); direct leaves
+        behave exactly like ``insert`` at ``slot``."""
         bs, nb = self.paged.block_size, blocks.shape[0]
         idx = blocks.long()
         for name, ax in self.batch_axes.items():
             full = cache[name]
+            if self.paged.seq_axes[name] < 0:
+                self._write_row(full, row_cache[name], ax, slot)
+                continue
             row = row_cache[name].squeeze(ax)          # seq now at ax
             take = min(nb * bs, row.shape[ax])
             row = row.narrow(ax, 0, take)
@@ -103,33 +118,65 @@ class CacheSpec:
             full[(slice(None),) * ax + (idx,)] = row.to(full.dtype)
         return cache
 
+    def insert_direct(self, cache, carry, slot: int):
+        """Write a chunked-prefill carry (single-request direct-leaf decode
+        states; its pool-leaf entries are placeholders, their data went
+        into the pool chunk by chunk) into the batched cache at ``slot``.
+        Without a paged layout every leaf is direct."""
+        for name, ax in self.batch_axes.items():
+            if self.paged is None or self.paged.seq_axes[name] < 0:
+                self._write_row(cache[name], carry[name], ax, slot)
+        return cache
+
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "hybrid"):
             raise ValueError(
                 f"family {cfg.family!r} is not ported to repro_torch yet "
                 f"(see ROADMAP.md)")
         self.cfg = cfg
+        self.hybrid = cfg.family == "hybrid"
 
     # ------------------------------------------------------------------
     # Parameters
     # ------------------------------------------------------------------
 
     @property
+    def group_m(self) -> int:
+        """Mamba2 layers per group, each group followed by the shared
+        attention block (hybrid); 1 for the dense family."""
+        if self.hybrid:
+            return self.cfg.ssm.shared_attn_every or self.cfg.n_layers
+        return 1
+
+    @property
     def n_groups(self) -> int:
-        return self.cfg.n_layers
+        return self.cfg.n_layers // self.group_m
+
+    def _block_specs(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        D = cfg.d_model
+        if self.hybrid:                # Zamba2 group: gm Mamba2 layers
+            gm = self.group_m
+            return {"m_ln": stack_specs(_norm_spec(D), gm),
+                    "mamba": stack_specs(ssm_lib.mamba2_specs(cfg), gm)}
+        return {"ln1": _norm_spec(D), "attn": attn.attention_specs(cfg),
+                "ln2": _norm_spec(D), "ffn": swiglu_specs(D, cfg.d_ff)}
 
     def param_specs(self) -> Dict[str, Any]:
         cfg = self.cfg
         D = cfg.d_model
-        block = {"ln1": _norm_spec(D), "attn": attn.attention_specs(cfg),
-                 "ln2": _norm_spec(D), "ffn": swiglu_specs(D, cfg.d_ff)}
-        return {
+        specs = {
             "embed": embedding_specs(cfg.padded_vocab, D, cfg.tie_embeddings),
-            "blocks": stack_specs(block, self.n_groups),
+            "blocks": stack_specs(self._block_specs(), self.n_groups),
             "final_norm": _norm_spec(D),
         }
+        if self.hybrid:
+            specs["shared_attn"] = {
+                "ln1": _norm_spec(D), "attn": attn.attention_specs(cfg),
+                "ln2": _norm_spec(D), "ffn": swiglu_specs(D, cfg.d_ff)}
+        return specs
 
     def init(self, gen: torch.Generator, dtype=None):
         """Random parameters on ``gen.device`` (shape and scale parity with
@@ -137,56 +184,129 @@ class Model:
         return init_params(gen, self.param_specs(), dtype or self.cfg.pdtype)
 
     @property
+    def prefix_cacheable(self) -> bool:
+        """True when a prompt's pool-resident K/V fully determines its
+        decode state. The hybrid family's recurrent state accumulates over
+        every prompt position outside the pool, so a cached prefix cannot
+        be spliced in."""
+        return not self.hybrid
+
+    @property
     def speculative_capable(self) -> bool:
         """True when a multi-token verify span can be rolled back by
         position: rejected-tail K/V writes sit at positions the causal
-        fence hides, and the next span overwrites them. A sliding-window
-        (ring) cache would overwrite live slots when the span wraps, so
-        windowed configs degrade to the vanilla one-token step (the
+        fence hides, and the next span overwrites them. Recurrent state
+        (hybrid) folds every fed token in and cannot be unwound, and a
+        sliding-window (ring) cache would overwrite live slots when the
+        span wraps: both degrade to the vanilla one-token step (the
         scheduler consults this flag)."""
-        return self.cfg.sliding_window <= 0
+        return not self.hybrid and self.cfg.sliding_window <= 0
 
     # ------------------------------------------------------------------
     # Decode cache
     # ------------------------------------------------------------------
 
     def cache_spec(self, block_size: int = 0) -> CacheSpec:
-        paged = PagedLayout(block_size, {"k": 2, "v": 2}) \
-            if block_size > 0 else None
-        return CacheSpec({"k": 1, "v": 1}, paged)
+        """Slot axes of the cache leaves; with ``block_size > 0`` also the
+        paged layout: attention K/V page through the pool, the hybrid
+        family's SSM and conv states stay per slot (seq axis −1)."""
+        if self.hybrid:
+            axes = {"ssm": 2, "conv": 2, "k": 1, "v": 1}
+            seq = {"ssm": -1, "conv": -1, "k": 2, "v": 2}
+        else:
+            axes = {"k": 1, "v": 1}
+            seq = {"k": 2, "v": 2}
+        paged = PagedLayout(block_size, seq) if block_size > 0 else None
+        return CacheSpec(axes, paged)
+
+    def _direct_leaves(self, batch: int, device) -> Dict[str, Tensor]:
+        """Zeroed per-slot leaves: the hybrid family's SSM states (G, gm,
+        batch, H, N, P) in float32 and conv windows (G, gm, batch, W−1, C)
+        in the compute dtype; none for the dense family."""
+        if not self.hybrid:
+            return {}
+        lead = (self.n_groups, self.group_m)
+        ssm_s, conv_s = ssm_lib.mamba2_state_shapes(self.cfg, batch)
+        return {"ssm": torch.zeros(lead + ssm_s, dtype=torch.float32,
+                                   device=device),
+                "conv": torch.zeros(lead + conv_s, dtype=self.cfg.cdtype,
+                                    device=device)}
 
     def init_cache(self, batch: int, cache_len: int,
                    device="cuda") -> Dict[str, Tensor]:
         """Zeroed contiguous (L, batch, S_kv, KV, dh) K and V caches in the
-        compute dtype; S_kv = min(cache_len, window) for a sliding window
-        (a ring of slot = pos % S_kv), else cache_len."""
+        compute dtype (L = the attention layers: one per group for the
+        hybrid family), beside any per-slot leaves; S_kv = min(cache_len,
+        window) for a sliding window (a ring of slot = pos % S_kv), else
+        cache_len."""
         cfg = self.cfg
         win = cfg.sliding_window
         S_kv = min(cache_len, win) if win > 0 else cache_len
         shape = (self.n_groups, batch, S_kv, cfg.n_kv_heads, cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
+        return {**self._direct_leaves(batch, device),
+                "k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
                 "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}
 
     def init_paged_cache(self, n_slots: int, n_blocks: int, block_size: int,
                          cache_len: int, device="cuda") -> Dict[str, Tensor]:
         """Zeroed (L, n_blocks, block_size, KV, dh) K and V pools in the
-        compute dtype. ``n_slots``/``cache_len`` size only per-slot leaves,
-        which the dense family does not have."""
+        compute dtype; per-slot (direct) leaves keep their ``n_slots``
+        rows. ``cache_len`` sizes nothing the ported families have."""
         cfg = self.cfg
         shape = (self.n_groups, n_blocks, block_size, cfg.n_kv_heads,
                  cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
+        return {**self._direct_leaves(n_slots, device),
+                "k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
                 "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}
+
+    # ------------------------------------------------------------------
+    # The layer stack
+    # ------------------------------------------------------------------
+
+    def _stack(self, params, x: Tensor, attend, mamba=None) -> Tensor:
+        """Run the layer stack on x and return the final-normed rows.
+        ``attend(i, attn_params, h)`` is the attention of layer (or, for
+        the hybrid family, group) i on its normed input h, and
+        ``mamba(g, m, mamba_params, h)`` Mamba2 layer m of group g; each
+        reads and writes its own cache or carry."""
+        cfg = self.cfg
+        eps = cfg.norm_eps
+        blocks = params["blocks"]
+        shared = params.get("shared_attn")
+        for i in range(self.n_groups):
+            layer = layer_slice(blocks, i)
+            if self.hybrid:
+                for m in range(self.group_m):
+                    x = x + mamba(i, m, layer_slice(layer["mamba"], m),
+                                  rms_norm(x, layer["m_ln"][m], eps))
+                layer = shared
+            h = x + attend(i, layer["attn"], rms_norm(x, layer["ln1"], eps))
+            x = h + swiglu(layer["ffn"], rms_norm(h, layer["ln2"], eps))
+        return rms_norm(x, params["final_norm"], eps)
+
+    def _step_mamba(self, cache):
+        """``mamba`` of ``_stack`` for one decode token: each slot row's
+        SSM and conv state advances in place."""
+        cfg = self.cfg
+
+        def mamba(g, m, p, h):
+            ssm_st, conv_st = cache["ssm"][g, m], cache["conv"][g, m]
+            y, (st, cc) = ssm_lib.mamba2_step(p, h, cfg, (ssm_st, conv_st))
+            ssm_st.copy_(st)
+            conv_st.copy_(cc)
+            return y
+        return mamba
 
     # ------------------------------------------------------------------
     # Prefill: the whole prompt in one forward
     # ------------------------------------------------------------------
 
     def prefill(self, params, batch, cache_len: int):
-        """Returns (logits (B,S,V) float32, cache) with the cache leaves
+        """Returns (logits (B,S,V) float32, cache) with the K/V leaves
         (L, B, S_kv, KV, dh): the prompt's K/V right-padded to S_kv, or,
         windowed, its last S_kv positions in the ring layout (slot =
-        pos % S_kv)."""
+        pos % S_kv); the hybrid family adds each Mamba2 layer's SSM state
+        and conv window after the prompt."""
         cfg = self.cfg
         x = embed(params["embed"], batch["tokens"], cfg.cdtype)
         S = x.shape[1]
@@ -199,21 +319,30 @@ class Model:
                 return torch.roll(k[:, S - S_kv:], (S - S_kv) % S_kv, dims=1)
             return F.pad(k, (0, 0, 0, 0, 0, S_kv - S))
 
-        ks, vs = [], []
-        blocks = params["blocks"]
-        for i in range(self.n_groups):
-            layer = layer_slice(blocks, i)
-            a, (k, v) = attn.prefill_attention(
-                layer["attn"], rms_norm(x, layer["ln1"], cfg.norm_eps), cfg,
-                S)
-            h = x + a
-            x = h + swiglu(layer["ffn"], rms_norm(h, layer["ln2"],
-                                                  cfg.norm_eps))
+        ks, vs, states = [], [], []
+
+        def attend(i, p, h):
+            a, (k, v) = attn.prefill_attention(p, h, cfg, S)
             ks.append(pad_kv(k))
             vs.append(pad_kv(v))
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+            return a
+
+        def mamba(g, m, p, h):
+            y, st = ssm_lib.mamba2_prefill(p, h, cfg)
+            states.append(st)
+            return y
+
+        x = self._stack(params, x, attend, mamba)
         logits = unembed(params["embed"], x, cfg.tie_embeddings, cfg.vocab)
-        return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+        cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+        if self.hybrid:
+            lead = (self.n_groups, self.group_m)
+            ssm_s = torch.stack([st for st, _ in states])
+            conv_s = torch.stack([cc for _, cc in states])
+            cache = {"ssm": ssm_s.reshape(lead + ssm_s.shape[1:]),
+                     "conv": conv_s.reshape(lead + conv_s.shape[1:]),
+                     **cache}
+        return logits, cache
 
     # ------------------------------------------------------------------
     # Chunked prefill
@@ -224,30 +353,39 @@ class Model:
         return embed(params["embed"], batch["tokens"], self.cfg.cdtype)
 
     def init_chunk_carry(self, params, batch, cache_len: int):
-        """Per-request carry between chunks. Dense attention keeps no
-        direct-leaf state — its chunks write straight into the pool — so
-        the carry holds placeholders only, as in the reference."""
-        dummy = torch.zeros((1,), dtype=self.cfg.cdtype,
-                            device=params["final_norm"].device)
-        return {"k": dummy, "v": dummy}
+        """Per-request carry between chunks: the direct (per-slot) decode
+        leaves at batch extent 1, zeroed — the hybrid family's SSM states
+        and conv windows. Attention K/V chunks write straight into the
+        pool, so their entries are placeholders, as in the reference."""
+        dev = params["final_norm"].device
+        dummy = torch.zeros((1,), dtype=self.cfg.cdtype, device=dev)
+        return {**self._direct_leaves(1, dev), "k": dummy, "v": dummy}
 
     def prefill_chunk(self, params, cache, carry, x: Tensor, start: int,
                       length: int, block_table: Tensor):
         """Consume one prompt chunk. x: (1,C,D) embedded rows at absolute
         positions start..start+C-1, ``length`` of them valid (host ints);
         block_table: (NB,) int32. Writes the chunk's K/V into the pool and
-        returns (last_logits (1, V) at the final valid row, carry, cache)."""
+        advances the carry's recurrent state (both in place); padded rows
+        are exact no-ops on both. Returns (last_logits (1, V) at the final
+        valid row, carry, cache)."""
         cfg = self.cfg
-        blocks = params["blocks"]
-        for i in range(self.n_groups):
-            layer = layer_slice(blocks, i)
+
+        def attend(i, p, h):
             a, _ = attn.chunk_attention(
-                layer["attn"], rms_norm(x, layer["ln1"], cfg.norm_eps), cfg,
-                (cache["k"][i], cache["v"][i]), start, length, block_table)
-            h = x + a
-            x = h + swiglu(layer["ffn"], rms_norm(h, layer["ln2"],
-                                                  cfg.norm_eps))
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+                p, h, cfg, (cache["k"][i], cache["v"][i]), start, length,
+                block_table)
+            return a
+
+        def mamba(g, m, p, h):
+            ssm_st, conv_st = carry["ssm"][g, m], carry["conv"][g, m]
+            y, (st, cc) = ssm_lib.mamba2_chunk(p, h, cfg, (ssm_st, conv_st),
+                                               length)
+            ssm_st.copy_(st)
+            conv_st.copy_(cc)
+            return y
+
+        x = self._stack(params, x, attend, mamba)
         h_last = x[:, length - 1:length]
         logits = unembed(params["embed"], h_last, cfg.tie_embeddings,
                          cfg.vocab)
@@ -260,38 +398,34 @@ class Model:
     def decode_step(self, params, cache, tokens: Tensor, pos: Tensor):
         """One token per slot against the contiguous cache (written in
         place). tokens: (B,) int32; pos: (B,) (or ()) int32. Returns
-        (logits (B, V), cache)."""
+        (logits (B, V), cache). Every slot row's recurrent state steps,
+        idle ones included, as in the reference; admission overwrites it."""
         cfg = self.cfg
         x = embed(params["embed"], tokens[:, None], cfg.cdtype)   # (B,1,D)
-        blocks = params["blocks"]
-        for i in range(self.n_groups):
-            layer = layer_slice(blocks, i)
+
+        def attend(i, p, h):
             a, _ = attn.decode_attention(
-                layer["attn"], rms_norm(x, layer["ln1"], cfg.norm_eps), cfg,
-                (cache["k"][i], cache["v"][i]), pos)
-            h = x + a
-            x = h + swiglu(layer["ffn"], rms_norm(h, layer["ln2"],
-                                                  cfg.norm_eps))
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+                p, h, cfg, (cache["k"][i], cache["v"][i]), pos)
+            return a
+
+        x = self._stack(params, x, attend, self._step_mamba(cache))
         logits = unembed(params["embed"], x, cfg.tie_embeddings, cfg.vocab)
         return logits[:, 0], cache
 
     def decode_step_paged(self, params, cache, tokens: Tensor, pos: Tensor,
                           block_tables: Tensor):
         """One token per slot against the paged cache. tokens, pos: (B,)
-        int32; block_tables: (B, NB) int32. Returns (logits (B, V), cache)."""
+        int32; block_tables: (B, NB) int32. Returns (logits (B, V), cache);
+        the direct leaves step as in ``decode_step``."""
         cfg = self.cfg
         x = embed(params["embed"], tokens[:, None], cfg.cdtype)   # (B,1,D)
-        blocks = params["blocks"]
-        for i in range(self.n_groups):
-            layer = layer_slice(blocks, i)
+
+        def attend(i, p, h):
             a, _ = attn.paged_decode_attention(
-                layer["attn"], rms_norm(x, layer["ln1"], cfg.norm_eps), cfg,
-                (cache["k"][i], cache["v"][i]), pos, block_tables)
-            h = x + a
-            x = h + swiglu(layer["ffn"], rms_norm(h, layer["ln2"],
-                                                  cfg.norm_eps))
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+                p, h, cfg, (cache["k"][i], cache["v"][i]), pos, block_tables)
+            return a
+
+        x = self._stack(params, x, attend, self._step_mamba(cache))
         logits = unembed(params["embed"], x, cfg.tie_embeddings, cfg.vocab)
         return logits[:, 0], cache
 
@@ -311,16 +445,13 @@ class Model:
                 "cannot verify speculative spans — check "
                 "speculative_capable before dispatching")
         x = embed(params["embed"], tokens, cfg.cdtype)            # (B,L,D)
-        blocks = params["blocks"]
-        for i in range(self.n_groups):
-            layer = layer_slice(blocks, i)
+
+        def attend(i, p, h):
             a, _ = attn.paged_verify_attention(
-                layer["attn"], rms_norm(x, layer["ln1"], cfg.norm_eps), cfg,
-                (cache["k"][i], cache["v"][i]), pos, block_tables)
-            h = x + a
-            x = h + swiglu(layer["ffn"], rms_norm(h, layer["ln2"],
-                                                  cfg.norm_eps))
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+                p, h, cfg, (cache["k"][i], cache["v"][i]), pos, block_tables)
+            return a
+
+        x = self._stack(params, x, attend)
         logits = unembed(params["embed"], x, cfg.tie_embeddings, cfg.vocab)
         return logits, cache
 

@@ -195,7 +195,7 @@ class EngineConfig:
 
     def _validate_model(self, model) -> None:
         cfg = model.cfg
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "hybrid"):
             raise not_ported(f"family {cfg.family!r}")
         if not self.chunked_prefill:
             return
@@ -209,11 +209,18 @@ class EngineConfig:
             raise ValueError(
                 "chunked prefill writes prompt KV through the paged pool — "
                 "enable paging (page_block > 0)")
+        if cfg.family in ("ssm", "hybrid") and self.chunk % cfg.ssm.chunk:
+            raise ValueError(
+                f"prefill chunk {self.chunk} must be a multiple of the "
+                f"chunkwise-scan length {cfg.ssm.chunk} for exact "
+                f"chunked-vs-monolithic parity on family '{cfg.family}'")
 
 
 def effective_page_block(model, page_block: int) -> int:
-    """0 when the model has no pageable cache leaves; every dense cache
-    leaf pages, so this is ``page_block`` for every family ported."""
+    """0 when the model has no pageable cache leaves (ssm: recurrent state
+    only) — paging such a family would run pool accounting that backs no
+    memory, so it degrades to the direct path instead. Every family ported
+    so far has attention K/V in the pool, so this is ``page_block``."""
     if page_block <= 0:
         return 0
     seq_axes = model.cache_spec(page_block).paged.seq_axes

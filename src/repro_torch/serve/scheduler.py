@@ -13,11 +13,13 @@ once (``Model.prefill``, then a splice into the slot's cache row or
 blocks) or, with ``chunked_prefill`` (paged only), reserves the prompt's
 blocks and consumes it ``chunk`` positions per step
 (``Model.prefill_chunk``) co-scheduled with the decode under a token
-budget. With ``speculative="ngram"`` (paged only) a pod's decode-only
-steps verify a span of ``spec_len`` positions per slot, the committed
-token plus host n-gram drafts (``serve.speculate``), in one forward
-(``Model.fused_verify_step``) and emit the accepted run: the same tokens
-as vanilla decode, up to ``spec_len`` of them per step.
+budget; a recurrent family's per-slot state rides in the request's carry
+and is spliced into its slot after the last chunk
+(``CacheSpec.insert_direct``). With ``speculative="ngram"`` (paged only)
+a pod's decode-only steps verify a span of ``spec_len`` positions per
+slot, the committed token plus host n-gram drafts (``serve.speculate``),
+in one forward (``Model.fused_verify_step``) and emit the accepted run:
+the same tokens as vanilla decode, up to ``spec_len`` of them per step.
 
 **The single-dispatch contract.** Each step is one forward (decode or
 span verify, plus at most one prefill chunk beside a decode) and its
@@ -484,8 +486,8 @@ class _SlotTable:
                           vstep) -> None:
         """Arm speculative decoding when the config asks for it and the
         server can roll a span back: paged, ``spec_len > 1``, a
-        ``speculative_capable`` model (windowed ones degrade silently to
-        vanilla decode). ``vstep`` is the verify step
+        ``speculative_capable`` model (windowed and hybrid ones degrade
+        silently to vanilla decode). ``vstep`` is the verify step
         (``make_verify_fns``)."""
         self.speculative = config.speculative
         self.spec_len = config.spec_len
@@ -768,8 +770,9 @@ class _SlotTable:
     def _after_chunk_tok(self, slot: int, length: int,
                          first_fn) -> List[Request]:
         """Advance a slot's prefill by one chunk; on the final chunk take
-        the first token from ``first_fn`` and move the slot to decode (or
-        retire it: context-filling prompts, max_new == 1, a stop token)."""
+        the first token from ``first_fn``, splice the carry's direct-leaf
+        state into the batched cache and move the slot to decode (or retire
+        it: context-filling prompts, max_new == 1, a stop token)."""
         self.n_chunks += 1
         self.prefill_pos[slot] += length
         if int(self.prefill_pos[slot]) < int(self.prefill_width[slot]):
@@ -780,12 +783,14 @@ class _SlotTable:
         self.prefill_order.remove(slot)
         self.prefilling[slot] = False
         self.prefill_x[slot] = None
-        self.prefill_carry[slot] = None
+        carry, self.prefill_carry[slot] = self.prefill_carry[slot], None
         if width >= self.cache_len:      # prompt fills the context bound
             req.record(first)
             self._retire_from_slot(slot, req,
                                    req.reason_now() or "truncated")
             return [req]
+        # the carry's direct leaves (recurrent state) become the slot's
+        self.cache = self.spec.insert_direct(self.cache, carry, slot)
         self._occupy(slot, req, first, width)
         reason = req.reason_now()        # max_new == 1, or first tok stops
         if reason:

@@ -9,10 +9,15 @@ from repro.configs import base as jbase  # noqa: E402
 from repro_torch.configs import base  # noqa: E402
 
 
-@pytest.mark.parametrize("getter", ["get_config", "get_smoke_config"])
-def test_qwen3_configs_match_reference(getter):
-    got = getattr(base, getter)("qwen3_8b")
-    want = getattr(jbase, getter)("qwen3_8b")
+@pytest.mark.parametrize("getter,arch", [
+    pytest.param(getter, arch,
+                 id=getter if arch == "qwen3_8b" else f"{getter}-{arch}")
+    for arch in base.PORTED_ARCH_IDS
+    for getter in ("get_config", "get_smoke_config")])
+def test_qwen3_configs_match_reference(getter, arch):
+    """Every ported config (named after the first, qwen3_8b)."""
+    got = getattr(base, getter)(arch)
+    want = getattr(jbase, getter)(arch)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert got.head_dim == want.head_dim
     assert got.padded_vocab == want.padded_vocab

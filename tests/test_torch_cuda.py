@@ -9,13 +9,16 @@ a machine that has only the port's dependencies:
 (``--noconftest`` skips ``tests/conftest.py``, which configures JAX.)
 Tolerances: float32 5e-5 (summation order and the blocked online
 softmax), bf16 2e-2 (the plain version rounds the softmax weights to bf16
-before the PV product, as ``repro/kernels/ref.py`` does).
+before the PV product, as ``repro/kernels/ref.py`` does). ``chunk_scan``
+upcasts its inputs to float32 before every product on both sides, so it
+is held at 5e-5 in both dtypes.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import chunk_scan as cs  # noqa: E402
 from repro_torch.kernels import decode_attention as dk  # noqa: E402
 from repro_torch.kernels import flash_attention as fk  # noqa: E402
 from repro_torch.kernels import router_scores as rk  # noqa: E402
@@ -143,3 +146,68 @@ def test_router_kernel_on_card(cuda):
     torch.testing.assert_close(rk.router_scores(x, c, 10.0),
                                rk.router_scores_ref(x, c, 10.0),
                                rtol=5e-5, atol=5e-5)
+
+
+# Zamba2's shared attention block: MHA (H = KV = 32) at dh = 80
+
+
+def _on(cuda, dtype, *arrays):
+    return [torch.as_tensor(a, device=cuda).to(dtype) for a in arrays]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_attention_kernels_at_zamba2_heads_on_card(cuda, dtype, tol):
+    """Paged decode, chunk prefill, flash and contiguous decode at H = KV =
+    32, dh = 80 (ragged and block-edge positions)."""
+    H = KV = 32
+    dh = 80
+    q, kp, vp, pos, bt = paged_inputs(10, 3, 4, 16, H, KV, dh,
+                                      pos=(0, 31, 63), unallocated=True)
+    args = _on(cuda, dtype, q, kp, vp) + [torch.as_tensor(a, device=cuda)
+                                          for a in (pos, bt)]
+    torch.testing.assert_close(dk.paged_decode_attention(*args).float(),
+                               dk.paged_decode_attention_ref(*args).float(),
+                               rtol=tol, atol=tol)
+    rng = np.random.default_rng(11)
+    q, kp, vp = _on(cuda, dtype, f32(rng, 20, H, dh),
+                    f32(rng, 9, 16, KV, dh), f32(rng, 9, 16, KV, dh))
+    bt = torch.tensor([4, 2, 7, 1], dtype=torch.int32, device=cuda)
+    torch.testing.assert_close(
+        dk.chunk_prefill_attention(q, kp, vp, 37, bt).float(),
+        dk.chunk_prefill_attention_ref(q, kp, vp, 37, bt).float(),
+        rtol=tol, atol=tol)
+    q, k, v = _on(cuda, dtype, *(f32(rng, 1, 77, H, dh) for _ in range(3)))
+    got, got_lse = fk.flash_attention_with_lse(q, k, v)
+    want, want_lse = fk.flash_attention_with_lse_ref(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(got_lse, want_lse, rtol=tol, atol=tol)
+    q = _on(cuda, dtype, f32(rng, 2, H, dh))[0]
+    k, v = _on(cuda, dtype, f32(rng, 2, 100, KV, dh), f32(rng, 2, 100, KV, dh))
+    p = torch.tensor([40, 99], dtype=torch.int32, device=cuda)
+    torch.testing.assert_close(dk.decode_attention(q, k, v, p).float(),
+                               dk.decode_attention_ref(q, k, v, p).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,NC,L,H,dk,dv", [
+    (1, 1, 256, 32, 64, 160),     # Zamba2's chunked-prefill shape
+    (2, 2, 128, 2, 64, 65),       # odd dv, B > 1, NC > 1
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunk_scan_kernel_on_card(cuda, B, NC, L, H, dk, dv, dtype):
+    """Inputs scaled so q·k is of unit size; decays as
+    ``tests/test_kernels.py``'s (cumulative sums of −|N|·0.1)."""
+    rng = np.random.default_rng(12)
+    s = dk ** -0.25
+    qc, kc, vc = _on(cuda, dtype, f32(rng, B, NC, L, H, dk) * s,
+                     f32(rng, B, NC, L, H, dk) * s, f32(rng, B, NC, L, H, dv))
+    cum = torch.as_tensor(np.cumsum(-np.abs(f32(rng, B, NC, L, H)) * 0.1,
+                                    axis=2), device=cuda)
+    got = cs.chunk_scan(qc, kc, vc, cum)
+    want = cs.chunk_scan_ref(qc, kc, vc, cum)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        torch.testing.assert_close(g, w, rtol=5e-5, atol=5e-5)
