@@ -72,7 +72,27 @@ Phases, each fatal on failure:
    greedy picks and last-row logits within ``HYBRID_F32_LOGIT_TOL``, and
    the first Mamba2 layer's final SSM state within ``HYBRID_STATE_TOL``
    (the tolerances and why they differ from Qwen3's are stated where they
-   are defined).
+   are defined);
+11. training parity — the smoke-size float32 training deployment
+   (``repro_torch/launch/train_path.py``: the launcher's partition,
+   loaders and schedule) trains expert 0 for 3 steps on the card (flash
+   forward and backward kernels) and on the CPU (plain versions) from the
+   same params: losses, grad norms and lrs, and params, m and v after the
+   third step, within ``TRAIN_PARITY``'s tolerances;
+12. training path — full-width Qwen3-8B cut to 8 layers (bf16, remat
+   "full"), 2 experts on the launcher's k-means partition, 8 steps each
+   of one 4096-token sequence, through ``train_host_loop``; prints each
+   expert's first and last loss, median ms per step, tokens/s, peak GiB
+   and the launches; fails on a non-finite loss, a last loss not below
+   the first, a parameter leaf whose step-1 gradient is missing or zero
+   (its m after step 1 has no nonzero element), or launch counts other
+   than layers x steps x experts (backward) and twice that (forward, run
+   again by the recomputation);
+13. float32 gradients — full-width Qwen3-8B, 2 layers, in float32 on one
+   1024-token sequence: the gradient of ``Model.loss`` through the kernel
+   path (flash forward and backward kernels) against autograd through the
+   plain attention on the card, each leaf within ``F32_GRAD_TOL`` of its
+   largest element.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record, the last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
@@ -126,6 +146,9 @@ KERNEL_META = {
     "chunk_scan": (
         "src/repro_torch/kernels/csrc/chunk_scan.cu",
         "src/repro/kernels/chunk_scan.py:50"),
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention_bwd.py:121"),
 }
 # full-width float32 logits (std ~1) of two paths that differ only by
 # summation order: measured within 1e-4 of each other; ten times that
@@ -152,6 +175,23 @@ CONTIGUOUS_KERNELS = ("flash_attention", "decode_attention",
 SPEC_KERNELS = MAIN_KERNELS + ("paged_verify_attention",)
 HYBRID_KERNELS = ("chunk_scan",) + MAIN_KERNELS
 SPEC_LEN = 4          # positions a speculative step verifies per slot
+# card vs CPU training at smoke size, float32: the two sides' gradients
+# differ by summation order (kernels against plain versions, ~1e-6 of a
+# leaf's largest element), which the losses and grad norms carry at about
+# that size, and AdamW turns into parameter noise of up to ~lr on elements
+# whose gradient is near zero (its normalised step moves an element by
+# ~lr whatever the gradient's size; the CPU tests measure 0.045·lr between
+# the port and the reference). m and v carry the gradient's own
+# difference, v quadratically. Losses, grad norms and lrs relative;
+# params absolute as a fraction of the peak lr; m and v as a fraction of
+# each leaf's largest element.
+TRAIN_PARITY = {"metrics_rtol": 1e-4, "params_of_lr": 0.1,
+                "moments_of_max": 1e-4}
+# full-width float32 gradients, kernel path vs plain autograd: both sum the
+# same float32 products in another order; each leaf is held at this
+# fraction of its largest element
+F32_GRAD_TOL = 1e-3
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd")
 
 
 def log(msg: str) -> None:
@@ -390,6 +430,83 @@ def _hybrid_kernel_cases(cases, rec, gen):
                             dtype, gen)
         compare("decode_attention", dk.decode_attention(*args),
                 dk.decode_attention_ref(*up(*args)), name, cases)
+
+
+def _check_flash_bwd(fk, fbk, cases, dtype_name, q, k, v, do, causal=True,
+                     window=0):
+    """The backward kernel against its plain version on the same q, k, v,
+    do and the forward kernel's out and lse; returns those."""
+    out, lse = fk.flash_attention_with_lse(q, k, v, causal=causal,
+                                           window=window)
+    got = fbk.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                  window=window)
+    want = fbk.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
+                                       window=window)
+    for g, w in zip(got, want):
+        compare("flash_attention_bwd", g, w, dtype_name, cases)
+    return out, lse
+
+
+def _training_kernel_cases(cases, rec, gen):
+    """The flash-attention backward against its plain version at the
+    training path's shape (one 4096-token sequence of Qwen3-8B heads,
+    causal; bf16, timed, then float32) and at float32 edge shapes."""
+    import torch
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import flash_attention_bwd as fbk
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, S, H, KV, dh = 1, 4096, 32, 8, 128
+    for dtype, name in ((bf16, "bfloat16"), (f32, "float32")):
+        q, k, v = _flash_case(B, S, H, KV, dh, dtype, gen)
+        do = torch.randn((B, S, H, dh), generator=gen, device="cuda") \
+            .to(dtype)
+        out, lse = _check_flash_bwd(fk, fbk, cases, name, q, k, v, do)
+        if dtype is not bf16:
+            continue
+        # the library call: SDPA's backward on the same values, heads
+        # first and K/V repeated to H outside the timing
+        qh, kh, vh = (_heads_first(t, g).requires_grad_() for t, g in
+                      ((q, 1), (k, H // KV), (v, H // KV)))
+        oh = torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True)
+        doh = _heads_first(do, 1)
+        pairs = S * (S + 1) // 2
+        rec["flash_attention_bwd"] = {
+            "shape": f"B={B} S={S} H={H} KV={KV} dh={dh} causal bf16",
+            "ms": cuda_ms(lambda: fbk.flash_attention_bwd(
+                q, k, v, out, lse, do), iters=5, warmup=1),
+            "plain_ms": cuda_ms(lambda: fbk.flash_attention_bwd_ref(
+                q, k, v, out, lse, do), iters=5, warmup=1),
+            "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                oh, (qh, kh, vh), doh, retain_graph=True), iters=5,
+                warmup=1),
+            # q, out, do, k, v and lse read; dq, dk, dv written
+            "bytes": (4 * B * S * H * dh + 4 * B * S * KV * dh) * 2
+            + B * S * H * 4,
+            # s = q·kᵀ, dp = do·vᵀ, dv, dk and dq: five causal products
+            "flops": 10 * B * H * dh * pairs, "dtype": "bfloat16"}
+        del qh, kh, vh, oh, doh
+        fwd_ms = cuda_ms(lambda: fk.flash_attention_with_lse(q, k, v),
+                         iters=5, warmup=1)
+        log(f"kernel flash_attention at the training shape: B={B} S={S} "
+            f"H={H} KV={KV} dh={dh} causal bf16: {fwd_ms:.4f} ms")
+    edge = [
+        # B, S, H, KV, dh, causal, window
+        (1, 1, 4, 2, 64, True, 0),          # one position
+        (2, 77, 8, 2, 64, True, 0),         # ragged last key tile, B > 1
+        (1, 200, 4, 1, 128, True, 0),       # MQA
+        (1, 150, 8, 8, 64, False, 0),       # MHA, not causal
+        (1, 300, 8, 2, 64, True, 50),       # window across key tiles
+        (2, 64, 4, 4, 32, True, 16),        # window inside one key tile
+        (1, 333, 32, 32, 80, True, 0),      # Zamba2's shared block, dh 80
+        (3, 129, 8, 2, 128, True, 0),       # B > 1, one key past a tile
+    ]
+    for B, S, H, KV, dh, causal, window in edge:
+        q, k, v = _flash_case(B, S, H, KV, dh, f32, gen)
+        do = torch.randn((B, S, H, dh), generator=gen, device="cuda")
+        _check_flash_bwd(fk, fbk, cases, "float32", q, k, v, do, causal,
+                         window)
 
 
 def phase_kernels():
@@ -700,6 +817,7 @@ def phase_kernels():
                 dk.decode_attention_ref(q, k, v, pos_t, window=window),
                 "float32", cases)
     _hybrid_kernel_cases(cases, rec, gen)
+    _training_kernel_cases(cases, rec, gen)
     torch.cuda.synchronize()
 
     for name, r in rec.items():
@@ -1152,6 +1270,198 @@ def phase_hybrid_float32_agreement():
             f"{HYBRID_STATE_TOL})")
 
 
+# ---------------------------------------------------------------------------
+# Phases 11-13: training
+# ---------------------------------------------------------------------------
+
+def _train_expert(tp, k, state, on_step=None):
+    """Expert k's ``tp.steps`` steps through ``train_host_loop`` with the
+    metrics read back every step. ``on_step(step)`` runs after each step's
+    readback. Returns (history, per-step wall seconds)."""
+    from repro_torch.train.trainer import train_host_loop
+
+    walls = []
+    t_prev = [time.perf_counter()]
+
+    def callback(step, _):
+        now = time.perf_counter()
+        walls.append(now - t_prev[0])
+        if on_step:
+            on_step(step)
+        t_prev[0] = time.perf_counter()
+
+    _, hist = train_host_loop(tp.model, state, tp.loaders[k], tp.steps,
+                              tp.config, log_every=1, callback=callback)
+    return hist, walls
+
+
+def phase_train_parity():
+    """Expert 0 of the smoke-size float32 training deployment, 3 steps on
+    the card and on the CPU from the same params (drawn on the CPU)."""
+    import torch
+    from repro_torch.launch import train_path
+    from repro_torch.tree import tree_leaves, tree_map
+
+    host = train_path.build("cpu", smoke=True)
+    card = train_path.build("cuda", smoke=True)
+    s_cpu = host.init_state(0)
+    s_gpu = tree_map(lambda t: t.to("cuda", copy=True), s_cpu)
+    h_gpu, _ = _train_expert(card, 0, s_gpu)
+    h_cpu, _ = _train_expert(host, 0, s_cpu)
+    tol = TRAIN_PARITY
+    worst = {"metrics": 0.0, "params": 0.0, "moments": 0.0}
+    for a, b in zip(h_gpu, h_cpu):
+        for name in ("loss", "grad_norm", "lr"):
+            worst["metrics"] = max(worst["metrics"],
+                                   abs(a[name] - b[name]) / abs(b[name]))
+    peak = host.config.opt.lr
+    for (path, g), (_, c) in zip(tree_leaves(s_gpu["params"]),
+                                 tree_leaves(s_cpu["params"])):
+        worst["params"] = max(worst["params"],
+                              (g.cpu() - c).abs().max().item() / peak)
+    for key in ("m", "v"):
+        for (path, g), (_, c) in zip(tree_leaves(s_gpu["opt"][key]),
+                                     tree_leaves(s_cpu["opt"][key])):
+            worst["moments"] = max(worst["moments"], (
+                (g.cpu() - c).abs().max() / c.abs().max()).item())
+    log(f"training parity ({card.cfg.arch_id}, expert 0, {card.steps} "
+        f"steps of {card.tokens_per_step} tokens, float32): losses "
+        f"{[round(h['loss'], 6) for h in h_gpu]} on the card, "
+        f"{[round(h['loss'], 6) for h in h_cpu]} on the CPU; worst "
+        f"loss/grad-norm/lr relative diff {worst['metrics']:.3e} "
+        f"(tolerance {tol['metrics_rtol']}), params {worst['params']:.3e} "
+        f"of the peak lr (tolerance {tol['params_of_lr']}), m and v "
+        f"{worst['moments']:.3e} of a leaf's largest element (tolerance "
+        f"{tol['moments_of_max']})")
+    if not (worst["metrics"] <= tol["metrics_rtol"]
+            and worst["params"] <= tol["params_of_lr"]
+            and worst["moments"] <= tol["moments_of_max"]):
+        raise AssertionError(f"training on the card and the CPU disagree: "
+                             f"{worst} against {tol}")
+
+
+def phase_train_path():
+    """Full-width Qwen3-8B cut to 8 layers, 2 experts, 8 steps each
+    (``repro_torch/launch/train_path.py``). Returns the backward kernel's
+    launches."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train_path
+    from repro_torch.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    tp = train_path.build("cuda")
+    cfg = tp.cfg
+    log(f"training path: {cfg.arch_id} at full width cut to "
+        f"{cfg.n_layers} layers (D={cfg.d_model}, vocab {cfg.vocab}, "
+        f"{cfg.param_dtype}, remat {cfg.remat}), {tp.args.experts} experts "
+        f"on shards of {[len(s) for s in tp.partition.shards]} samples, "
+        f"{tp.steps} steps of {tp.tokens_per_step} tokens each; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bad = []
+    ops.reset_launch_counts()
+    experts = []
+    for k in range(tp.args.experts):
+        state = tp.init_state(k)
+        n_params = sum(p.numel() for _, p in tree_leaves(state["params"]))
+
+        def first_step_grads(step, state=state, k=k):
+            if step != 0:
+                return
+            for path, m in tree_leaves(state["opt"]["m"]):
+                if not (bool(torch.isfinite(m).all())
+                        and bool(m.abs().amax() > 0)):
+                    bad.append(f"expert {k}: step-1 gradient of {path} is "
+                               f"zero or not finite")
+        hist, walls = _train_expert(tp, k, state, first_step_grads)
+        losses = [h["loss"] for h in hist]
+        med = float(np.median(walls))
+        experts.append({
+            "expert": k, "params": n_params, "first_loss": losses[0],
+            "last_loss": losses[-1], "losses": losses,
+            "grad_norms": [h["grad_norm"] for h in hist],
+            "median_step_ms": med * 1e3,
+            "step_ms": [w * 1e3 for w in walls],
+            "tok_per_s": tp.tokens_per_step / med})
+        if not all(np.isfinite(losses)):
+            bad.append(f"expert {k}: non-finite loss {losses}")
+        if not losses[-1] < losses[0]:
+            bad.append(f"expert {k}: last loss {losses[-1]} not below the "
+                       f"first {losses[0]}")
+        # the check's defaults hold the state too: free both before the
+        # next expert is built, as the launcher does
+        del state, first_step_grads
+        torch.cuda.empty_cache()
+    launches = {n: fn.launches for n, fn in ops.KERNELS.items()}
+    want_bwd = cfg.n_layers * tp.steps * tp.args.experts
+    if launches["flash_attention_bwd"] != want_bwd \
+            or launches["flash_attention"] != 2 * want_bwd:
+        bad.append(f"launches {launches}: want {want_bwd} backward and "
+                   f"{2 * want_bwd} forward (layers x steps x experts, the "
+                   f"forward twice under remat)")
+    stats = {"experts": experts,
+             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+             "launches": launches}
+    log("training path: " + json.dumps(stats))
+    if bad:
+        raise AssertionError("training path: " + "; ".join(bad))
+    return launches
+
+
+def phase_train_float32_gradients():
+    """Full-width Qwen3-8B, 2 layers, float32, one 1024-token sequence:
+    the gradient through the kernels against autograd through the plain
+    attention, on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train_path
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_from_leaves, tree_leaves
+
+    cfg = get_config(train_path.ARCH).reduced(
+        n_layers=2, param_dtype="float32", compute_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(5))
+    toks = torch.as_tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab, (1, 1024)), device="cuda")
+    batch = {"tokens": toks, "labels": toks}
+    paths, leaves = zip(*tree_leaves(params))
+
+    def loss_and_grads():
+        live = [p.detach().requires_grad_() for p in leaves]
+        loss, _ = model.loss(tree_from_leaves(paths, live), batch)
+        return loss.item(), torch.autograd.grad(loss, live)
+
+    ops.reset_launch_counts()
+    loss_k, grads_k = loss_and_grads()
+    launched = ops.KERNELS["flash_attention_bwd"].launches
+    kernel_seam = ops.flash_attention
+    ops.flash_attention = fk.flash_attention_ref    # plain, autograd
+    try:
+        loss_p, grads_p = loss_and_grads()
+    finally:
+        ops.flash_attention = kernel_seam
+    worst, where = 0.0, ""
+    for path, a, b in zip(paths, grads_k, grads_p):
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        if not rel <= worst:
+            worst, where = rel, path
+    log(f"float32 gradients: full-width {cfg.arch_id}, 2 layers, 1024 "
+        f"tokens: loss {loss_k:.6f} (kernels) vs {loss_p:.6f} (plain); "
+        f"worst leaf {where}: max abs diff {worst:.3e} of its largest "
+        f"element (tolerance {F32_GRAD_TOL}); backward kernel launched "
+        f"{launched} times")
+    if not worst <= F32_GRAD_TOL or launched != cfg.n_layers:
+        raise AssertionError(f"float32 gradients disagree: {worst:.3e} at "
+                             f"{where}, backward launches {launched}")
+
+
 # (case, stop id: the pick at this offset or none, max_new, context left
 # after the span's first position or none)
 FUSED_VERIFY_CASES = (("full accept", None, None, None),
@@ -1249,14 +1559,22 @@ def main() -> int:
     hybrid_launches = phase_hybrid_path()
     torch.cuda.empty_cache()
     phase_hybrid_float32_agreement()
+    torch.cuda.empty_cache()
+    phase_train_parity()
+    train_launches = phase_train_path()
+    phase_train_float32_gradients()
     # each kernel's launches on the full-width path that runs it (the
     # verify kernel runs on the speculative path only, the chunk scan on
-    # the hybrid path only)
+    # the hybrid path only, the flash backward on the training path only;
+    # flash attention keeps the contiguous serving path's count, the
+    # training path prints its own)
     launches = dict(contiguous_launches,
                     **{n: main_launches[n] for n in MAIN_KERNELS},
                     paged_verify_attention=spec_launches[
                         "paged_verify_attention"],
-                    chunk_scan=hybrid_launches["chunk_scan"])
+                    chunk_scan=hybrid_launches["chunk_scan"],
+                    flash_attention_bwd=train_launches[
+                        "flash_attention_bwd"])
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():

@@ -1,12 +1,15 @@
-"""Read side of the per-expert npz checkpoints (port of
-``repro.checkpoint.ckpt``), in the same layout, so the port serves
-checkpoints the JAX package trained:
+"""Per-expert npz checkpoints (port of ``repro.checkpoint.ckpt``), in the
+same layout and the same npz entries, so each package reads what the other
+wrote:
 
     <dir>/expert_<k>/step_<n>.npz      (params + optimizer state + step)
     <dir>/router.npz                    (centroids — the parameter-free router)
 
 Leaves come back as numpy arrays; ``repro_torch.weights`` turns a params
-tree into tensors.
+tree into tensors. A bfloat16 leaf is stored as the reference stores one
+(``np.savez`` of an ``ml_dtypes`` bfloat16 array writes its raw bits with
+dtype ``|V2``): its bits as ``V2``, so no ``ml_dtypes`` is needed here.
+``weights.to_tensor`` reads ``|V2`` leaves back as bfloat16.
 """
 from __future__ import annotations
 
@@ -15,9 +18,40 @@ import re
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
 
 # zero-length marker entries that keep empty containers in the tree
 _EMPTY_FACTORIES = {"__ED": dict, "__EL": list, "__ET": tuple}
+
+
+def _to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view("V2")
+        return t.numpy()
+    return np.asarray(leaf)
+
+
+def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
+    """``/``-joined paths → arrays, dict keys in sorted order (the order
+    ``jax.device_get`` leaves the reference's trees in); an empty container
+    becomes a zero-length ``__E<tag>`` marker entry."""
+    out = {}
+    if isinstance(tree, dict):
+        if not tree:
+            out[f"{prefix}__ED"] = np.zeros(0, np.int8)
+        for k in sorted(tree):
+            out.update(_flatten(tree[k], f"{prefix}{k}/"))
+    elif isinstance(tree, (tuple, list)):
+        tag = "T" if isinstance(tree, tuple) else "L"
+        if not tree:
+            out[f"{prefix}__E{tag}"] = np.zeros(0, np.int8)
+        for i, v in enumerate(tree):
+            out.update(_flatten(v, f"{prefix}__{tag}{i}/"))
+    else:
+        out[prefix.rstrip("/")] = _to_numpy(tree)
+    return out
 
 
 def _unflatten(flat: Dict[str, np.ndarray]):
@@ -44,6 +78,11 @@ def _unflatten(flat: Dict[str, np.ndarray]):
     return rebuild(tree)
 
 
+def save(path: str, tree) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **_flatten(tree))
+
+
 def load(path: str):
     with np.load(path, allow_pickle=False) as data:
         return _unflatten({k: data[k] for k in data.files})
@@ -51,6 +90,12 @@ def load(path: str):
 
 def expert_dir(base: str, expert: int) -> str:
     return os.path.join(base, f"expert_{expert}")
+
+
+def save_expert(base: str, expert: int, step: int, state) -> str:
+    path = os.path.join(expert_dir(base, expert), f"step_{step}.npz")
+    save(path, state)
+    return path
 
 
 def latest_step(base: str, expert: int) -> Optional[int]:
@@ -70,6 +115,13 @@ def restore_expert(base: str, expert: int, step: Optional[int] = None):
         return None, None
     return load(os.path.join(expert_dir(base, expert),
                              f"step_{step}.npz")), step
+
+
+def save_router(base: str, centroids: np.ndarray,
+                temperature: float, top_k: int) -> None:
+    os.makedirs(base, exist_ok=True)
+    np.savez(os.path.join(base, "router.npz"), centroids=centroids,
+             temperature=np.float64(temperature), top_k=np.int64(top_k))
 
 
 def load_router(base: str):

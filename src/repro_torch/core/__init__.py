@@ -1,1 +1,2 @@
-"""Routing core of the port (Eq. 28 centroid router)."""
+"""Routing core of the port: the Eq. 28 centroid router and the balanced
+spherical k-means that partitions the training data."""

@@ -10,7 +10,9 @@ features are on the card, its plain version on the CPU.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kops
@@ -72,3 +74,15 @@ class CentroidRouter:
     def top1(self, features: Tensor) -> Tensor:
         """Hard assignment: (...,) int64 expert ids."""
         return torch.argmax(self.cluster_probs(features), dim=-1)
+
+
+def router_from_clustering(centroids: np.ndarray,
+                           config: Optional[RouterConfig] = None
+                           ) -> CentroidRouter:
+    """The router straight from k-means output (port of
+    ``repro.core.router.router_from_clustering``): no trainable
+    parameters; the centroids as float32 on the CPU (``.to(device)``
+    moves them)."""
+    return CentroidRouter(torch.as_tensor(np.asarray(centroids),
+                                          dtype=torch.float32),
+                          config or RouterConfig())

@@ -1,1 +1,2 @@
-"""Synthetic data substrate (numpy only)."""
+"""Data substrate (numpy only): the synthetic corpus, its partition into
+expert shards and the per-expert loaders."""

@@ -21,7 +21,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("decode_attention", "flash_attention", "router_scores",
-           "chunk_scan")
+           "chunk_scan", "flash_attention_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -106,6 +106,9 @@ def load(name: str) -> ctypes.CDLL:
         lib.flash_attention.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I,
                                         I, F, P]
         lib.flash_attention.restype = I
+    elif name == "flash_attention_bwd":
+        lib.flash_attention_bwd.argtypes = [P] * 9 + [I] * 8 + [F, P]
+        lib.flash_attention_bwd.restype = I
     elif name == "router_scores":
         lib.router_scores.argtypes = [P, P, P, I, I, I, I, F, P]
         lib.router_scores.restype = I

@@ -1,9 +1,9 @@
 """Shared building blocks (port of ``repro.models.layers``): norms, RoPE,
-SwiGLU, embeddings. Numerics follow the reference: norms and RoPE in
+SwiGLU, embeddings, the training loss. Numerics follow the reference: norms and RoPE in
 float32, projections in the working dtype, logits upcast to float32."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -80,3 +80,15 @@ def unembed(params: Dict[str, Tensor], x: Tensor, tie: bool,
         pad = torch.arange(V, device=logits.device) >= true_vocab
         logits = logits.masked_fill(pad, -1e30)
     return logits
+
+
+def cross_entropy_loss(logits: Tensor, labels: Tensor,
+                       mask: Optional[Tensor] = None) -> Tensor:
+    """Mean next-token NLL. logits: (B, S, V) float32; labels: (B, S) int;
+    mask: (B, S), the positions that count (all when None)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, labels[..., None].long())[..., 0]
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(nll.dtype)
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)

@@ -18,8 +18,10 @@ Ported: ``cache_spec`` (with ``CacheSpec.insert``/``insert_paged``/
 either cache, for the dense and hybrid (Zamba2: Mamba2 groups + one shared
 attention block) families; the speculative span verify over the paged
 cache for the dense family (``speculative_capable``,
-``verify_step_paged``, ``fused_verify_step``). The other families and
-``forward`` (training) are not ported yet (see ROADMAP.md).
+``verify_step_paged``, ``fused_verify_step``); the teacher-forced
+``forward`` and ``loss`` with their gradient for the dense family (the
+hybrid family's forward without it). The other families are not ported
+yet (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -28,12 +30,15 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.tree import tree_leaves
 
 from . import attention as attn
 from . import ssm as ssm_lib
-from .layers import embed, embedding_specs, rms_norm, swiglu, swiglu_specs, unembed
+from .layers import (cross_entropy_loss, embed, embedding_specs, rms_norm,
+                     swiglu, swiglu_specs, unembed)
 from .params import ParamSpec, init_params, is_spec
 
 Tensor = torch.Tensor
@@ -263,25 +268,33 @@ class Model:
     # The layer stack
     # ------------------------------------------------------------------
 
-    def _stack(self, params, x: Tensor, attend, mamba=None) -> Tensor:
+    def _stack(self, params, x: Tensor, attend, mamba=None, *,
+               remat: bool = False) -> Tensor:
         """Run the layer stack on x and return the final-normed rows.
         ``attend(i, attn_params, h)`` is the attention of layer (or, for
         the hybrid family, group) i on its normed input h, and
         ``mamba(g, m, mamba_params, h)`` Mamba2 layer m of group g; each
-        reads and writes its own cache or carry."""
+        reads and writes its own cache or carry. ``remat``: each layer
+        (group) runs under non-reentrant ``torch.utils.checkpoint``, so
+        the backward recomputes its activations instead of keeping
+        them."""
         cfg = self.cfg
         eps = cfg.norm_eps
-        blocks = params["blocks"]
         shared = params.get("shared_attn")
-        for i in range(self.n_groups):
-            layer = layer_slice(blocks, i)
+
+        def block(i, layer, x):
             if self.hybrid:
                 for m in range(self.group_m):
                     x = x + mamba(i, m, layer_slice(layer["mamba"], m),
                                   rms_norm(x, layer["m_ln"][m], eps))
                 layer = shared
             h = x + attend(i, layer["attn"], rms_norm(x, layer["ln1"], eps))
-            x = h + swiglu(layer["ffn"], rms_norm(h, layer["ln2"], eps))
+            return h + swiglu(layer["ffn"], rms_norm(h, layer["ln2"], eps))
+
+        for i in range(self.n_groups):
+            layer = layer_slice(params["blocks"], i)
+            x = checkpoint(block, i, layer, x, use_reentrant=False) if remat \
+                else block(i, layer, x)
         return rms_norm(x, params["final_norm"], eps)
 
     def _step_mamba(self, cache):
@@ -296,6 +309,46 @@ class Model:
             conv_st.copy_(cc)
             return y
         return mamba
+
+    # ------------------------------------------------------------------
+    # Teacher-forced forward (training / eval)
+    # ------------------------------------------------------------------
+
+    def forward(self, params, batch) -> Tensor:
+        """Teacher-forced logits (B, S, V) float32 of ``batch["tokens"]``.
+
+        Attention always goes through the kernel seam (``kernels.ops``):
+        the CUDA kernels on the card, with the flash backward under
+        autograd. While autograd records a graph of the params,
+        ``cfg.remat="full"`` recomputes each layer in the backward
+        (non-reentrant ``torch.utils.checkpoint`` per layer of the stacked
+        ``blocks``) and ``"none"`` keeps every activation; ``"dots"`` and
+        every family but dense are refused then."""
+        cfg = self.cfg
+        training = torch.is_grad_enabled() and any(
+            p.requires_grad for _, p in tree_leaves(params))
+        if training and self.hybrid:
+            raise ValueError(f"training family {cfg.family!r} is not ported "
+                             f"to repro_torch yet (see ROADMAP.md)")
+        if training and cfg.remat not in ("full", "none"):
+            raise ValueError(f"remat={cfg.remat!r} is not ported to "
+                             f"repro_torch yet (see ROADMAP.md)")
+        x = self._stack(
+            params, embed(params["embed"], batch["tokens"], cfg.cdtype),
+            lambda i, p, h: attn.full_attention(p, h, cfg),
+            lambda g, m, p, h: ssm_lib.mamba2_prefill(p, h, cfg)[0],
+            remat=training and cfg.remat == "full")
+        return unembed(params["embed"], x, cfg.tie_embeddings, cfg.vocab)
+
+    def loss(self, params, batch):
+        """(mean next-token NLL, {"loss": it}): logits of positions
+        0..S-2 against labels 1..S-1, over ``batch["loss_mask"]`` when
+        given."""
+        logits = self.forward(params, batch)
+        mask = batch.get("loss_mask")
+        nll = cross_entropy_loss(logits[:, :-1], batch["labels"][:, 1:],
+                                 None if mask is None else mask[:, 1:])
+        return nll, {"loss": nll}
 
     # ------------------------------------------------------------------
     # Prefill: the whole prompt in one forward

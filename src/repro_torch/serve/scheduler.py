@@ -51,6 +51,7 @@ from repro_torch.serve.api import (EngineConfig, RequestOutput,
                                    effective_page_block, stop_id_row)
 from repro_torch.serve.fused import DONE_REASONS, pick_first
 from repro_torch.serve.speculate import NGramProposer
+from repro_torch.tree import tree_map
 
 Tensor = torch.Tensor
 
@@ -950,12 +951,6 @@ class SlotServer(_SlotTable):
         return first
 
 
-def _tree_to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _tree_to(v, device) for k, v in tree.items()}
-    return tree.to(device)
-
-
 class DecentralizedSlotServer:
     """Front-end centroid router over continuously batched expert pods
     (strategy "top1"): one ``SlotServer`` per expert; each request decodes
@@ -975,7 +970,8 @@ class DecentralizedSlotServer:
         self.strategy = config.strategy
         self._next_rid = 0
         fns = make_fused_fns(model, config.cache_len, paged=config.paged)
-        self.pods = [SlotServer(model, _tree_to(p, self.device),
+        self.pods = [SlotServer(model,
+                                tree_map(lambda t: t.to(self.device), p),
                                 config=config, device=self.device,
                                 fused_fns=fns)
                      for p in expert_params]
@@ -1047,5 +1043,5 @@ def make_engine(model: Model, params: Any = None, *,
             "single-model serving needs the model's params (or pass "
             "experts= and router= for the decentralized deployment)")
     dev = resolve_device(device)
-    return SlotServer(model, _tree_to(params, dev), config=config,
-                      device=dev)
+    return SlotServer(model, tree_map(lambda t: t.to(dev), params),
+                      config=config, device=dev)

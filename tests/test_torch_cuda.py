@@ -21,6 +21,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import chunk_scan as cs  # noqa: E402
 from repro_torch.kernels import decode_attention as dk  # noqa: E402
 from repro_torch.kernels import flash_attention as fk  # noqa: E402
+from repro_torch.kernels import flash_attention_bwd as fbk  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import router_scores as rk  # noqa: E402
 
 
@@ -211,3 +213,66 @@ def test_chunk_scan_kernel_on_card(cuda, B, NC, L, H, dk, dv, dtype):
     for g, w in zip(got, want):
         assert g.dtype == torch.float32
         torch.testing.assert_close(g, w, rtol=5e-5, atol=5e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KV,dh,causal,window", [
+    (2, 77, 8, 2, 64, True, 0),        # ragged S, GQA 4:1, B > 1
+    (1, 1, 4, 2, 64, True, 0),         # one position
+    (1, 150, 8, 8, 64, False, 0),      # MHA, not causal
+    (1, 200, 4, 1, 128, True, 50),     # MQA, window across key tiles
+    (1, 96, 32, 32, 80, True, 0),      # Zamba2's shared block, dh 80
+])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_attention_bwd_kernel_on_card(cuda, B, S, H, KV, dh, causal,
+                                            window, dtype, tol):
+    """dq, dk, dv of the backward kernels against the plain version on the
+    forward kernel's out and lse."""
+    rng = np.random.default_rng(11)
+    q, do = (torch.as_tensor(f32(rng, B, S, H, dh), device=cuda).to(dtype)
+             for _ in range(2))
+    k, v = (torch.as_tensor(f32(rng, B, S, KV, dh), device=cuda).to(dtype)
+            for _ in range(2))
+    out, lse = fk.flash_attention_with_lse(q, k, v, causal=causal,
+                                           window=window)
+    got = fbk.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                  window=window)
+    want = fbk.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
+                                       window=window)
+    for g, w, ref in zip(got, want, (q, k, v)):
+        assert g.dtype == ref.dtype and g.shape == ref.shape
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", [False, True])
+def test_flash_attention_gradient_on_card(cuda, remat):
+    """``ops.flash_attention`` under autograd on the card runs the forward
+    and backward kernels (one launch each, a second forward under
+    checkpointing) and gives autograd's gradient of the plain version."""
+    from torch.utils.checkpoint import checkpoint
+    rng = np.random.default_rng(12)
+    arrays = [f32(rng, 2, 70, h, 32) for h in (4, 2, 2, 4)]
+
+    def grads(fn):
+        q, k, v = (torch.as_tensor(a, device=cuda).requires_grad_()
+                   for a in arrays[:3])
+
+        def f(a, b, c):
+            return fn(a * 1.0, b, c, causal=True, window=30)
+        out = checkpoint(f, q, k, v, use_reentrant=False) if remat \
+            else f(q, k, v)
+        do = torch.as_tensor(arrays[3], device=cuda)
+        return torch.autograd.grad((out * do).sum(), (q, k, v))
+
+    ops.reset_launch_counts()
+    got = grads(ops.flash_attention)
+    assert ops.KERNELS["flash_attention_bwd"].launches == 1
+    assert ops.KERNELS["flash_attention"].launches == 1 + remat
+    for g, w in zip(got, grads(fk.flash_attention_ref)):
+        torch.testing.assert_close(g, w, rtol=5e-5, atol=5e-5)
+    with pytest.raises(RuntimeError, match="has no backward kernel"):
+        q = torch.zeros((2, 4, 8), device=cuda, requires_grad=True)
+        ops.decode_attention(q, q[:, None], q[:, None],
+                             torch.zeros(2, dtype=torch.int32, device=cuda))
