@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict
 
@@ -26,6 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+build_seconds: Dict[str, float] = {}
 
 
 def build_dir() -> Path:
@@ -53,28 +55,35 @@ def _target(name: str) -> Path:
 def build_all(names=SOURCES) -> Dict[str, Path]:
     """Compile every library that is not built yet, one ``nvcc`` per source,
     all started together. Raises with the compiler's output on failure.
-    The compiler's resource report (``-Xptxas -v``) goes to
-    ``build/kernels/<name>.log``."""
+    The compiler's output, with its resource report (``-Xptxas -v``), goes
+    to ``build/kernels/<name>.log``; each compiled source's wall seconds to
+    ``build_seconds``."""
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     targets = {n: _target(n) for n in names}
     procs = {}
+    start = time.perf_counter()
     for name, so in targets.items():
         if so.exists():
             continue
         tmp = so.parent / f"{so.stem}.{os.getpid()}.tmp.so"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp)
+        with open(out_dir / f"{name}.log", "w") as log:
+            procs[name] = (subprocess.Popen(cmd, stdout=log,
+                                            stderr=subprocess.STDOUT), tmp)
     failed = []
-    for name, (proc, tmp) in procs.items():
-        log, _ = proc.communicate()
-        (out_dir / f"{name}.log").write_text(log)
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
-            continue
-        os.replace(tmp, targets[name])     # atomic: readers see whole files
+    while procs:
+        time.sleep(0.05)
+        for name, (proc, tmp) in list(procs.items()):
+            if proc.poll() is None:
+                continue
+            del procs[name]
+            build_seconds[name] = time.perf_counter() - start
+            if proc.returncode != 0:
+                log = (out_dir / f"{name}.log").read_text()
+                failed.append(f"{name}:\n{log}")
+                continue
+            os.replace(tmp, targets[name])  # atomic: readers see whole files
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return targets

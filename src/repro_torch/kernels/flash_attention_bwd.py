@@ -23,6 +23,7 @@ import torch
 
 from . import build
 from .decode_attention import check_operands
+from .flash_attention import check_tensor_core_shape
 
 Tensor = torch.Tensor
 
@@ -37,7 +38,9 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
                         window: int = 0) -> Tuple[Tensor, Tensor, Tensor]:
     """CUDA kernels. q, out, do: (B,S,H,dh); k, v: (B,S,KV,dh); lse: (B,S,H)
     float32, as ``flash_attention_with_lse`` returns it → (dq in q.dtype,
-    dk, dv in k.dtype). The mask is the forward's. Any S."""
+    dk, dv in k.dtype). The mask is the forward's. Any S. bf16 runs on
+    the tensor cores (``flash_attention.check_tensor_core_shape``), float32
+    on the scalar kernels."""
     code = check_operands(q, k, v, (), "flash_attention_bwd")
     B, S, H, dh = q.shape
     KV = k.shape[2]
@@ -55,6 +58,8 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
             or lse.device != q.device or not lse.is_contiguous():
         raise ValueError("flash_attention_bwd: lse must be a contiguous "
                          f"(B,S,H) float32 tensor on {q.device}")
+    if q.dtype == torch.bfloat16:
+        check_tensor_core_shape("flash_attention_bwd", q, k, v, out, do)
     delta = _delta(out, do)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     lib = build.load("flash_attention_bwd")

@@ -51,7 +51,9 @@ KERNEL_GROUPS = {
     "chunk_prefill_attention": ("chunk_prefill_kernel",),
     "paged_verify_attention": ("paged_verify_kernel",),
     "chunk_scan": ("chunk_scan",),
-    "flash_attention": ("flash_kernel",),
+    "flash_attention": ("flash_kernel", "flash_fwd_sm90"),
+    "flash_attention_bwd": ("dq_kernel", "dkv_kernel", "dq_sm90",
+                            "dkv_sm90"),
     "router_scores": ("router_kernel",),
     "matmul": ("gemm", "xmma", "cutlass", "cublas", "nvjet"),
 }

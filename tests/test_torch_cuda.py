@@ -82,15 +82,23 @@ def test_chunk_prefill_kernel_on_card(cuda, dtype, tol):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("S,causal,window", [(77, True, 0), (96, False, 0),
-                                             (70, True, 20)])
+@pytest.mark.parametrize("B,S,H,KV,dh,causal,window", [
+    (2, 77, 8, 2, 64, True, 0),        # ragged S, GQA 4:1
+    (2, 96, 8, 2, 64, False, 0),       # not causal
+    (2, 70, 8, 2, 64, True, 20),       # window across key tiles
+    (1, 200, 4, 1, 128, True, 0),      # MQA
+    (2, 64, 4, 4, 32, True, 16),       # window inside one key tile
+    (1, 100, 6, 2, 40, True, 0),       # dh 40, a group of 3
+])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
                                        (torch.bfloat16, 2e-2)])
-def test_flash_attention_kernel_on_card(cuda, S, causal, window, dtype, tol):
-    """Ragged S (no whole key tile at the end), GQA 4:1; out and lse."""
+def test_flash_attention_kernel_on_card(cuda, B, S, H, KV, dh, causal,
+                                        window, dtype, tol):
+    """Ragged S (no whole key tile at the end), GQA and MQA, windows, dh
+    down to 40; out and lse."""
     rng = np.random.default_rng(7)
-    q, k, v = (torch.as_tensor(f32(rng, 2, S, h, 64), device=cuda).to(dtype)
-               for h in (8, 2, 2))
+    q, k, v = (torch.as_tensor(f32(rng, B, S, h, dh), device=cuda).to(dtype)
+               for h in (H, KV, KV))
     got, got_lse = fk.flash_attention_with_lse(q, k, v, causal=causal,
                                                window=window)
     want, want_lse = fk.flash_attention_with_lse_ref(q, k, v, causal=causal,
@@ -222,6 +230,8 @@ def test_chunk_scan_kernel_on_card(cuda, B, NC, L, H, dk, dv, dtype):
     (1, 150, 8, 8, 64, False, 0),      # MHA, not causal
     (1, 200, 4, 1, 128, True, 50),     # MQA, window across key tiles
     (1, 96, 32, 32, 80, True, 0),      # Zamba2's shared block, dh 80
+    (2, 64, 4, 4, 32, True, 16),       # window inside one key tile
+    (1, 100, 6, 2, 40, True, 0),       # dh 40, a group of 3
 ])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
                                        (torch.bfloat16, 2e-2)])

@@ -265,3 +265,34 @@ def test_build_dir_is_ignored_and_sources_exist():
     assert (root / ".gitignore").read_text().splitlines().count("build/")
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").is_file()
+
+
+@pytest.mark.parametrize("B,S,H,KV,dh,ok", [
+    (1, 8, 32, 8, 128, True),      # Qwen3-8B's heads
+    (1, 8, 32, 32, 80, True),      # Zamba2's
+    (1, 8, 6, 2, 40, True),        # dh 40, a group of 3
+    (1, 8, 4, 2, 32, True),
+    (1, 8, 4, 2, 36, False),       # dh not a multiple of 8
+    (1, 8, 4, 2, 136, False),      # dh past 128
+    (1, 8, 128, 1, 64, False),     # 128 query heads on one KV head
+])
+def test_bf16_tensor_core_shape_check(B, S, H, KV, dh, ok):
+    """The bf16 kernels' limits are checked before a launch and raise with
+    the shape named; nothing is routed to another kernel."""
+    q = torch.zeros((B, S, H, dh), dtype=torch.bfloat16)
+    k = torch.zeros((B, S, KV, dh), dtype=torch.bfloat16)
+    if ok:
+        fk.check_tensor_core_shape("flash", q, k, k)
+    else:
+        with pytest.raises(ValueError, match=r"q \(1, 8, "):
+            fk.check_tensor_core_shape("flash", q, k, k)
+
+
+def test_bf16_tensor_core_alignment_check():
+    """An operand off a 16-byte boundary (TMA reads whole 16-byte units)
+    raises."""
+    q = torch.zeros((1, 8, 4, 64), dtype=torch.bfloat16)
+    k = torch.zeros(2 * 8 * 64 + 4, dtype=torch.bfloat16)[4:] \
+        .view(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fk.check_tensor_core_shape("flash", q, k, k)

@@ -699,6 +699,18 @@ def test_train_path_rehearses_on_cpu():
                    for _, m in tree_leaves(state["opt"]["m"]))
 
 
+def test_profile_train_rehearses_on_cpu(capsys):
+    """``launch/profile_train.py --smoke --device cpu``: the steps before,
+    under and after the profiler run with finite losses, and no device
+    number is reported from the CPU."""
+    from repro_torch.launch import profile_train
+    rep = profile_train.main(["--smoke", "--device", "cpu", "--steps", "1"])
+    assert json.loads(capsys.readouterr().out) == rep
+    assert rep["device"] == "cpu" and rep["layers"] == 2
+    assert len(rep["losses"]) == 2 and all(np.isfinite(rep["losses"]))
+    assert rep["device_busy_share"] == "not measured (CPU run)"
+    assert "device_ms" not in rep
+
 
 def test_training_entry_points_default_to_the_card(monkeypatch, tmp_path):
     """Without ``device="cpu"`` the training entry points ask for the card
