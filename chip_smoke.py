@@ -10,17 +10,26 @@ Phases, each fatal on failure:
 1. device — prints the card's ``nvidia-smi`` name and power limit;
 2. build — one ``nvcc`` per kernel source, all started together; prints
    each source's build seconds and, from ``cuobjdump -sass``, the count of
-   tensor-core instructions (``HGMMA``, ``HMMA``) in each library;
+   tensor-core instructions (``HGMMA``, ``HMMA``) in each library, and
+   fails if a library of bf16 tensor-core kernels (``TENSOR_CORE_LIBS``)
+   has no ``HGMMA``;
 3. kernels — each kernel against its plain PyTorch version at the main
    paths' shapes (bf16 and float32), at the hybrid family's shapes (the
-   chunk scan at the chunked and the monolithic prefill's shapes; the four
+   chunk scan at the chunked and the monolithic prefill's shapes; the five
    attention kernels at Zamba2's MHA heads, H = KV = 32, dh = 80) and at
    small float32 edge shapes (the chunk scan's include mLSTM's H = 4,
    dk = 384, dv = 385; the flash forward's and backward's run in bf16 as
    well, on the tensor-core kernels; the flash backward also at the
-   contiguous path's and Zamba2's prefill shapes), with the stated
+   contiguous path's and Zamba2's prefill shapes; chunk prefill's and
+   verify's run in bf16 as well, on the tensor-core kernels, with more
+   bf16 edges: page blocks 8 to 128, a group of 64 rows, ragged chunks,
+   two row tiles, spans past the table horizon, idle slots, splits whose
+   keys some rows do not see; every bf16 verify row is also held against
+   paged decode's plain version at pos + j), with the stated
    tolerances, and timed (kernel, plain version, one library call) with
-   CUDA events;
+   CUDA events, the kernel and the library call also replayed from a
+   CUDA graph (device ms: the events' mean of back-to-back calls measures
+   the host where a call's kernels are short);
 4. parity — the smoke-size float32 Qwen3 deployment (2 pods, top-1) served
    on the card (kernels) and on the CPU (plain versions) in four
    configurations (paged + chunked, paged + chunked + n-gram speculation,
@@ -197,6 +206,9 @@ TRAIN_PARITY = {"metrics_rtol": 1e-4, "params_of_lr": 0.1,
 # fraction of its largest element
 F32_GRAD_TOL = 1e-3
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd")
+# the libraries whose bf16 kernels run on the tensor cores (wgmma)
+TENSOR_CORE_LIBS = ("decode_attention", "flash_attention",
+                    "flash_attention_bwd")
 
 
 def log(msg: str) -> None:
@@ -218,6 +230,44 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20):
+    """Mean device milliseconds per call: ``iters`` calls of ``fn``
+    captured in one CUDA graph (the wrappers launch on the current stream,
+    the capturing one), replayed three times between CUDA events. Where a
+    call's kernels are short, ``cuda_ms`` of back-to-back calls measures
+    the host's time to launch them instead. (Not ``torch.profiler``: the
+    serving paths run after this phase in the same process, and what a
+    profiler leaves attached to it would be timed with them.) Returns
+    None, and says why, if the capture fails: the number is a record, not
+    a check."""
+    import torch
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):       # warm up off the capture stream
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / (3 * iters)
+    except RuntimeError as err:
+        log(f"device_ms: CUDA graph capture failed ({err}); not measured")
+        torch.cuda.synchronize()
+        return None
 
 
 def compare(name, got, want, dtype_name, cases, tol=None):
@@ -335,6 +385,25 @@ def _check_flash(fk, cases, dtype_name, q, k, v, causal=True, window=0):
     compare("flash_attention", lse, want_lse, dtype_name, cases)
 
 
+def _check_verify(dk, cases, dtype_name, q, kp, vp, pos_t, bt):
+    """The verify kernel against its plain version, and its row j against
+    paged decode's plain version at pos + j, both plain versions run in
+    float32 on the same values (in bf16 two rounded kernels held against
+    each other would stack their roundings past the tolerance); returns
+    the kernel's output."""
+    got = dk.paged_verify_attention(q, kp, vp, pos_t, bt)
+    qf, kf, vf = q.float(), kp.float(), vp.float()
+    compare("paged_verify_attention", got,
+            dk.paged_verify_attention_ref(qf, kf, vf, pos_t, bt), dtype_name,
+            cases)
+    for j in range(q.shape[1]):
+        compare("paged_verify_attention", got[:, j],
+                dk.paged_decode_attention_ref(qf[:, j].contiguous(), kf, vf,
+                                              pos_t + j, bt), dtype_name,
+                cases)
+    return got
+
+
 def _scan_case(B, NC, L, H, dk, dv, dtype, gen):
     """qc, kc (B,NC,L,H,dk), vc (B,NC,L,H,dv) in ``dtype`` and cum
     (B,NC,L,H) float32 on the card: q and k scaled by dk^-1/4 so q·k is of
@@ -360,9 +429,9 @@ def _check_scan(cs, cases, dtype_name, args):
 
 def _hybrid_kernel_cases(cases, rec, gen):
     """The chunk scan against its plain version (timed at the chunked
-    prefill's shape), and the four attention kernels of the hybrid paths at
-    Zamba2's heads (MHA, H = KV = 32, dh = 80) at the main paths' other
-    dimensions."""
+    prefill's shape), and the four attention kernels of the hybrid paths,
+    and paged verify, at Zamba2's heads (MHA, H = KV = 32, dh = 80) at the
+    main paths' other dimensions."""
     import numpy as np
     import torch
     from repro_torch.kernels import chunk_scan as cs
@@ -385,6 +454,7 @@ def _hybrid_kernel_cases(cases, rec, gen):
             rec["chunk_scan"] = {
                 "shape": f"B=1 NC=1 L={L} H={H} dk={N} dv={P} bf16",
                 "ms": cuda_ms(lambda: cs.chunk_scan(*args)),
+                "device_ms": device_ms(lambda: cs.chunk_scan(*args)),
                 "plain_ms": cuda_ms(lambda: cs.chunk_scan_ref(*args)),
                 "library_ms": None,   # no single PyTorch call computes it
                 "bytes": L * H * (2 * N * 2 + P * 2 + 4 + P * 4)
@@ -440,6 +510,10 @@ def _hybrid_kernel_cases(cases, rec, gen):
                             dtype, gen)
         compare("decode_attention", dk.decode_attention(*args),
                 dk.decode_attention_ref(*up(*args)), name, cases)
+        _check_verify(dk, cases, name, *_verify_case(
+            8, 64, block, SPEC_LEN, H, KV, dh,
+            [64 * block - SPEC_LEN, 250, 701, 1000, 300, 999, 512, 900],
+            dtype, gen))
 
 
 def _check_flash_bwd(fk, fbk, cases, dtype_name, q, k, v, do, causal=True,
@@ -491,6 +565,8 @@ def _training_kernel_cases(cases, rec, gen):
             "shape": f"B={B} S={S} H={H} KV={KV} dh={dh} causal bf16",
             "ms": cuda_ms(lambda: fbk.flash_attention_bwd(
                 q, k, v, out, lse, do), iters=5, warmup=1),
+            "device_ms": device_ms(lambda: fbk.flash_attention_bwd(
+                q, k, v, out, lse, do), iters=5),
             "plain_ms": cuda_ms(lambda: fbk.flash_attention_bwd_ref(
                 q, k, v, out, lse, do), iters=5, warmup=1),
             "library_ms": cuda_ms(lambda: torch.autograd.grad(
@@ -582,19 +658,27 @@ def phase_kernels():
                  f"pos<= {int(pos.max())} bf16",
         "ms": cuda_ms(lambda: dk.paged_decode_attention(q, kp, vp, pos_t,
                                                         bt)),
+        "device_ms": device_ms(lambda: dk.paged_decode_attention(
+            q, kp, vp, pos_t, bt)),
         "plain_ms": cuda_ms(lambda: dk.paged_decode_attention_ref(
             q, kp, vp, pos_t, bt)),
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
             q[:, :, None], kf, vf, attn_mask=mask)),
+        "library_device_ms": device_ms(
+            lambda: F.scaled_dot_product_attention(q[:, :, None], kf, vf,
+                                                   attn_mask=mask)),
         "bytes": nbytes, "flops": flops, "dtype": "bfloat16"}
 
     # -- chunk prefill at the main path's shapes: a 256-row chunk at
-    #    position 512 of a Qwen3-8B prompt
+    #    position 512 of a Qwen3-8B prompt; the bf16 tensor-core kernel is
+    #    held against the plain version in float32 on the same values (the
+    #    kernel rounds P to bf16 for its product, as flash does)
     C, NB, start = 256, 48, 512
     q, kp, vp, start, bt = _chunk_case(C, NB, block, H, KV, dh, start, bf16,
                                        gen)
     got = dk.chunk_prefill_attention(q, kp, vp, start, bt)
-    want = dk.chunk_prefill_attention_ref(q, kp, vp, start, bt)
+    want = dk.chunk_prefill_attention_ref(q.float(), kp.float(), vp.float(),
+                                          start, bt)
     compare("chunk_prefill_attention", got, want, "bfloat16", cases)
     S = start + C
     kf = kp[bt.long()].reshape(NB * block, KV, dh)[:S].permute(1, 0, 2)[None]
@@ -610,10 +694,15 @@ def phase_kernels():
                  f"NB={NB} bf16",
         "ms": cuda_ms(lambda: dk.chunk_prefill_attention(q, kp, vp, start,
                                                          bt)),
+        "device_ms": device_ms(lambda: dk.chunk_prefill_attention(
+            q, kp, vp, start, bt)),
         "plain_ms": cuda_ms(lambda: dk.chunk_prefill_attention_ref(
             q, kp, vp, start, bt)),
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
             q.permute(1, 0, 2)[None], kf, vf, attn_mask=cmask)),
+        "library_device_ms": device_ms(
+            lambda: F.scaled_dot_product_attention(
+                q.permute(1, 0, 2)[None], kf, vf, attn_mask=cmask)),
         "bytes": nbytes, "flops": 4 * H * dh * keys, "dtype": "bfloat16"}
 
     # -- router at the main path's shapes: synthetic-corpus features
@@ -628,6 +717,7 @@ def phase_kernels():
     rec["router_scores"] = {
         "shape": f"B=1 D={D} K={K} f32",
         "ms": cuda_ms(lambda: rk.router_scores(x, cent, 10.0), iters=100),
+        "device_ms": device_ms(lambda: rk.router_scores(x, cent, 10.0)),
         "plain_ms": cuda_ms(lambda: rk.router_scores_ref(x, cent, 10.0),
                             iters=100),
         "library_ms": None,   # no single PyTorch call computes Eq. 28
@@ -683,6 +773,23 @@ def phase_kernels():
                 dk.chunk_prefill_attention(q, kp, vp, start, bt),
                 dk.chunk_prefill_attention_ref(q, kp, vp, start, bt),
                 "float32", cases)
+    # their bf16 twins on the tensor-core kernel, and its own edges
+    edge_chunk_bf16 = edge_chunk + [
+        (40, 8, 16, 64, 1, 64, 50),       # a group of 64 rows
+        (100, 16, 8, 8, 2, 64, 20),       # ragged C over two row tiles
+        (77, 4, 64, 8, 2, 128, 150),      # block 64
+        (50, 2, 128, 8, 2, 64, 100),      # block 128: 64 rows of one page
+        (33, 8, 32, 32, 32, 80, 200),     # Zamba2's heads, ragged C
+        (30, 8, 16, 6, 2, 40, 70),        # dh 40, a group of 3
+    ]
+    for C, NB, block, H, KV, dh, start in edge_chunk_bf16:
+        q, kp, vp, start, bt = _chunk_case(C, NB, block, H, KV, dh, start,
+                                           bf16, gen)
+        compare("chunk_prefill_attention",
+                dk.chunk_prefill_attention(q, kp, vp, start, bt),
+                dk.chunk_prefill_attention_ref(q.float(), kp.float(),
+                                               vp.float(), start, bt),
+                "bfloat16", cases)
     x = torch.randn((100, 64), generator=gen, device="cuda")
     c6 = torch.randn((6, 64), generator=gen, device="cuda")
     compare("router_scores", rk.router_scores(x, c6, 1.0),
@@ -708,9 +815,14 @@ def phase_kernels():
                              f"bf16",
                     "ms": cuda_ms(lambda: fk.flash_attention_with_lse(
                         q, k, v)),
+                    "device_ms": device_ms(
+                        lambda: fk.flash_attention_with_lse(q, k, v)),
                     "plain_ms": cuda_ms(
                         lambda: fk.flash_attention_with_lse_ref(q, k, v)),
                     "library_ms": cuda_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            qh, kh, vh, is_causal=True)),
+                    "library_device_ms": device_ms(
                         lambda: F.scaled_dot_product_attention(
                             qh, kh, vh, is_causal=True)),
                     "bytes": (2 * B * S * H * dh + 2 * B * S * KV * dh) * 2
@@ -737,34 +849,42 @@ def phase_kernels():
                 "shape": f"B={B} S={S} H={H} KV={KV} dh={dh} "
                          f"pos<= {int(pos.max())} bf16",
                 "ms": cuda_ms(lambda: dk.decode_attention(q, k, v, pos_t)),
+                "device_ms": device_ms(
+                    lambda: dk.decode_attention(q, k, v, pos_t)),
                 "plain_ms": cuda_ms(lambda: dk.decode_attention_ref(
                     q, k, v, pos_t)),
                 "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                     q[:, :, None], kh, vh, attn_mask=dmask)),
+                "library_device_ms": device_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q[:, :, None], kh, vh, attn_mask=dmask)),
                 "bytes": 2 * B * H * dh * 2 + keys * KV * dh * 2 * 2 + B * 4,
                 "flops": 4 * H * dh * keys, "dtype": "bfloat16"}
 
     # -- paged verify at the speculative path's shapes: 8 slots of Qwen3-8B
     #    heads, spans of SPEC_LEN at positions up to 1023 (slot 0's span
     #    ends on the table's last position), 16-position blocks; in float32
-    #    row j is also held against the paged decode kernel at pos + j
+    #    row j is also held against the paged decode kernel at pos + j, in
+    #    bf16 (the tensor-core kernel, split over key ranges) against paged
+    #    decode's plain version there
     B, NB, block, L, H, KV, dh = 8, 64, 16, SPEC_LEN, 32, 8, 128
     pos = np.random.default_rng(2).integers(200, NB * block - L + 1, B)
     pos[0] = NB * block - L
     for dtype, name in ((bf16, "bfloat16"), (f32, "float32")):
         q, kp, vp, pos_t, bt = _verify_case(B, NB, block, L, H, KV, dh,
                                             pos.tolist(), dtype, gen)
-        got = dk.paged_verify_attention(q, kp, vp, pos_t, bt)
-        compare("paged_verify_attention", got,
-                dk.paged_verify_attention_ref(q, kp, vp, pos_t, bt), name,
-                cases)
         if dtype is f32:
+            got = dk.paged_verify_attention(q, kp, vp, pos_t, bt)
+            compare("paged_verify_attention", got,
+                    dk.paged_verify_attention_ref(q, kp, vp, pos_t, bt),
+                    name, cases)
             for j in range(L):
                 compare("paged_verify_attention", got[:, j],
                         dk.paged_decode_attention(q[:, j].contiguous(), kp,
                                                   vp, pos_t + j, bt),
                         name, cases)
             continue
+        _check_verify(dk, cases, name, q, kp, vp, pos_t, bt)
         S = NB * block
         kf = _heads_first(kp[bt.long()].reshape(B, S, KV, dh), H // KV)
         vf = _heads_first(vp[bt.long()].reshape(B, S, KV, dh), H // KV)
@@ -780,13 +900,31 @@ def phase_kernels():
                      f"NB={NB} pos+L-1<= {int(pos.max()) + L - 1} bf16",
             "ms": cuda_ms(lambda: dk.paged_verify_attention(q, kp, vp, pos_t,
                                                             bt)),
+            "device_ms": device_ms(lambda: dk.paged_verify_attention(
+                q, kp, vp, pos_t, bt)),
             "plain_ms": cuda_ms(lambda: dk.paged_verify_attention_ref(
                 q, kp, vp, pos_t, bt)),
             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                 qh, kf, vf, attn_mask=vmask)),
+            "library_device_ms": device_ms(
+                lambda: F.scaled_dot_product_attention(qh, kf, vf,
+                                                       attn_mask=vmask)),
             "bytes": 2 * B * L * H * dh * 2 + keys * KV * dh * 2 * 2 + B * 4
             + live * 4,
             "flops": 4 * H * dh * pairs, "dtype": "bfloat16"}
+        # the split plan's one setting: device ms (kernel and merge) at
+        # each number of key tiles a split, for the record
+        chosen, sweep = dk.VERIFY_SPLIT_TILES, {}
+        try:
+            for tiles in (1, 2, 4, 8, 16):
+                dk.VERIFY_SPLIT_TILES = tiles
+                sweep[f"{tiles} ({dk.verify_splits(NB, block)[0]} splits)"] \
+                    = device_ms(lambda: dk.paged_verify_attention(
+                        q, kp, vp, pos_t, bt))
+        finally:
+            dk.VERIFY_SPLIT_TILES = chosen
+        log(f"paged verify at {rec['paged_verify_attention']['shape']}: "
+            f"device ms by key tiles a split ({chosen} in use): {sweep}")
 
     # -- their small float32 edge shapes
     edge_verify = [
@@ -819,6 +957,23 @@ def phase_kernels():
                 dk.paged_verify_attention(q, kp, vp, pos_t, bt),
                 dk.paged_verify_attention_ref(q, kp, vp, pos_t, bt),
                 "float32", cases)
+    # their bf16 twins on the tensor-core kernel, and its own edges
+    edge_verify_bf16 = edge_verify + [
+        (2, 8, 16, 8, 32, 2, 64, [10, 120], (), True),      # 2 row tiles
+        (3, 64, 16, 4, 8, 2, 64, [510, 511, 900], (), True),  # masked splits
+        (2, 100, 16, 4, 8, 2, 64, [1500, 700], (), True),   # 4 splits
+        (3, 40, 16, 4, 8, 2, 64, [637, 638, 100], (), False),  # past the
+        #                                          horizon, over 2 splits
+        (2, 16, 8, 4, 8, 2, 64, [60, 100], (), True),       # block 8
+        (2, 4, 64, 4, 8, 2, 64, [130, 250], (), True),      # block 64
+        (2, 4, 128, 4, 8, 2, 64, [300, 505], (), True),     # block 128
+        (2, 8, 16, 4, 64, 1, 64, [50, 100], (), True),      # group of 64
+        (2, 8, 16, 4, 6, 2, 40, [33, 90], (), True),        # dh 40, group 3
+    ]
+    for B, NB, block, L, H, KV, dh, pos_e, idle, tail in edge_verify_bf16:
+        _check_verify(dk, cases, "bfloat16", *_verify_case(
+            B, NB, block, L, H, KV, dh, pos_e, bf16, gen, inactive=idle,
+            scratch_tail=tail))
     edge_flash = [
         # B, S, H, KV, dh, causal, window
         (1, 1, 4, 2, 64, True, 0),          # one position
@@ -868,8 +1023,9 @@ def phase_kernels():
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         log(f"kernel {name}: {r['shape']}: {r['cases']} cases within "
             f"tolerance, max abs err by dtype {r['max_abs_err_by_dtype']}; "
-            f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, library "
-            f"{r['library_ms']}, bound {r['bound_ms']:.4f} by "
+            f"{r['ms']:.4f} ms, device {r['device_ms']} (plain "
+            f"{r['plain_ms']:.4f}, library {r['library_ms']}, device "
+            f"{r.get('library_device_ms')}, bound {r['bound_ms']:.4f} by "
             f"{r['bound_by']})")
     return rec
 
@@ -1579,9 +1735,12 @@ def main() -> int:
         secs = build.build_seconds.get(name)
         built = f"built in {secs:.1f} s" if secs is not None \
             else "built before this run"
+        hgmma = sum('HGMMA' in ln for ln in sass)
         log(f"  {name}: {built}; tensor-core instructions in its SASS: HGMMA "
-            f"{sum('HGMMA' in ln for ln in sass)}, HMMA "
-            f"{sum('HMMA' in ln for ln in sass)}")
+            f"{hgmma}, HMMA {sum('HMMA' in ln for ln in sass)}")
+        if name in TENSOR_CORE_LIBS and not hgmma:
+            raise AssertionError(f"{name}: no HGMMA in its SASS: its bf16 "
+                                 f"kernels do not reach the tensor cores")
     for name in libs:
         logf = build.build_dir() / f"{name}.log"
         if logf.exists():
@@ -1630,9 +1789,10 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"],
             "tol": r.get("tol", TOL[r["dtype"]]),
             "max_abs_err_by_dtype": r["max_abs_err_by_dtype"],
-            "shape": r["shape"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
+            "shape": r["shape"], "ms": r["ms"], "device_ms": r["device_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "library_device_ms": r.get("library_device_ms")})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

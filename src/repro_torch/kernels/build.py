@@ -102,14 +102,12 @@ def load(name: str) -> ctypes.CDLL:
         lib.paged_decode_attention.argtypes = [P, P, P, P, P, P, I, I, I, I,
                                                I, I, I, I, F, P]
         lib.paged_decode_attention.restype = I
-        lib.chunk_prefill_attention.argtypes = [P, P, P, P, P, I, I, I, I,
-                                                I, I, I, I, F, P]
+        lib.chunk_prefill_attention.argtypes = [P] * 5 + [I] * 9 + [F, P]
         lib.chunk_prefill_attention.restype = I
         lib.decode_attention.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I,
                                          F, P]
         lib.decode_attention.restype = I
-        lib.paged_verify_attention.argtypes = [P, P, P, P, P, P, I, I, I, I,
-                                               I, I, I, I, F, P]
+        lib.paged_verify_attention.argtypes = [P] * 7 + [I] * 11 + [F, P]
         lib.paged_verify_attention.restype = I
     elif name == "flash_attention":
         lib.flash_attention.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I,

@@ -14,26 +14,65 @@
 //     KV span (the span's own K/V already scattered in), row l fenced to
 //     keys <= pos + l: the chunk-prefill body batched over slots.
 //
-// What bounds them on the card: device memory. Every key and value of the live
-// span is read once per (slot, KV head) and used by only the GQA group
-// (decode) or one row tile (prefill, verify), so the arithmetic intensity is a
-// few operations per byte, far below the ~295 op/byte where bf16 tensor cores
-// become the limit. This first version is the simple, right one: one thread
-// block per (slot, KV head) for decode, per (KV head, tile of query rows) for
-// prefill and per (slot, KV head, tile of span rows) for verify (spec_len 4 at
-// GQA 4:1 is one tile of 16 rows, so verify launches as many blocks as
-// decode), each walking the key tiles of its span up to the horizon tile
-// (tiles past it are neither loaded nor computed) through the shared tile loop
-// of attention_tile.cuh. The paged and contiguous decode kernels are one
-// template: they differ only in where a key tile's rows sit (a block table
-// entry, or (b, s) arithmetic), as the Pallas kernels share _accum_block and
-// differ only in their index maps. The contiguous cache is cut into tiles of
-// kContiguousBlock positions and any S is taken (the Pallas wrapper asserts S
-// % min(256, S) == 0; the ragged last tile is masked here). Known gap: at 8
-// slots x 8 KV heads decode and verify fill 64 of the 132 SMs; splitting the
-// span across blocks (flash-decoding) and wgmma/TMA staging are later work.
+// Two designs, chosen by kernel and dtype (a dispatch, not a fallback: each
+// entry point takes what its wrapper checked, or returns an error).
+//
+// * The decode kernels (paged and contiguous, float32 and bf16) and the
+//   float32 chunk-prefill and verify kernels: the first, scalar design.
+//   What bounds decode on the card is device memory: every key and value
+//   of the live span is read once per (slot, KV head) and used by the GQA
+//   group only, a few operations per byte against the ~295 at which bf16
+//   tensor cores become the limit. One thread block per (slot, KV head)
+//   for decode, per (KV head, tile of 16 query rows) for float32 prefill
+//   and per (slot, KV head, tile of span rows) for float32 verify, each
+//   walking the key tiles of its span up to the horizon tile (tiles past
+//   it are neither loaded nor computed) with float32 FMAs out of shared
+//   memory through the tile loop of attention_tile.cuh. The paged and
+//   contiguous decode kernels are one template: they differ only in where
+//   a key tile's rows sit (a block table entry, or (b, s) arithmetic), as
+//   the Pallas kernels share _accum_block and differ only in their index
+//   maps. The contiguous cache is cut into tiles of kContiguousBlock
+//   positions and any S is taken (the Pallas wrapper asserts S % min(256,
+//   S) == 0; the ragged last tile is masked here). Float32 chunk prefill
+//   and verify stay scalar for the reason flash_attention.cu gives: tensor
+//   cores take no float32, and TF32 keeps about three digits, which would
+//   break the 5e-5 tolerance of the card's float32 checks. Known gap of
+//   decode: 8 slots x 8 KV heads fill 64 of the 132 SMs; splitting the
+//   span across blocks over paged_sm90.cuh's loader is the next step.
+// * bf16 chunk prefill and verify: the tensor-core design of
+//   paged_sm90.cuh (wgmma over 64-key tiles that TMA gathers page by page
+//   through the block table; the header has the layout). Page blocks: a
+//   power of two from 8 up (8, 16, 32, 64, 128, ...); dh a multiple of 8
+//   up to 128; at most 64 query heads a KV head; operands on 16-byte
+//   boundaries. The wrapper raises on anything else, with the shape named.
+//   - chunk_prefill_sm90: bound by operations (C = 256 at start 512 of
+//     Qwen3-8B's heads: 2.7 us of bf16 tensor-core work against 2.2 us of
+//     bytes). The products run on wgmma. Its grid is one row tile a block,
+//     (KV, row tiles, 1): at C = 256, H = 32, KV = 8 that is 16 row tiles
+//     x 8 heads = 128 blocks on 132 SMs, where two row tiles a block
+//     (flash's layout) would fill 64. Each block's two consumer
+//     warpgroups take alternate key tiles of the same rows, so an SM
+//     still holds two warpgroups; the row tiles with the most key tiles
+//     run first, and every block walks only its own rows' keys (9 to 12
+//     tiles there). One split: it writes its output directly.
+//   - paged_verify_sm90: bound by bytes (8 slots x 4 span rows of
+//     Qwen3-8B's heads over spans ending by 1023: 19 MB of K/V, 5.6 us).
+//     A slot has L x group = 16 rows a KV head, so a 64-row wgmma tile
+//     carries 48 zero rows, which costs nothing against 32 KB of K/V per
+//     64-key tile; what the kernel needs is bytes in flight on every SM.
+//     So each slot's key range is split across blocks (flash-decoding):
+//     grid (KV, row tiles, B x splits), splits fixed on the host from NB
+//     x block alone (pos is never read on the host). Blocks whose key
+//     range starts past their slot's horizon exit at once (idle slots,
+//     short spans). Each live block writes float32 partials (m, l, O)
+//     into a workspace the wrapper allocates; verify_merge, one warp a
+//     row, combines a row's live partials: M = max m_i,
+//     out = sum 2^(m_i - M) O_i / max(sum 2^(m_i - M) l_i, 1e-30), in
+//     bf16. A split in which a row sees no key has m_i = -1e30 and weight
+//     0; key 0 is always visible, so every row has a live split.
 
 #include "attention_tile.cuh"
+#include "paged_sm90.cuh"
 
 using namespace attn_tile;
 
@@ -80,11 +119,11 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // pairs flattened c-major per KV head; row c*group + g is query head
 // kvh*group + g at absolute position start + c, fenced to keys at
 // positions <= start + c. Each tile stops at its own last row's block.
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-chunk_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                     const T* __restrict__ v_pool,
-                     const int* __restrict__ table, T* __restrict__ out,
+chunk_prefill_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k_pool,
+                     const float* __restrict__ v_pool,
+                     const int* __restrict__ table, float* __restrict__ out,
                      int start, int C, int H, int KV, int dh, int block,
                      int NB, float scale) {
   extern __shared__ float smem[];
@@ -114,7 +153,7 @@ chunk_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     const int r = i / dh, d = i - r * dh, rr = r0 + r;
     const int c = rr / group, h = kvh * group + rr % group;
     out[(size_t(c) * H + h) * dh + d] =
-        from_f32<T>(t.acc[i] / fmaxf(t.l[r], 1e-30f));
+        t.acc[i] / fmaxf(t.l[r], 1e-30f);
   }
 }
 
@@ -125,11 +164,12 @@ chunk_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 // block of its own last row, or at the table's last column: a span past
 // the table horizon NB*block (its K/V went to the scratch block) sees
 // exactly the NB blocks of the table. pos is read on the device.
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-paged_verify_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                    const T* __restrict__ v_pool, const int* __restrict__ pos,
-                    const int* __restrict__ tables, T* __restrict__ out,
+paged_verify_kernel(const float* __restrict__ q,
+                    const float* __restrict__ k_pool,
+                    const float* __restrict__ v_pool,
+                    const int* __restrict__ pos,
+                    const int* __restrict__ tables, float* __restrict__ out,
                     int L, int H, int KV, int dh, int block, int NB,
                     float scale) {
   extern __shared__ float smem[];
@@ -161,7 +201,7 @@ paged_verify_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     const int r = i / dh, d = i - r * dh, rr = r0 + r;
     const int l = rr / group, h = kvh * group + rr % group;
     out[(q0 + size_t(l) * H + h) * dh + d] =
-        from_f32<T>(t.acc[i] / fmaxf(t.l[r], 1e-30f));
+        t.acc[i] / fmaxf(t.l[r], 1e-30f);
   }
 }
 
@@ -180,43 +220,211 @@ int launch_decode(const void* q, const void* k, const void* v,
   return int(cudaGetLastError());
 }
 
-template <typename T>
 int launch_prefill(const void* q, const void* k, const void* v,
                    const void* table, void* out, int start, int C, int H,
                    int KV, int dh, int block, int NB, float scale,
                    cudaStream_t stream) {
   const size_t bytes = tile_bytes(kRows, block, dh);
-  cudaError_t err = set_smem(chunk_prefill_kernel<T>, bytes);
+  cudaError_t err = set_smem(chunk_prefill_kernel, bytes);
   if (err != cudaSuccess) return int(err);
   const int tiles = (C * (H / KV) + kRows - 1) / kRows;
-  chunk_prefill_kernel<T><<<dim3(KV, tiles), kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(table),
-      static_cast<T*>(out), start, C, H, KV, dh, block, NB, scale);
+  chunk_prefill_kernel<<<dim3(KV, tiles), kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const int*>(table),
+      static_cast<float*>(out), start, C, H, KV, dh, block, NB, scale);
   return int(cudaGetLastError());
 }
 
-template <typename T>
 int launch_verify(const void* q, const void* k, const void* v,
                   const void* pos, const void* tables, void* out, int B,
                   int L, int H, int KV, int dh, int block, int NB,
                   float scale, cudaStream_t stream) {
   const size_t bytes = tile_bytes(kRows, block, dh);
-  cudaError_t err = set_smem(paged_verify_kernel<T>, bytes);
+  cudaError_t err = set_smem(paged_verify_kernel, bytes);
   if (err != cudaSuccess) return int(err);
   const int tiles = (L * (H / KV) + kRows - 1) / kRows;
-  paged_verify_kernel<T><<<dim3(B, KV, tiles), kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(pos),
-      static_cast<const int*>(tables), static_cast<T*>(out), L, H, KV, dh,
-      block, NB, scale);
+  paged_verify_kernel<<<dim3(B, KV, tiles), kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const int*>(pos),
+      static_cast<const int*>(tables), static_cast<float*>(out), L, H, KV,
+      dh, block, NB, scale);
   return int(cudaGetLastError());
+}
+
+// ------------------------------------------------- bf16, tensor cores
+
+// ring stages: a consumer holds two tiles at once (S of one, P.V of the
+// other); prefill's long walks keep two more in flight
+constexpr int kPrefillStages = 6;
+constexpr int kVerifyStages = 4;
+
+template <int NS>
+__global__ void __launch_bounds__(sm90::kThreads, 1)
+chunk_prefill_sm90(const __grid_constant__ CUtensorMap mq,
+                   const __grid_constant__ CUtensorMap mk,
+                   const __grid_constant__ CUtensorMap mv,
+                   const paged::Work w) {
+  paged::paged_body<NS, kPrefillStages>(mq, mk, mv, w);
+}
+
+template <int NS>
+__global__ void __launch_bounds__(sm90::kThreads, 1)
+paged_verify_sm90(const __grid_constant__ CUtensorMap mq,
+                  const __grid_constant__ CUtensorMap mk,
+                  const __grid_constant__ CUtensorMap mv,
+                  const paged::Work w) {
+  paged::paged_body<NS, kVerifyStages>(mq, mk, mv, w);
+}
+
+// grid (ceil(B * L * H / 4)), 128 threads: warp i of block x merges row
+// 4x + i = (b, l, h) of the (B, L, H, dh) output from the float32
+// partials of its live splits (those that start at or before the slot's
+// horizon, as paged_body decides), lane s holding split s (splits <= 32):
+// one round of loads for every m and l, then each lane sums four columns
+// over the splits.
+__global__ void __launch_bounds__(128)
+verify_merge(const paged::Work w, int B) {
+  const int L = w.n_off, lane = threadIdx.x % 32;
+  const int row = blockIdx.x * 4 + threadIdx.x / 32;
+  if (row >= B * L * w.H) return;
+  const int h = row % w.H, l = row / w.H % L, b = row / (w.H * L);
+  const int group = w.H / w.KV, n_rows = L * group;
+  const int horizon = min(w.pos[b] + L - 1, w.NB * w.block - 1);
+  const int live = min(w.splits, horizon / (w.tps * sm90::kTile) + 1);
+  const size_t first =
+      size_t(b * w.KV + h / group) * w.splits * n_rows + l * group +
+      h % group;                       // split s at first + s * n_rows
+  const size_t mine = first + size_t(lane) * n_rows;
+  const float m = lane < live ? w.part_m[mine] : sm90::kNegInf;
+  float M = m;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    M = fmaxf(M, __shfl_xor_sync(0xffffffff, M, o));
+  const float wt = lane < live ? exp2f(m - M) : 0.f;
+  float den = lane < live ? wt * w.part_l[mine] : 0.f;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    den += __shfl_xor_sync(0xffffffff, den, o);
+  const float inv = 1.f / fmaxf(den, 1e-30f);
+  for (int c0 = 0; c0 < w.dh; c0 += 128) {
+    const int c = c0 + 4 * lane;
+    float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s = 0; s < live; ++s) {
+      const float ws = __shfl_sync(0xffffffff, wt, s);
+      if (c < w.dh) {
+        const float4 a = *reinterpret_cast<const float4*>(
+            w.part_acc + (first + size_t(s) * n_rows) * w.dh + c);
+        num.x += ws * a.x;
+        num.y += ws * a.y;
+        num.z += ws * a.z;
+        num.w += ws * a.w;
+      }
+    }
+    if (c < w.dh) {
+      __nv_bfloat162* o =
+          reinterpret_cast<__nv_bfloat162*>(w.out + size_t(row) * w.dh + c);
+      o[0] = __floats2bfloat162_rn(num.x * inv, num.y * inv);
+      o[1] = __floats2bfloat162_rn(num.z * inv, num.w * inv);
+    }
+  }
+}
+
+// One launch of a paged tensor-core kernel (and, with several splits, of
+// verify_merge) over B slots of w.n_off offsets on a pool of P pages.
+template <typename K>
+int launch_sm90(K kernel, size_t smem, const void* q, const void* k,
+                const void* v, const paged::Work& w, int B, int P,
+                cudaStream_t stream) {
+  const int group = w.H / w.KV, rows_off = sm90::kTile / group;
+  CUtensorMap mq, mk, mv;
+  int err = sm90::make_map(&mq, q, B, w.n_off, w.H, w.dh, group, rows_off);
+  if (!err) err = paged::make_pool_map(&mk, k, P, w.block, w.KV, w.dh);
+  if (!err) err = paged::make_pool_map(&mv, v, P, w.block, w.KV, w.dh);
+  if (err) return err;
+  cudaError_t e = sm90::allow_smem(kernel, smem);
+  if (e != cudaSuccess) return int(e);
+  const int tiles = (w.n_off + rows_off - 1) / rows_off;
+  kernel<<<dim3(w.KV, tiles, B * w.splits), sm90::kThreads, smem,
+           stream>>>(mq, mk, mv, w);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || w.splits == 1) return int(e);
+  verify_merge<<<(B * w.n_off * w.H + 3) / 4, 128, 0, stream>>>(w, B);
+  return int(cudaGetLastError());
+}
+
+// The limits of the tensor-core kernels (the wrappers check them first).
+bool sm90_shape_ok(int H, int KV, int dh, int block) {
+  return H % KV == 0 && H / KV <= sm90::kTile && dh % 8 == 0 && dh > 0 &&
+         dh <= 2 * sm90::kSlab && paged::block_ok(block);
+}
+
+int launch_prefill_sm90(const void* q, const void* k, const void* v,
+                        const void* table, void* out, int start, int C,
+                        int H, int KV, int dh, int block, int NB, int P,
+                        float scale, cudaStream_t stream) {
+  paged::Work w{};
+  w.out = static_cast<__nv_bfloat16*>(out);
+  w.tables = static_cast<const int*>(table);
+  w.start = start;
+  w.n_off = C;
+  w.H = H;
+  w.KV = KV;
+  w.dh = dh;
+  w.block = block;
+  w.NB = NB;
+  w.splits = 1;
+  w.tps = (NB * block + sm90::kTile - 1) / sm90::kTile;
+  w.scale_log2 = scale * sm90::kLog2e;
+  if (dh <= sm90::kSlab)
+    return launch_sm90(chunk_prefill_sm90<1>,
+                       paged::Smem<1, kPrefillStages>::kBytes, q, k, v, w, 1,
+                       P, stream);
+  return launch_sm90(chunk_prefill_sm90<2>,
+                     paged::Smem<2, kPrefillStages>::kBytes, q, k, v, w, 1, P,
+                     stream);
+}
+
+int launch_verify_sm90(const void* q, const void* k, const void* v,
+                       const void* pos, const void* tables, void* out,
+                       void* workspace, int B, int L, int H, int KV, int dh,
+                       int block, int NB, int P, int splits, int tps,
+                       float scale, cudaStream_t stream) {
+  const int tiles = (NB * block + sm90::kTile - 1) / sm90::kTile;
+  // every key tile in exactly one split, and a workspace for several
+  if (splits < 1 || splits > 32 || tps < 1 ||
+      (splits - 1) * tps >= tiles || splits * tps < tiles ||
+      (splits > 1 && workspace == nullptr))
+    return int(cudaErrorInvalidValue);
+  paged::Work w{};
+  w.out = static_cast<__nv_bfloat16*>(out);
+  const size_t n_part = size_t(B) * KV * splits * L * (H / KV);
+  w.part_acc = static_cast<float*>(workspace);
+  w.part_m = w.part_acc + n_part * dh;
+  w.part_l = w.part_m + n_part;
+  w.pos = static_cast<const int*>(pos);
+  w.tables = static_cast<const int*>(tables);
+  w.n_off = L;
+  w.H = H;
+  w.KV = KV;
+  w.dh = dh;
+  w.block = block;
+  w.NB = NB;
+  w.splits = splits;
+  w.tps = tps;
+  w.scale_log2 = scale * sm90::kLog2e;
+  if (dh <= sm90::kSlab)
+    return launch_sm90(paged_verify_sm90<1>,
+                       paged::Smem<1, kVerifyStages>::kBytes, q, k, v, w, B,
+                       P, stream);
+  return launch_sm90(paged_verify_sm90<2>,
+                     paged::Smem<2, kVerifyStages>::kBytes, q, k, v, w, B, P,
+                     stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Each returns the cudaError_t of its
-// launch.
+// dtype: 0 = float32, 1 = bfloat16. The decode entries return the
+// cudaError_t of their launch.
 extern "C" int paged_decode_attention(const void* q, const void* k_pool,
                                       const void* v_pool, const void* pos,
                                       const void* tables, void* out,
@@ -252,38 +460,48 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
   return int(cudaErrorInvalidValue);
 }
 
+// dtype 0 = float32 (scalar kernel), 1 = bfloat16 (tensor cores, within
+// sm90_shape_ok). P: the pool's pages. Returns the cudaError_t of the
+// launch, or sm90::kEncodeError + the CUresult of a failed tensor-map
+// encoding.
 extern "C" int chunk_prefill_attention(const void* q, const void* k_pool,
                                        const void* v_pool, const void* table,
                                        void* out, int dtype, int start, int C,
                                        int H, int KV, int dh, int block,
-                                       int NB, float scale, void* stream) {
+                                       int NB, int P, float scale,
+                                       void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_prefill<float>(q, k_pool, v_pool, table, out, start, C, H,
-                                 KV, dh, block, NB, scale, s);
-  if (dtype == 1)
-    return launch_prefill<__nv_bfloat16>(q, k_pool, v_pool, table, out,
-                                         start, C, H, KV, dh, block, NB,
-                                         scale, s);
-  return int(cudaErrorInvalidValue);
+    return launch_prefill(q, k_pool, v_pool, table, out, start, C, H, KV,
+                          dh, block, NB, scale, s);
+  if (dtype != 1 || !sm90_shape_ok(H, KV, dh, block))
+    return int(cudaErrorInvalidValue);
+  return launch_prefill_sm90(q, k_pool, v_pool, table, out, start, C, H, KV,
+                             dh, block, NB, P, scale, s);
 }
 
+// As chunk_prefill_attention; bf16 splits each slot's key tiles into
+// `splits` (at most 32) ranges of `tps` tiles (verify_splits in
+// decode_attention.py) and, with more than one, needs a float32 workspace
+// of B x KV x splits x L x group x (dh + 2) elements.
 extern "C" int paged_verify_attention(const void* q, const void* k_pool,
                                       const void* v_pool, const void* pos,
                                       const void* tables, void* out,
-                                      int dtype, int B, int L, int H, int KV,
-                                      int dh, int block, int NB, float scale,
-                                      void* stream) {
+                                      void* workspace, int dtype, int B,
+                                      int L, int H, int KV, int dh,
+                                      int block, int NB, int P, int splits,
+                                      int tps, float scale, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_verify<float>(q, k_pool, v_pool, pos, tables, out, B, L, H,
-                                KV, dh, block, NB, scale, s);
-  if (dtype == 1)
-    return launch_verify<__nv_bfloat16>(q, k_pool, v_pool, pos, tables, out,
-                                        B, L, H, KV, dh, block, NB, scale, s);
-  return int(cudaErrorInvalidValue);
+    return launch_verify(q, k_pool, v_pool, pos, tables, out, B, L, H, KV,
+                         dh, block, NB, scale, s);
+  if (dtype != 1 || !sm90_shape_ok(H, KV, dh, block))
+    return int(cudaErrorInvalidValue);
+  return launch_verify_sm90(q, k_pool, v_pool, pos, tables, out, workspace,
+                            B, L, H, KV, dh, block, NB, P, splits, tps,
+                            scale, s);
 }
 
 extern "C" const char* kernel_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  return sm90::error_string(err);
 }

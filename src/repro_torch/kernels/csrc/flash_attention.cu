@@ -156,43 +156,6 @@ struct Smem {
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
 };
 
-// One online-softmax step on a warpgroup's 64 x 64 score fragment sc
-// (keys key0..key0+63; rows r0, r0 + 8 of the thread see keys lo..hi):
-// scores scaled into log2 units and masked unless the whole tile is
-// visible, the rows' maxima m and sums l updated, sc turned into
-// P = exp2(s - m), and the rescale factor of the rows' earlier output
-// returned in alpha.
-__device__ __forceinline__ void softmax_step(float (&sc)[32], float (&m)[2],
-                                             float (&l)[2], float (&alpha)[2],
-                                             bool whole, int key0, int quad,
-                                             const int (&lo)[2],
-                                             const int (&hi)[2],
-                                             float scale_log2) {
-  float mx[2] = {m[0], m[1]};
-#pragma unroll
-  for (int e = 0; e < 32; ++e) {
-    const int h = (e >> 1) & 1;
-    const int key = key0 + 8 * (e >> 2) + 2 * quad + (e & 1);
-    float x = sc[e] * scale_log2;
-    if (!whole && (key < lo[h] || key > hi[h])) x = kNegInf;
-    sc[e] = x;
-    mx[h] = fmaxf(mx[h], x);
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    mx[h] = quad_max(mx[h]);
-    alpha[h] = exp2f(m[h] - mx[h]);
-    m[h] = mx[h];
-    l[h] *= alpha[h];
-  }
-#pragma unroll
-  for (int e = 0; e < 32; ++e) {
-    const int h = (e >> 1) & 1;
-    sc[e] = exp2f(sc[e] - m[h]);
-    l[h] += sc[e];
-  }
-}
-
 // grid (KV, row tiles, B), kThreads threads: warpgroups 0 and 1 consume,
 // warp 0 of warpgroup 2 loads. Block tile y holds positions
 // [y * 2P, y * 2P + 2P), P = 64 / group, P of them a warpgroup.

@@ -1,7 +1,9 @@
-// Hopper building blocks of the bf16 flash-attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu): mbarriers, TMA tile loads,
-// wgmma on bf16 tiles in 128-byte-swizzled shared memory, and the tensor
-// maps that describe the (B, S, heads, dh) operands to the TMA unit.
+// Hopper building blocks of the bf16 attention kernels (flash_attention.cu,
+// flash_attention_bwd.cu, and through paged_sm90.cuh the paged kernels of
+// decode_attention.cu): mbarriers, TMA tile loads, wgmma on bf16 tiles in
+// 128-byte-swizzled shared memory, the online-softmax step on a score
+// fragment, and the tensor maps that describe the (B, S, heads, dh)
+// operands to the TMA unit.
 //
 // Layout. A tile of rows x dh bf16 is kept as ceil(dh / 64) slabs; a slab
 // holds 64 columns of every row, 128 bytes a row, in the 128-byte swizzle
@@ -283,6 +285,43 @@ __device__ __forceinline__ void load_a_frags(const uint8_t* tile, int slab,
           tile + (kk >> 2) * slab + row * 128 +
           ((((col >> 3) ^ (row & 7)) << 4) | ((col & 7) * 2)));
     }
+}
+
+// One online-softmax step on a warpgroup's 64 x 64 score fragment sc
+// (keys key0..key0+63; rows r0, r0 + 8 of the thread see keys lo..hi):
+// scores scaled into log2 units and masked unless the whole tile is
+// visible, the rows' maxima m and sums l updated, sc turned into
+// P = exp2(s - m), and the rescale factor of the rows' earlier output
+// returned in alpha.
+__device__ __forceinline__ void softmax_step(float (&sc)[32], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             bool whole, int key0, int quad,
+                                             const int (&lo)[2],
+                                             const int (&hi)[2],
+                                             float scale_log2) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int h = (e >> 1) & 1;
+    const int key = key0 + 8 * (e >> 2) + 2 * quad + (e & 1);
+    float x = sc[e] * scale_log2;
+    if (!whole && (key < lo[h] || key > hi[h])) x = kNegInf;
+    sc[e] = x;
+    mx[h] = fmaxf(mx[h], x);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = quad_max(mx[h]);
+    alpha[h] = exp2f(m[h] - mx[h]);
+    m[h] = mx[h];
+    l[h] *= alpha[h];
+  }
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int h = (e >> 1) & 1;
+    sc[e] = exp2f(sc[e] - m[h]);
+    l[h] += sc[e];
+  }
 }
 
 __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {

@@ -21,10 +21,19 @@ The CUDA wrappers take CUDA tensors only and count their launches in
 they gather out of the pool. The CPU
 path and the on-card comparison use the plain versions; ``kernels.ops``
 picks one by the tensors' device.
+
+In bf16, chunk prefill and verify run on the tensor cores
+(``csrc/paged_sm90.cuh``) within the limits ``check_tensor_core_shape``
+states, and raise outside them; float32 runs the scalar kernels. The bf16
+verify kernel splits each slot's key range across blocks
+(``verify_splits``) and merges the float32 partials in a second kernel;
+``verify_partials_ref`` and ``merge_partials_ref`` are the plain versions
+of those two passes.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -32,6 +41,12 @@ from . import build
 
 Tensor = torch.Tensor
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+KEY_TILE = 64             # keys of a tensor-core key tile
+# bf16 verify: at most this many key tiles a split (8 measured fastest of
+# 1-16 at the speculative path's shape, PERF.md), until the cap on splits a
+# slot binds (the workspace grows with them)
+VERIFY_SPLIT_TILES = 8
+VERIFY_MAX_SPLITS = 16
 
 
 def check_operands(q: Tensor, k: Tensor, v: Tensor, ints, what: str) -> int:
@@ -58,6 +73,49 @@ def check_operands(q: Tensor, k: Tensor, v: Tensor, ints, what: str) -> int:
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
     return code
+
+
+def check_tensor_core_shape(what: str, q: Tensor, k: Tensor, *more: Tensor,
+                            block: Optional[int] = None) -> None:
+    """The bf16 tensor-core kernels' limits (``csrc/flash_sm90.cuh``,
+    ``csrc/paged_sm90.cuh``): dh a multiple of 8 (the tensor maps' strides
+    are whole 16 bytes) up to 128 (above it the float32 accumulators, dK
+    and dV in the flash backward, O in the forwards, pass a thread's 255
+    registers; every attention configuration of the repo has dh ≤ 128), at
+    most 64 query heads a KV head (a 64-row tile holds whole positions),
+    for the paged kernels a page ``block`` that is a power of two from 8 up
+    (a 64-key tile is then whole pages, or 64 rows of one page, each landing
+    on a 1024-byte boundary of the swizzled tile), operands on 16-byte
+    boundaries. q is (..., H, dh), k (..., KV, dh). A shape outside them
+    raises with the shapes named: it is never routed to the float32 kernel
+    or to the plain version."""
+    H, dh = q.shape[-2:]
+    KV = k.shape[-2]
+    pages = "" if block is None else \
+        " and a page block that is a power of two from 8 up"
+    if dh % 8 or dh > 128 or H // KV > 64 \
+            or pages and (block < 8 or block & (block - 1)):
+        raise ValueError(
+            f"{what}: the bf16 tensor-core kernel takes dh a multiple of 8 "
+            f"up to 128, at most 64 query heads per KV head{pages}; got q "
+            f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    for t in (q, k, *more):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: bf16 operands must start on a "
+                             f"16-byte boundary (TMA); one of shape "
+                             f"{tuple(t.shape)} does not")
+
+
+def verify_splits(NB: int, block: int):
+    """(splits, tiles per split) of the bf16 verify kernel for tables of
+    NB blocks: each slot's ⌈NB·block / 64⌉ key tiles cut into as few
+    consecutive ranges of at most ``VERIFY_SPLIT_TILES`` tiles as there
+    can be, at most ``VERIFY_MAX_SPLITS`` of them, of near-equal length,
+    none empty. Fixed by the shapes alone: the host never reads pos."""
+    tiles = -(-NB * block // KEY_TILE)
+    splits = max(1, min(VERIFY_MAX_SPLITS, -(-tiles // VERIFY_SPLIT_TILES)))
+    tps = -(-tiles // splits)
+    return -(-tiles // tps), tps
 
 
 def paged_decode_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
@@ -146,6 +204,9 @@ def chunk_prefill_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
             f"chunk_prefill_attention: shapes q {tuple(q.shape)}, pool "
             f"{tuple(k_pool.shape)}, table {tuple(block_table.shape)} do "
             f"not agree")
+    if q.dtype == torch.bfloat16:
+        check_tensor_core_shape("chunk_prefill_attention", q, k_pool,
+                                v_pool, block=block)
     out = torch.empty_like(q)
     lib = build.load("decode_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -153,7 +214,7 @@ def chunk_prefill_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
         err = lib.chunk_prefill_attention(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_table.data_ptr(), out.data_ptr(), code, int(start), C, H,
-            KV, dh, block, NB, 1.0 / math.sqrt(dh), stream)
+            KV, dh, block, NB, k_pool.shape[0], 1.0 / math.sqrt(dh), stream)
     build.check(lib, err, "chunk_prefill_attention")
     chunk_prefill_attention.launches += 1
     return out
@@ -171,7 +232,9 @@ def paged_verify_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
 
     Row ℓ sees keys at logical index ≤ pos + ℓ among the table's NB·block
     positions (a span past the table horizon sees all of them, as the
-    plain version does). Windowless caches only."""
+    plain version does). Windowless caches only. In bf16 each slot's keys
+    are split across blocks (``verify_splits``) whose float32 partials a
+    second kernel merges, in a workspace allocated here."""
     code = check_operands(q, k_pool, v_pool,
                            (("pos", pos), ("block_tables", block_tables)),
                            "paged_verify_attention")
@@ -184,14 +247,24 @@ def paged_verify_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
             f"paged_verify_attention: shapes q {tuple(q.shape)}, pool "
             f"{tuple(k_pool.shape)}, pos {tuple(pos.shape)}, tables "
             f"{tuple(block_tables.shape)} do not agree")
+    splits, tps = verify_splits(NB, block)
+    work = None
+    if q.dtype == torch.bfloat16:
+        check_tensor_core_shape("paged_verify_attention", q, k_pool,
+                                v_pool, block=block)
+        if splits > 1:      # float32 partials (acc, then m, then l)
+            work = torch.empty(B * KV * splits * L * (H // KV) * (dh + 2),
+                               dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     lib = build.load("decode_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = lib.paged_verify_attention(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            pos.data_ptr(), block_tables.data_ptr(), out.data_ptr(), code,
-            B, L, H, KV, dh, block, NB, 1.0 / math.sqrt(dh), stream)
+            pos.data_ptr(), block_tables.data_ptr(), out.data_ptr(),
+            None if work is None else work.data_ptr(), code, B, L, H, KV,
+            dh, block, NB, k_pool.shape[0], splits, tps,
+            1.0 / math.sqrt(dh), stream)
     build.check(lib, err, "paged_verify_attention")
     paged_verify_attention.launches += 1
     return out
@@ -266,3 +339,64 @@ def paged_verify_attention_ref(q: Tensor, k_pool: Tensor, v_pool: Tensor,
     valid = torch.arange(S_log, device=q.device)[None, None, :] \
         <= rows[:, :, None]
     return gqa_sdpa(q, kf, vf, valid)
+
+
+def verify_partials_ref(q: Tensor, k_pool: Tensor, v_pool: Tensor,
+                        pos: Tensor, block_tables: Tensor, splits: int,
+                        tps: int):
+    """Plain version of the bf16 verify kernel's first pass, in float32:
+    for split s of each slot's key tiles, keys [64·tps·s, 64·tps·(s + 1)),
+    the partials of every (slot, KV head, row) — rows (ℓ, group head)
+    ℓ-major, row ℓ fenced to keys ≤ min(pos + ℓ, NB·block − 1) — as m (the
+    largest scaled score, log2 units, −1e30 where the row sees no key of the
+    split), l (the sum of 2^(x − m)) and acc (the unnormalised output).
+    Returns (m, l, acc, live): (B, KV, splits, L·group), the same, (B, KV,
+    splits, L·group, dh), and (B,) the live splits of each slot, those that
+    start at or before its horizon min(pos + L − 1, NB·block − 1)."""
+    from repro_torch.models.attention import NEG_INF
+    B, L, H, dh = q.shape
+    NB, block, KV = block_tables.shape[1], k_pool.shape[1], k_pool.shape[2]
+    group, S = H // KV, NB * block
+    idx = block_tables.long()
+    kf = k_pool[idx].reshape(B, S, KV, dh).float()
+    vf = v_pool[idx].reshape(B, S, KV, dh).float().permute(0, 2, 1, 3)
+    qg = q.float().reshape(B, L, KV, group, dh).permute(0, 2, 1, 3, 4) \
+        .reshape(B, KV, L * group, dh)
+    x = torch.einsum("bkrd,bskd->bkrs", qg, kf) * (math.log2(math.e)
+                                                   / math.sqrt(dh))
+    offs = torch.arange(L, device=q.device).repeat_interleave(group)
+    hi = (pos.long()[:, None] + offs[None]).clamp(max=S - 1)    # (B, rows)
+    keys = torch.arange(S, device=q.device)
+    x = x.masked_fill(keys > hi[:, None, :, None], NEG_INF)
+    span = tps * KEY_TILE
+    ms, ls, accs = [], [], []
+    for s in range(splits):
+        xs = x[..., s * span:(s + 1) * span]
+        m = xs.amax(-1)
+        p = torch.exp2(xs - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(p @ vf[:, :, s * span:(s + 1) * span])
+    horizon = (pos.long() + L - 1).clamp(max=S - 1)
+    live = (horizon // span + 1).clamp(max=splits)
+    return (torch.stack(ms, 2), torch.stack(ls, 2), torch.stack(accs, 2),
+            live)
+
+
+def merge_partials_ref(m: Tensor, l: Tensor, acc: Tensor, live: Tensor,
+                       L: int) -> Tensor:
+    """Plain version of the bf16 verify kernel's merge: each row's live
+    partials (``verify_partials_ref``'s layout) combined as M = max mᵢ,
+    out = Σ 2^(mᵢ − M)·accᵢ / max(Σ 2^(mᵢ − M)·lᵢ, 1e-30); splits past
+    ``live`` are not read. Returns (B, L, H, dh) in float32."""
+    from repro_torch.models.attention import NEG_INF
+    B, KV, splits, R, dh = acc.shape
+    dead = (torch.arange(splits, device=m.device)[None, :]
+            >= live[:, None])[:, None, :, None]           # (B, 1, splits, 1)
+    M = m.masked_fill(dead, NEG_INF).amax(2, keepdim=True)
+    w = torch.exp2(m - M).masked_fill(dead, 0.0)
+    num = (w[..., None] * acc.masked_fill(dead[..., None], 0.0)).sum(2)
+    den = (w * l.masked_fill(dead, 0.0)).sum(2)
+    out = num / den.clamp_min(1e-30)[..., None]            # (B, KV, R, dh)
+    return out.reshape(B, KV, L, R // L, dh).permute(0, 2, 1, 3, 4) \
+        .reshape(B, L, KV * (R // L), dh)

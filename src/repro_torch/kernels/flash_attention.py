@@ -23,32 +23,9 @@ from typing import Tuple
 import torch
 
 from . import build
-from .decode_attention import check_operands
+from .decode_attention import check_operands, check_tensor_core_shape
 
 Tensor = torch.Tensor
-
-
-def check_tensor_core_shape(what: str, q: Tensor, k: Tensor,
-                            *more: Tensor) -> None:
-    """The bf16 kernels' limits (``csrc/flash_sm90.cuh``): dh a multiple of
-    8 (the tensor maps' strides are whole 16 bytes) up to 128 (above it the
-    float32 accumulators, dK and dV in the backward, O in the forward, pass
-    a thread's 255 registers; every attention configuration of the repo
-    has dh ≤ 128), at most 64 query heads a KV head (a 64-row tile holds
-    whole positions), operands on 16-byte boundaries. A shape outside them raises: it is never routed
-    to the float32 kernel or to the plain version."""
-    B, S, H, dh = q.shape
-    KV = k.shape[2]
-    if dh % 8 or dh > 128 or H // KV > 64:
-        raise ValueError(
-            f"{what}: the bf16 tensor-core kernel takes dh a multiple of 8 "
-            f"up to 128 and at most 64 query heads per KV head; got q "
-            f"{tuple(q.shape)}, k {tuple(k.shape)}")
-    for t in (q, k, *more):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{what}: bf16 operands must start on a "
-                             f"16-byte boundary (TMA); one of shape "
-                             f"{tuple(t.shape)} does not")
 
 
 def flash_attention_with_lse(q: Tensor, k: Tensor, v: Tensor, *,

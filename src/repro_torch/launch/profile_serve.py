@@ -48,8 +48,10 @@ WINDOW = 4            # engine steps under the profiler, per kind of step
 KERNEL_GROUPS = {
     "paged_decode_attention": ("pagedrows",),
     "decode_attention": ("contiguousrows",),
-    "chunk_prefill_attention": ("chunk_prefill_kernel",),
-    "paged_verify_attention": ("paged_verify_kernel",),
+    "chunk_prefill_attention": ("chunk_prefill_kernel",
+                                "chunk_prefill_sm90"),
+    "paged_verify_attention": ("paged_verify_kernel", "paged_verify_sm90",
+                               "verify_merge"),
     "chunk_scan": ("chunk_scan",),
     "flash_attention": ("flash_kernel", "flash_fwd_sm90"),
     "flash_attention_bwd": ("dq_kernel", "dkv_kernel", "dq_sm90",

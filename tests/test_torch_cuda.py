@@ -11,7 +11,10 @@ Tolerances: float32 5e-5 (summation order and the blocked online
 softmax), bf16 2e-2 (the plain version rounds the softmax weights to bf16
 before the PV product, as ``repro/kernels/ref.py`` does). ``chunk_scan``
 upcasts its inputs to float32 before every product on both sides, so it
-is held at 5e-5 in both dtypes.
+is held at 5e-5 in both dtypes. The bf16 tensor-core chunk-prefill and
+verify kernels are also held at 8e-3 against the plain version run in
+float32 on the same bf16 values (``chip_smoke.py``'s tolerance): there the
+kernel's error is its own rounding of P and of the output.
 """
 import numpy as np
 import pytest
@@ -147,6 +150,123 @@ def test_paged_verify_kernel_on_card(cuda, L, H, KV, pos, dtype, tol):
     got = dk.paged_verify_attention(q, kp, vp, p, bt)
     want = dk.paged_verify_attention_ref(q, kp, vp, p, bt)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+BF16_TOL = 8e-3
+
+
+def verify_inputs(seed, B, NB, block, L, H, KV, dh, pos, idle=(),
+                  tail=True):
+    """Span queries, pools, pos and tables as the scheduler leaves them:
+    ``idle`` slots at pos 0 with zeroed tables; with ``tail`` the entries
+    past a slot's span horizon (pos + L - 1) // block point at scratch 0."""
+    rng = np.random.default_rng(seed)
+    P = B * NB + 1
+    q = f32(rng, B, L, H, dh)
+    kp, vp = f32(rng, P, block, KV, dh), f32(rng, P, block, KV, dh)
+    bt = rng.permutation(np.arange(1, P)).reshape(B, NB).astype(np.int32)
+    pos = np.asarray(pos, np.int32)
+    for b in idle:
+        pos[b], bt[b] = 0, 0
+    if tail:
+        bt = np.where(np.arange(NB)[None, :] <= (pos[:, None] + L - 1)
+                      // block, bt, 0).astype(np.int32)
+    return q, kp, vp, pos, bt
+
+
+def bf16_on(cuda, *arrays):
+    """The float arrays as bf16 on the card, the int arrays as they are."""
+    return [torch.as_tensor(a, device=cuda).to(torch.bfloat16)
+            if a.dtype == np.float32 else torch.as_tensor(a, device=cuda)
+            for a in arrays]
+
+
+def up(*ts):
+    return [t.float() if t.is_floating_point() else t for t in ts]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,NB,block,H,KV,dh,start", [
+    (8, 4, 16, 4, 4, 64, 0),          # MHA, first chunk
+    (6, 8, 8, 8, 2, 64, 34),          # block 8, straddles a block
+    (16, 4, 32, 4, 1, 128, 112),      # block 32, ends at capacity
+    (40, 8, 16, 64, 1, 64, 50),       # MQA, a group of 64 rows
+    (100, 16, 8, 8, 2, 64, 20),       # ragged C over two row tiles
+    (77, 4, 64, 8, 2, 128, 150),      # block 64
+    (50, 2, 128, 8, 2, 64, 100),      # block 128: 64 rows of one page
+    (33, 8, 32, 32, 32, 80, 200),     # Zamba2's heads (dh 80, group 1)
+    (30, 8, 16, 6, 2, 40, 70),        # dh 40, a group of 3 (pad rows)
+])
+def test_chunk_prefill_tensor_core_on_card(cuda, C, NB, block, H, KV, dh,
+                                           start):
+    """bf16 chunk prefill on the tensor cores against the plain version in
+    float32 on the same values."""
+    rng = np.random.default_rng(10)
+    P = NB + 3
+    q, kp, vp = bf16_on(cuda, f32(rng, C, H, dh), f32(rng, P, block, KV, dh),
+                        f32(rng, P, block, KV, dh))
+    bt = torch.as_tensor(rng.permutation(np.arange(1, P))[:NB]
+                         .astype(np.int32), device=cuda)
+    got = dk.chunk_prefill_attention(q, kp, vp, start, bt)
+    want = dk.chunk_prefill_attention_ref(*up(q, kp, vp), start, bt)
+    torch.testing.assert_close(got.float(), want, rtol=BF16_TOL,
+                               atol=BF16_TOL)
+
+
+VERIFY_CASES = [
+    # B, NB, block, L, H, KV, dh, pos, idle, tail
+    (2, 4, 16, 4, 4, 4, 64, (5, 40), (), True),           # MHA
+    (2, 4, 32, 4, 4, 1, 128, (100, 7), (), True),         # MQA, block 32
+    (3, 8, 16, 2, 8, 2, 64, (0, 63, 100), (), True),      # L = 2
+    (2, 8, 16, 8, 32, 2, 64, (10, 120), (), True),        # 128 rows: 2 tiles
+    (3, 4, 16, 4, 8, 2, 64, (62, 63, 61), (), False),     # past the horizon
+    (4, 4, 16, 4, 8, 2, 64, (30, 0, 45, 0), (1, 3), True),  # idle slots
+    (3, 64, 16, 4, 8, 2, 64, (510, 511, 900), (), True),  # masked splits
+    (2, 100, 16, 4, 8, 2, 64, (1500, 700), (), True),     # 4 splits
+    (2, 16, 8, 4, 8, 2, 64, (60, 100), (), True),         # block 8
+    (2, 4, 64, 4, 8, 2, 64, (130, 250), (), True),        # block 64
+    (2, 4, 128, 4, 8, 2, 64, (300, 505), (), True),       # block 128
+    (2, 8, 16, 4, 64, 1, 64, (50, 100), (), True),        # MQA, group 64
+    (2, 8, 16, 4, 32, 32, 80, (20, 100), (), True),       # Zamba2's heads
+    (2, 8, 16, 4, 6, 2, 40, (33, 90), (), True),          # dh 40, group 3
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,NB,block,L,H,KV,dh,pos,idle,tail", VERIFY_CASES)
+def test_paged_verify_tensor_core_on_card(cuda, B, NB, block, L, H, KV, dh,
+                                          pos, idle, tail):
+    """bf16 verify on the tensor cores (split over key ranges where the
+    table is long enough) against the plain version in float32 on the same
+    values, and row j against paged decode's plain version at pos + j."""
+    q, kp, vp, p, bt = bf16_on(cuda, *verify_inputs(11, B, NB, block, L, H,
+                                                    KV, dh, pos, idle, tail))
+    got = dk.paged_verify_attention(q, kp, vp, p, bt).float()
+    qf, kf, vf = up(q, kp, vp)
+    torch.testing.assert_close(
+        got, dk.paged_verify_attention_ref(qf, kf, vf, p, bt),
+        rtol=BF16_TOL, atol=BF16_TOL)
+    for j in range(L):
+        torch.testing.assert_close(
+            got[:, j], dk.paged_decode_attention_ref(
+                qf[:, j].contiguous(), kf, vf, p + j, bt),
+            rtol=BF16_TOL, atol=BF16_TOL)
+
+
+@pytest.mark.gpu
+def test_paged_tensor_core_refuses_shapes_on_card(cuda):
+    """A page block the bf16 kernels do not take raises with the shape
+    named, on the card as on the CPU: no other kernel runs it."""
+    q, kp, vp, p, bt = bf16_on(cuda, *verify_inputs(12, 2, 8, 12, 4, 8, 2,
+                                                    64, (5, 40)))
+    launched = (dk.paged_verify_attention.launches,
+                dk.chunk_prefill_attention.launches)
+    with pytest.raises(ValueError, match=r"k \(17, 12, 2, 64\)"):
+        dk.paged_verify_attention(q, kp, vp, p, bt)
+    with pytest.raises(ValueError, match=r"k \(17, 12, 2, 64\)"):
+        dk.chunk_prefill_attention(q[0], kp, vp, 0, bt[0])
+    assert (dk.paged_verify_attention.launches,
+            dk.chunk_prefill_attention.launches) == launched
 
 
 @pytest.mark.gpu

@@ -4,11 +4,15 @@ mode (tiny shapes — interpret mode is slow), at ragged shapes the Pallas
 wrappers refuse against the oracles alone. Float32 on both sides;
 rtol = atol = 2e-5 because the two differ only in summation order (the
 oracles repeat KV heads and take one softmax, the Pallas kernels run a
-blocked online softmax).
+blocked online softmax). The bf16 verify kernel's split-and-merge rule
+(its plain versions) is held at 1e-6 against the unsplit plain version:
+both are float32 sums of the same terms, within a few ulps.
 
 The CUDA kernels themselves have no CPU mode: their tests are in
 ``test_torch_cuda.py``, marked ``gpu``.
 """
+import re
+
 import numpy as np
 import pytest
 
@@ -20,7 +24,8 @@ from repro.kernels import ref  # noqa: E402
 from repro.kernels.decode_attention import (  # noqa: E402
     chunk_prefill_attention as pallas_chunk,
     decode_attention as pallas_decode,
-    paged_decode_attention as pallas_paged)
+    paged_decode_attention as pallas_paged,
+    paged_verify_attention as pallas_verify)
 from repro.kernels.flash_attention import (  # noqa: E402
     flash_attention_with_lse as pallas_flash)
 from repro.kernels.router_scores import router_scores as pallas_router  # noqa: E402
@@ -296,3 +301,128 @@ def test_bf16_tensor_core_alignment_check():
         .view(1, 8, 2, 64)
     with pytest.raises(ValueError, match="16-byte boundary"):
         fk.check_tensor_core_shape("flash", q, k, k)
+
+
+@pytest.mark.parametrize("block,dh,H,KV,ok", [
+    (16, 128, 32, 8, True),      # the main path: Qwen3-8B's heads
+    (8, 128, 32, 8, True),       # every power-of-two block from 8 up
+    (32, 128, 32, 8, True),
+    (64, 128, 32, 8, True),
+    (128, 64, 8, 2, True),
+    (16, 80, 32, 32, True),      # Zamba2's heads
+    (16, 40, 6, 2, True),        # dh 40, a group of 3
+    (16, 64, 64, 1, True),       # a group of 64 rows
+    (4, 64, 8, 2, False),        # block below 8
+    (12, 64, 8, 2, False),       # block not a power of two
+    (48, 64, 8, 2, False),
+    (16, 36, 8, 2, False),       # dh not a multiple of 8
+    (16, 136, 8, 2, False),      # dh past 128
+    (16, 64, 128, 1, False),     # 128 query heads on one KV head
+])
+@pytest.mark.parametrize("kind", ["chunk", "verify"])
+def test_paged_tensor_core_shape_check(block, dh, H, KV, ok, kind):
+    """The bf16 chunk-prefill and verify kernels' limits are checked before
+    a launch and raise with the shapes named; nothing is routed to the
+    float32 kernel or to the plain version."""
+    q = torch.zeros((5, H, dh) if kind == "chunk" else (2, 3, H, dh),
+                    dtype=torch.bfloat16)
+    pool = torch.zeros((3, block, KV, dh), dtype=torch.bfloat16)
+    if ok:
+        dk.check_tensor_core_shape(kind, q, pool, pool, block=block)
+    else:
+        with pytest.raises(ValueError, match=re.escape(
+                f"q {tuple(q.shape)}, k (3, {block}, {KV}, {dh})")):
+            dk.check_tensor_core_shape(kind, q, pool, pool, block=block)
+
+
+def test_paged_tensor_core_alignment_check():
+    """An operand off a 16-byte boundary (TMA reads whole 16-byte units)
+    raises."""
+    q = torch.zeros((4, 8, 64), dtype=torch.bfloat16)
+    pool = torch.zeros(3 * 16 * 2 * 64 + 4, dtype=torch.bfloat16)[4:] \
+        .view(3, 16, 2, 64)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        dk.check_tensor_core_shape("chunk", q, pool, pool, block=16)
+
+
+@pytest.mark.parametrize("NB", [1, 3, 7, 48, 68, 100, 4096])
+@pytest.mark.parametrize("block", [8, 16, 32, 64, 128])
+def test_verify_splits_cover_every_key_once(NB, block):
+    """Every key of [0, NB·block) lies in exactly one split, no split is
+    empty, there are at most VERIFY_MAX_SPLITS of them, and a split holds
+    at most VERIFY_SPLIT_TILES key tiles unless that cap binds."""
+    splits, tps = dk.verify_splits(NB, block)
+    S, span = NB * block, tps * dk.KEY_TILE
+    tiles = -(-S // dk.KEY_TILE)
+    seen = np.zeros(S, np.int32)
+    for s in range(splits):
+        lo, hi = s * span, min((s + 1) * span, S)
+        assert lo < hi
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+    assert 1 <= splits <= dk.VERIFY_MAX_SPLITS
+    assert tps <= max(dk.VERIFY_SPLIT_TILES,
+                      -(-tiles // dk.VERIFY_MAX_SPLITS))
+
+
+def verify_inputs(seed, B, NB, block, L, H, KV, dh, pos, idle=(),
+                  tail=True):
+    """Span queries, pools, pos and tables as the scheduler leaves them:
+    ``idle`` slots at pos 0 with zeroed tables; with ``tail`` the entries
+    past a slot's span horizon point at scratch 0."""
+    rng = np.random.default_rng(seed)
+    P = B * NB + 1
+    q = f32(rng, B, L, H, dh)
+    kp, vp = f32(rng, P, block, KV, dh), f32(rng, P, block, KV, dh)
+    bt = rng.permutation(np.arange(1, P)).reshape(B, NB).astype(np.int32)
+    pos = np.asarray(pos, np.int32)
+    for b in idle:
+        pos[b], bt[b] = 0, 0
+    if tail:
+        bt = np.where(np.arange(NB)[None, :] <= (pos[:, None] + L - 1)
+                      // block, bt, 0).astype(np.int32)
+    return q, kp, vp, pos, bt
+
+
+SPLIT_CASES = [
+    # B, NB, block, L, H, KV, dh, pos, idle, tail
+    (3, 16, 16, 4, 8, 2, 32, (126, 127, 200), (), True),   # masked splits
+    (4, 8, 16, 4, 8, 2, 32, (30, 0, 45, 0), (1, 3), True),  # idle slots
+    (3, 4, 16, 4, 8, 2, 32, (62, 63, 61), (), False),      # past the horizon
+    (2, 8, 16, 8, 32, 2, 16, (10, 120), (), True),         # two row tiles
+    (2, 16, 8, 2, 4, 4, 32, (60, 100), (), True),          # block 8, L = 2
+    (2, 2, 128, 4, 4, 1, 32, (100, 252), (), True),        # block 128, MQA
+]
+
+
+@pytest.mark.parametrize("B,NB,block,L,H,KV,dh,pos,idle,tail", SPLIT_CASES)
+@pytest.mark.parametrize("plan", ["kernel", "one tile a split"])
+def test_verify_split_merge_matches_unsplit(B, NB, block, L, H, KV, dh, pos,
+                                            idle, tail, plan):
+    """Partials over the splits, merged by the kernel's rule, equal the
+    unsplit plain version in float32 — with rows whose split sees no key
+    (m = −1e30), idle slots and spans past the table horizon."""
+    q, kp, vp, p, bt = map(torch.as_tensor, verify_inputs(
+        13, B, NB, block, L, H, KV, dh, pos, idle, tail))
+    tiles = -(-NB * block // dk.KEY_TILE)
+    splits, tps = dk.verify_splits(NB, block) if plan == "kernel" \
+        else (tiles, 1)
+    m, l, acc, live = dk.verify_partials_ref(q, kp, vp, p, bt, splits, tps)
+    got = dk.merge_partials_ref(m, l, acc, live, L)
+    want = dk.paged_verify_attention_ref(q, kp, vp, p, bt)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    if plan != "kernel" and pos[0] == 126:
+        # rows 0-1 of slot 0 see keys <= 126, 127: none of split 2's
+        assert (m[0, :, 2, :2 * (H // KV)] <= -1e30).all()
+        assert (live == torch.tensor([3, 3, 4])).all()
+
+
+def test_verify_split_merge_matches_pallas_kernel():
+    """The split-and-merge rule against the reference's Pallas verify
+    kernel in interpret mode, at a tiny shape with a masked split."""
+    q, kp, vp, p, bt = verify_inputs(14, 2, 8, 16, 4, 4, 2, 16, (62, 20))
+    m, l, acc, live = dk.verify_partials_ref(
+        *map(torch.as_tensor, (q, kp, vp, p, bt)), 2, 1)
+    check(dk.merge_partials_ref(m, l, acc, live, 4),
+          pallas_verify(*map(jnp.asarray, (q, kp, vp, p, bt)),
+                        interpret=True))
