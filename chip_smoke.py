@@ -20,16 +20,22 @@ Phases, each fatal on failure:
    small float32 edge shapes (the chunk scan's include mLSTM's H = 4,
    dk = 384, dv = 385; the flash forward's and backward's run in bf16 as
    well, on the tensor-core kernels; the flash backward also at the
-   contiguous path's and Zamba2's prefill shapes; chunk prefill's and
-   verify's run in bf16 as well, on the tensor-core kernels, with more
-   bf16 edges: page blocks 8 to 128, a group of 64 rows, ragged chunks,
-   two row tiles, spans past the table horizon, idle slots, splits whose
-   keys some rows do not see; every bf16 verify row is also held against
-   paged decode's plain version at pos + j), with the stated
-   tolerances, and timed (kernel, plain version, one library call) with
-   CUDA events, the kernel and the library call also replayed from a
-   CUDA graph (device ms: the events' mean of back-to-back calls measures
-   the host where a call's kernels are short);
+   contiguous path's and Zamba2's prefill shapes; the paged kernels' and
+   contiguous decode's run in bf16 as well, on the tensor-core kernels,
+   with more bf16 edges: page blocks 8 to 128, groups of 1 to 64 rows, dh
+   40 to 128, ragged chunks and S, S under 64 and rings shorter than a
+   tile, rings wrapped and far past, two row tiles, spans past the table
+   horizon, idle slots, splits whose keys some rows do not see; every
+   bf16 verify row is also held against paged decode's plain version at
+   pos + j), with the stated tolerances (bf16 kernels against their
+   plain versions run in float32 on the same values), and timed (kernel,
+   plain version, one library call) with CUDA events, the kernel and the
+   library call also replayed from a CUDA graph (device ms: the events'
+   mean of back-to-back calls measures the host where a call's kernels
+   are short); the two decode kernels are also timed at every number of
+   key tiles a split (the sweep record, each setting held against the
+   plain version; the paged one at the main path's and at Zamba2's
+   heads), and their float32 (scalar) wrappers at the same shapes;
 4. parity — the smoke-size float32 Qwen3 deployment (2 pods, top-1) served
    on the card (kernels) and on the CPU (plain versions) in four
    configurations (paged + chunked, paged + chunked + n-gram speculation,
@@ -289,10 +295,11 @@ def compare(name, got, want, dtype_name, cases, tol=None):
 # ---------------------------------------------------------------------------
 
 def _paged_case(B, NB, block, H, KV, dh, pos, dtype, gen, window=0,
-                scratch_tail=True):
+                scratch_tail=True, idle=()):
     """q, pools, pos, tables on the card: distinct physical blocks per slot
     (block 0 is scratch); table entries past a slot's horizon point at the
-    scratch block, as the scheduler leaves them."""
+    scratch block, as the scheduler leaves them; ``idle`` slots sit at pos
+    0 with zeroed tables."""
     import torch
     dev = "cuda"
     P = B * NB + 1
@@ -301,6 +308,10 @@ def _paged_case(B, NB, block, H, KV, dh, pos, dtype, gen, window=0,
     vp = torch.randn((P, block, KV, dh), generator=gen, device=dev).to(dtype)
     perm = torch.randperm(P - 1, generator=gen, device=dev) + 1
     bt = perm[:B * NB].reshape(B, NB).to(torch.int32)
+    pos = list(pos)
+    for b in idle:
+        pos[b] = 0
+        bt[b] = 0
     pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
     if scratch_tail and window <= 0:
         cols = torch.arange(NB, device=dev)[None, :]
@@ -366,6 +377,44 @@ def _heads_first(t, group):
     """(B,S,KV,dh) → contiguous (B,H,S,dh) with each KV head repeated for
     its query heads: the library call's layout (made outside its timing)."""
     return t.permute(0, 2, 1, 3).repeat_interleave(group, dim=1).contiguous()
+
+
+def _up(*ts):
+    """Float tensors in float32 (the plain versions' inputs beside a bf16
+    kernel), the others as they are."""
+    return [t.float() if t.is_floating_point() else t for t in ts]
+
+
+# key tiles a split in the decode kernels' sweep (17: one split at the main
+# path's 17 tiles)
+DECODE_SWEEP_TILES = (1, 2, 3, 4, 6, 8, 17)
+
+
+def _decode_sweep(dk, cases, name, shape, call, want, keys, pairs):
+    """Device ms of a bf16 decode kernel and its merge at each number of key
+    tiles a split, then at the plan in use, each output held against
+    ``want``; logged for the record and returned."""
+    chosen, sweep = dk.DECODE_SPLIT_TILES, {}
+    try:
+        for tiles in DECODE_SWEEP_TILES:
+            dk.DECODE_SPLIT_TILES = tiles
+            compare(name, call(), want, "bfloat16", cases)
+            splits = dk.decode_splits(keys, pairs)[0]
+            sweep[f"{tiles} ({splits} splits)"] = device_ms(call)
+    finally:
+        dk.DECODE_SPLIT_TILES = chosen
+    splits, tps = dk.decode_splits(keys, pairs)
+    sweep[f"in use: {tps} ({splits} splits)"] = device_ms(call)
+    log(f"{name} sweep at {shape} bf16: device ms by key tiles a split: "
+        f"{json.dumps(sweep)}")
+    return sweep
+
+
+def _time_scalar(r, call):
+    """The float32 (scalar) wrapper's event and device ms at the record's
+    shape, beside the bf16 kernel's."""
+    r["float32_ms"] = cuda_ms(call)
+    r["float32_device_ms"] = device_ms(call)
 
 
 def _check_flash(fk, cases, dtype_name, q, k, v, causal=True, window=0):
@@ -489,18 +538,15 @@ def _hybrid_kernel_cases(cases, rec, gen):
     pos = np.random.default_rng(4).integers(200, 64 * block, 8)
     pos[0] = 64 * block - 1
 
-    def up(*ts):
-        return [t.float() if t.is_floating_point() else t for t in ts]
-
     for dtype, name in ((bf16, "bfloat16"), (f32, "float32")):
         args = _paged_case(8, 64, block, H, KV, dh, pos.tolist(), dtype, gen)
         compare("paged_decode_attention", dk.paged_decode_attention(*args),
-                dk.paged_decode_attention_ref(*up(*args)), name, cases)
+                dk.paged_decode_attention_ref(*_up(*args)), name, cases)
         q, kp, vp, start, bt = _chunk_case(256, 48, block, H, KV, dh, 512,
                                            dtype, gen)
         compare("chunk_prefill_attention",
                 dk.chunk_prefill_attention(q, kp, vp, start, bt),
-                dk.chunk_prefill_attention_ref(*up(q, kp, vp), start, bt),
+                dk.chunk_prefill_attention_ref(*_up(q, kp, vp), start, bt),
                 name, cases)
         for S in (1024, 702):
             _check_flash(fk, cases, name, *_flash_case(1, S, H, KV, dh,
@@ -509,11 +555,38 @@ def _hybrid_kernel_cases(cases, rec, gen):
                             [1087, 300, 702, 1023, 256, 999, 500, 1024],
                             dtype, gen)
         compare("decode_attention", dk.decode_attention(*args),
-                dk.decode_attention_ref(*up(*args)), name, cases)
+                dk.decode_attention_ref(*_up(*args)), name, cases)
         _check_verify(dk, cases, name, *_verify_case(
             8, 64, block, SPEC_LEN, H, KV, dh,
             [64 * block - SPEC_LEN, 250, 701, 1000, 300, 999, 512, 900],
             dtype, gen))
+
+    # -- the bf16 decode kernels' split plan at the hybrid path's shape:
+    #    8 slots of MHA heads (256 (slot, KV head) pairs) over the main
+    #    path's table (NB = 68) and over cache rows of the same 1088
+    #    positions, with SDPA's device ms on the gathered paged KV
+    S = 68 * block
+    pos68 = np.random.default_rng(7).integers(200, S, 8)
+    pos68[0] = S - 1
+    args = _paged_case(8, 68, block, H, KV, dh, pos68.tolist(), bf16, gen)
+    shape = f"B=8 H={H} KV={KV} dh={dh}"
+    _decode_sweep(dk, cases, "paged_decode_attention",
+                  f"{shape} block={block} NB=68",
+                  lambda: dk.paged_decode_attention(*args),
+                  dk.paged_decode_attention_ref(*_up(*args)), S, 8 * KV)
+    q, kp, vp, pos_t, bt = args
+    kf, vf = (t[bt.long()].reshape(8, S, KV, dh).permute(0, 2, 1, 3)
+              .contiguous() for t in (kp, vp))
+    mask = (torch.arange(S, device="cuda")[None, :]
+            <= pos_t[:, None].long())[:, None, None, :]
+    sdpa = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None], kf, vf, attn_mask=mask))
+    log(f"paged_decode_attention at {shape} block={block} NB=68 bf16: SDPA "
+        f"on the gathered KV, device ms {sdpa}")
+    args = _decode_case(8, S, H, KV, dh, pos68.tolist(), bf16, gen)
+    _decode_sweep(dk, cases, "decode_attention", f"{shape} S={S}",
+                  lambda: dk.decode_attention(*args),
+                  dk.decode_attention_ref(*_up(*args)), S, 8 * KV)
 
 
 def _check_flash_bwd(fk, fbk, cases, dtype_name, q, k, v, do, causal=True,
@@ -637,7 +710,8 @@ def phase_kernels():
     q, kp, vp, pos_t, bt = _paged_case(B, NB, block, H, KV, dh, pos.tolist(),
                                        bf16, gen)
     got = dk.paged_decode_attention(q, kp, vp, pos_t, bt)
-    want = dk.paged_decode_attention_ref(q, kp, vp, pos_t, bt)
+    want = dk.paged_decode_attention_ref(q.float(), kp.float(), vp.float(),
+                                         pos_t, bt)
     compare("paged_decode_attention", got, want, "bfloat16", cases)
     S = NB * block
     # the library call gets the gathered span with its KV heads repeated to
@@ -668,6 +742,16 @@ def phase_kernels():
             lambda: F.scaled_dot_product_attention(q[:, :, None], kf, vf,
                                                    attn_mask=mask)),
         "bytes": nbytes, "flops": flops, "dtype": "bfloat16"}
+    # the split plan at the main path's table (NB = 68: 17 key tiles), each
+    # setting held against the plain version too
+    pos68 = np.random.default_rng(5).integers(200, 68 * block, B)
+    pos68[0] = 68 * block - 1
+    args = _paged_case(B, 68, block, H, KV, dh, pos68.tolist(), bf16, gen)
+    _decode_sweep(dk, cases, "paged_decode_attention",
+                  f"B={B} H={H} KV={KV} dh={dh} block={block} NB=68",
+                  lambda: dk.paged_decode_attention(*args),
+                  dk.paged_decode_attention_ref(*_up(*args)),
+                  68 * block, B * KV)
 
     # -- chunk prefill at the main path's shapes: a 256-row chunk at
     #    position 512 of a Qwen3-8B prompt; the bf16 tensor-core kernel is
@@ -735,6 +819,8 @@ def phase_kernels():
             dk.paged_decode_attention(q, kp, vp, pos_t, bt),
             dk.paged_decode_attention_ref(q, kp, vp, pos_t, bt),
             "float32", cases)
+    _time_scalar(rec["paged_decode_attention"],
+                 lambda: dk.paged_decode_attention(q, kp, vp, pos_t, bt))
     q, kp, vp, start, bt = _chunk_case(256, 48, block, H, KV, dh, 512, f32,
                                        gen)
     compare("chunk_prefill_attention",
@@ -760,6 +846,28 @@ def phase_kernels():
                 dk.paged_decode_attention_ref(q, kp, vp, pos_t, bt,
                                               window=window),
                 "float32", cases)
+    # their bf16 twins on the split-key tensor-core kernel, and its own
+    # edges, against the plain version in float32 on the same values
+    edge_decode_bf16 = [(*e, ()) for e in edge_decode] + [
+        # B, NB, block, H, KV, dh, pos, window, idle
+        (2, 16, 8, 16, 2, 64, [60, 127], 0, ()),           # block 8, group 8
+        (2, 2, 128, 8, 2, 64, [100, 255], 0, ()),          # block 128
+        (2, 8, 16, 64, 1, 64, [50, 127], 0, ()),           # a group of 64
+        (3, 8, 16, 32, 32, 80, [0, 70, 127], 0, ()),       # Zamba2's heads
+        (4, 68, 16, 32, 8, 128, [0, 1087, 500, 0], 0, (0, 3)),  # idle slots,
+        #                                                    pos = capacity - 1
+        (2, 100, 16, 8, 2, 64, [1599, 5000], 1600, ()),    # ring over 25
+        #                                             tiles, wrapped far past
+        (2, 8, 16, 8, 2, 128, [20, 100000], 128, ()),      # ring, far past
+        (3, 4, 16, 6, 2, 40, [0, 33, 63], 0, ()),          # dh 40, group 3
+    ]
+    for B, NB, block, H, KV, dh, pos, window, idle in edge_decode_bf16:
+        args = _paged_case(B, NB, block, H, KV, dh, pos, bf16, gen,
+                           window=window, idle=idle)
+        compare("paged_decode_attention",
+                dk.paged_decode_attention(*args, window=window),
+                dk.paged_decode_attention_ref(*_up(*args), window=window),
+                "bfloat16", cases)
     edge_chunk = [
         # C, NB, block, H, KV, dh, start
         (8, 4, 16, 4, 4, 64, 0),        # MHA, first chunk
@@ -839,8 +947,11 @@ def phase_kernels():
         q, k, v, pos_t = _decode_case(B, S, H, KV, dh, pos.tolist(), dtype,
                                       gen)
         compare("decode_attention", dk.decode_attention(q, k, v, pos_t),
-                dk.decode_attention_ref(q, k, v, pos_t), name, cases)
-        if dtype is bf16:
+                dk.decode_attention_ref(*_up(q, k, v, pos_t)), name, cases)
+        if dtype is f32:
+            _time_scalar(rec["decode_attention"],
+                         lambda: dk.decode_attention(q, k, v, pos_t))
+        else:
             kh, vh = _heads_first(k, H // KV), _heads_first(v, H // KV)
             dmask = (torch.arange(S, device="cuda")[None, :]
                      <= pos_t[:, None].long())[:, None, None, :]
@@ -860,6 +971,11 @@ def phase_kernels():
                         q[:, :, None], kh, vh, attn_mask=dmask)),
                 "bytes": 2 * B * H * dh * 2 + keys * KV * dh * 2 * 2 + B * 4,
                 "flops": 4 * H * dh * keys, "dtype": "bfloat16"}
+            _decode_sweep(dk, cases, "decode_attention",
+                          f"B={B} S={S} H={H} KV={KV} dh={dh}",
+                          lambda: dk.decode_attention(q, k, v, pos_t),
+                          dk.decode_attention_ref(*_up(q, k, v, pos_t)), S,
+                          B * KV)
 
     # -- paged verify at the speculative path's shapes: 8 slots of Qwen3-8B
     #    heads, spans of SPEC_LEN at positions up to 1023 (slot 0's span
@@ -1003,6 +1119,22 @@ def phase_kernels():
                 dk.decode_attention(q, k, v, pos_t, window=window),
                 dk.decode_attention_ref(q, k, v, pos_t, window=window),
                 "float32", cases)
+    edge_decode_bf16 = edge_decode + [
+        (2, 40, 8, 2, 64, [0, 39], 0),           # S < 64
+        (2, 200, 64, 1, 64, [150, 199], 0),      # a group of 64
+        (2, 150, 16, 2, 128, [0, 149], 0),       # a group of 8, dh 128
+        (3, 1088, 32, 32, 80, [1087, 0, 600], 0),  # Zamba2's heads
+        (2, 1000, 8, 2, 64, [999, 5000], 1000),  # ring over 16 tiles,
+        #                                          wrapped far past
+        (2, 8, 4, 2, 64, [0, 7], 8),             # ring < a tile, pos 0, S-1
+        (3, 100, 6, 2, 40, [0, 64, 99], 0),      # dh 40, a group of 3
+    ]
+    for B, S, H, KV, dh, pos_e, window in edge_decode_bf16:
+        args = _decode_case(B, S, H, KV, dh, pos_e, bf16, gen)
+        compare("decode_attention",
+                dk.decode_attention(*args, window=window),
+                dk.decode_attention_ref(*_up(*args), window=window),
+                "bfloat16", cases)
     _hybrid_kernel_cases(cases, rec, gen)
     _training_kernel_cases(cases, rec, gen)
     torch.cuda.synchronize()
@@ -1026,7 +1158,9 @@ def phase_kernels():
             f"{r['ms']:.4f} ms, device {r['device_ms']} (plain "
             f"{r['plain_ms']:.4f}, library {r['library_ms']}, device "
             f"{r.get('library_device_ms')}, bound {r['bound_ms']:.4f} by "
-            f"{r['bound_by']})")
+            f"{r['bound_by']}"
+            + (f"; float32 scalar wrapper {r['float32_ms']:.4f} ms, device "
+               f"{r['float32_device_ms']})" if "float32_ms" in r else ")"))
     return rec
 
 
@@ -1792,7 +1926,9 @@ def main() -> int:
             "shape": r["shape"], "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "library_device_ms": r.get("library_device_ms")})
+            "library_device_ms": r.get("library_device_ms"),
+            **{k: r[k] for k in ("float32_ms", "float32_device_ms")
+               if k in r}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

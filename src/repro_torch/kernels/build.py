@@ -99,13 +99,11 @@ def load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "decode_attention":
-        lib.paged_decode_attention.argtypes = [P, P, P, P, P, P, I, I, I, I,
-                                               I, I, I, I, F, P]
+        lib.paged_decode_attention.argtypes = [P] * 7 + [I] * 11 + [F, P]
         lib.paged_decode_attention.restype = I
         lib.chunk_prefill_attention.argtypes = [P] * 5 + [I] * 9 + [F, P]
         lib.chunk_prefill_attention.restype = I
-        lib.decode_attention.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I,
-                                         F, P]
+        lib.decode_attention.argtypes = [P] * 6 + [I] * 9 + [F, P]
         lib.decode_attention.restype = I
         lib.paged_verify_attention.argtypes = [P] * 7 + [I] * 11 + [F, P]
         lib.paged_verify_attention.restype = I

@@ -14,17 +14,14 @@
 //     KV span (the span's own K/V already scattered in), row l fenced to
 //     keys <= pos + l: the chunk-prefill body batched over slots.
 //
-// Two designs, chosen by kernel and dtype (a dispatch, not a fallback: each
-// entry point takes what its wrapper checked, or returns an error).
+// Two designs, chosen by dtype (a dispatch, not a fallback: each entry
+// point takes what its wrapper checked, or returns an error).
 //
-// * The decode kernels (paged and contiguous, float32 and bf16) and the
-//   float32 chunk-prefill and verify kernels: the first, scalar design.
-//   What bounds decode on the card is device memory: every key and value
-//   of the live span is read once per (slot, KV head) and used by the GQA
-//   group only, a few operations per byte against the ~295 at which bf16
-//   tensor cores become the limit. One thread block per (slot, KV head)
-//   for decode, per (KV head, tile of 16 query rows) for float32 prefill
-//   and per (slot, KV head, tile of span rows) for float32 verify, each
+// * float32, all four kernels: the first, scalar design. Tensor cores take
+//   no float32, and TF32 keeps about three digits, which would break the
+//   5e-5 tolerance of the card's float32 checks. One thread block per
+//   (slot, KV head) for decode, per (KV head, tile of 16 query rows) for
+//   prefill and per (slot, KV head, tile of span rows) for verify, each
 //   walking the key tiles of its span up to the horizon tile (tiles past
 //   it are neither loaded nor computed) with float32 FMAs out of shared
 //   memory through the tile loop of attention_tile.cuh. The paged and
@@ -33,18 +30,14 @@
 //   the Pallas kernels share _accum_block and differ only in their index
 //   maps. The contiguous cache is cut into tiles of kContiguousBlock
 //   positions and any S is taken (the Pallas wrapper asserts S % min(256,
-//   S) == 0; the ragged last tile is masked here). Float32 chunk prefill
-//   and verify stay scalar for the reason flash_attention.cu gives: tensor
-//   cores take no float32, and TF32 keeps about three digits, which would
-//   break the 5e-5 tolerance of the card's float32 checks. Known gap of
-//   decode: 8 slots x 8 KV heads fill 64 of the 132 SMs; splitting the
-//   span across blocks over paged_sm90.cuh's loader is the next step.
-// * bf16 chunk prefill and verify: the tensor-core design of
-//   paged_sm90.cuh (wgmma over 64-key tiles that TMA gathers page by page
-//   through the block table; the header has the layout). Page blocks: a
-//   power of two from 8 up (8, 16, 32, 64, 128, ...); dh a multiple of 8
-//   up to 128; at most 64 query heads a KV head; operands on 16-byte
-//   boundaries. The wrapper raises on anything else, with the shape named.
+//   S) == 0; the ragged last tile is masked here).
+// * bf16, all four kernels: the tensor-core design of paged_sm90.cuh
+//   (wgmma over 64-key tiles that a producer warp stages by TMA, page by
+//   page through the block table or as whole slabs of a contiguous cache
+//   row; the header has the layout). Page blocks: a power of two from 8
+//   up (8, 16, 32, 64, 128, ...); dh a multiple of 8 up to 128; at most 64
+//   query heads a KV head; operands on 16-byte boundaries. The wrapper
+//   raises on anything else, with the shape named.
 //   - chunk_prefill_sm90: bound by operations (C = 256 at start 512 of
 //     Qwen3-8B's heads: 2.7 us of bf16 tensor-core work against 2.2 us of
 //     bytes). The products run on wgmma. Its grid is one row tile a block,
@@ -65,11 +58,26 @@
 //     x block alone (pos is never read on the host). Blocks whose key
 //     range starts past their slot's horizon exit at once (idle slots,
 //     short spans). Each live block writes float32 partials (m, l, O)
-//     into a workspace the wrapper allocates; verify_merge, one warp a
-//     row, combines a row's live partials: M = max m_i,
-//     out = sum 2^(m_i - M) O_i / max(sum 2^(m_i - M) l_i, 1e-30), in
-//     bf16. A split in which a row sees no key has m_i = -1e30 and weight
-//     0; key 0 is always visible, so every row has a live split.
+//     into a workspace the wrapper allocates; verify_merge (merge_rows of
+//     paged_sm90.cuh) combines a row's live partials.
+//   - paged_decode_sm90 and contiguous_decode_sm90: the verify design at
+//     one row a slot (n_off = 1), over the paged or the contiguous loader.
+//     Bound by bytes (8 slots of Qwen3-8B's heads over positions up to
+//     1023: 16 MB of K/V, 4.9 us), and one block a (slot, KV head) pair
+//     is 64 blocks, half the SMs: so each slot's key range is split across
+//     blocks, the number of splits fixed on the host from the key count
+//     and the (B, KV) count (decode_splits in decode_attention.py), and
+//     paged_decode_merge / contiguous_decode_merge (merge_rows again)
+//     combine the partials. Of a 64-row wgmma tile only `group` rows are
+//     live (4 at Qwen3-8B's heads): its two m64n64 products per 64-key
+//     tile take about 0.28 us of one SM's tensor-core share against 1.3
+//     us of its share of the bandwidth for the tile's 32 KB, and they
+//     overlap the ring's loads. One consumer warpgroup a block and a ring
+//     small enough for two blocks an SM: at the main path's shapes it
+//     took 0.0143 ms where verify's layout (two consumers, one block an
+//     SM) took 0.0168 at its best split (PERF.md). The ring rule of a
+//     windowed decode is the clamp of every row to the slot's keys
+//     (paged_sm90.cuh), so the window needs no code here.
 
 #include "attention_tile.cuh"
 #include "paged_sm90.cuh"
@@ -85,11 +93,11 @@ constexpr int kContiguousBlock = 64;   // cache positions per key tile
 // key tiles 0..last of the slot's span of s_len positions. Keys at
 // position <= pos are live; with window > 0 the span is a ring and every
 // key is live once pos >= s_len.
-template <typename T, typename Rows>
+template <typename Rows>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const int* __restrict__ pos,
-              Rows rows, T* __restrict__ out, int H, int KV, int dh,
+decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const int* __restrict__ pos,
+              Rows rows, float* __restrict__ out, int H, int KV, int dh,
               int block, int nk, int s_len, int window, float scale) {
   extern __shared__ float smem[];
   const int b = blockIdx.x, kvh = blockIdx.y, group = H / KV;
@@ -98,7 +106,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool wrapped = window > 0 && p >= s_len;
   const size_t q0 = (size_t(b) * H + size_t(kvh) * group) * dh;
   for (int i = threadIdx.x; i < group * dh; i += blockDim.x)
-    t.q[i] = to_f32(q[q0 + i]);
+    t.q[i] = q[q0 + i];
   for (int r = threadIdx.x; r < group; r += blockDim.x) {
     t.lo[r] = 0;
     t.hi[r] = wrapped ? s_len - 1 : min(p, s_len - 1);
@@ -112,7 +120,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     accum_block(t, group, block, dh, ki * block, scale);
   }
   for (int i = threadIdx.x; i < group * dh; i += blockDim.x)
-    out[q0 + i] = from_f32<T>(t.acc[i] / fmaxf(t.l[i / dh], 1e-30f));
+    out[q0 + i] = t.acc[i] / fmaxf(t.l[i / dh], 1e-30f);
 }
 
 // grid (KV, ceil(C * group / kRows)): rows are the chunk's (c, g) query
@@ -205,18 +213,18 @@ paged_verify_kernel(const float* __restrict__ q,
   }
 }
 
-template <typename T, typename Rows>
+template <typename Rows>
 int launch_decode(const void* q, const void* k, const void* v,
                   const void* pos, Rows rows, void* out, int B, int H,
                   int KV, int dh, int block, int nk, int s_len, int window,
                   float scale, cudaStream_t stream) {
   const size_t bytes = tile_bytes(H / KV, block, dh);
-  cudaError_t err = set_smem(decode_kernel<T, Rows>, bytes);
+  cudaError_t err = set_smem(decode_kernel<Rows>, bytes);
   if (err != cudaSuccess) return int(err);
-  decode_kernel<T, Rows><<<dim3(B, KV), kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(pos), rows,
-      static_cast<T*>(out), H, KV, dh, block, nk, s_len, window, scale);
+  decode_kernel<Rows><<<dim3(B, KV), kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const int*>(pos), rows,
+      static_cast<float*>(out), H, KV, dh, block, nk, s_len, window, scale);
   return int(cudaGetLastError());
 }
 
@@ -254,9 +262,16 @@ int launch_verify(const void* q, const void* k, const void* v,
 // ------------------------------------------------- bf16, tensor cores
 
 // ring stages: a consumer holds two tiles at once (S of one, P.V of the
-// other); prefill's long walks keep two more in flight
+// other); prefill's long walks keep two more in flight. Decode's one
+// consumer keeps its block small enough for two an SM (Q, the ring and
+// the barriers of two blocks within the SM's 228 KB).
 constexpr int kPrefillStages = 6;
 constexpr int kVerifyStages = 4;
+template <int NS>
+__host__ __device__ constexpr int decode_stages() {
+  return NS == 1 ? 6 : 2;
+}
+constexpr int kDecodeThreads = paged::threads<1>();
 
 template <int NS>
 __global__ void __launch_bounds__(sm90::kThreads, 1)
@@ -264,7 +279,8 @@ chunk_prefill_sm90(const __grid_constant__ CUtensorMap mq,
                    const __grid_constant__ CUtensorMap mk,
                    const __grid_constant__ CUtensorMap mv,
                    const paged::Work w) {
-  paged::paged_body<NS, kPrefillStages>(mq, mk, mv, w);
+  paged::paged_body<NS, kPrefillStages, 2, paged::PagedLoader<NS>>(
+      mq, mk, mv, w);
 }
 
 template <int NS>
@@ -273,115 +289,137 @@ paged_verify_sm90(const __grid_constant__ CUtensorMap mq,
                   const __grid_constant__ CUtensorMap mk,
                   const __grid_constant__ CUtensorMap mv,
                   const paged::Work w) {
-  paged::paged_body<NS, kVerifyStages>(mq, mk, mv, w);
+  paged::paged_body<NS, kVerifyStages, 2, paged::PagedLoader<NS>>(
+      mq, mk, mv, w);
 }
 
-// grid (ceil(B * L * H / 4)), 128 threads: warp i of block x merges row
-// 4x + i = (b, l, h) of the (B, L, H, dh) output from the float32
-// partials of its live splits (those that start at or before the slot's
-// horizon, as paged_body decides), lane s holding split s (splits <= 32):
-// one round of loads for every m and l, then each lane sums four columns
-// over the splits.
+template <int NS>
+__global__ void __launch_bounds__(kDecodeThreads, 2)
+paged_decode_sm90(const __grid_constant__ CUtensorMap mq,
+                  const __grid_constant__ CUtensorMap mk,
+                  const __grid_constant__ CUtensorMap mv,
+                  const paged::Work w) {
+  paged::paged_body<NS, decode_stages<NS>(), 1, paged::PagedLoader<NS>>(
+      mq, mk, mv, w);
+}
+
+template <int NS>
+__global__ void __launch_bounds__(kDecodeThreads, 2)
+contiguous_decode_sm90(const __grid_constant__ CUtensorMap mq,
+                       const __grid_constant__ CUtensorMap mk,
+                       const __grid_constant__ CUtensorMap mv,
+                       const paged::Work w) {
+  paged::paged_body<NS, decode_stages<NS>(), 1,
+                    paged::ContiguousLoader<NS>>(mq, mk, mv, w);
+}
+
+// The merges of several splits (paged_sm90.cuh's merge_rows), one name
+// each so that a profile tells them apart.
 __global__ void __launch_bounds__(128)
 verify_merge(const paged::Work w, int B) {
-  const int L = w.n_off, lane = threadIdx.x % 32;
-  const int row = blockIdx.x * 4 + threadIdx.x / 32;
-  if (row >= B * L * w.H) return;
-  const int h = row % w.H, l = row / w.H % L, b = row / (w.H * L);
-  const int group = w.H / w.KV, n_rows = L * group;
-  const int horizon = min(w.pos[b] + L - 1, w.NB * w.block - 1);
-  const int live = min(w.splits, horizon / (w.tps * sm90::kTile) + 1);
-  const size_t first =
-      size_t(b * w.KV + h / group) * w.splits * n_rows + l * group +
-      h % group;                       // split s at first + s * n_rows
-  const size_t mine = first + size_t(lane) * n_rows;
-  const float m = lane < live ? w.part_m[mine] : sm90::kNegInf;
-  float M = m;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    M = fmaxf(M, __shfl_xor_sync(0xffffffff, M, o));
-  const float wt = lane < live ? exp2f(m - M) : 0.f;
-  float den = lane < live ? wt * w.part_l[mine] : 0.f;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    den += __shfl_xor_sync(0xffffffff, den, o);
-  const float inv = 1.f / fmaxf(den, 1e-30f);
-  for (int c0 = 0; c0 < w.dh; c0 += 128) {
-    const int c = c0 + 4 * lane;
-    float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int s = 0; s < live; ++s) {
-      const float ws = __shfl_sync(0xffffffff, wt, s);
-      if (c < w.dh) {
-        const float4 a = *reinterpret_cast<const float4*>(
-            w.part_acc + (first + size_t(s) * n_rows) * w.dh + c);
-        num.x += ws * a.x;
-        num.y += ws * a.y;
-        num.z += ws * a.z;
-        num.w += ws * a.w;
-      }
-    }
-    if (c < w.dh) {
-      __nv_bfloat162* o =
-          reinterpret_cast<__nv_bfloat162*>(w.out + size_t(row) * w.dh + c);
-      o[0] = __floats2bfloat162_rn(num.x * inv, num.y * inv);
-      o[1] = __floats2bfloat162_rn(num.z * inv, num.w * inv);
-    }
-  }
+  paged::merge_rows(w, B);
 }
 
-// One launch of a paged tensor-core kernel (and, with several splits, of
-// verify_merge) over B slots of w.n_off offsets on a pool of P pages.
-template <typename K>
-int launch_sm90(K kernel, size_t smem, const void* q, const void* k,
-                const void* v, const paged::Work& w, int B, int P,
+__global__ void __launch_bounds__(128)
+paged_decode_merge(const paged::Work w, int B) {
+  paged::merge_rows(w, B);
+}
+
+__global__ void __launch_bounds__(128)
+contiguous_decode_merge(const paged::Work w, int B) {
+  paged::merge_rows(w, B);
+}
+
+// What a bf16 launch computes (paged_sm90.cuh's Work), with the
+// workspace cut into acc, then m, then l.
+paged::Work make_work(void* out, void* workspace, const void* pos,
+                      const void* tables, int start, int B, int n_off,
+                      int H, int KV, int dh, int block, int NB, int keys,
+                      int splits, int tps, float scale) {
+  paged::Work w{};
+  w.out = static_cast<__nv_bfloat16*>(out);
+  const size_t n_part = size_t(B) * KV * splits * n_off * (H / KV);
+  w.part_acc = static_cast<float*>(workspace);
+  w.part_m = w.part_acc ? w.part_acc + n_part * dh : nullptr;
+  w.part_l = w.part_m ? w.part_m + n_part : nullptr;
+  w.pos = static_cast<const int*>(pos);
+  w.tables = static_cast<const int*>(tables);
+  w.start = start;
+  w.n_off = n_off;
+  w.H = H;
+  w.KV = KV;
+  w.dh = dh;
+  w.block = block;
+  w.NB = NB;
+  w.keys = keys;
+  w.splits = splits;
+  w.tps = tps;
+  w.scale_log2 = scale * sm90::kLog2e;
+  return w;
+}
+
+// A split plan takes every key tile in exactly one split (at most 32: the
+// merge's lanes), and a workspace when there are several.
+bool splits_ok(int keys, int splits, int tps, const void* workspace) {
+  const int tiles = (keys + sm90::kTile - 1) / sm90::kTile;
+  return splits >= 1 && splits <= 32 && tps >= 1 &&
+         (splits - 1) * tps < tiles && splits * tps >= tiles &&
+         (splits == 1 || workspace != nullptr);
+}
+
+// The Q map of a launch: (dh, H, n_off, B), a box of 64 / group offsets.
+int make_q_map(CUtensorMap* mq, const void* q, int B, const paged::Work& w) {
+  const int group = w.H / w.KV;
+  return sm90::make_map(mq, q, B, w.n_off, w.H, w.dh, group,
+                        sm90::kTile / group);
+}
+
+// One launch of a paged tensor-core kernel over B slots of w.n_off
+// offsets, and with several splits one of `merge` over their partials.
+template <typename K, typename M>
+int launch_sm90(K kernel, M merge, int threads, size_t smem,
+                const CUtensorMap& mq, const CUtensorMap& mk,
+                const CUtensorMap& mv, const paged::Work& w, int B,
                 cudaStream_t stream) {
-  const int group = w.H / w.KV, rows_off = sm90::kTile / group;
-  CUtensorMap mq, mk, mv;
-  int err = sm90::make_map(&mq, q, B, w.n_off, w.H, w.dh, group, rows_off);
-  if (!err) err = paged::make_pool_map(&mk, k, P, w.block, w.KV, w.dh);
-  if (!err) err = paged::make_pool_map(&mv, v, P, w.block, w.KV, w.dh);
-  if (err) return err;
   cudaError_t e = sm90::allow_smem(kernel, smem);
   if (e != cudaSuccess) return int(e);
+  const int rows_off = sm90::kTile / (w.H / w.KV);
   const int tiles = (w.n_off + rows_off - 1) / rows_off;
-  kernel<<<dim3(w.KV, tiles, B * w.splits), sm90::kThreads, smem,
-           stream>>>(mq, mk, mv, w);
+  kernel<<<dim3(w.KV, tiles, B * w.splits), threads, smem, stream>>>(
+      mq, mk, mv, w);
   e = cudaGetLastError();
   if (e != cudaSuccess || w.splits == 1) return int(e);
-  verify_merge<<<(B * w.n_off * w.H + 3) / 4, 128, 0, stream>>>(w, B);
+  merge<<<(B * w.n_off * w.H + 3) / 4, 128, 0, stream>>>(w, B);
   return int(cudaGetLastError());
 }
 
-// The limits of the tensor-core kernels (the wrappers check them first).
+// The limits of the tensor-core kernels (the wrappers check them first);
+// block 0 stands for the contiguous cache, which has none.
 bool sm90_shape_ok(int H, int KV, int dh, int block) {
   return H % KV == 0 && H / KV <= sm90::kTile && dh % 8 == 0 && dh > 0 &&
-         dh <= 2 * sm90::kSlab && paged::block_ok(block);
+         dh <= 2 * sm90::kSlab && (block == 0 || paged::block_ok(block));
 }
 
 int launch_prefill_sm90(const void* q, const void* k, const void* v,
                         const void* table, void* out, int start, int C,
                         int H, int KV, int dh, int block, int NB, int P,
                         float scale, cudaStream_t stream) {
-  paged::Work w{};
-  w.out = static_cast<__nv_bfloat16*>(out);
-  w.tables = static_cast<const int*>(table);
-  w.start = start;
-  w.n_off = C;
-  w.H = H;
-  w.KV = KV;
-  w.dh = dh;
-  w.block = block;
-  w.NB = NB;
-  w.splits = 1;
-  w.tps = (NB * block + sm90::kTile - 1) / sm90::kTile;
-  w.scale_log2 = scale * sm90::kLog2e;
+  const int keys = NB * block;
+  const paged::Work w =
+      make_work(out, nullptr, nullptr, table, start, 1, C, H, KV, dh, block,
+                NB, keys, 1, (keys + sm90::kTile - 1) / sm90::kTile, scale);
+  CUtensorMap mq, mk, mv;
+  int err = make_q_map(&mq, q, 1, w);
+  if (!err) err = paged::make_pool_map(&mk, k, P, block, KV, dh);
+  if (!err) err = paged::make_pool_map(&mv, v, P, block, KV, dh);
+  if (err) return err;
   if (dh <= sm90::kSlab)
-    return launch_sm90(chunk_prefill_sm90<1>,
-                       paged::Smem<1, kPrefillStages>::kBytes, q, k, v, w, 1,
-                       P, stream);
-  return launch_sm90(chunk_prefill_sm90<2>,
-                     paged::Smem<2, kPrefillStages>::kBytes, q, k, v, w, 1, P,
-                     stream);
+    return launch_sm90(chunk_prefill_sm90<1>, verify_merge, sm90::kThreads,
+                       paged::Smem<1, kPrefillStages>::kBytes, mq, mk, mv, w,
+                       1, stream);
+  return launch_sm90(chunk_prefill_sm90<2>, verify_merge, sm90::kThreads,
+                     paged::Smem<2, kPrefillStages>::kBytes, mq, mk, mv, w,
+                     1, stream);
 }
 
 int launch_verify_sm90(const void* q, const void* k, const void* v,
@@ -389,81 +427,115 @@ int launch_verify_sm90(const void* q, const void* k, const void* v,
                        void* workspace, int B, int L, int H, int KV, int dh,
                        int block, int NB, int P, int splits, int tps,
                        float scale, cudaStream_t stream) {
-  const int tiles = (NB * block + sm90::kTile - 1) / sm90::kTile;
-  // every key tile in exactly one split, and a workspace for several
-  if (splits < 1 || splits > 32 || tps < 1 ||
-      (splits - 1) * tps >= tiles || splits * tps < tiles ||
-      (splits > 1 && workspace == nullptr))
+  if (!splits_ok(NB * block, splits, tps, workspace))
     return int(cudaErrorInvalidValue);
-  paged::Work w{};
-  w.out = static_cast<__nv_bfloat16*>(out);
-  const size_t n_part = size_t(B) * KV * splits * L * (H / KV);
-  w.part_acc = static_cast<float*>(workspace);
-  w.part_m = w.part_acc + n_part * dh;
-  w.part_l = w.part_m + n_part;
-  w.pos = static_cast<const int*>(pos);
-  w.tables = static_cast<const int*>(tables);
-  w.n_off = L;
-  w.H = H;
-  w.KV = KV;
-  w.dh = dh;
-  w.block = block;
-  w.NB = NB;
-  w.splits = splits;
-  w.tps = tps;
-  w.scale_log2 = scale * sm90::kLog2e;
+  const paged::Work w =
+      make_work(out, workspace, pos, tables, 0, B, L, H, KV, dh, block, NB,
+                NB * block, splits, tps, scale);
+  CUtensorMap mq, mk, mv;
+  int err = make_q_map(&mq, q, B, w);
+  if (!err) err = paged::make_pool_map(&mk, k, P, block, KV, dh);
+  if (!err) err = paged::make_pool_map(&mv, v, P, block, KV, dh);
+  if (err) return err;
   if (dh <= sm90::kSlab)
-    return launch_sm90(paged_verify_sm90<1>,
-                       paged::Smem<1, kVerifyStages>::kBytes, q, k, v, w, B,
-                       P, stream);
-  return launch_sm90(paged_verify_sm90<2>,
-                     paged::Smem<2, kVerifyStages>::kBytes, q, k, v, w, B, P,
-                     stream);
+    return launch_sm90(paged_verify_sm90<1>, verify_merge, sm90::kThreads,
+                       paged::Smem<1, kVerifyStages>::kBytes, mq, mk, mv, w,
+                       B, stream);
+  return launch_sm90(paged_verify_sm90<2>, verify_merge, sm90::kThreads,
+                     paged::Smem<2, kVerifyStages>::kBytes, mq, mk, mv, w,
+                     B, stream);
+}
+
+// A decode launch at NS slabs, paged or contiguous.
+template <int NS>
+int launch_decode_slabs(bool paged_kv, const CUtensorMap& mq,
+                        const CUtensorMap& mk, const CUtensorMap& mv,
+                        const paged::Work& w, int B, cudaStream_t stream) {
+  constexpr size_t smem = paged::Smem<NS, decode_stages<NS>()>::kBytes;
+  if (paged_kv)
+    return launch_sm90(paged_decode_sm90<NS>, paged_decode_merge,
+                       kDecodeThreads, smem, mq, mk, mv, w, B, stream);
+  return launch_sm90(contiguous_decode_sm90<NS>, contiguous_decode_merge,
+                     kDecodeThreads, smem, mq, mk, mv, w, B, stream);
+}
+
+// bf16 decode over the maps of either cache: one query row a slot.
+int launch_decode_sm90(bool paged_kv, const CUtensorMap& mk,
+                       const CUtensorMap& mv, const void* q, const void* pos,
+                       const void* tables, void* out, void* workspace, int B,
+                       int H, int KV, int dh, int block, int NB, int keys,
+                       int splits, int tps, float scale,
+                       cudaStream_t stream) {
+  const paged::Work w =
+      make_work(out, workspace, pos, tables, 0, B, 1, H, KV, dh, block, NB,
+                keys, splits, tps, scale);
+  CUtensorMap mq;
+  const int err = make_q_map(&mq, q, B, w);
+  if (err) return err;
+  if (dh <= sm90::kSlab)
+    return launch_decode_slabs<1>(paged_kv, mq, mk, mv, w, B, stream);
+  return launch_decode_slabs<2>(paged_kv, mq, mk, mv, w, B, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. The decode entries return the
-// cudaError_t of their launch.
+// dtype: 0 = float32 (scalar kernels), 1 = bfloat16 (tensor cores, within
+// sm90_shape_ok). The entries return the cudaError_t of their launch, or
+// sm90::kEncodeError + the CUresult of a failed tensor-map encoding.
+//
+// The decode entries: bf16 splits each slot's key tiles into `splits` (at
+// most 32) ranges of `tps` tiles (decode_splits in decode_attention.py)
+// and, with more than one, needs a float32 workspace of B x KV x splits x
+// group x (dh + 2) elements. float32 reads neither. P: the pool's pages.
 extern "C" int paged_decode_attention(const void* q, const void* k_pool,
                                       const void* v_pool, const void* pos,
                                       const void* tables, void* out,
-                                      int dtype, int B, int H, int KV, int dh,
-                                      int block, int NB, int window,
-                                      float scale, void* stream) {
+                                      void* workspace, int dtype, int B,
+                                      int H, int KV, int dh, int block,
+                                      int NB, int P, int window, int splits,
+                                      int tps, float scale, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  const PagedRows rows{static_cast<const int*>(tables), NB, block};
-  if (dtype == 0)
-    return launch_decode<float>(q, k_pool, v_pool, pos, rows, out, B, H, KV,
-                                dh, block, NB, NB * block, window, scale, s);
-  if (dtype == 1)
-    return launch_decode<__nv_bfloat16>(q, k_pool, v_pool, pos, rows, out,
-                                        B, H, KV, dh, block, NB, NB * block,
-                                        window, scale, s);
-  return int(cudaErrorInvalidValue);
+  if (dtype == 0) {
+    const PagedRows rows{static_cast<const int*>(tables), NB, block};
+    return launch_decode(q, k_pool, v_pool, pos, rows, out, B, H, KV, dh,
+                         block, NB, NB * block, window, scale, s);
+  }
+  if (dtype != 1 || !sm90_shape_ok(H, KV, dh, block) ||
+      !splits_ok(NB * block, splits, tps, workspace))
+    return int(cudaErrorInvalidValue);
+  CUtensorMap mk, mv;
+  int err = paged::make_pool_map(&mk, k_pool, P, block, KV, dh);
+  if (!err) err = paged::make_pool_map(&mv, v_pool, P, block, KV, dh);
+  if (err) return err;
+  return launch_decode_sm90(true, mk, mv, q, pos, tables, out, workspace, B,
+                            H, KV, dh, block, NB, NB * block, splits, tps,
+                            scale, s);
 }
 
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
-                                const void* pos, void* out, int dtype, int B,
-                                int H, int KV, int dh, int S, int window,
+                                const void* pos, void* out, void* workspace,
+                                int dtype, int B, int H, int KV, int dh,
+                                int S, int window, int splits, int tps,
                                 float scale, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  const int block = kContiguousBlock;
-  const ContiguousRows rows{S, block};
-  const int nk = (S + block - 1) / block;
-  if (dtype == 0)
-    return launch_decode<float>(q, k, v, pos, rows, out, B, H, KV, dh, block,
-                                nk, S, window, scale, s);
-  if (dtype == 1)
-    return launch_decode<__nv_bfloat16>(q, k, v, pos, rows, out, B, H, KV,
-                                        dh, block, nk, S, window, scale, s);
-  return int(cudaErrorInvalidValue);
+  if (dtype == 0) {
+    const int block = kContiguousBlock;
+    const ContiguousRows rows{S, block};
+    return launch_decode(q, k, v, pos, rows, out, B, H, KV, dh, block,
+                         (S + block - 1) / block, S, window, scale, s);
+  }
+  if (dtype != 1 || !sm90_shape_ok(H, KV, dh, 0) ||
+      !splits_ok(S, splits, tps, workspace))
+    return int(cudaErrorInvalidValue);
+  CUtensorMap mk, mv;
+  int err = sm90::make_map(&mk, k, B, S, KV, dh, 1, sm90::kTile);
+  if (!err) err = sm90::make_map(&mv, v, B, S, KV, dh, 1, sm90::kTile);
+  if (err) return err;
+  return launch_decode_sm90(false, mk, mv, q, pos, nullptr, out, workspace,
+                            B, H, KV, dh, 0, 0, S, splits, tps, scale, s);
 }
 
-// dtype 0 = float32 (scalar kernel), 1 = bfloat16 (tensor cores, within
-// sm90_shape_ok). P: the pool's pages. Returns the cudaError_t of the
-// launch, or sm90::kEncodeError + the CUresult of a failed tensor-map
-// encoding.
+// Chunk prefill: one split, so no workspace.
 extern "C" int chunk_prefill_attention(const void* q, const void* k_pool,
                                        const void* v_pool, const void* table,
                                        void* out, int dtype, int start, int C,
@@ -480,10 +552,9 @@ extern "C" int chunk_prefill_attention(const void* q, const void* k_pool,
                              dh, block, NB, P, scale, s);
 }
 
-// As chunk_prefill_attention; bf16 splits each slot's key tiles into
-// `splits` (at most 32) ranges of `tps` tiles (verify_splits in
-// decode_attention.py) and, with more than one, needs a float32 workspace
-// of B x KV x splits x L x group x (dh + 2) elements.
+// As the decode entries; bf16 splits by verify_splits (decode_attention.py)
+// and needs a workspace of B x KV x splits x L x group x (dh + 2) floats
+// with more than one split.
 extern "C" int paged_verify_attention(const void* q, const void* k_pool,
                                       const void* v_pool, const void* pos,
                                       const void* tables, void* out,

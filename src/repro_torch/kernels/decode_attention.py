@@ -22,13 +22,14 @@ they gather out of the pool. The CPU
 path and the on-card comparison use the plain versions; ``kernels.ops``
 picks one by the tensors' device.
 
-In bf16, chunk prefill and verify run on the tensor cores
-(``csrc/paged_sm90.cuh``) within the limits ``check_tensor_core_shape``
-states, and raise outside them; float32 runs the scalar kernels. The bf16
-verify kernel splits each slot's key range across blocks
-(``verify_splits``) and merges the float32 partials in a second kernel;
-``verify_partials_ref`` and ``merge_partials_ref`` are the plain versions
-of those two passes.
+In bf16 all four run on the tensor cores (``csrc/paged_sm90.cuh``) within
+the limits ``check_tensor_core_shape`` states, and raise outside them;
+float32 runs the scalar kernels. The bf16 verify and decode kernels split
+each slot's key range across blocks (``verify_splits``,
+``decode_splits``) and merge the float32 partials in a second kernel;
+``split_partials_ref`` (over contiguous rows), ``verify_partials_ref``
+(over the pool) and ``merge_partials_ref`` are the plain versions of
+those two passes, decode's at one span row.
 """
 from __future__ import annotations
 
@@ -47,6 +48,16 @@ KEY_TILE = 64             # keys of a tensor-core key tile
 # slot binds (the workspace grows with them)
 VERIFY_SPLIT_TILES = 8
 VERIFY_MAX_SPLITS = 16
+# bf16 decode: splits enough that (slot, KV head) pairs x splits reaches
+# DECODE_BLOCKS thread blocks (the card's 132 SMs hold two decode blocks
+# each; 3-4 key tiles a split, 5-6 splits, measured fastest of 1-17 at
+# the main path's 17 tiles, PERF.md), at most DECODE_MAX_SPLITS (the
+# merge's 32 lanes) and no more than the key tiles. DECODE_SPLIT_TILES,
+# when set, fixes the key tiles a split instead (chip_smoke.py's sweep).
+SMS = 132
+DECODE_BLOCKS = 2 * SMS
+DECODE_MAX_SPLITS = 32
+DECODE_SPLIT_TILES: Optional[int] = None
 
 
 def check_operands(q: Tensor, k: Tensor, v: Tensor, ints, what: str) -> int:
@@ -118,6 +129,43 @@ def verify_splits(NB: int, block: int):
     return -(-tiles // tps), tps
 
 
+def decode_splits(keys: int, pairs: int):
+    """(splits, tiles per split) of the bf16 decode kernels for slots of
+    ``keys`` key positions (NB·block paged, S contiguous) and ``pairs``
+    (slot, KV head) pairs: each slot's ⌈keys / 64⌉ key tiles cut into
+    consecutive ranges of ``tps`` tiles (the last may be shorter), enough
+    of them that pairs × splits reaches ``DECODE_BLOCKS``, but no more than
+    there are tiles or ``DECODE_MAX_SPLITS`` (``DECODE_SPLIT_TILES``, when
+    set, fixes ``tps`` instead).
+    Fixed by the shapes alone: the host never reads pos, so the wrapper
+    never synchronises."""
+    tiles = -(-keys // KEY_TILE)
+    if DECODE_SPLIT_TILES:
+        tps = min(DECODE_SPLIT_TILES, tiles)
+    else:
+        tps = max(1, tiles // -(-DECODE_BLOCKS // pairs))
+    tps = max(tps, -(-tiles // DECODE_MAX_SPLITS))
+    return -(-tiles // tps), tps
+
+
+def _decode_plan(what: str, q: Tensor, k: Tensor, v: Tensor, keys: int,
+                 block: Optional[int] = None):
+    """bf16: the tensor-core shape check (raises outside it), the split
+    plan and the float32 workspace of the partials (acc, then m, then l)
+    as (workspace or None, splits, tiles per split); float32 reads none of
+    them."""
+    if q.dtype != torch.bfloat16:
+        return None, 1, 1
+    check_tensor_core_shape(what, q, k, v, block=block)
+    B, H, dh = q.shape
+    KV = k.shape[-2]
+    splits, tps = decode_splits(keys, B * KV)
+    if splits == 1:
+        return None, splits, tps
+    return torch.empty(B * KV * splits * (H // KV) * (dh + 2),
+                       dtype=torch.float32, device=q.device), splits, tps
+
+
 def paged_decode_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
                            pos: Tensor, block_tables: Tensor, *,
                            window: int = 0) -> Tensor:
@@ -125,14 +173,18 @@ def paged_decode_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
     int32; block_tables: (B,NB) int32 → (B,H,dh) in q.dtype.
 
     Keys at logical index ≤ pos are live (with ``window > 0`` the slot's
-    span NB·block is a ring: all keys are live once pos ≥ NB·block). Table
-    entries must be pool block ids < P; unallocated ones point at the
-    scratch block 0 and are killed by the position fence."""
+    span NB·block is a ring: all keys are live once pos ≥ NB·block; both
+    rules are the fence min(pos, NB·block − 1), which the bf16 kernel
+    applies). Table entries must be pool block ids < P; unallocated ones
+    point at the scratch block 0 and are killed by the position fence. In
+    bf16 each slot's keys are split across blocks (``decode_splits``)
+    whose float32 partials a second kernel merges, in a workspace
+    allocated here."""
     code = check_operands(q, k_pool, v_pool,
                            (("pos", pos), ("block_tables", block_tables)),
                            "paged_decode_attention")
     B, H, dh = q.shape
-    _, block, KV, _ = k_pool.shape
+    P, block, KV, _ = k_pool.shape
     NB = block_tables.shape[1]
     if H % KV or k_pool.shape[3] != dh or pos.shape != (B,) \
             or block_tables.shape[0] != B:
@@ -140,14 +192,17 @@ def paged_decode_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
             f"paged_decode_attention: shapes q {tuple(q.shape)}, pool "
             f"{tuple(k_pool.shape)}, pos {tuple(pos.shape)}, tables "
             f"{tuple(block_tables.shape)} do not agree")
+    work, splits, tps = _decode_plan("paged_decode_attention", q, k_pool,
+                                     v_pool, NB * block, block=block)
     out = torch.empty_like(q)
     lib = build.load("decode_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = lib.paged_decode_attention(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            pos.data_ptr(), block_tables.data_ptr(), out.data_ptr(), code,
-            B, H, KV, dh, block, NB, window, 1.0 / math.sqrt(dh), stream)
+            pos.data_ptr(), block_tables.data_ptr(), out.data_ptr(),
+            None if work is None else work.data_ptr(), code, B, H, KV, dh,
+            block, NB, P, window, splits, tps, 1.0 / math.sqrt(dh), stream)
     build.check(lib, err, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return out
@@ -162,8 +217,10 @@ def decode_attention(q: Tensor, k: Tensor, v: Tensor, pos: Tensor, *,
     pos: (B,) int32 → (B,H,dh) in q.dtype.
 
     Keys at index ≤ pos are live; with ``window > 0`` the row is a ring of
-    S positions and every key is live once pos ≥ S. Any S (the kernel
-    masks a ragged last key tile)."""
+    S positions and every key is live once pos ≥ S (both the fence min(pos,
+    S − 1)). Any S: the float32 kernel masks a ragged last key tile, the
+    bf16 kernel's loads read zeros past S under the fence. In bf16 the keys
+    are split and merged as in ``paged_decode_attention``."""
     code = check_operands(q, k, v, (("pos", pos),), "decode_attention")
     B, H, dh = q.shape
     _, S, KV, _ = k.shape
@@ -171,14 +228,16 @@ def decode_attention(q: Tensor, k: Tensor, v: Tensor, pos: Tensor, *,
         raise ValueError(
             f"decode_attention: shapes q {tuple(q.shape)}, k/v "
             f"{tuple(k.shape)}, pos {tuple(pos.shape)} do not agree")
+    work, splits, tps = _decode_plan("decode_attention", q, k, v, S)
     out = torch.empty_like(q)
     lib = build.load("decode_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = lib.decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-            out.data_ptr(), code, B, H, KV, dh, S, window,
-            1.0 / math.sqrt(dh), stream)
+            out.data_ptr(), None if work is None else work.data_ptr(), code,
+            B, H, KV, dh, S, window, splits, tps, 1.0 / math.sqrt(dh),
+            stream)
     build.check(lib, err, "decode_attention")
     decode_attention.launches += 1
     return out
@@ -341,25 +400,25 @@ def paged_verify_attention_ref(q: Tensor, k_pool: Tensor, v_pool: Tensor,
     return gqa_sdpa(q, kf, vf, valid)
 
 
-def verify_partials_ref(q: Tensor, k_pool: Tensor, v_pool: Tensor,
-                        pos: Tensor, block_tables: Tensor, splits: int,
-                        tps: int):
-    """Plain version of the bf16 verify kernel's first pass, in float32:
-    for split s of each slot's key tiles, keys [64·tps·s, 64·tps·(s + 1)),
-    the partials of every (slot, KV head, row) — rows (ℓ, group head)
-    ℓ-major, row ℓ fenced to keys ≤ min(pos + ℓ, NB·block − 1) — as m (the
-    largest scaled score, log2 units, −1e30 where the row sees no key of the
-    split), l (the sum of 2^(x − m)) and acc (the unnormalised output).
-    Returns (m, l, acc, live): (B, KV, splits, L·group), the same, (B, KV,
-    splits, L·group, dh), and (B,) the live splits of each slot, those that
-    start at or before its horizon min(pos + L − 1, NB·block − 1)."""
+def split_partials_ref(q: Tensor, k: Tensor, v: Tensor, pos: Tensor,
+                       splits: int, tps: int):
+    """Plain version of the first pass of the bf16 verify and decode
+    kernels, in float32, over contiguous rows: q (B, L, H, dh) span rows
+    (decode: L = 1), k and v (B, S, KV, dh). For split s of each slot's key
+    tiles, keys [64·tps·s, 64·tps·(s + 1)), the partials of every (slot, KV
+    head, row) — rows (ℓ, group head) ℓ-major, row ℓ fenced to keys ≤
+    min(pos + ℓ, S − 1) — as m (the largest scaled score, log2 units, −1e30
+    where the row sees no key of the split), l (the sum of 2^(x − m)) and
+    acc (the unnormalised output). Returns (m, l, acc, live): (B, KV,
+    splits, L·group), the same, (B, KV, splits, L·group, dh), and (B,) the
+    live splits of each slot, those that start at or before its horizon
+    min(pos + L − 1, S − 1)."""
     from repro_torch.models.attention import NEG_INF
     B, L, H, dh = q.shape
-    NB, block, KV = block_tables.shape[1], k_pool.shape[1], k_pool.shape[2]
-    group, S = H // KV, NB * block
-    idx = block_tables.long()
-    kf = k_pool[idx].reshape(B, S, KV, dh).float()
-    vf = v_pool[idx].reshape(B, S, KV, dh).float().permute(0, 2, 1, 3)
+    S, KV = k.shape[1], k.shape[2]
+    group = H // KV
+    kf = k.float()
+    vf = v.float().permute(0, 2, 1, 3)
     qg = q.float().reshape(B, L, KV, group, dh).permute(0, 2, 1, 3, 4) \
         .reshape(B, KV, L * group, dh)
     x = torch.einsum("bkrd,bskd->bkrs", qg, kf) * (math.log2(math.e)
@@ -383,12 +442,27 @@ def verify_partials_ref(q: Tensor, k_pool: Tensor, v_pool: Tensor,
             live)
 
 
+def verify_partials_ref(q: Tensor, k_pool: Tensor, v_pool: Tensor,
+                        pos: Tensor, block_tables: Tensor, splits: int,
+                        tps: int):
+    """``split_partials_ref`` over each slot's logical span of NB·block
+    positions, gathered out of the pool through its table row: the plain
+    version of the first pass of the bf16 verify kernel, and at L = 1
+    (q[:, None]) of the bf16 paged decode kernel."""
+    B, NB = block_tables.shape
+    block, KV, dh = k_pool.shape[1:]
+    idx = block_tables.long()
+    return split_partials_ref(q, k_pool[idx].reshape(B, NB * block, KV, dh),
+                              v_pool[idx].reshape(B, NB * block, KV, dh),
+                              pos, splits, tps)
+
+
 def merge_partials_ref(m: Tensor, l: Tensor, acc: Tensor, live: Tensor,
                        L: int) -> Tensor:
-    """Plain version of the bf16 verify kernel's merge: each row's live
-    partials (``verify_partials_ref``'s layout) combined as M = max mᵢ,
-    out = Σ 2^(mᵢ − M)·accᵢ / max(Σ 2^(mᵢ − M)·lᵢ, 1e-30); splits past
-    ``live`` are not read. Returns (B, L, H, dh) in float32."""
+    """Plain version of the merge of the bf16 verify and decode kernels:
+    each row's live partials (``split_partials_ref``'s layout) combined as
+    M = max mᵢ, out = Σ 2^(mᵢ − M)·accᵢ / max(Σ 2^(mᵢ − M)·lᵢ, 1e-30);
+    splits past ``live`` are not read. Returns (B, L, H, dh) in float32."""
     from repro_torch.models.attention import NEG_INF
     B, KV, splits, R, dh = acc.shape
     dead = (torch.arange(splits, device=m.device)[None, :]

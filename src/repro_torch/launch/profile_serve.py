@@ -4,20 +4,26 @@ serves: full-width Qwen3-8B, or Zamba2-2.7B with ``--arch zamba2_2_7b``,
 2 experts, 16 requests).
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve [--speculative]
-        [--arch zamba2_2_7b]
+        [--contiguous] [--arch zamba2_2_7b]
 
 Serves every request to completion and times each engine step on the
 host. Each step is of one kind: ``chunk`` (some pod consumed a prefill
 chunk and none decoded: the first steps of the run), ``mixed`` (a
 prefill chunk and a decode forward ran: the rest of the prefill phase),
-``spec_verify`` (no chunk, and some pod verified a speculative span) or
-``decode`` (vanilla decode forwards only). ``--speculative`` profiles
-the main path's deployment with n-gram speculation (``main_path.
-speculative``); ``--arch zamba2_2_7b`` the same deployment of the hybrid
-family (Mamba2 layers through the ``chunk_scan`` kernel, a shared
-attention block through the paged kernels). Two windows of ``WINDOW``
-steps run under the profiler: the first mixed steps and the first steps
-after the last prompt was consumed (``decode``, or ``spec_verify`` with ``--speculative``). For
+``prefill`` (no chunk, and some request was admitted: a monolithic
+prefill ran), ``spec_verify`` (no chunk, and some pod verified a
+speculative span) or ``decode`` (vanilla decode forwards only).
+``--speculative`` profiles the main path's deployment with n-gram
+speculation (``main_path.speculative``); ``--contiguous`` the
+reference's default deployment over the same model and requests
+(``main_path.contiguous``: contiguous caches, monolithic prefill at
+admission, so it has no mixed steps); ``--arch zamba2_2_7b`` the same
+deployment of the hybrid family (Mamba2 layers through the
+``chunk_scan`` kernel, a shared attention block through the paged
+kernels). Two windows of ``WINDOW`` steps run under the profiler: the
+first mixed steps (where there are any) and the first steps after the
+last prompt was consumed (``decode``, or ``spec_verify`` with
+``--speculative``). For
 each window it prints the device time by kernel group (the port's CUDA
 kernels, matrix products, everything else), the top kernels, and the
 device busy share: kernel time over wall time, one stream, so kernels
@@ -25,9 +31,10 @@ never overlap. The profiler slows the host, so the wall time of a window
 is taken as its steps times the unprofiled median of the ``WINDOW``
 steps of the same kind that follow it. ``run_busy_share_est`` weighs
 each window's device time per step by the run's count of steps of its
-kind, over the wall time of those steps (the few chunk steps are left
-out). ``--smoke --device cpu`` runs the same path at smoke size on the
-CPU to check the script; it reports no device numbers there.
+kind, over the wall time of those steps (the few chunk and prefill
+steps are left out). ``--smoke --device cpu`` runs the same path at
+smoke size on the CPU to check the script; it reports no device numbers
+there.
 """
 from __future__ import annotations
 
@@ -43,11 +50,14 @@ from repro_torch.launch import main_path
 
 WINDOW = 4            # engine steps under the profiler, per kind of step
 
-# lower-case pieces of the demangled kernel names (the paged and contiguous
-# decode kernels are one template, told apart by its addressing argument)
+# lower-case pieces of the demangled kernel names (the float32 paged and
+# contiguous decode kernels are one template, told apart by its addressing
+# argument; the bf16 ones and their merges have names of their own)
 KERNEL_GROUPS = {
-    "paged_decode_attention": ("pagedrows",),
-    "decode_attention": ("contiguousrows",),
+    "paged_decode_attention": ("pagedrows", "paged_decode_sm90",
+                               "paged_decode_merge"),
+    "decode_attention": ("contiguousrows", "contiguous_decode_sm90",
+                         "contiguous_decode_merge"),
     "chunk_prefill_attention": ("chunk_prefill_kernel",
                                 "chunk_prefill_sm90"),
     "paged_verify_attention": ("paged_verify_kernel", "paged_verify_sm90",
@@ -103,12 +113,20 @@ def main(argv=None) -> dict:
                     help="smoke-size config (script check on the CPU)")
     ap.add_argument("--speculative", action="store_true",
                     help="the main path with n-gram speculation")
+    ap.add_argument("--contiguous", action="store_true",
+                    help="the reference's default deployment (contiguous "
+                    "caches, monolithic prefill)")
     ap.add_argument("--arch", choices=PORTED_ARCH_IDS,
                     default=main_path.ARCH)
     args = ap.parse_args(argv)
+    if args.speculative and args.contiguous:
+        raise ValueError("--speculative runs on the paged pool: it does not "
+                         "combine with --contiguous")
     mp = main_path.build(args.device, smoke=args.smoke, arch=args.arch)
     if args.speculative:
         mp = main_path.speculative(mp)
+    if args.contiguous:
+        mp = main_path.contiguous(mp)
     engine = mp.engine
     on_card = engine.device.type == "cuda"
     mp.warm()
@@ -120,6 +138,7 @@ def main(argv=None) -> dict:
         decoded = any(pod.decoding for pod in engine.pods)
         n0 = sum(pod.n_chunks for pod in engine.pods)
         v0 = sum(pod.n_spec_steps for pod in engine.pods)
+        w0 = sum(len(pod.waiting) for pod in engine.pods)
         t0 = time.perf_counter()
         engine.step()
         if on_card:
@@ -127,7 +146,9 @@ def main(argv=None) -> dict:
         ms = (time.perf_counter() - t0) * 1e3
         chunked = sum(pod.n_chunks for pod in engine.pods) > n0
         verified = sum(pod.n_spec_steps for pod in engine.pods) > v0
+        admitted = sum(len(pod.waiting) for pod in engine.pods) < w0
         kind = ("mixed" if decoded else "chunk") if chunked \
+            else "prefill" if admitted \
             else "spec_verify" if verified else "decode"
         steps.append((kind, ms, window))
 
@@ -158,7 +179,7 @@ def main(argv=None) -> dict:
     while engine.has_unfinished():
         timed_step(None)
 
-    kinds = ("chunk", "mixed", "decode", "spec_verify")
+    kinds = ("chunk", "mixed", "prefill", "decode", "spec_verify")
     plain = {k: [ms for kind, ms, w in steps if kind == k and w is None]
              for k in kinds}
     report = {
@@ -190,7 +211,7 @@ def main(argv=None) -> dict:
                 * report["steps_by_kind"][window]
         report["windows"][window] = rec
     report["wall_ms_of_windowed_kinds"] = run_wall
-    if on_card and len(profs) == 2:
+    if on_card and profs:
         report["run_busy_share_est"] = run_device / run_wall
     else:
         report["run_busy_share_est"] = "not measured" if on_card \

@@ -11,10 +11,10 @@ Tolerances: float32 5e-5 (summation order and the blocked online
 softmax), bf16 2e-2 (the plain version rounds the softmax weights to bf16
 before the PV product, as ``repro/kernels/ref.py`` does). ``chunk_scan``
 upcasts its inputs to float32 before every product on both sides, so it
-is held at 5e-5 in both dtypes. The bf16 tensor-core chunk-prefill and
-verify kernels are also held at 8e-3 against the plain version run in
-float32 on the same bf16 values (``chip_smoke.py``'s tolerance): there the
-kernel's error is its own rounding of P and of the output.
+is held at 5e-5 in both dtypes. The bf16 tensor-core chunk-prefill,
+verify and decode kernels are also held at 8e-3 against the plain version
+run in float32 on the same bf16 values (``chip_smoke.py``'s tolerance):
+there the kernel's error is its own rounding of P and of the output.
 """
 import numpy as np
 import pytest
@@ -253,20 +253,88 @@ def test_paged_verify_tensor_core_on_card(cuda, B, NB, block, L, H, KV, dh,
             rtol=BF16_TOL, atol=BF16_TOL)
 
 
+DECODE_CASES = [
+    # B, NB, block, H, KV, dh, pos, window, idle
+    (3, 8, 16, 8, 2, 64, (0, 64, 127), 0, ()),          # pos 0, capacity - 1
+    (2, 4, 32, 4, 4, 64, (5, 127), 0, ()),              # MHA, block 32
+    (1, 4, 64, 4, 1, 128, (200,), 0, ()),               # MQA, block 64
+    (2, 16, 8, 16, 2, 64, (60, 127), 0, ()),            # block 8, group 8
+    (2, 2, 128, 8, 2, 64, (100, 255), 0, ()),           # block 128
+    (2, 8, 16, 64, 1, 64, (50, 127), 0, ()),            # a group of 64
+    (3, 8, 16, 32, 32, 80, (0, 70, 127), 0, ()),        # Zamba2's heads
+    (4, 68, 16, 32, 8, 128, (0, 1087, 500, 0), 0, (0, 3)),  # idle slots
+    (2, 4, 16, 4, 2, 64, (3, 60), 64, ()),              # ring, not wrapped
+    (2, 100, 16, 8, 2, 64, (1599, 5000), 1600, ()),     # ring, far past
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,NB,block,H,KV,dh,pos,window,idle", DECODE_CASES)
+def test_paged_decode_split_key_on_card(cuda, B, NB, block, H, KV, dh, pos,
+                                        window, idle):
+    """bf16 paged decode on the split-key tensor-core kernel against the
+    plain version in float32 on the same values."""
+    q, kp, vp, p, bt = paged_inputs(13, B, NB, block, H, KV, dh, pos,
+                                    unallocated=not window)
+    for b in idle:
+        p[b], bt[b] = 0, 0
+    q, kp, vp, p, bt = bf16_on(cuda, q, kp, vp, p, bt)
+    got = dk.paged_decode_attention(q, kp, vp, p, bt, window=window)
+    torch.testing.assert_close(
+        got.float(), dk.paged_decode_attention_ref(*up(q, kp, vp), p, bt,
+                                                   window=window),
+        rtol=BF16_TOL, atol=BF16_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KV,dh,pos,window", [
+    (3, 100, 8, 2, 64, (0, 63, 99), 0),        # ragged S, pos 0 and S - 1
+    (2, 40, 8, 2, 64, (0, 39), 0),             # S < 64
+    (2, 8, 4, 2, 64, (3, 20), 8),              # a ring shorter than a tile
+    (2, 1000, 8, 2, 64, (999, 5000), 1000),    # ring, wrapped far past
+    (2, 200, 64, 1, 64, (150, 199), 0),        # a group of 64
+    (3, 1088, 32, 32, 80, (1087, 0, 600), 0),  # Zamba2's heads
+    (2, 300, 4, 1, 128, (299, 17), 0),         # MQA, dh 128
+])
+def test_contiguous_decode_split_key_on_card(cuda, B, S, H, KV, dh, pos,
+                                             window):
+    """bf16 contiguous decode on the split-key tensor-core kernel against
+    the plain version in float32 on the same values."""
+    rng = np.random.default_rng(14)
+    q, k, v = bf16_on(cuda, f32(rng, B, H, dh), f32(rng, B, S, KV, dh),
+                      f32(rng, B, S, KV, dh))
+    p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    got = dk.decode_attention(q, k, v, p, window=window)
+    torch.testing.assert_close(
+        got.float(), dk.decode_attention_ref(*up(q, k, v), p, window=window),
+        rtol=BF16_TOL, atol=BF16_TOL)
+
+
 @pytest.mark.gpu
 def test_paged_tensor_core_refuses_shapes_on_card(cuda):
-    """A page block the bf16 kernels do not take raises with the shape
-    named, on the card as on the CPU: no other kernel runs it."""
+    """A page block or head size the bf16 kernels do not take raises with
+    the shape named, on the card as on the CPU: no other kernel runs it."""
     q, kp, vp, p, bt = bf16_on(cuda, *verify_inputs(12, 2, 8, 12, 4, 8, 2,
                                                     64, (5, 40)))
     launched = (dk.paged_verify_attention.launches,
-                dk.chunk_prefill_attention.launches)
+                dk.chunk_prefill_attention.launches,
+                dk.paged_decode_attention.launches,
+                dk.decode_attention.launches)
     with pytest.raises(ValueError, match=r"k \(17, 12, 2, 64\)"):
         dk.paged_verify_attention(q, kp, vp, p, bt)
     with pytest.raises(ValueError, match=r"k \(17, 12, 2, 64\)"):
         dk.chunk_prefill_attention(q[0], kp, vp, 0, bt[0])
+    with pytest.raises(ValueError, match=r"k \(17, 12, 2, 64\)"):
+        dk.paged_decode_attention(q[:, 0].contiguous(), kp, vp, p, bt)
+    rng = np.random.default_rng(15)
+    q, k, v = bf16_on(cuda, f32(rng, 2, 8, 36), f32(rng, 2, 50, 2, 36),
+                      f32(rng, 2, 50, 2, 36))
+    with pytest.raises(ValueError, match=r"k \(2, 50, 2, 36\)"):
+        dk.decode_attention(q, k, v, p)
     assert (dk.paged_verify_attention.launches,
-            dk.chunk_prefill_attention.launches) == launched
+            dk.chunk_prefill_attention.launches,
+            dk.paged_decode_attention.launches,
+            dk.decode_attention.launches) == launched
 
 
 @pytest.mark.gpu

@@ -4,9 +4,10 @@ mode (tiny shapes — interpret mode is slow), at ragged shapes the Pallas
 wrappers refuse against the oracles alone. Float32 on both sides;
 rtol = atol = 2e-5 because the two differ only in summation order (the
 oracles repeat KV heads and take one softmax, the Pallas kernels run a
-blocked online softmax). The bf16 verify kernel's split-and-merge rule
-(its plain versions) is held at 1e-6 against the unsplit plain version:
-both are float32 sums of the same terms, within a few ulps.
+blocked online softmax). The bf16 verify and decode kernels'
+split-and-merge rule (their plain versions) is held at 1e-6 against the
+unsplit plain versions: both are float32 sums of the same terms, within a
+few ulps.
 
 The CUDA kernels themselves have no CPU mode: their tests are in
 ``test_torch_cuda.py``, marked ``gpu``.
@@ -425,4 +426,121 @@ def test_verify_split_merge_matches_pallas_kernel():
         *map(torch.as_tensor, (q, kp, vp, p, bt)), 2, 1)
     check(dk.merge_partials_ref(m, l, acc, live, 4),
           pallas_verify(*map(jnp.asarray, (q, kp, vp, p, bt)),
+                        interpret=True))
+
+
+# bf16 decode: the split plan and the plain split-and-merge rule
+
+@pytest.mark.parametrize("keys,pairs", [
+    (68 * 16, 8 * 8),       # the main path: NB = 68 blocks of 16, Qwen3-8B
+    (1088, 8 * 8),          # the contiguous path: S = 1088
+    (68 * 16, 8 * 32),      # the hybrid path: Zamba2's 32 KV heads
+    (64 * 16, 8 * 8),       # the timed paged shape: NB = 64
+    (1, 1), (8, 3), (63, 64), (64, 1), (65, 1), (100, 2),   # edges
+    (4096 * 16, 1),         # more tiles than the merge has lanes
+    (4096 * 16, 512),
+])
+@pytest.mark.parametrize("fixed", [None, 1, 3, 17])
+def test_decode_splits_cover_every_key_once(keys, pairs, fixed,
+                                            monkeypatch):
+    """Every key of [0, keys) lies in exactly one split, no split is empty,
+    there are at most DECODE_MAX_SPLITS; by the rule, pairs × splits
+    reaches DECODE_BLOCKS unless the tiles or that cap bind first, and a
+    fixed DECODE_SPLIT_TILES (the sweep's) is taken where the cap allows."""
+    monkeypatch.setattr(dk, "DECODE_SPLIT_TILES", fixed)
+    splits, tps = dk.decode_splits(keys, pairs)
+    span = tps * dk.KEY_TILE
+    tiles = -(-keys // dk.KEY_TILE)
+    seen = np.zeros(keys, np.int32)
+    for s in range(splits):
+        lo, hi = s * span, min((s + 1) * span, keys)
+        assert lo < hi
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+    assert 1 <= splits <= dk.DECODE_MAX_SPLITS
+    if fixed is None:
+        assert pairs * splits >= dk.DECODE_BLOCKS or splits == tiles \
+            or tps == -(-tiles // dk.DECODE_MAX_SPLITS)
+    elif tiles <= fixed * dk.DECODE_MAX_SPLITS:
+        assert tps == min(fixed, tiles)
+
+
+def test_decode_splits_at_the_main_path():
+    """The main path's 17 key tiles over 64 (slot, KV head) pairs: more
+    blocks than the card's 132 SMs."""
+    splits, tps = dk.decode_splits(68 * 16, 64)
+    assert splits * 64 >= dk.SMS and splits * tps >= 17
+
+
+DECODE_SPLIT_CASES = [
+    # B, NB, block, H, KV, dh, pos, window
+    (3, 16, 16, 8, 2, 32, (0, 100, 255), 0),       # GQA 4:1, pos 0, cap - 1
+    (2, 8, 16, 4, 4, 32, (64, 127), 0),            # MHA
+    (2, 8, 16, 4, 1, 32, (31, 300), 0),            # MQA, pos past capacity
+    (3, 8, 16, 8, 2, 16, (20, 128, 5000), 128),    # ring: not, at, far past
+    (2, 4, 32, 4, 2, 16, (127, 128), 128),         # ring: the wrap boundary
+]
+
+
+@pytest.mark.parametrize("B,NB,block,H,KV,dh,pos,window", DECODE_SPLIT_CASES)
+@pytest.mark.parametrize("plan", ["kernel", "one tile a split"])
+def test_paged_decode_split_merge_matches_unsplit(B, NB, block, H, KV, dh,
+                                                  pos, window, plan):
+    """Paged decode as a span of one row: partials over the splits, merged
+    by the kernel's rule, equal the unsplit plain version in float32, ring
+    rule included (the kernel's fence min(pos, NB·block − 1))."""
+    q, kp, vp, p, bt = map(torch.as_tensor, paged_inputs(
+        15, B, NB, block, H, KV, dh, pos, unallocated=not window))
+    tiles = -(-NB * block // dk.KEY_TILE)
+    splits, tps = dk.decode_splits(NB * block, B * KV) \
+        if plan == "kernel" else (tiles, 1)
+    m, l, acc, live = dk.verify_partials_ref(q[:, None], kp, vp, p, bt,
+                                             splits, tps)
+    got = dk.merge_partials_ref(m, l, acc, live, 1)[:, 0]
+    want = dk.paged_decode_attention_ref(q, kp, vp, p, bt, window=window)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    if plan != "kernel":
+        assert (live == (p.clamp(max=NB * block - 1) // 64 + 1)).all()
+
+
+@pytest.mark.parametrize("B,S,H,KV,dh,pos,window", [
+    (3, 300, 8, 2, 32, (0, 150, 299), 0),          # ragged S, GQA 4:1
+    (2, 128, 4, 4, 32, (63, 64), 0),               # MHA, a tile boundary
+    (2, 100, 4, 1, 32, (99, 700), 0),              # MQA, pos past S
+    (3, 200, 8, 2, 16, (40, 200, 4000), 200),      # ring: not, at, far past
+    (2, 8, 4, 2, 16, (3, 20), 8),                  # ring shorter than a tile
+])
+@pytest.mark.parametrize("plan", ["kernel", "one tile a split"])
+def test_contiguous_decode_split_merge_matches_unsplit(B, S, H, KV, dh, pos,
+                                                       window, plan):
+    """The contiguous twin, over ragged S and rings shorter than a tile."""
+    q, k, v, p = map(torch.as_tensor, decode_inputs(16, B, S, H, KV, dh, pos))
+    tiles = -(-S // dk.KEY_TILE)
+    splits, tps = dk.decode_splits(S, B * KV) if plan == "kernel" \
+        else (tiles, 1)
+    m, l, acc, live = dk.split_partials_ref(q[:, None], k, v, p, splits, tps)
+    got = dk.merge_partials_ref(m, l, acc, live, 1)[:, 0]
+    torch.testing.assert_close(
+        got, dk.decode_attention_ref(q, k, v, p, window=window), rtol=1e-6,
+        atol=1e-6)
+
+
+@pytest.mark.parametrize("window,pos", [(0, (0, 70)), (128, (100, 300))])
+def test_decode_split_merge_matches_pallas_kernels(window, pos):
+    """The split-and-merge rule of both decode kernels against the
+    reference's Pallas kernels in interpret mode, at tiny shapes with one
+    tile a split: paged (block 16, GQA 4:1) and contiguous (S = 128, a
+    multiple of min(256, S), as its wrapper asserts)."""
+    q, kp, vp, p, bt = paged_inputs(17, 2, 8, 16, 4, 1, 16, pos,
+                                    unallocated=not window)
+    m, l, acc, live = dk.verify_partials_ref(
+        *map(torch.as_tensor, (q[:, None], kp, vp, p, bt)), 2, 1)
+    check(dk.merge_partials_ref(m, l, acc, live, 1)[:, 0],
+          pallas_paged(*map(jnp.asarray, (q, kp, vp, p, bt)),
+                       window=window, interpret=True))
+    a = decode_inputs(18, 2, 128, 4, 2, 16, pos)
+    m, l, acc, live = dk.split_partials_ref(
+        torch.as_tensor(a[0])[:, None], *map(torch.as_tensor, a[1:]), 2, 1)
+    check(dk.merge_partials_ref(m, l, acc, live, 1)[:, 0],
+          pallas_decode(*map(jnp.asarray, a), window=window, block_k=64,
                         interpret=True))
