@@ -18,7 +18,11 @@ Phases, each fatal on failure:
    chunk scan at the chunked and the monolithic prefill's shapes; the five
    attention kernels at Zamba2's MHA heads, H = KV = 32, dh = 80) and at
    small float32 edge shapes (the chunk scan's include mLSTM's H = 4,
-   dk = 384, dv = 385; the flash forward's and backward's run in bf16 as
+   dk = 384, dv = 385, and run in bf16 too: on the tensor cores where
+   ``tensor_core_route`` sends them, with a steep-decay case and two
+   column slices of dv, each call's route checked, every tensor-core case
+   also with each part count of ``SCAN_PART_COUNTS``; the odd widths on
+   the scalar route; the flash forward's and backward's run in bf16 as
    well, on the tensor-core kernels; the flash backward also at the
    contiguous path's and Zamba2's prefill shapes; the paged kernels' and
    contiguous decode's run in bf16 as well, on the tensor-core kernels,
@@ -82,7 +86,8 @@ Phases, each fatal on failure:
    with one shared attention block, bf16, 2 experts of seeded random
    weights) on the main path's deployment and traffic, after the Qwen3
    tensors are freed: the main path's checks, with the chunk-scan,
-   chunk-prefill, paged-decode and router kernels launched;
+   chunk-prefill, paged-decode and router kernels launched, and every
+   chunk-scan call on the tensor cores;
 10. hybrid float32 agreement — one expert of full-width Zamba2-2.7B in
    float32: the monolithic prefill (chunk scan over 3 and 4 chunks, flash
    attention) and the chunked prefill (the chunk scan one chunk at a time
@@ -139,10 +144,17 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # which is one bf16 ulp (3.9e-3 for outputs in [0.5, 1)) on these inputs:
 # the bf16 tolerance is twice that
 TOL = {"float32": 5e-5, "bfloat16": 8e-3}
-# the chunk scan and its plain version both upcast q, k, v to float32 before
-# every product and write float32, so they differ by summation order only
-# whatever the input dtype: both dtypes are held at the float32 tolerance
+# the chunk scan and its plain version both compute in float32 from the
+# inputs' values and write float32, whatever the input dtype, so both dtypes
+# are held at the float32 tolerance. On the bf16 tensor-core route the
+# float32 operands of the second products (P and the decayed K) reach the
+# tensor cores as SCAN_PARTS bf16 parts whose sum is the float32 value (three
+# parts carry all 24 bits, two about 16), so the kernel still differs from
+# the plain version by summation order, not by a bf16 rounding (one part
+# alone would put it ~4e-3 off)
 SCAN_TOL = TOL["float32"]
+# the part counts the chunk scan's tensor-core route is measured with
+SCAN_PART_COUNTS = (2, 3)
 
 KERNEL_META = {
     "paged_decode_attention": (
@@ -214,7 +226,7 @@ F32_GRAD_TOL = 1e-3
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd")
 # the libraries whose bf16 kernels run on the tensor cores (wgmma)
 TENSOR_CORE_LIBS = ("decode_attention", "flash_attention",
-                    "flash_attention_bwd")
+                    "flash_attention_bwd", "chunk_scan")
 
 
 def log(msg: str) -> None:
@@ -453,27 +465,78 @@ def _check_verify(dk, cases, dtype_name, q, kp, vp, pos_t, bt):
     return got
 
 
-def _scan_case(B, NC, L, H, dk, dv, dtype, gen):
+def _scan_case(B, NC, L, H, dk, dv, dtype, gen, decay=0.1):
     """qc, kc (B,NC,L,H,dk), vc (B,NC,L,H,dv) in ``dtype`` and cum
     (B,NC,L,H) float32 on the card: q and k scaled by dk^-1/4 so q·k is of
     unit size, decays as ``tests/test_kernels.py``'s (cumulative sums of
-    −|N|·0.1)."""
+    −|N|·decay; 0.1 there, 5 in the steep case, where cum reaches −1000s
+    and an unmasked exp(cum_t − cum_s) overflows)."""
     import torch
     dev = "cuda"
     s = dk ** -0.25
     qc = (torch.randn((B, NC, L, H, dk), generator=gen, device=dev) * s)
     kc = (torch.randn((B, NC, L, H, dk), generator=gen, device=dev) * s)
     vc = torch.randn((B, NC, L, H, dv), generator=gen, device=dev)
-    logg = -torch.randn((B, NC, L, H), generator=gen, device=dev).abs() * 0.1
+    logg = -torch.randn((B, NC, L, H), generator=gen,
+                        device=dev).abs() * decay
     return (qc.to(dtype), kc.to(dtype), vc.to(dtype),
             torch.cumsum(logg, dim=2).contiguous())
 
 
 def _check_scan(cs, cases, dtype_name, args):
+    """The chunk scan against its plain version at ``SCAN_TOL``; the call
+    must take the route ``tensor_core_route`` gives its dtype and widths
+    (the tensor-core counter moves for that route only)."""
+    qc, _, vc, _ = args
+    tensor_cores = cs.tensor_core_route(qc.dtype, qc.shape[-1],
+                                        vc.shape[-1])
+    before = cs.chunk_scan.tensor_core_launches
     got = cs.chunk_scan(*args)
+    took = cs.chunk_scan.tensor_core_launches - before
+    if took != int(tensor_cores):
+        raise AssertionError(
+            f"chunk_scan {tuple(qc.shape)} dv={vc.shape[-1]} {qc.dtype}: "
+            f"took the {'tensor-core' if took else 'scalar'} route, the rule "
+            f"gives the {'tensor-core' if tensor_cores else 'scalar'} one")
     want = cs.chunk_scan_ref(*args)
     for g, w in zip(got, want):
         compare("chunk_scan", g, w, dtype_name, cases, tol=SCAN_TOL)
+
+
+def _scan_parts(cs, cases, shapes, gen, timed):
+    """Every part count of ``SCAN_PART_COUNTS`` on each bf16 tensor-core
+    case of ``shapes`` ((B, NC, L, H, dk, dv, decay)): the largest error,
+    the largest share of the allowance it used (|err| over SCAN_TOL +
+    SCAN_TOL·|want|), and the device ms at ``timed``'s inputs. Counts from
+    ``SCAN_PARTS`` up are held at ``SCAN_TOL``; fewer are recorded only.
+    Returns {parts: {...}}."""
+    import torch
+    chosen, out = cs.SCAN_PARTS, {}
+    try:
+        for parts in SCAN_PART_COUNTS:
+            cs.SCAN_PARTS = parts
+            worst, share = 0.0, 0.0
+            for B, NC, L, H, dk, dv, decay in shapes:
+                args = _scan_case(B, NC, L, H, dk, dv, torch.bfloat16, gen,
+                                  decay)
+                got, want = cs.chunk_scan(*args), cs.chunk_scan_ref(*args)
+                for g, w in zip(got, want):
+                    err = (g - w).abs()
+                    worst = max(worst, err.max().item())
+                    share = max(share, (err / (SCAN_TOL + SCAN_TOL * w.abs()))
+                                .max().item())
+                    if parts >= chosen:
+                        compare("chunk_scan", g, w, "bfloat16", cases,
+                                tol=SCAN_TOL)
+            out[parts] = {"max_abs_err": worst, "allowance_used": share,
+                          "device_ms": device_ms(
+                              lambda: cs.chunk_scan(*timed)),
+                          "held": parts >= chosen}
+    finally:
+        cs.SCAN_PARTS = chosen
+    log(f"chunk_scan by bf16 parts (in use: {chosen}) over {len(shapes)} "
+        f"tensor-core cases: {json.dumps(out)}")
+    return out
 
 
 def _hybrid_kernel_cases(cases, rec, gen):
@@ -490,29 +553,51 @@ def _hybrid_kernel_cases(cases, rec, gen):
     bf16, f32 = torch.bfloat16, torch.float32
     # -- chunk scan at Zamba2's shapes: one 256-position chunk (chunked
     #    prefill, timed) and the four chunks of a 1024-token monolithic
-    #    prefill; bf16 then float32
-    H, N, P = 32, 64, 160
+    #    prefill; bf16 (tensor cores) then float32 (scalar)
+    H, N, P, L = 32, 64, 160, 256
+    timed = _scan_case(1, 1, L, H, N, P, bf16, gen)
     for dtype, name in ((bf16, "bfloat16"), (f32, "float32")):
         for NC in (1, 4):
-            args = _scan_case(1, NC, 256, H, N, P, dtype, gen)
-            _check_scan(cs, cases, name, args)
-            if dtype is not bf16 or NC != 1:
-                continue
-            L = 256
-            pairs = L * (L + 1) // 2
-            rec["chunk_scan"] = {
-                "shape": f"B=1 NC=1 L={L} H={H} dk={N} dv={P} bf16",
-                "ms": cuda_ms(lambda: cs.chunk_scan(*args)),
-                "device_ms": device_ms(lambda: cs.chunk_scan(*args)),
-                "plain_ms": cuda_ms(lambda: cs.chunk_scan_ref(*args)),
-                "library_ms": None,   # no single PyTorch call computes it
-                "bytes": L * H * (2 * N * 2 + P * 2 + 4 + P * 4)
-                + H * N * P * 4,
-                # causal q·k and P·v products, the dk x dv summary; all
-                # float32 arithmetic on upcast inputs
-                "flops": H * (pairs * 2 * (N + P) + 2 * L * N * P),
-                "dtype": "bfloat16", "rate_dtype": "float32",
-                "tol": SCAN_TOL}
+            _check_scan(cs, cases, name, timed if dtype is bf16 and NC == 1
+                        else _scan_case(1, NC, L, H, N, P, dtype, gen))
+    pairs = L * (L + 1) // 2
+    rec["chunk_scan"] = {
+        "shape": f"B=1 NC=1 L={L} H={H} dk={N} dv={P} bf16",
+        "ms": cuda_ms(lambda: cs.chunk_scan(*timed)),
+        "device_ms": device_ms(lambda: cs.chunk_scan(*timed)),
+        "plain_ms": cuda_ms(lambda: cs.chunk_scan_ref(*timed)),
+        "library_ms": None,   # no single PyTorch call computes it
+        "bytes": L * H * (2 * N * 2 + P * 2 + 4 + P * 4) + H * N * P * 4,
+        # the causal q·k and P·v products and the dk x dv summary that the
+        # function needs, at the rate of its inputs' type
+        "flops": H * (pairs * 2 * (N + P) + 2 * L * N * P),
+        "dtype": "bfloat16", "tol": SCAN_TOL}
+    timed_f32 = _up(*timed)
+    _time_scalar(rec["chunk_scan"], lambda: cs.chunk_scan(*timed_f32))
+    # bf16 shapes of the tensor-core route: the smoke config's L = 16, dk !=
+    # dv, ragged rows and keys, B > 1 and NC > 1, dk past one slab with dv
+    # cut into two column slices, dk and dv not multiples of 16, the steep
+    # decay (cum reaches -1000s: masked pairs must never reach the exp) and
+    # the slow one (a long-memory head: all 256 terms of unit size, where
+    # P's rounding adds up most); (B, NC, L, H, dk, dv, decay)
+    tc_scan = [
+        (1, 2, 16, 4, 16, 16, 0.1),
+        (2, 3, 32, 4, 16, 48, 0.1),
+        (1, 2, 100, 2, 16, 24, 0.1),
+        (2, 3, 64, 4, 32, 32, 0.1),
+        (1, 1, 192, 2, 128, 200, 0.1),
+        (1, 1, 64, 2, 24, 72, 0.1),
+        (1, 1, L, H, N, P, 5.0),
+        (1, 4, L, H, N, P, 0.001),
+    ]
+    for B, NC, Ls, Hh, dkk, dvv, decay in tc_scan:
+        _check_scan(cs, cases, "bfloat16",
+                    _scan_case(B, NC, Ls, Hh, dkk, dvv, bf16, gen, decay))
+    rec["chunk_scan"]["parts"] = _scan_parts(
+        cs, cases, [(1, 1, L, H, N, P, 0.1), (1, 4, L, H, N, P, 0.1)]
+        + tc_scan, gen, timed)
+    # the scalar route: float32 at every edge, and the bf16 widths TMA
+    # cannot describe (odd dv; mLSTM's dv = 385)
     edge_scan = [
         # B, NC, L, H, dk, dv
         (1, 2, 16, 4, 16, 16),        # L = 16, the smoke config's chunk
@@ -522,9 +607,13 @@ def _hybrid_kernel_cases(cases, rec, gen):
         (1, 1, 256, 4, 384, 385),     # mLSTM's full-width shape
         (2, 3, 64, 4, 32, 32),        # B > 1, NC > 1
     ]
-    for B, NC, L, Hh, dkk, dvv in edge_scan:
+    for B, NC, Ls, Hh, dkk, dvv in edge_scan:
         _check_scan(cs, cases, "float32",
-                    _scan_case(B, NC, L, Hh, dkk, dvv, f32, gen))
+                    _scan_case(B, NC, Ls, Hh, dkk, dvv, f32, gen))
+    for B, NC, Ls, Hh, dkk, dvv in ((1, 1, 128, 2, 64, 65),
+                                    (1, 1, 256, 4, 384, 385)):
+        _check_scan(cs, cases, "bfloat16",
+                    _scan_case(B, NC, Ls, Hh, dkk, dvv, bf16, gen))
 
     # -- the attention kernels at Zamba2's heads. The plain versions run in
     #    float32 on the same (bf16) input values: in bf16 they round the
@@ -1493,8 +1582,10 @@ def phase_float32_agreement():
 def phase_hybrid_path():
     """Full-width Zamba2-2.7B, 2 experts, top-1, paged + chunked + fused:
     the main path's deployment and traffic (``main_path.build(arch=
-    HYBRID_ARCH)``). Returns its launch counts."""
+    HYBRID_ARCH)``); every chunk-scan call must take the tensor cores.
+    Returns its launch counts and the chunk scan's tensor-core calls."""
     import torch
+    from repro_torch.kernels import chunk_scan as cs
     from repro_torch.launch import main_path
 
     t0 = time.perf_counter()
@@ -1509,7 +1600,17 @@ def phase_hybrid_path():
     _, launches = _serve_watched(
         "hybrid path", mp, (("decode_step_paged", lambda x: x),
                             ("prefill_chunk", lambda x: x)), HYBRID_KERNELS)
-    return launches
+    # zeroed with the launch counts just before the run; nothing has
+    # launched since it ended
+    tensor_core = cs.chunk_scan.tensor_core_launches
+    log(f"hybrid path: {tensor_core} of {launches['chunk_scan']} chunk-scan "
+        f"calls took the tensor cores")
+    if tensor_core != launches["chunk_scan"]:
+        raise AssertionError(
+            f"hybrid path: {launches['chunk_scan'] - tensor_core} of "
+            f"{launches['chunk_scan']} chunk-scan calls took the scalar "
+            f"route")
+    return launches, tensor_core
 
 
 def phase_hybrid_float32_agreement():
@@ -1894,7 +1995,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_float32_agreement()
     torch.cuda.empty_cache()
-    hybrid_launches = phase_hybrid_path()
+    hybrid_launches, scan_tensor_core = phase_hybrid_path()
     torch.cuda.empty_cache()
     phase_hybrid_float32_agreement()
     torch.cuda.empty_cache()
@@ -1929,6 +2030,12 @@ def main() -> int:
             "library_device_ms": r.get("library_device_ms"),
             **{k: r[k] for k in ("float32_ms", "float32_device_ms")
                if k in r}})
+        if name == "chunk_scan":
+            # the hybrid path's calls by route
+            kernels[-1].update(
+                tensor_core_launches=scan_tensor_core,
+                scalar_launches=launches[name] - scan_tensor_core,
+                scan_parts=r["parts"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

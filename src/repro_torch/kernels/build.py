@@ -120,6 +120,8 @@ def load(name: str) -> ctypes.CDLL:
     elif name == "chunk_scan":
         lib.chunk_scan.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P]
         lib.chunk_scan.restype = I
+        lib.chunk_scan_sm90.argtypes = [P] * 6 + [I] * 6 + [P]
+        lib.chunk_scan_sm90.restype = I
         lib.chunk_scan_smem_bytes.argtypes = [I, I]
         lib.chunk_scan_smem_bytes.restype = ctypes.c_longlong
     lib.kernel_error_string.argtypes = [I]

@@ -6,10 +6,23 @@ inner part of the chunkwise Mamba2-SSD / mLSTM scan
     intra[t] = Σ_{s≤t} exp(cum_t − cum_s) · (q_t·k_s) · v_s
     chunk_kv = Σ_s exp(cum_{L−1} − cum_s) · k_s v_sᵀ
 
-The CUDA wrapper takes CUDA tensors only and counts its launches in
-``chunk_scan.launches``; ``chunk_scan_ref`` is the plain version the CPU
-path and the on-card comparison use (``kernels.ops`` picks one by the
-tensors' device).
+The CUDA wrapper takes CUDA tensors only. It has two routes, decided from
+dtype and shapes alone before the launch (``tensor_core_route``), never
+after a failure:
+
+* tensor cores (``chunk_scan_sm90``): bf16 with dk and dv multiples of 8
+  (TMA's row strides are whole 16 bytes) and dk ≤ ``TC_MAX_DK``; one
+  launch a call, P and the decayed K split into ``SCAN_PARTS`` bf16 parts
+  so that the float32 result holds to the float32 tolerance. Every
+  full-width Mamba2 shape of the repo takes it (Zamba2: dk = 64, dv = 160),
+  and the smoke config's L = 16.
+* scalar (``chunk_scan``): float32, and bf16 shapes TMA cannot describe
+  (mLSTM's dv = 385, an odd dv, dk above 128).
+
+``chunk_scan.launches`` counts every call, ``chunk_scan.tensor_core_launches``
+the calls that took the tensor cores. ``chunk_scan_ref`` is the plain
+version the CPU path and the on-card comparison use (``kernels.ops`` picks
+one by the tensors' device).
 """
 from __future__ import annotations
 
@@ -23,6 +36,21 @@ Tensor = torch.Tensor
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: Dynamic shared memory one Hopper thread block can have (227 KB).
 MAX_SMEM = 232448
+#: The tensor-core route takes dk up to this (Q and K tiles of at most two
+#: 64-column slabs); dv of any width, in column slices of up to 192.
+TC_MAX_DK = 128
+#: bf16 parts that P and the decayed K are split into on the tensor-core
+#: route (2 or 3, a template constant of the kernel; PERF.md states the
+#: errors measured with each).
+SCAN_PARTS = 3
+
+
+def tensor_core_route(dtype: torch.dtype, dk: int, dv: int) -> bool:
+    """Whether a call with inputs of ``dtype`` and widths dk, dv takes the
+    tensor cores: bf16, dk and dv multiples of 8, dk ≤ ``TC_MAX_DK``.
+    Every other call takes the scalar kernels."""
+    return dtype == torch.bfloat16 and dk % 8 == 0 and dv % 8 == 0 \
+        and dk <= TC_MAX_DK
 
 
 def chunk_scan(qc: Tensor, kc: Tensor, vc: Tensor,
@@ -30,7 +58,9 @@ def chunk_scan(qc: Tensor, kc: Tensor, vc: Tensor,
     """CUDA kernel. qc, kc: (B,NC,L,H,dk); vc: (B,NC,L,H,dv), float32 or
     bfloat16 (one dtype); cum: (B,NC,L,H) float32 inclusive cumulative
     log-decay. Returns (intra (B,NC,L,H,dv), chunk_kv (B,NC,H,dk,dv)), both
-    float32. Raises on a shape whose tiles do not fit in shared memory."""
+    float32. The route is ``tensor_core_route``'s; raises on bf16 operands
+    of that route that do not start on 16-byte boundaries (TMA), and on a
+    scalar-route shape whose tiles do not fit in shared memory."""
     if qc.device.type != "cuda":
         raise ValueError(f"chunk_scan: the CUDA kernel needs CUDA tensors, "
                          f"got {qc.device}")
@@ -58,12 +88,19 @@ def chunk_scan(qc: Tensor, kc: Tensor, vc: Tensor,
     if min(L, dk, dv) < 1:
         raise ValueError(f"chunk_scan: L={L}, dk={dk}, dv={dv} must be >= 1")
     lib = build.load("chunk_scan")
-    need = lib.chunk_scan_smem_bytes(dk, dv)
-    if need > MAX_SMEM:
-        raise ValueError(
-            f"chunk_scan: dk={dk}, dv={dv} needs {need} bytes of shared "
-            f"memory per thread block, more than the {MAX_SMEM} a Hopper "
-            f"block can have")
+    tensor_cores = tensor_core_route(qc.dtype, dk, dv)
+    if tensor_cores:
+        for name, t in (("qc", qc), ("kc", kc), ("vc", vc)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"chunk_scan: bf16 {name} must start on a "
+                                 f"16-byte boundary (TMA)")
+    else:
+        need = lib.chunk_scan_smem_bytes(dk, dv)
+        if need > MAX_SMEM:
+            raise ValueError(
+                f"chunk_scan: dk={dk}, dv={dv} needs {need} bytes of shared "
+                f"memory per thread block, more than the {MAX_SMEM} a Hopper "
+                f"block can have")
     intra = torch.empty((B, NC, L, H, dv), dtype=torch.float32,
                         device=qc.device)
     chunk_kv = torch.empty((B, NC, H, dk, dv), dtype=torch.float32,
@@ -71,17 +108,22 @@ def chunk_scan(qc: Tensor, kc: Tensor, vc: Tensor,
     if B * NC * H == 0:
         return intra, chunk_kv
     stream = torch.cuda.current_stream(qc.device).cuda_stream
+    ptrs = (qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), cum.data_ptr(),
+            intra.data_ptr(), chunk_kv.data_ptr())
     with torch.cuda.device(qc.device):
-        err = lib.chunk_scan(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(),
-                             cum.data_ptr(), intra.data_ptr(),
-                             chunk_kv.data_ptr(), code, B * NC, L, H, dk, dv,
-                             stream)
+        if tensor_cores:
+            err = lib.chunk_scan_sm90(*ptrs, B * NC, L, H, dk, dv,
+                                      SCAN_PARTS, stream)
+        else:
+            err = lib.chunk_scan(*ptrs, code, B * NC, L, H, dk, dv, stream)
     build.check(lib, err, "chunk_scan")
     chunk_scan.launches += 1
+    chunk_scan.tensor_core_launches += int(tensor_cores)
     return intra, chunk_kv
 
 
 chunk_scan.launches = 0
+chunk_scan.tensor_core_launches = 0
 
 
 def chunk_scan_ref(qc: Tensor, kc: Tensor, vc: Tensor,

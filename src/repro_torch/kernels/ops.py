@@ -155,9 +155,11 @@ def chunk_scan(qc: Tensor, kc: Tensor, vc: Tensor, cum: Tensor):
 
 
 def reset_launch_counts() -> None:
-    """Zero every kernel wrapper's launch counter."""
+    """Zero every kernel wrapper's launch counter, and the chunk scan's
+    count of calls that took the tensor cores."""
     for fn in KERNELS.values():
         fn.launches = 0
+    _scan.chunk_scan.tensor_core_launches = 0
 
 
 #: Every CUDA kernel wrapper of the port, by name (``flash_attention``

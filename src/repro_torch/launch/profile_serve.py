@@ -62,6 +62,9 @@ KERNEL_GROUPS = {
                                 "chunk_prefill_sm90"),
     "paged_verify_attention": ("paged_verify_kernel", "paged_verify_sm90",
                                "verify_merge"),
+    # the scalar chunk-scan kernels (chunk_scan_intra_kernel,
+    # chunk_scan_kv_kernel) and the tensor-core one (chunk_scan_sm90) share
+    # the group
     "chunk_scan": ("chunk_scan",),
     "flash_attention": ("flash_kernel", "flash_fwd_sm90"),
     "flash_attention_bwd": ("dq_kernel", "dkv_kernel", "dq_sm90",

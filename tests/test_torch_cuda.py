@@ -10,8 +10,10 @@ a machine that has only the port's dependencies:
 Tolerances: float32 5e-5 (summation order and the blocked online
 softmax), bf16 2e-2 (the plain version rounds the softmax weights to bf16
 before the PV product, as ``repro/kernels/ref.py`` does). ``chunk_scan``
-upcasts its inputs to float32 before every product on both sides, so it
-is held at 5e-5 in both dtypes. The bf16 tensor-core chunk-prefill,
+computes in float32 from its inputs' values on both sides (on its bf16
+tensor-core route the float32 P and decayed K reach the tensor cores as
+three bf16 parts that sum to them), so it is held at 5e-5 in both dtypes.
+The bf16 tensor-core chunk-prefill,
 verify and decode kernels are also held at 8e-3 against the plain version
 run in float32 on the same bf16 values (``chip_smoke.py``'s tolerance):
 there the kernel's error is its own rounding of P and of the output.
@@ -409,6 +411,78 @@ def test_chunk_scan_kernel_on_card(cuda, B, NC, L, H, dk, dv, dtype):
     for g, w in zip(got, want):
         assert g.dtype == torch.float32
         torch.testing.assert_close(g, w, rtol=5e-5, atol=5e-5)
+
+
+def _scan_inputs(cuda, dtype, seed, B, NC, L, H, dk, dv, decay=0.1):
+    rng = np.random.default_rng(seed)
+    s = dk ** -0.25
+    qc, kc, vc = _on(cuda, dtype, f32(rng, B, NC, L, H, dk) * s,
+                     f32(rng, B, NC, L, H, dk) * s, f32(rng, B, NC, L, H, dv))
+    cum = torch.as_tensor(np.cumsum(-np.abs(f32(rng, B, NC, L, H)) * decay,
+                                    axis=2), device=cuda)
+    return qc, kc, vc, cum
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,NC,L,H,dk,dv,decay", [
+    (1, 2, 16, 4, 16, 16, 0.1),       # the smoke config's L = 16
+    (2, 3, 32, 4, 16, 48, 0.1),       # dk != dv
+    (1, 2, 100, 2, 16, 24, 0.1),      # ragged row and key tiles
+    (2, 3, 64, 4, 32, 32, 0.1),       # B > 1, NC > 1
+    (1, 1, 192, 2, 128, 200, 0.1),    # dk of two slabs, dv in two slices
+    (1, 1, 64, 2, 24, 72, 0.1),       # multiples of 8, not of 16
+    (1, 1, 256, 32, 64, 160, 5.0),    # steep decay: cum reaches -1000s
+    (1, 4, 256, 32, 64, 160, 0.001),  # slow decay: 256 unit-size terms
+])
+def test_chunk_scan_tensor_cores_on_card(cuda, B, NC, L, H, dk, dv, decay):
+    """bf16 on the tensor-core route against the plain version at the
+    float32 tolerance (P and the decayed K reach the tensor cores as
+    ``SCAN_PARTS`` bf16 parts that sum to their float32 values); each call
+    moves both counters by one. Masked pairs never reach the exp: with the
+    steep decay an unmasked exp(cum_t − cum_s) overflows."""
+    args = _scan_inputs(cuda, torch.bfloat16, 13, B, NC, L, H, dk, dv,
+                        decay)
+    calls = cs.chunk_scan.launches, cs.chunk_scan.tensor_core_launches
+    got = cs.chunk_scan(*args)
+    assert (cs.chunk_scan.launches, cs.chunk_scan.tensor_core_launches) \
+        == (calls[0] + 1, calls[1] + 1)
+    for g, w in zip(got, cs.chunk_scan_ref(*args)):
+        assert g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g, w, rtol=5e-5, atol=5e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,dk,dv", [(torch.float32, 64, 160),
+                                         (torch.bfloat16, 64, 65),
+                                         (torch.bfloat16, 384, 385)])
+def test_chunk_scan_scalar_route_on_card(cuda, dtype, dk, dv):
+    """float32, and bf16 widths TMA cannot describe (odd dv, mLSTM's
+    full-width dk = 384, dv = 385), take the scalar kernels: the call is
+    counted, the tensor-core counter does not move."""
+    args = _scan_inputs(cuda, dtype, 14, 1, 1, 128, 2, dk, dv)
+    calls = cs.chunk_scan.launches, cs.chunk_scan.tensor_core_launches
+    got = cs.chunk_scan(*args)
+    assert (cs.chunk_scan.launches, cs.chunk_scan.tensor_core_launches) \
+        == (calls[0] + 1, calls[1])
+    for g, w in zip(got, cs.chunk_scan_ref(*args)):
+        torch.testing.assert_close(g, w, rtol=5e-5, atol=5e-5)
+
+
+@pytest.mark.gpu
+def test_chunk_scan_unaligned_bf16_raises_on_card(cuda):
+    """A bf16 operand of the tensor-core route that does not start on a
+    16-byte boundary (TMA) raises before anything launches; it is not sent
+    to the scalar kernels."""
+    qc, kc, vc, cum = _scan_inputs(cuda, torch.bfloat16, 15, 1, 1, 64, 2,
+                                   16, 16)
+    shifted = torch.empty(qc.numel() + 1, dtype=qc.dtype,
+                          device=cuda)[1:].view(qc.shape)
+    shifted.copy_(qc)
+    calls = cs.chunk_scan.launches, cs.chunk_scan.tensor_core_launches
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        cs.chunk_scan(shifted, kc, vc, cum)
+    assert (cs.chunk_scan.launches,
+            cs.chunk_scan.tensor_core_launches) == calls
 
 
 @pytest.mark.gpu

@@ -120,8 +120,78 @@ def test_chunk_scan_dispatch_and_wrapper_guard():
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
     assert cs.chunk_scan.launches == 0
+    assert cs.chunk_scan.tensor_core_launches == 0
     with pytest.raises(ValueError, match="CUDA tensors"):
         cs.chunk_scan(*args)
+
+
+@pytest.mark.parametrize("dtype,dk,dv,tensor_cores", [
+    (torch.bfloat16, 64, 160, True),     # Zamba2 at full width
+    (torch.bfloat16, 16, 64, True),      # the smoke config's N and P
+    (torch.bfloat16, 128, 200, True),    # dk at its limit, dv in 2 slices
+    (torch.bfloat16, 24, 72, True),      # multiples of 8, not of 16
+    (torch.float32, 64, 160, False),     # float32: scalar
+    (torch.float32, 16, 64, False),
+    (torch.bfloat16, 64, 65, False),     # odd dv
+    (torch.bfloat16, 384, 385, False),   # mLSTM at full width
+    (torch.bfloat16, 136, 64, False),    # dk past 128
+    (torch.bfloat16, 20, 64, False),     # dk not a multiple of 8
+])
+def test_chunk_scan_route_rule(dtype, dk, dv, tensor_cores):
+    """The CUDA wrapper's route, from dtype and widths alone: bf16 with dk,
+    dv multiples of 8 (TMA's 16-byte row strides) and dk ≤ 128 take the
+    tensor cores, everything else the scalar kernels."""
+    assert cs.tensor_core_route(dtype, dk, dv) is tensor_cores
+
+
+def _split_pv_error(parts, decay):
+    """The tensor-core route's second product in plain torch: P (float32:
+    unit-size scores of one 256-position chunk times exp(cum_t − cum_s),
+    masked to s ≤ t) split into ``parts`` bf16 parts (part p = bf16(P −
+    parts 0 .. p−1)), each part times bf16 V summed in float64, against
+    the float64 product of the float32 P. Returns (max abs error, RMS
+    error, largest share of the card's allowance 5e-5 + 5e-5·|want|)."""
+    rng = np.random.default_rng(3)
+    L, dv = 256, 160
+    S = f32(rng, L, L)
+    cum = np.cumsum(-np.abs(f32(rng, L)) * decay).astype(np.float32)
+    mask = np.tril(np.ones((L, L), bool))
+    D = np.exp(np.where(mask, cum[:, None] - cum[None, :], -np.inf))
+    P = torch.as_tensor((S * D.astype(np.float32)).astype(np.float32))
+    V = torch.as_tensor(f32(rng, L, dv)).to(torch.bfloat16).double()
+    want = P.double() @ V
+    got, rest = torch.zeros_like(want), P
+    for _ in range(parts):
+        part = rest.to(torch.bfloat16)
+        got += part.double() @ V
+        rest = rest - part.float()
+    err = (got - want).abs()
+    return (err.max().item(), err.pow(2).mean().sqrt().item(),
+            (err / (5e-5 + 5e-5 * want.abs())).max().item())
+
+
+@pytest.mark.parametrize("parts", [1, 2, 3])
+def test_bf16_split_of_p_error(parts):
+    """Over 256 unit-size terms of random sign (no decay: the slowest heads'
+    case), one bf16 rounding of P leaves ~1e-2, far past the allowance; two
+    parts leave about the 6e-5 estimated for them (RMS), with the largest
+    errors past the 5e-5 allowance; three carry P's 24 bits exactly."""
+    worst, rms, share = _split_pv_error(parts, decay=0.0)
+    if parts == 1:
+        assert share > 100
+    elif parts == 2:
+        assert 1e-5 < rms <= 6e-5 and share > 1
+    else:
+        assert worst <= 1e-12 and share < 1e-6
+
+
+def test_chunk_scan_parts_is_the_fewest_that_hold():
+    """``SCAN_PARTS`` is the fewest bf16 parts whose product stays inside
+    the 5e-5 allowance both with no decay and with the tests' decays
+    (−|N|·0.1 a step)."""
+    holds = [k for k in (1, 2, 3)
+             if all(_split_pv_error(k, decay)[2] <= 1 for decay in (0.0, 0.1))]
+    assert cs.SCAN_PARTS == holds[0] == 3
 
 
 def test_chunked_linear_attention_with_carry_matches_reference():
