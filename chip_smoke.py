@@ -39,15 +39,26 @@ Phases, each fatal on failure:
    are short); the two decode kernels are also timed at every number of
    key tiles a split (the sweep record, each setting held against the
    plain version; the paged one at the main path's and at Zamba2's
-   heads), and their float32 (scalar) wrappers at the same shapes;
+   heads), and their float32 (scalar) wrappers at the same shapes; the
+   kernels the Eq. 27 mixture changed: chunk prefill with a batch axis (B =
+   2 chunks at one start, each through its own table row) at Qwen3-8B's
+   and Zamba2's heads in bf16 and float32, the B = 2 call timed; paged
+   decode as the stacked decode step launches it (2 experts' pools as one
+   pool, each slot's table offset by k·P, 16 rows) at the same heads and
+   dtypes; the redesigned router (a few lanes a row, one group of rows a
+   block) at the path's D = 32, K = 2 for B = 1, 16 and 65536, each timed
+   with its bound, and at its edges (K = 6, bf16, scalar loads, unaligned
+   rows, rows past B in a warp, K·D staged in slabs of D); and the card's
+   floor for one launch in a graph (an in-place add on one element);
 4. parity — the smoke-size float32 Qwen3 deployment (2 pods, top-1) served
    on the card (kernels) and on the CPU (plain versions) in four
    configurations (paged + chunked, paged + chunked + n-gram speculation,
-   paged + monolithic, contiguous + monolithic): greedy tokens, finish
+   paged + monolithic, contiguous + monolithic), then the three without
+   speculation under the Eq. 27 mixture (top_k 2): greedy tokens, finish
    reasons and routing must be equal, and the speculative one must accept
    drafts (``spec_tokens > spec_steps``) with equal counts on both; then
    the smoke-size float32 Zamba2 deployment in the three configurations
-   without speculation, with the same checks;
+   without speculation, top-1 and mixture, with the same checks;
 5. main path — full-width Qwen3-8B (36 layers, bf16, 2 experts of seeded
    random weights) served through ``make_engine`` → ``add_request``/
    ``step`` with the paged pool, chunked prefill and the fused decode
@@ -69,6 +80,12 @@ Phases, each fatal on failure:
    prints how many requests got the same tokens, and the same first token,
    on both paths (information only: in bf16 the two paths' logits differ
    by rounding, and greedy picks with close runners-up fall either way);
+7b. mixture path — the main path's deployment under the Eq. 27 mixture
+   (``main_path.mixture``: both experts stacked on one tensor dim, top_k
+   2) over the same model, experts and requests at a decode budget of
+   ``MIXTURE_NEW_TOKENS``, once the per-expert tensors are dropped: the
+   main path's checks, and each stacked decode step must launch paged
+   decode once per attention layer (36), not once per expert;
 8. float32 agreement — one expert of full-width Qwen3-8B in float32: the
    monolithic prefill (flash-attention kernel) and the chunked prefill
    (chunk-prefill kernel over the paged pool) of two prompts, then one
@@ -82,12 +99,19 @@ Phases, each fatal on failure:
    ``SPEC_LEN`` tokens and leave pos and tok where the decode steps leave
    them, and stop where a stop id, the token budget or the context end
    falls inside the span;
+8b. mixture float32 — full-width Qwen3-8B in float32 at
+   ``MIXTURE_F32_LAYERS`` layers, 2 experts: each expert's logits from the
+   stacked chunked prefill (every chunk) and one stacked paged decode step
+   against its own single-model steps, within ``F32_LOGIT_TOL``, with one
+   kernel launch a layer a stacked step;
 9. hybrid path — full-width Zamba2-2.7B (54 Mamba2 layers in 9 groups
    with one shared attention block, bf16, 2 experts of seeded random
    weights) on the main path's deployment and traffic, after the Qwen3
    tensors are freed: the main path's checks, with the chunk-scan,
    chunk-prefill, paged-decode and router kernels launched, and every
-   chunk-scan call on the tensor cores;
+   chunk-scan call on the tensor cores; then the same deployment under the
+   Eq. 27 mixture (``MIXTURE_NEW_TOKENS`` a request), with the same checks and one paged-decode launch per
+   attention layer (9) a stacked decode step;
 10. hybrid float32 agreement — one expert of full-width Zamba2-2.7B in
    float32: the monolithic prefill (chunk scan over 3 and 4 chunks, flash
    attention) and the chunked prefill (the chunk scan one chunk at a time
@@ -119,7 +143,9 @@ Phases, each fatal on failure:
    plain attention on the card, each leaf within ``F32_GRAD_TOL`` of its
    largest element.
 
-The second-to-last line is the ``{"kernels": [...]}`` JSON record, the last
+The second-to-last line is the ``{"kernels": [...]}`` JSON record (each
+kernel's launches on the full-width path that runs it, and on every path
+in ``launches_by_path``), the last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
 there is no card or no checkout around the script.
 """
@@ -207,6 +233,13 @@ CONTIGUOUS_KERNELS = ("flash_attention", "decode_attention",
 SPEC_KERNELS = MAIN_KERNELS + ("paged_verify_attention",)
 HYBRID_KERNELS = ("chunk_scan",) + MAIN_KERNELS
 SPEC_LEN = 4          # positions a speculative step verifies per slot
+# depth of the float32 stacked-vs-single mixture check (full width)
+MIXTURE_F32_LAYERS = 2
+# the full-width mixture paths' decode budget a request (the top-1 paths
+# serve main_path.NEW_TOKENS): one pod serves all 16 requests in two waves
+# of 8 slots, so a budget of 64 doubled their steps; 32 keeps two waves,
+# every kernel and the one-launch-a-layer check at half the decode steps
+MIXTURE_NEW_TOKENS = 32
 # card vs CPU training at smoke size, float32: the two sides' gradients
 # differ by summation order (kernels against plain versions, ~1e-6 of a
 # leaf's largest element), which the losses and grad norms carry at about
@@ -678,6 +711,158 @@ def _hybrid_kernel_cases(cases, rec, gen):
                   dk.decode_attention_ref(*_up(*args)), S, 8 * KV)
 
 
+def _router_bound(B, D, K):
+    """(bytes, operations) of Eq. 28 on x (B, D) and K centroids in
+    float32: x, the centroids and the output each moved once; per row the
+    K dot products, |x|^2 and the softmax, and the centroid norms once."""
+    return ((B * D + K * D + B * K) * 4,
+            B * (2 * K * D + 2 * D + 6 * K) + 2 * K * D)
+
+
+def _mixture_kernel_cases(cases, rec, gen):
+    """The kernels the Eq. 27 mixture changed, at its path's shapes: chunk
+    prefill with a batch axis (B = 2, one chunk per expert at one start,
+    each through its own table row) at Qwen3-8B's and Zamba2's heads, in
+    bf16 and float32, against the plain version, with the B = 2 call timed
+    beside the B = 1 row; paged decode as a stacked decode step launches
+    it (2 experts' pools as one of 2·P pages, 8 shared slot tables offset
+    by ``Model._expert_tables``: 16 rows) at the same heads and dtypes,
+    the bf16 call at Qwen3-8B's heads timed; the redesigned router at the
+    path's shape (D = 32, K = 2, float32) for B = 1, 16 and 65536, timed
+    at each (device ms and bound), and at its edges (K = 6, D = 64; bf16;
+    D not a multiple of a 16-byte load; unaligned rows; rows past B in a
+    warp; a lane a row; K·D past the shared-memory budget, so staged in
+    slabs of D; K past one chunk of centroids, past a row's lanes and
+    past 32 lanes); and the card's floor for one launch in a graph, an
+    in-place add on a one-element tensor."""
+    import numpy as np
+    import torch
+    from repro_torch.data.synthetic import SyntheticConfig
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import router_scores as rk
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    block, C, NB, start, B = 16, 256, 48, 512, 2
+    for H, KV, dh in ((32, 8, 128), (32, 32, 80)):
+        for dtype, name in ((bf16, "bfloat16"), (f32, "float32")):
+            P = B * NB + 1
+            q = torch.randn((B, C, H, dh), generator=gen,
+                            device="cuda").to(dtype)
+            kp, vp = (torch.randn((P, block, KV, dh), generator=gen,
+                                  device="cuda").to(dtype) for _ in range(2))
+            bt = (torch.randperm(P - 1, generator=gen, device="cuda")[
+                :B * NB] + 1).reshape(B, NB).to(torch.int32).contiguous()
+            got = dk.chunk_prefill_attention(q, kp, vp, start, bt)
+            compare("chunk_prefill_attention", got,
+                    dk.chunk_prefill_attention_ref(*_up(q, kp, vp), start,
+                                                   bt), name, cases)
+            if dtype is bf16 and dh == 128:
+                S = start + C
+                keys = sum(start + c + 1 for c in range(C))
+                nbytes = B * (2 * C * H * dh * 2 + S * KV * dh * 2 * 2
+                              + (S // block) * 4)
+                rec["chunk_prefill_attention"]["batched"] = {
+                    "shape": f"B={B} C={C} start={start} H={H} KV={KV} "
+                             f"dh={dh} block={block} NB={NB} bf16",
+                    "device_ms": device_ms(lambda: dk.chunk_prefill_attention(
+                        q, kp, vp, start, bt)),
+                    "bound_ms": max(nbytes / HBM_BPS, B * 4 * H * dh * keys
+                                    / PEAK_FLOPS["bfloat16"]) * 1e3}
+    log(f"chunk_prefill_attention batched: "
+        f"{json.dumps(rec['chunk_prefill_attention']['batched'])}")
+
+    # -- paged decode as a stacked decode step launches it: K = 2 experts'
+    #    pools viewed as one pool of K·P pages, the 8 slots' shared tables
+    #    offset by k·P for expert k (Model._expert_tables), K·B = 16 rows
+    #    (scratch entries past a slot's horizon land on expert k's page
+    #    k·P), at Qwen3-8B's and Zamba2's heads
+    from repro_torch.models.model import Model
+    Kx, Bs, NB = 2, 8, 64
+    pos = np.random.default_rng(8).integers(200, NB * block, Bs).tolist()
+    pos[0] = NB * block - 1
+    for H, KV, dh in ((32, 8, 128), (32, 32, 80)):
+        for dtype, name in ((bf16, "bfloat16"), (f32, "float32")):
+            _, kp0, vp0, pos_t, bt = _paged_case(Bs, NB, block, H, KV, dh,
+                                                 pos, dtype, gen)
+            _, kp1, vp1, _, _ = _paged_case(Bs, NB, block, H, KV, dh, pos,
+                                            dtype, gen)
+            kp, vp = torch.stack([kp0, kp1]), torch.stack([vp0, vp1])
+            tables = Model._expert_tables(bt, kp[None], Kx)
+            q = torch.randn((Kx * Bs, H, dh), generator=gen,
+                            device="cuda").to(dtype)
+            args = (q, kp.flatten(0, 1), vp.flatten(0, 1),
+                    pos_t.repeat(Kx), tables)
+            compare("paged_decode_attention", dk.paged_decode_attention(*args),
+                    dk.paged_decode_attention_ref(*_up(*args)), name, cases)
+            if dtype is bf16 and dh == 128:
+                keys = Kx * sum(p + 1 for p in pos)
+                nbytes = (2 * Kx * Bs * H * dh * 2 + keys * KV * dh * 2 * 2
+                          + Kx * Bs * NB * 4)
+                rec["paged_decode_attention"]["batched"] = {
+                    "shape": f"K={Kx} experts x B={Bs} slots H={H} KV={KV} "
+                             f"dh={dh} block={block} NB={NB} bf16, tables "
+                             f"offset by k*P",
+                    "device_ms": device_ms(
+                        lambda: dk.paged_decode_attention(*args)),
+                    "bound_ms": max(nbytes / HBM_BPS, 4 * H * dh * keys
+                                    / PEAK_FLOPS["bfloat16"]) * 1e3}
+    log(f"paged_decode_attention batched: "
+        f"{json.dumps(rec['paged_decode_attention']['batched'])}")
+
+    D, K = SyntheticConfig().feature_dim, 2
+    cent = torch.randn((K, D), generator=gen, device="cuda")
+    by_b = {}
+    for Bx in (16, 65536, 1):
+        x = torch.randn((Bx, D), generator=gen, device="cuda")
+        compare("router_scores", rk.router_scores(x, cent, 10.0),
+                rk.router_scores_ref(x, cent, 10.0), "float32", cases)
+        nbytes, flops = _router_bound(Bx, D, K)
+        by_b[Bx] = {"plan (warps, span, slab, vec)":
+                    rk.router_plan(Bx, D, K, 4),
+                    "device_ms": device_ms(
+                        lambda: rk.router_scores(x, cent, 10.0)),
+                    "bound_ms": max(nbytes / HBM_BPS,
+                                    flops / PEAK_FLOPS["float32"]) * 1e3}
+    one = torch.zeros(1, device="cuda")
+    floor = device_ms(lambda: one.add_(1.0))
+    nbytes, flops = _router_bound(1, D, K)
+    rec["router_scores"] = {
+        "shape": f"B=1 D={D} K={K} f32",
+        "ms": cuda_ms(lambda: rk.router_scores(x, cent, 10.0), iters=100),
+        "device_ms": by_b[1]["device_ms"],
+        "plain_ms": cuda_ms(lambda: rk.router_scores_ref(x, cent, 10.0),
+                            iters=100),
+        "library_ms": None,   # no single PyTorch call computes Eq. 28
+        "bytes": nbytes, "flops": flops, "dtype": "float32",
+        "by_batch": by_b, "launch_floor_device_ms": floor}
+    log(f"router_scores by batch at D={D} K={K} f32: {json.dumps(by_b)}; "
+        f"the launch floor (an in-place add on one element, in a graph): "
+        f"device ms {floor}")
+    edges = [
+        # B, D, K, dtype, offset (elements) of x's first row
+        (100, 64, 6, f32, 0),
+        (8, 32, 2, bf16, 0),
+        (9, 64, 6, bf16, 0),
+        (5, 33, 3, f32, 0),
+        (5, 32, 2, f32, 1),
+        (5, 32, 2, f32, 0),
+        (40, 4, 3, f32, 0),
+        (6, 32, 12, f32, 0),
+        (12, 8192, 8, f32, 0),
+        (3, 5000, 4, bf16, 0),
+        (7, 64, 9, f32, 0),
+        (5, 96, 40, f32, 0),
+    ]
+    for Bx, Dx, Kx, dtype, offset in edges:
+        flat = torch.randn(Bx * Dx + offset, generator=gen, device="cuda")
+        x = flat[offset:].view(Bx, Dx).to(dtype)
+        c = torch.randn((Kx, Dx), generator=gen, device="cuda").to(dtype)
+        name = "float32" if dtype is f32 else "bfloat16"
+        compare("router_scores", rk.router_scores(x, c, 10.0),
+                rk.router_scores_ref(x.float(), c.float(), 10.0), name,
+                cases)
+
+
 def _check_flash_bwd(fk, fbk, cases, dtype_name, q, k, v, do, causal=True,
                      window=0):
     """The backward kernel against its plain version on the same q, k, v,
@@ -784,7 +969,6 @@ def phase_kernels():
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import flash_attention as fk
-    from repro_torch.kernels import router_scores as rk
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -878,25 +1062,6 @@ def phase_kernels():
                 q.permute(1, 0, 2)[None], kf, vf, attn_mask=cmask)),
         "bytes": nbytes, "flops": 4 * H * dh * keys, "dtype": "bfloat16"}
 
-    # -- router at the main path's shapes: synthetic-corpus features
-    #    (D = 32), K = 2 experts, B = 1 at submission and B = 16 batched
-    from repro_torch.data.synthetic import SyntheticConfig
-    D, K = SyntheticConfig().feature_dim, 2
-    cent = torch.randn((K, D), generator=gen, device="cuda")
-    for Bx in (16, 1):
-        x = torch.randn((Bx, D), generator=gen, device="cuda")
-        compare("router_scores", rk.router_scores(x, cent, 10.0),
-                rk.router_scores_ref(x, cent, 10.0), "float32", cases)
-    rec["router_scores"] = {
-        "shape": f"B=1 D={D} K={K} f32",
-        "ms": cuda_ms(lambda: rk.router_scores(x, cent, 10.0), iters=100),
-        "device_ms": device_ms(lambda: rk.router_scores(x, cent, 10.0)),
-        "plain_ms": cuda_ms(lambda: rk.router_scores_ref(x, cent, 10.0),
-                            iters=100),
-        "library_ms": None,   # no single PyTorch call computes Eq. 28
-        "bytes": (D + K * D + K) * 4, "flops": 3 * K * D + 3 * D + 4 * K,
-        "dtype": "float32"}
-
     # -- float32 at the main path's shapes: here the two sides differ only
     #    by summation order, so a fault confined to one block of a long span
     #    (a dropped horizon block, a wrong table entry) cannot hide in bf16
@@ -987,13 +1152,6 @@ def phase_kernels():
                 dk.chunk_prefill_attention_ref(q.float(), kp.float(),
                                                vp.float(), start, bt),
                 "bfloat16", cases)
-    x = torch.randn((100, 64), generator=gen, device="cuda")
-    c6 = torch.randn((6, 64), generator=gen, device="cuda")
-    compare("router_scores", rk.router_scores(x, c6, 1.0),
-            rk.router_scores_ref(x, c6, 1.0), "float32", cases)
-    xb, cb = x[:8, :32].to(bf16).contiguous(), c6[:2, :32].to(bf16)
-    compare("router_scores", rk.router_scores(xb, cb.contiguous(), 10.0),
-            rk.router_scores_ref(xb, cb, 10.0), "bfloat16", cases)
 
     # -- flash attention at the contiguous path's shapes: one Qwen3-8B
     #    prompt of 1024 tokens (timed) and a ragged 777, causal, bf16 then
@@ -1225,6 +1383,7 @@ def phase_kernels():
                 dk.decode_attention_ref(*_up(*args), window=window),
                 "bfloat16", cases)
     _hybrid_kernel_cases(cases, rec, gen)
+    _mixture_kernel_cases(cases, rec, gen)
     _training_kernel_cases(cases, rec, gen)
     torch.cuda.synchronize()
 
@@ -1281,13 +1440,14 @@ def phase_parity(arch="qwen3_8b"):
     """Smoke-size float32 deployment of ``arch``: card (kernels) vs CPU
     (plain), in the paged + chunked, paged + chunked + speculative (a
     ``speculative_capable`` model only), paged + monolithic and contiguous
-    + monolithic configurations. The speculative one serves period-4
-    prompts of the same lengths (the traffic n-gram drafts target), so
-    drafts are accepted."""
+    + monolithic configurations, then the same three without speculation
+    under the Eq. 27 mixture (``strategy="mixture"``, top_k 2). The
+    speculative one serves period-4 prompts of the same lengths (the
+    traffic n-gram drafts target), so drafts are accepted."""
     import numpy as np
     import torch
     from repro_torch.configs import get_smoke_config
-    from repro_torch.core.router import CentroidRouter
+    from repro_torch.core.router import CentroidRouter, RouterConfig
     from repro_torch.models import build_model
     from repro_torch.serve.api import EngineConfig, SamplingParams
     from repro_torch.serve.scheduler import make_engine
@@ -1313,12 +1473,16 @@ def phase_parity(arch="qwen3_8b"):
                ("contiguous + monolithic", {}, prompts)]
     if not model.speculative_capable:
         configs.pop(1)
+    configs += [(f"mixture, {kind}", dict(over, strategy="mixture"), reqs)
+                for kind, over, reqs in configs if "speculative" not in over]
+    mix_router = CentroidRouter(router.centroids, RouterConfig(top_k=2))
     for kind, over, reqs in configs:
         ecfg = EngineConfig(n_slots=2, cache_len=56, page_block=8, chunk=16,
                             **over)
-        card, host = (make_engine(model, experts=experts, router=router,
-                                  config=ecfg, device=dev)
-                      for dev in ("cuda", "cpu"))
+        card, host = (make_engine(
+            model, experts=experts, config=ecfg, device=dev,
+            router=mix_router if "strategy" in over else router)
+            for dev in ("cuda", "cpu"))
         gpu, groute, *_ = _serve(card, reqs, feats, sp)
         cpu, croute, *_ = _serve(host, reqs, feats, sp)
         if groute != croute or gpu != cpu:
@@ -1357,8 +1521,10 @@ def _serve_watched(label, mp, watch, kernels):
     ``(method, rows)`` of ``watch`` (``rows`` picks the sampled rows) —
     folded into one finiteness flag kept on the card and read once after
     the run. The launch counts are zeroed just before the run and read
-    just after; each of ``kernels`` must have launched. Returns (results,
-    launches)."""
+    just after; each of ``kernels`` must have launched. Under the mixture
+    the stacked decode steps are counted over the same run, and each must
+    have launched paged decode once per attention layer (not once per
+    expert). Returns (results, launches)."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
@@ -1378,14 +1544,28 @@ def _serve_watched(label, mp, watch, kernels):
 
     for name, rows in watch:
         setattr(model, name, watched(getattr(model, name), rows))
+    mixture = mp.engine.config.strategy == "mixture"
+    decodes, fused = [0], {}
+    if mixture:                   # each fused step runs one stacked decode
+        core = mp.engine.core
+        fused = {name: getattr(core, name)
+                 for name in ("_fstep", "_fstep_chunk")}
+        for name, fn in fused.items():
+            def counted(*args, _fn=fn):
+                decodes[0] += 1
+                return _fn(*args)
+            setattr(core, name, counted)
     try:
         ops.reset_launch_counts()
+        decodes[0] = 0
         res, routing, outs, steps, wall = _serve(
             mp.engine, mp.prompts, mp.features, mp.sampling)
         launches = {n: fn.launches for n, fn in ops.KERNELS.items()}
     finally:
         for name, _ in watch:
             delattr(model, name)
+        for name, fn in fused.items():
+            setattr(core, name, fn)
     n_req = len(mp.prompts)
     if len(res) != n_req or any(r is None for _, r in res.values()):
         raise AssertionError(f"{label}: unfinished requests: {sorted(res)}")
@@ -1406,6 +1586,16 @@ def _serve_watched(label, mp, watch, kernels):
              "mean_ttft_s": float(np.mean([o.ttft for o in outs.values()])),
              "step_ms": wall / steps * 1e3, "launches": launches,
              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if mixture:
+        per_step = launches["paged_decode_attention"] / max(decodes[0], 1)
+        stats.update(experts=mp.engine.core.K, decode_steps=decodes[0],
+                     paged_decode_launches_per_decode_step=per_step,
+                     attention_layers=model.n_groups)
+        if launches["paged_decode_attention"] != decodes[0] * model.n_groups:
+            raise AssertionError(
+                f"{label}: {launches['paged_decode_attention']} paged "
+                f"decode launches over {decodes[0]} stacked decode steps: "
+                f"not one per attention layer ({model.n_groups}) a step")
     if mp.engine.config.speculative is not None:
         steps, toks = _spec_counts(mp.engine)
         stats.update(spec_steps=steps, spec_tokens=toks,
@@ -1482,6 +1672,120 @@ def phase_contiguous_path(mp, main_res):
         f"tokens as on the main path, {first} the same first token "
         f"(information only: bf16 rounding differs between the paths)")
     return launches
+
+
+def _mixture_of(mp):
+    """``main_path.mixture(mp)`` with ``MIXTURE_NEW_TOKENS`` a request."""
+    from dataclasses import replace
+    from repro_torch.launch import main_path
+    from repro_torch.serve.api import SamplingParams
+
+    return replace(main_path.mixture(mp),
+                   sampling=SamplingParams(max_new=MIXTURE_NEW_TOKENS))
+
+
+def phase_mixture_path(mp, main_res):
+    """The main path's deployment under the Eq. 27 mixture
+    (``main_path.mixture``: both experts stacked, top_k 2, so both weigh
+    in at every token) over the same model, experts and requests. The
+    stack is a copy: the per-expert tensors are dropped once it is made.
+    Returns its launch counts."""
+    import torch
+
+    t0 = time.perf_counter()
+    xp = _mixture_of(mp)
+    mp.experts = xp.experts = None      # the stack holds the weights now
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"mixture path: {xp.engine.core.K} experts stacked in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    res, launches = _serve_watched(
+        "mixture path", xp, (("decode_step_paged", lambda x: x),
+                             ("prefill_chunk", lambda x: x)), MAIN_KERNELS)
+    same = sum(res[i][0] == main_res[i][0][:MIXTURE_NEW_TOKENS]
+               for i in main_res)
+    log(f"mixture path: {same} of {len(main_res)} requests got the top-1 "
+        f"main path's first {MIXTURE_NEW_TOKENS} tokens (information only: "
+        f"the mixture weighs both experts in)")
+    xp.engine = None
+    return launches
+
+
+def phase_mixture_float32():
+    """Full-width Qwen3-8B in float32 at ``MIXTURE_F32_LAYERS`` layers, 2
+    experts: each expert's logits from the stacked chunked prefill (every
+    chunk) and one stacked paged decode step against that expert's own
+    single-model steps on the same inputs, within ``F32_LOGIT_TOL``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.ensemble import stack_experts_for_decode
+    from repro_torch.launch import main_path
+    from repro_torch.models import build_model
+
+    cfg = get_config(main_path.ARCH).reduced(
+        n_layers=MIXTURE_F32_LAYERS, param_dtype="float32",
+        compute_dtype="float32")
+    model = build_model(cfg)
+    experts = [model.init(torch.Generator(device="cuda").manual_seed(k))
+               for k in range(main_path.N_EXPERTS)]
+    stacked = stack_experts_for_decode(experts)
+    lo, hi, block, chunk = main_path.FULL_SHAPE
+    cache_len = hi + main_path.NEW_TOKENS
+    nb = -(-cache_len // block)
+    table = torch.arange(1, nb + 1, dtype=torch.int32, device="cuda")
+    width = 702
+    toks = np.random.default_rng(5).integers(0, cfg.vocab, width)
+    batch = {"tokens": torch.nn.functional.pad(torch.as_tensor(
+        toks[None], device="cuda"), (0, -width % chunk))}
+    pos = torch.tensor([width], dtype=torch.int32, device="cuda")
+
+    tok = torch.tensor([int(toks[0])], dtype=torch.int32, device="cuda")
+
+    def steps(params, experts_dim):
+        """The chunk steps' logits, then one paged decode step's."""
+        pool = model.init_paged_cache(1, nb + 1, block, cache_len,
+                                      device="cuda", experts=experts_dim)
+        x = model.embed_prompt(params, batch)
+        carry = model.init_chunk_carry(params, batch, cache_len)
+        out = []
+        for start in range(0, width, chunk):
+            logits, carry, pool = model.prefill_chunk(
+                params, pool, carry, x[:, start:start + chunk], start,
+                min(chunk, width - start), table)
+            out.append(logits)
+        out.append(model.decode_step_paged(params, pool, tok, pos,
+                                           table[None])[0])
+        return out
+
+    before = _launches()
+    mixed = steps(stacked, len(experts))
+    launched = {k: v - before[k] for k, v in _launches().items()}
+    worst = 0.0
+    for k, params in enumerate(experts):
+        for one, both in zip(steps(params, 0), mixed):
+            worst = max(worst, (one - both[k]).abs().max().item())
+    log(f"mixture float32: full-width {cfg.arch_id} at {cfg.n_layers} "
+        f"layers, {len(experts)} experts, a {width}-token prompt in "
+        f"{len(mixed) - 1} chunks and one paged decode step: each expert's "
+        f"logits from the stacked steps vs its own single-model steps, max "
+        f"abs diff {worst:.3e} (tolerance {F32_LOGIT_TOL}); the stacked "
+        f"steps launched {launched['chunk_prefill_attention']} chunk-prefill "
+        f"and {launched['paged_decode_attention']} paged-decode kernels "
+        f"({cfg.n_layers} a step)")
+    want = {"chunk_prefill_attention": (len(mixed) - 1) * cfg.n_layers,
+            "paged_decode_attention": cfg.n_layers}
+    if not worst <= F32_LOGIT_TOL or any(launched[k] != v
+                                         for k, v in want.items()):
+        raise AssertionError(
+            f"mixture float32: stacked vs single {worst:.3e} (tolerance "
+            f"{F32_LOGIT_TOL}), launches {launched} (want {want})")
+
+
+def _launches():
+    from repro_torch.kernels import ops
+    return {n: fn.launches for n, fn in ops.KERNELS.items()}
 
 
 def phase_float32_agreement():
@@ -1583,7 +1887,10 @@ def phase_hybrid_path():
     """Full-width Zamba2-2.7B, 2 experts, top-1, paged + chunked + fused:
     the main path's deployment and traffic (``main_path.build(arch=
     HYBRID_ARCH)``); every chunk-scan call must take the tensor cores.
-    Returns its launch counts and the chunk scan's tensor-core calls."""
+    Then the same deployment under the Eq. 27 mixture
+    (``main_path.mixture``, top_k 2), with the same checks. Returns the
+    top-1 run's launch counts, the chunk scan's tensor-core calls in it,
+    and the mixture run's launch counts."""
     import torch
     from repro_torch.kernels import chunk_scan as cs
     from repro_torch.launch import main_path
@@ -1610,7 +1917,21 @@ def phase_hybrid_path():
             f"hybrid path: {launches['chunk_scan'] - tensor_core} of "
             f"{launches['chunk_scan']} chunk-scan calls took the scalar "
             f"route")
-    return launches, tensor_core
+    mp.engine = None                 # the top-1 pools, before the stack
+    xp = _mixture_of(mp)
+    mp.experts = xp.experts = None   # the stack holds the weights now
+    torch.cuda.empty_cache()
+    _, mix_launches = _serve_watched(
+        "hybrid mixture path", xp, (("decode_step_paged", lambda x: x),
+                                    ("prefill_chunk", lambda x: x)),
+        HYBRID_KERNELS)
+    mix_tc = cs.chunk_scan.tensor_core_launches
+    log(f"hybrid mixture path: {mix_tc} of {mix_launches['chunk_scan']} "
+        f"chunk-scan calls took the tensor cores")
+    if mix_tc != mix_launches["chunk_scan"]:
+        raise AssertionError("hybrid mixture path: a chunk-scan call took "
+                             "the scalar route")
+    return launches, tensor_core, mix_launches
 
 
 def phase_hybrid_float32_agreement():
@@ -1985,23 +2306,40 @@ def main() -> int:
                 if ": Used" in line or "spill stores" in line:
                     log(f"  {name}: {line.strip()}")
 
-    rec = phase_kernels()
-    phase_parity("qwen3_8b")
-    phase_parity("zamba2_2_7b")
-    mp, main_res, main_launches = phase_main_path()
-    spec_launches = phase_speculative_path(mp, main_res)
-    contiguous_launches = phase_contiguous_path(mp, main_res)
+    seconds = {"build": round(time.perf_counter() - t0, 1)}
+
+    def timed(phase, *args):
+        """Run one phase, keeping its wall seconds for the record."""
+        t = time.perf_counter()
+        out = phase(*args)
+        name = phase.__name__.removeprefix("phase_")
+        if args and isinstance(args[0], str):
+            name += f" {args[0]}"
+        seconds[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    rec = timed(phase_kernels)
+    timed(phase_parity, "qwen3_8b")
+    timed(phase_parity, "zamba2_2_7b")
+    mp, main_res, main_launches = timed(phase_main_path)
+    spec_launches = timed(phase_speculative_path, mp, main_res)
+    contiguous_launches = timed(phase_contiguous_path, mp, main_res)
+    mixture_launches = timed(phase_mixture_path, mp, main_res)
     del mp                           # the bf16 experts
     torch.cuda.empty_cache()
-    phase_float32_agreement()
+    timed(phase_float32_agreement)
     torch.cuda.empty_cache()
-    hybrid_launches, scan_tensor_core = phase_hybrid_path()
+    timed(phase_mixture_float32)
     torch.cuda.empty_cache()
-    phase_hybrid_float32_agreement()
+    hybrid_launches, scan_tensor_core, hybrid_mix_launches = \
+        timed(phase_hybrid_path)
     torch.cuda.empty_cache()
-    phase_train_parity()
-    train_launches = phase_train_path()
-    phase_train_float32_gradients()
+    timed(phase_hybrid_float32_agreement)
+    torch.cuda.empty_cache()
+    timed(phase_train_parity)
+    train_launches = timed(phase_train_path)
+    timed(phase_train_float32_gradients)
+    log(f"wall seconds by phase: {json.dumps(seconds)}")
     # each kernel's launches on the full-width path that runs it (the
     # verify kernel runs on the speculative path only, the chunk scan on
     # the hybrid path only, the flash backward on the training path only;
@@ -2014,6 +2352,11 @@ def main() -> int:
                     chunk_scan=hybrid_launches["chunk_scan"],
                     flash_attention_bwd=train_launches[
                         "flash_attention_bwd"])
+    # every full-width path's count of each kernel, for the record
+    by_path = {"main": main_launches, "speculative": spec_launches,
+               "contiguous": contiguous_launches, "mixture": mixture_launches,
+               "hybrid": hybrid_launches, "hybrid mixture": hybrid_mix_launches,
+               "training": train_launches}
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
@@ -2028,8 +2371,11 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "library_device_ms": r.get("library_device_ms"),
-            **{k: r[k] for k in ("float32_ms", "float32_device_ms")
-               if k in r}})
+            "launches_by_path": {p: n[name] for p, n in by_path.items()
+                                 if n.get(name)},
+            **{k: r[k] for k in ("float32_ms", "float32_device_ms",
+                                 "batched", "by_batch",
+                                 "launch_floor_device_ms") if k in r}})
         if name == "chunk_scan":
             # the hybrid path's calls by route
             kernels[-1].update(

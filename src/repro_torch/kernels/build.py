@@ -101,7 +101,7 @@ def load(name: str) -> ctypes.CDLL:
     if name == "decode_attention":
         lib.paged_decode_attention.argtypes = [P] * 7 + [I] * 11 + [F, P]
         lib.paged_decode_attention.restype = I
-        lib.chunk_prefill_attention.argtypes = [P] * 5 + [I] * 9 + [F, P]
+        lib.chunk_prefill_attention.argtypes = [P] * 5 + [I] * 10 + [F, P]
         lib.chunk_prefill_attention.restype = I
         lib.decode_attention.argtypes = [P] * 6 + [I] * 9 + [F, P]
         lib.decode_attention.restype = I
@@ -115,7 +115,7 @@ def load(name: str) -> ctypes.CDLL:
         lib.flash_attention_bwd.argtypes = [P] * 9 + [I] * 8 + [F, P]
         lib.flash_attention_bwd.restype = I
     elif name == "router_scores":
-        lib.router_scores.argtypes = [P, P, P, I, I, I, I, F, P]
+        lib.router_scores.argtypes = [P, P, P] + [I] * 8 + [F, P]
         lib.router_scores.restype = I
     elif name == "chunk_scan":
         lib.chunk_scan.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P]

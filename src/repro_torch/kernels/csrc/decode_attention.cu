@@ -8,7 +8,10 @@
 //     _accum_block) — one query token per slot over its contiguous
 //     (B, S, KV, dh) cache row;
 //   * chunk_prefill_attention (:240, body _chunk_prefill_kernel :177) — a
-//     prompt chunk's queries over the request's paged prefix + the chunk;
+//     prompt chunk's queries over the request's paged prefix + the chunk,
+//     for B requests at one shared start, each through its own table row
+//     (the reference vmaps the Pallas kernel over an expert stack,
+//     src/repro/core/ensemble.py:196-206; here the batch is a grid axis);
 //   * paged_verify_attention  (:381, body _paged_verify_kernel :316) — a
 //     speculative span of L candidate tokens per slot over the slot's paged
 //     KV span (the span's own K/V already scattered in), row l fenced to
@@ -47,7 +50,10 @@
 //     warpgroups take alternate key tiles of the same rows, so an SM
 //     still holds two warpgroups; the row tiles with the most key tiles
 //     run first, and every block walks only its own rows' keys (9 to 12
-//     tiles there). One split: it writes its output directly.
+//     tiles there). One split: it writes its output directly. A batch of
+//     B chunks (an expert stack's K copies of one request's chunk, each
+//     over its own part of the pool) is the grid's third axis, as verify's
+//     slots are: (KV, row tiles, B).
 //   - paged_verify_sm90: bound by bytes (8 slots x 4 span rows of
 //     Qwen3-8B's heads over spans ending by 1023: 19 MB of K/V, 5.6 us).
 //     A slot has L x group = 16 rows a KV head, so a 64-row wgmma tile
@@ -123,23 +129,26 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
     out[q0 + i] = t.acc[i] / fmaxf(t.l[i / dh], 1e-30f);
 }
 
-// grid (KV, ceil(C * group / kRows)): rows are the chunk's (c, g) query
+// grid (KV, ceil(C * group / kRows), B): rows are chunk b's (c, g) query
 // pairs flattened c-major per KV head; row c*group + g is query head
 // kvh*group + g at absolute position start + c, fenced to keys at
-// positions <= start + c. Each tile stops at its own last row's block.
+// positions <= start + c, through table row b. Each tile stops at its own
+// last row's block.
 __global__ void __launch_bounds__(kThreads)
 chunk_prefill_kernel(const float* __restrict__ q,
                      const float* __restrict__ k_pool,
                      const float* __restrict__ v_pool,
-                     const int* __restrict__ table, float* __restrict__ out,
+                     const int* __restrict__ tables, float* __restrict__ out,
                      int start, int C, int H, int KV, int dh, int block,
                      int NB, float scale) {
   extern __shared__ float smem[];
-  const int kvh = blockIdx.x, group = H / KV;
+  const int kvh = blockIdx.x, group = H / KV, b = blockIdx.z;
   const int r0 = blockIdx.y * kRows;
   const int R = min(kRows, C * group - r0);
   const Tile t = carve(smem, R, block, dh);
-  const PagedRows rows{table, NB, block};
+  const PagedRows rows{tables, NB, block};
+  q += size_t(b) * C * H * dh;
+  out += size_t(b) * C * H * dh;
   for (int i = threadIdx.x; i < R * dh; i += blockDim.x) {
     const int r = i / dh, d = i - r * dh, rr = r0 + r;
     const int c = rr / group, h = kvh * group + rr % group;
@@ -153,7 +162,7 @@ chunk_prefill_kernel(const float* __restrict__ q,
   __syncthreads();
   const int last = min((start + (r0 + R - 1) / group) / block, NB - 1);
   for (int ki = 0; ki <= last; ++ki) {
-    load_kv(t, k_pool, v_pool, rows, 0, ki, kvh, block, KV, dh);
+    load_kv(t, k_pool, v_pool, rows, b, ki, kvh, block, KV, dh);
     __syncthreads();
     accum_block(t, R, block, dh, ki * block, scale);
   }
@@ -229,14 +238,14 @@ int launch_decode(const void* q, const void* k, const void* v,
 }
 
 int launch_prefill(const void* q, const void* k, const void* v,
-                   const void* table, void* out, int start, int C, int H,
-                   int KV, int dh, int block, int NB, float scale,
+                   const void* table, void* out, int start, int B, int C,
+                   int H, int KV, int dh, int block, int NB, float scale,
                    cudaStream_t stream) {
   const size_t bytes = tile_bytes(kRows, block, dh);
   cudaError_t err = set_smem(chunk_prefill_kernel, bytes);
   if (err != cudaSuccess) return int(err);
   const int tiles = (C * (H / KV) + kRows - 1) / kRows;
-  chunk_prefill_kernel<<<dim3(KV, tiles), kThreads, bytes, stream>>>(
+  chunk_prefill_kernel<<<dim3(KV, tiles, B), kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int*>(table),
       static_cast<float*>(out), start, C, H, KV, dh, block, NB, scale);
@@ -400,26 +409,28 @@ bool sm90_shape_ok(int H, int KV, int dh, int block) {
          dh <= 2 * sm90::kSlab && (block == 0 || paged::block_ok(block));
 }
 
+// B chunks at one start: slot b of the paged body is chunk b, its table
+// row b, its queries and output rows (b, c) of (B, C, H, dh).
 int launch_prefill_sm90(const void* q, const void* k, const void* v,
-                        const void* table, void* out, int start, int C,
-                        int H, int KV, int dh, int block, int NB, int P,
-                        float scale, cudaStream_t stream) {
+                        const void* table, void* out, int start, int B,
+                        int C, int H, int KV, int dh, int block, int NB,
+                        int P, float scale, cudaStream_t stream) {
   const int keys = NB * block;
   const paged::Work w =
-      make_work(out, nullptr, nullptr, table, start, 1, C, H, KV, dh, block,
+      make_work(out, nullptr, nullptr, table, start, B, C, H, KV, dh, block,
                 NB, keys, 1, (keys + sm90::kTile - 1) / sm90::kTile, scale);
   CUtensorMap mq, mk, mv;
-  int err = make_q_map(&mq, q, 1, w);
+  int err = make_q_map(&mq, q, B, w);
   if (!err) err = paged::make_pool_map(&mk, k, P, block, KV, dh);
   if (!err) err = paged::make_pool_map(&mv, v, P, block, KV, dh);
   if (err) return err;
   if (dh <= sm90::kSlab)
     return launch_sm90(chunk_prefill_sm90<1>, verify_merge, sm90::kThreads,
                        paged::Smem<1, kPrefillStages>::kBytes, mq, mk, mv, w,
-                       1, stream);
+                       B, stream);
   return launch_sm90(chunk_prefill_sm90<2>, verify_merge, sm90::kThreads,
                      paged::Smem<2, kPrefillStages>::kBytes, mq, mk, mv, w,
-                     1, stream);
+                     B, stream);
 }
 
 int launch_verify_sm90(const void* q, const void* k, const void* v,
@@ -535,21 +546,23 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                             B, H, KV, dh, 0, 0, S, splits, tps, scale, s);
 }
 
-// Chunk prefill: one split, so no workspace.
+// Chunk prefill of B chunks at one start, table (B, NB): one split, so no
+// workspace.
 extern "C" int chunk_prefill_attention(const void* q, const void* k_pool,
                                        const void* v_pool, const void* table,
-                                       void* out, int dtype, int start, int C,
-                                       int H, int KV, int dh, int block,
-                                       int NB, int P, float scale,
+                                       void* out, int dtype, int start, int B,
+                                       int C, int H, int KV, int dh,
+                                       int block, int NB, int P, float scale,
                                        void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (B < 1) return int(cudaErrorInvalidValue);
   if (dtype == 0)
-    return launch_prefill(q, k_pool, v_pool, table, out, start, C, H, KV,
+    return launch_prefill(q, k_pool, v_pool, table, out, start, B, C, H, KV,
                           dh, block, NB, scale, s);
   if (dtype != 1 || !sm90_shape_ok(H, KV, dh, block))
     return int(cudaErrorInvalidValue);
-  return launch_prefill_sm90(q, k_pool, v_pool, table, out, start, C, H, KV,
-                             dh, block, NB, P, scale, s);
+  return launch_prefill_sm90(q, k_pool, v_pool, table, out, start, B, C, H,
+                             KV, dh, block, NB, P, scale, s);
 }
 
 // As the decode entries; bf16 splits by verify_splits (decode_attention.py)

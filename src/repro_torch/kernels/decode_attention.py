@@ -8,7 +8,10 @@
   each slot's contiguous (S, KV, dh) cache row.
 * ``chunk_prefill_attention`` — port of ``decode_attention.py:240``: a
   prompt chunk's queries attend over the request's paged prefix plus the
-  chunk itself (its K/V already scattered into the pool).
+  chunk itself (its K/V already scattered into the pool); with a batch
+  axis, B such chunks at one shared ``start``, each through its own table
+  row — the reference's ``jax.vmap`` of the kernel over an expert stack
+  (``repro/core/ensemble.py:196-206``) as one launch.
 * ``paged_verify_attention`` — port of ``decode_attention.py:381``: a
   speculative span of L candidate tokens per slot attends over the slot's
   paged span (the span's K/V already scattered in), row ℓ fenced to keys
@@ -248,17 +251,22 @@ decode_attention.launches = 0
 
 def chunk_prefill_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
                             start: int, block_table: Tensor) -> Tensor:
-    """CUDA kernel. q: (C,H,dh) one request's chunk queries (row c at
-    absolute position ``start + c``, a host int); k_pool,v_pool:
-    (P,block,KV,dh) with the chunk's K/V already scattered in;
-    block_table: (NB,) int32 → (C,H,dh) in q.dtype."""
+    """CUDA kernel. q: (B,C,H,dh), B requests' chunk queries (row c at
+    absolute position ``start + c``, a host int shared by all B);
+    k_pool,v_pool: (P,block,KV,dh) with the chunks' K/V already scattered
+    in; block_table: (B,NB) int32, row b request b's table → (B,C,H,dh)
+    in q.dtype. The unbatched form, q (C,H,dh) with a (NB,) table, is
+    B = 1."""
+    if q.dim() == 3:
+        return chunk_prefill_attention(q[None], k_pool, v_pool, start,
+                                       block_table[None])[0]
     code = check_operands(q, k_pool, v_pool,
                            (("block_table", block_table),),
                            "chunk_prefill_attention")
-    C, H, dh = q.shape
+    B, C, H, dh = q.shape
     _, block, KV, _ = k_pool.shape
-    NB = block_table.shape[0]
-    if H % KV or k_pool.shape[3] != dh or block_table.dim() != 1:
+    NB = block_table.shape[-1]
+    if H % KV or k_pool.shape[3] != dh or block_table.shape != (B, NB):
         raise ValueError(
             f"chunk_prefill_attention: shapes q {tuple(q.shape)}, pool "
             f"{tuple(k_pool.shape)}, table {tuple(block_table.shape)} do "
@@ -272,8 +280,9 @@ def chunk_prefill_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
     with torch.cuda.device(q.device):
         err = lib.chunk_prefill_attention(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            block_table.data_ptr(), out.data_ptr(), code, int(start), C, H,
-            KV, dh, block, NB, k_pool.shape[0], 1.0 / math.sqrt(dh), stream)
+            block_table.data_ptr(), out.data_ptr(), code, int(start), B, C,
+            H, KV, dh, block, NB, k_pool.shape[0], 1.0 / math.sqrt(dh),
+            stream)
     build.check(lib, err, "chunk_prefill_attention")
     chunk_prefill_attention.launches += 1
     return out
@@ -368,18 +377,22 @@ def decode_attention_ref(q: Tensor, k: Tensor, v: Tensor, pos: Tensor, *,
 
 def chunk_prefill_attention_ref(q: Tensor, k_pool: Tensor, v_pool: Tensor,
                                 start: int, block_table: Tensor) -> Tensor:
-    """Plain version: gather the request's logical span, then grouped
-    softmax attention with row c fenced to keys ≤ start + c."""
+    """Plain version: gather each request's logical span, then grouped
+    softmax attention with row c fenced to keys ≤ start + c. q (B,C,H,dh)
+    with tables (B,NB), or (C,H,dh) with (NB,)."""
     from repro_torch.models.attention import gqa_sdpa
-    C = q.shape[0]
-    NB, block = block_table.shape[0], k_pool.shape[1]
+    if q.dim() == 3:
+        return chunk_prefill_attention_ref(q[None], k_pool, v_pool, start,
+                                           block_table[None])[0]
+    B, C = q.shape[:2]
+    NB, block = block_table.shape[1], k_pool.shape[1]
     S_log = NB * block
     idx = block_table.long()
-    kf = k_pool[idx].reshape(1, S_log, *k_pool.shape[2:])
-    vf = v_pool[idx].reshape(1, S_log, *v_pool.shape[2:])
+    kf = k_pool[idx].reshape(B, S_log, *k_pool.shape[2:])
+    vf = v_pool[idx].reshape(B, S_log, *v_pool.shape[2:])
     pos_c = int(start) + torch.arange(C, device=q.device)
     mask = torch.arange(S_log, device=q.device)[None, :] <= pos_c[:, None]
-    return gqa_sdpa(q[None], kf, vf, mask[None])[0]
+    return gqa_sdpa(q, kf, vf, mask[None])
 
 
 def paged_verify_attention_ref(q: Tensor, k_pool: Tensor, v_pool: Tensor,

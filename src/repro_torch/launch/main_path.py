@@ -13,7 +13,10 @@ chunkwise-scan length, 16 at smoke size).
 experts, router and requests: the reference's default serving path,
 contiguous per-slot caches with monolithic prefill at admission.
 ``speculative(mp)`` builds the third: the main path's paged + chunked
-config with n-gram speculative decoding (``spec_len`` 4).
+config with n-gram speculative decoding (``spec_len`` 4). ``mixture(mp)``
+builds the fourth: the main path's config under the Eq. 27 mixture
+(``strategy="mixture"``, ``RouterConfig(top_k=2)``), so both experts
+weigh in at every token.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.router import CentroidRouter
+from repro_torch.core.router import CentroidRouter, RouterConfig
 from repro_torch.data.synthetic import SyntheticConfig, SyntheticMultimodal
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
@@ -56,6 +59,8 @@ class MainPath:
     sampling: SamplingParams
     experts: List[Any]
     router: CentroidRouter
+    config: EngineConfig          # the main path's
+    device: torch.device
 
     def warm(self) -> None:
         """Serve one short request to completion (allocator, library
@@ -90,13 +95,14 @@ def build(device="cuda", *, smoke: bool = False, arch: str = ARCH
         chunk = -(-chunk // cfg.ssm.chunk) * cfg.ssm.chunk
     lens = rng.integers(lo, hi + 1, N_REQUESTS)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
-    engine = make_engine(
-        model, experts=experts, router=router, device=dev,
-        config=EngineConfig(n_slots=N_SLOTS, cache_len=hi + NEW_TOKENS,
-                            paged=True, page_block=block,
-                            chunked_prefill=True, chunk=chunk))
+    config = EngineConfig(n_slots=N_SLOTS, cache_len=hi + NEW_TOKENS,
+                          paged=True, page_block=block, chunked_prefill=True,
+                          chunk=chunk)
+    engine = make_engine(model, experts=experts, router=router, device=dev,
+                         config=config)
     return MainPath(cfg, model, engine, prompts, features,
-                    SamplingParams(max_new=NEW_TOKENS), experts, router)
+                    SamplingParams(max_new=NEW_TOKENS), experts, router,
+                    config, dev)
 
 
 def contiguous(mp: MainPath) -> MainPath:
@@ -105,10 +111,8 @@ def contiguous(mp: MainPath) -> MainPath:
     model, expert params, router and requests: nothing is initialized
     again."""
     engine = make_engine(
-        mp.model, experts=mp.experts, router=mp.router,
-        device=mp.engine.device,
-        config=EngineConfig(n_slots=N_SLOTS,
-                            cache_len=mp.engine.config.cache_len))
+        mp.model, experts=mp.experts, router=mp.router, device=mp.device,
+        config=EngineConfig(n_slots=N_SLOTS, cache_len=mp.config.cache_len))
     return replace(mp, engine=engine)
 
 
@@ -118,8 +122,20 @@ def speculative(mp: MainPath, spec_len: int = 4) -> MainPath:
     ``spec_len`` positions per slot. Over ``mp``'s model, expert params,
     router and requests: nothing is initialized again."""
     engine = make_engine(
-        mp.model, experts=mp.experts, router=mp.router,
-        device=mp.engine.device,
-        config=replace(mp.engine.config, speculative="ngram",
-                       spec_len=spec_len))
+        mp.model, experts=mp.experts, router=mp.router, device=mp.device,
+        config=replace(mp.config, speculative="ngram", spec_len=spec_len))
     return replace(mp, engine=engine)
+
+
+def mixture(mp: MainPath, top_k: int = 2) -> MainPath:
+    """The main path's deployment (paged pool, chunked prefill, the fused
+    step) under the Eq. 27 mixture: ``strategy="mixture"`` over ``mp``'s
+    experts, stacked on one tensor dim (a copy: the caller drops ``mp``'s
+    engine and experts to free theirs), and its router's centroids with
+    ``RouterConfig(top_k)``, serving ``mp``'s requests."""
+    router = CentroidRouter(mp.router.centroids,
+                            RouterConfig(mp.router.config.temperature, top_k))
+    engine = make_engine(
+        mp.model, experts=mp.experts, router=router, device=mp.device,
+        config=replace(mp.config, strategy="mixture"))
+    return replace(mp, engine=engine, router=router)

@@ -4,7 +4,7 @@ serves: full-width Qwen3-8B, or Zamba2-2.7B with ``--arch zamba2_2_7b``,
 2 experts, 16 requests).
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve [--speculative]
-        [--contiguous] [--arch zamba2_2_7b]
+        [--contiguous] [--mixture] [--arch zamba2_2_7b]
 
 Serves every request to completion and times each engine step on the
 host. Each step is of one kind: ``chunk`` (some pod consumed a prefill
@@ -17,7 +17,9 @@ speculative span) or ``decode`` (vanilla decode forwards only).
 speculation (``main_path.speculative``); ``--contiguous`` the
 reference's default deployment over the same model and requests
 (``main_path.contiguous``: contiguous caches, monolithic prefill at
-admission, so it has no mixed steps); ``--arch zamba2_2_7b`` the same
+admission, so it has no mixed steps); ``--mixture`` the main path's
+deployment under the Eq. 27 mixture (``main_path.mixture``: both experts
+stacked, every step one stacked forward); ``--arch zamba2_2_7b`` the same
 deployment of the hybrid family (Mamba2 layers through the
 ``chunk_scan`` kernel, a shared attention block through the paged
 kernels). Two windows of ``WINDOW`` steps run under the profiler: the
@@ -119,17 +121,22 @@ def main(argv=None) -> dict:
     ap.add_argument("--contiguous", action="store_true",
                     help="the reference's default deployment (contiguous "
                     "caches, monolithic prefill)")
+    ap.add_argument("--mixture", action="store_true",
+                    help="the main path under the Eq. 27 mixture (top_k 2)")
     ap.add_argument("--arch", choices=PORTED_ARCH_IDS,
                     default=main_path.ARCH)
     args = ap.parse_args(argv)
-    if args.speculative and args.contiguous:
-        raise ValueError("--speculative runs on the paged pool: it does not "
-                         "combine with --contiguous")
+    if sum((args.speculative, args.contiguous, args.mixture)) > 1:
+        raise ValueError("--speculative, --contiguous and --mixture are "
+                         "separate deployments: pass one of them")
     mp = main_path.build(args.device, smoke=args.smoke, arch=args.arch)
     if args.speculative:
         mp = main_path.speculative(mp)
     if args.contiguous:
         mp = main_path.contiguous(mp)
+    if args.mixture:
+        mp.engine = None             # the top-1 pools, before the stack
+        mp = main_path.mixture(mp)
     engine = mp.engine
     on_card = engine.device.type == "cuda"
     mp.warm()
@@ -189,6 +196,7 @@ def main(argv=None) -> dict:
         "device": torch.cuda.get_device_name(engine.device) if on_card
         else "cpu",
         "config": mp.cfg.arch_id, "layers": mp.cfg.n_layers,
+        "strategy": mp.engine.config.strategy,
         "requests": len(mp.prompts), "steps": len(steps),
         "steps_by_kind": {k: sum(kind == k for kind, _, _ in steps)
                           for k in kinds},

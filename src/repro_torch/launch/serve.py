@@ -1,13 +1,17 @@
-"""Serving launcher — decentralized top-1 continuous batching (paper §5.2)
-on the port (twin of ``repro.launch.serve``).
+"""Serving launcher — decentralized continuous batching (paper §5.2) on
+the port (twin of ``repro.launch.serve``).
 
 Loads the per-expert checkpoints and the centroid router of a training
-run, and serves synthetic multimodal requests through the top-1
-``DecentralizedSlotServer``: the Eq. 28 router picks each request's pod at
-submission; each pod serves contiguous per-slot KV caches with monolithic
+run, and serves synthetic multimodal requests through the
+``DecentralizedSlotServer``: with ``--strategy top1`` the Eq. 28 router
+picks each request's pod at submission; with ``--strategy mixture``
+(``--top-k`` experts weigh in) one core serves the stacked experts and
+mixes their next-token distributions by Eq. 27, routing each request at
+admission. Either serves contiguous per-slot KV caches with monolithic
 prefill at admission (``--paged`` / ``--chunked-prefill`` switch to the
 paged pool and to chunked prefill; ``--speculative ngram`` adds n-gram
-speculative decoding on the paged pool) and decodes with the fused step.
+speculative decoding on the paged pool, top-1 only) and decodes with the
+fused step.
 ``--arch`` takes every ported config: ``qwen3_8b`` (dense) and
 ``zamba2_2_7b`` (hybrid, whose prefill chunk must be a multiple of its
 chunkwise-scan length, 16 at smoke size). Runs on the card unless
@@ -15,13 +19,14 @@ chunkwise-scan length, 16 at smoke size). Runs on the card unless
 
     PYTHONPATH=src python -m repro_torch.launch.serve --run /tmp/run \\
         --arch qwen3_8b --requests 16 --new-tokens 24 --slots 8 \\
+        [--strategy mixture --top-k 2]
         [--paged --page-block 16 [--chunked-prefill --prefill-chunk 16]
          [--speculative ngram --spec-len 4]]
 
 The flags are the reference launcher's for this slice. Every serving flag
-lands in ONE ``EngineConfig``; what the port has not reached yet (mixture
-and expert-0 drafting, prefix cache, preemption, sanitizer, tracing,
-metrics, sampling, the unfused step) is refused by
+lands in ONE ``EngineConfig``; what the port has not reached yet
+(speculation under the mixture, prefix cache, preemption, sanitizer,
+tracing, metrics, sampling, the unfused step) is refused by
 ``EngineConfig.validate`` with one ValueError before any work starts.
 """
 from __future__ import annotations

@@ -12,6 +12,11 @@ serving state and are never shared with a caller that expects the old
 contents. The attention itself goes through
 ``repro_torch.kernels.ops``: the CUDA kernel for tensors on the card, the
 plain version on the CPU.
+
+A stack of K experts' parameters (``layers``' expert-stack convention)
+takes activations with K folded into the batch, expert-major, and caches,
+pools, positions and block tables at that batch: each kernel then serves
+all K experts in one launch.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 
-from .layers import apply_rope, rms_norm
+from .layers import apply_rope, expert_matmul, rms_norm
 from .params import ParamSpec
 
 Tensor = torch.Tensor
@@ -45,12 +50,19 @@ def attention_specs(cfg) -> Dict[str, ParamSpec]:
     return specs
 
 
+def _project_in(x: Tensor, w: Tensor) -> Tensor:
+    """x (B,S,D) through w (D,H,dh) → (B,S,H,dh); an expert stack w
+    (K,D,H,dh) as one batched product over K."""
+    if w.dim() == 3:
+        return torch.einsum("bsd,dhk->bshk", x, w.to(x.dtype))
+    return expert_matmul(x, w)
+
+
 def _qkv(params, x: Tensor, cfg, positions: Tensor,
          rope: bool = True) -> Tuple[Tensor, Tensor, Tensor]:
-    dt = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(dt))
+    q = _project_in(x, params["wq"])
+    k = _project_in(x, params["wk"])
+    v = _project_in(x, params["wv"])
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
@@ -79,7 +91,10 @@ def gqa_sdpa(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor],
 
 
 def _project_out(params, out: Tensor, dt) -> Tensor:
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt))
+    wo = params["wo"]
+    if wo.dim() == 3:
+        return torch.einsum("bshk,hkd->bsd", out, wo.to(dt))
+    return expert_matmul(out.flatten(-2), wo.flatten(1, 2))
 
 
 def causal_mask(S: int, window: int = 0, device=None) -> Tensor:
@@ -228,27 +243,32 @@ def scatter_span(pool: Tuple[Tensor, Tensor], k_new: Tensor, v_new: Tensor,
 
 
 def chunk_attention(params, x: Tensor, cfg, pool: Tuple[Tensor, Tensor],
-                    start: int, length: int, block_table: Tensor):
-    """Chunked-prefill self-attention through the paged pool. x: (1,C,D)
-    whose row c sits at absolute position ``start + c``; ``length`` valid
-    rows (a final partial chunk is right-padded to C); block_table: (NB,)
-    int32. ``start`` and ``length`` are host ints. The chunk's K/V are
-    written into the pool first (in place; padded rows go to scratch block
-    0), so one fence — key position ≤ query position — covers the prefix
-    and the chunk. Returns (out (1,C,D), pool)."""
-    C = x.shape[1]
+                    start: int, length: int, block_tables: Tensor):
+    """Chunked-prefill self-attention through the paged pool. x: (B,C,D),
+    row c of each batch row at absolute position ``start + c``; ``length``
+    valid rows (a final partial chunk is right-padded to C);
+    block_tables: (B,NB) int32, one request's table a row (B = 1 for one
+    model; B = K for an expert stack, whose rows share the request's
+    logical table, offset into each expert's part of the pool); a (NB,)
+    table is B = 1, the reference's form. ``start`` and ``length`` are host
+    ints. The chunk's K/V are written into the
+    pool first (in place; padded rows go to scratch block 0), so one fence
+    — key position ≤ query position — covers the prefix and the chunk.
+    Returns (out (B,C,D), pool)."""
+    B, C = x.shape[:2]
     k_pool, v_pool = pool
     bs = k_pool.shape[1]
-    NB = block_table.shape[0]
+    block_tables = block_tables.reshape(B, -1)
+    NB = block_tables.shape[1]
     offs = torch.arange(C, device=x.device)
     pos_c = start + offs
     q, k_new, v_new = _qkv(params, x, cfg, pos_c[None, :])
     valid = offs < length
-    blk = torch.where(valid, block_table[(pos_c // bs).clamp(0, NB - 1)],
+    blk = torch.where(valid, block_tables[:, (pos_c // bs).clamp(0, NB - 1)],
                       0).long()
-    off = torch.where(valid, pos_c % bs, 0)
-    k_pool.index_put_((blk, off), k_new[0].to(k_pool.dtype))
-    v_pool.index_put_((blk, off), v_new[0].to(v_pool.dtype))
-    out = kops.chunk_prefill_attention(q[0].contiguous(), k_pool, v_pool,
-                                       start, block_table)
-    return _project_out(params, out[None], x.dtype), (k_pool, v_pool)
+    off = torch.where(valid, pos_c % bs, 0).expand(B, C)
+    k_pool.index_put_((blk, off), k_new.to(k_pool.dtype))
+    v_pool.index_put_((blk, off), v_new.to(v_pool.dtype))
+    out = kops.chunk_prefill_attention(q.contiguous(), k_pool, v_pool,
+                                       start, block_tables)
+    return _project_out(params, out, x.dtype), (k_pool, v_pool)

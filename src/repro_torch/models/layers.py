@@ -1,6 +1,16 @@
 """Shared building blocks (port of ``repro.models.layers``): norms, RoPE,
 SwiGLU, embeddings, the training loss. Numerics follow the reference: norms and RoPE in
-float32, projections in the working dtype, logits upcast to float32."""
+float32, projections in the working dtype, logits upcast to float32.
+
+Every function also takes a stack of K experts' parameters
+(``core.ensemble.stack_experts_for_decode``): each leaf then carries a
+leading K dim, and the activations carry K folded into their batch, rows
+expert-major (expert k's B rows are rows k·B .. k·B + B − 1). A weight
+product is then one batched product over K (``expert_matmul``) and a
+per-channel parameter pairs expert k's values with expert k's rows
+(``per_expert``): the reference's ``jax.vmap`` over the expert dim,
+written out. One model's parameters take the unchanged single-model
+arithmetic."""
 from __future__ import annotations
 
 from typing import Dict, Optional
@@ -13,12 +23,40 @@ from .params import ParamSpec
 Tensor = torch.Tensor
 
 
+def expert_matmul(x: Tensor, w: Tensor) -> Tensor:
+    """x (K·N, ..., D), rows expert-major, times an expert stack w (K, D,
+    *out) → (K·N, ..., *out) in x's dtype: one batched product over K."""
+    K, D = w.shape[:2]
+    y = torch.bmm(x.reshape(K, -1, D), w.reshape(K, D, -1).to(x.dtype))
+    return y.reshape(*x.shape[:-1], *w.shape[2:])
+
+
+def linear(x: Tensor, w: Tensor) -> Tensor:
+    """x (..., D) @ w (D, F) in x's dtype, or an expert stack w (K, D, F)
+    over expert-major rows (``expert_matmul``)."""
+    if w.dim() == 2:
+        return x @ w.to(x.dtype)
+    return expert_matmul(x, w)
+
+
+def per_expert(op, x: Tensor, p: Tensor, base: int = 1) -> Tensor:
+    """``op(x, p)`` with p (of ``base`` dims) broadcast over x's trailing
+    dims; an expert stack p (K, *base dims) pairs expert k's values with
+    its rows of x (K·N, ...), expert-major."""
+    if p.dim() == base:
+        return op(x, p)
+    K = p.shape[0]
+    xv = x.reshape(K, -1, *x.shape[1:])
+    pv = p.reshape(K, *(1,) * (x.dim() - base), *p.shape[1:])
+    return op(xv, pv).reshape(x.shape)
+
+
 def rms_norm(x: Tensor, scale: Tensor, eps: float = 1e-5) -> Tensor:
     dtype = x.dtype
     x32 = x.float()
     var = (x32 * x32).mean(dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps)
-    return (out * scale.float()).to(dtype)
+    return per_expert(torch.mul, out, scale.float()).to(dtype)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> Tensor:
@@ -52,10 +90,9 @@ def swiglu_specs(d_model: int, d_ff: int) -> Dict[str, ParamSpec]:
 
 
 def swiglu(params: Dict[str, Tensor], x: Tensor) -> Tensor:
-    dt = x.dtype
-    gate = F.silu(x @ params["w_gate"].to(dt))
-    up = x @ params["w_up"].to(dt)
-    return (gate * up) @ params["w_down"].to(dt)
+    gate = F.silu(linear(x, params["w_gate"]))
+    up = linear(x, params["w_up"])
+    return linear(gate * up, params["w_down"])
 
 
 def embedding_specs(vocab: int, d_model: int, tie: bool) -> Dict[str, ParamSpec]:
@@ -67,14 +104,19 @@ def embedding_specs(vocab: int, d_model: int, tie: bool) -> Dict[str, ParamSpec]
 
 
 def embed(params: Dict[str, Tensor], tokens: Tensor, dtype) -> Tensor:
-    return params["embedding"][tokens].to(dtype)
+    """tokens (B, ...) → (B, ..., D); an expert stack embeds the same
+    tokens with each expert's table, (K·B, ..., D) expert-major."""
+    table = params["embedding"]
+    if table.dim() == 3:
+        return table[:, tokens].flatten(0, 1).to(dtype)
+    return table[tokens].to(dtype)
 
 
 def unembed(params: Dict[str, Tensor], x: Tensor, tie: bool,
             true_vocab: int = 0) -> Tensor:
-    w = params["embedding"].T if tie else params["unembed"]
+    w = params["embedding"].transpose(-1, -2) if tie else params["unembed"]
     # the product in the working dtype, then float32 for a stable softmax
-    logits = (x @ w.to(x.dtype)).float()
+    logits = linear(x, w).float()
     V = logits.shape[-1]
     if true_vocab and true_vocab < V:      # mask padded vocab rows
         pad = torch.arange(V, device=logits.device) >= true_vocab

@@ -22,6 +22,19 @@ cache for the dense family (``speculative_capable``,
 ``forward`` and ``loss`` with their gradient for the dense family (the
 hybrid family's forward without it). The other families are not ported
 yet (see ROADMAP.md).
+
+The serving paths (``prefill``, ``embed_prompt``, ``init_chunk_carry``,
+``prefill_chunk``, ``decode_step``, ``decode_step_paged``) also take a
+stack of K experts' parameters (``core.ensemble.stack_experts_for_decode``:
+``blocks`` leaves (L, K, ...), every other leaf (K, ...)) with caches that
+carry K at axis 1 of every leaf (``init_cache``/``init_paged_cache`` with
+``experts=K``, ``CacheSpec.shifted(1)``), as the reference's ``jax.vmap``
+over the expert dim does: the same body runs once with K folded into the
+batch of every activation and kernel launch, rows expert-major. The paged
+pool (L, K, P, block, KV, dh) is viewed as (L, K·P, ...), and expert k's
+copy of each block table is offset by k·P, so the K experts of a slot
+share one logical table; tokens and positions are shared too. Logits come
+back with a leading K dim.
 """
 from __future__ import annotations
 
@@ -52,11 +65,29 @@ def stack_specs(tree, n: int):
     return {k: stack_specs(v, n) for k, v in tree.items()}
 
 
-def layer_slice(tree, i: int):
-    """Layer ``i`` of a stacked parameter tree (views, no copies)."""
+def layer_slice(tree, i: int, axis: int = 0):
+    """Layer ``i`` (along ``axis``) of a stacked parameter tree (views, no
+    copies)."""
     if isinstance(tree, dict):
-        return {k: layer_slice(v, i) for k, v in tree.items()}
-    return tree[i]
+        return {k: layer_slice(v, i, axis) for k, v in tree.items()}
+    return tree.select(axis, i)
+
+
+def n_stacked(params) -> int:
+    """K for a stack of K experts' parameters, 0 for one model's."""
+    norm = params["final_norm"]
+    return norm.shape[0] if norm.dim() == 2 else 0
+
+
+def _kv(leaf: Tensor, i: int, K: int) -> Tensor:
+    """Attention layer ``i`` of a K/V cache or pool leaf; an expert stack's
+    (K, B or P, ...) viewed as (K·B or K·P, ...)."""
+    return leaf[i].flatten(0, 1) if K else leaf[i]
+
+
+def _unfold(t: Tensor, K: int, axis: int) -> Tensor:
+    """K·B rows at ``axis`` back to (K, B) there (no-op for one model)."""
+    return t.unflatten(axis, (K, -1)) if K else t
 
 
 def _norm_spec(d):
@@ -122,6 +153,16 @@ class CacheSpec:
             row = row.reshape(row.shape[:ax] + (nb, bs) + row.shape[ax + 1:])
             full[(slice(None),) * ax + (idx,)] = row.to(full.dtype)
         return cache
+
+    def shifted(self, n: int) -> "CacheSpec":
+        """The layout with ``n`` more leading dims on every leaf (an expert
+        stack's K at axis 1): batch and sequence axes move by ``n``."""
+        paged = None if self.paged is None else PagedLayout(
+            self.paged.block_size,
+            {k: a + n if a >= 0 else a
+             for k, a in self.paged.seq_axes.items()})
+        return CacheSpec({k: a + n for k, a in self.batch_axes.items()},
+                         paged)
 
     def insert_direct(self, cache, carry, slot: int):
         """Write a chunked-prefill carry (single-request direct-leaf decode
@@ -224,45 +265,50 @@ class Model:
         paged = PagedLayout(block_size, seq) if block_size > 0 else None
         return CacheSpec(axes, paged)
 
-    def _direct_leaves(self, batch: int, device) -> Dict[str, Tensor]:
+    def _direct_leaves(self, batch: int, device,
+                       experts: int = 0) -> Dict[str, Tensor]:
         """Zeroed per-slot leaves: the hybrid family's SSM states (G, gm,
         batch, H, N, P) in float32 and conv windows (G, gm, batch, W−1, C)
-        in the compute dtype; none for the dense family."""
+        in the compute dtype, (G, K, gm, ...) for ``experts`` = K; none for
+        the dense family."""
         if not self.hybrid:
             return {}
-        lead = (self.n_groups, self.group_m)
+        lead = (self.n_groups, *((experts,) if experts else ()),
+                self.group_m)
         ssm_s, conv_s = ssm_lib.mamba2_state_shapes(self.cfg, batch)
         return {"ssm": torch.zeros(lead + ssm_s, dtype=torch.float32,
                                    device=device),
                 "conv": torch.zeros(lead + conv_s, dtype=self.cfg.cdtype,
                                     device=device)}
 
-    def init_cache(self, batch: int, cache_len: int,
-                   device="cuda") -> Dict[str, Tensor]:
+    def _kv_leaves(self, rows: tuple, experts: int, device):
+        cfg = self.cfg
+        shape = (self.n_groups, *((experts,) if experts else ()), *rows,
+                 cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
+                "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}
+
+    def init_cache(self, batch: int, cache_len: int, device="cuda",
+                   experts: int = 0) -> Dict[str, Tensor]:
         """Zeroed contiguous (L, batch, S_kv, KV, dh) K and V caches in the
         compute dtype (L = the attention layers: one per group for the
         hybrid family), beside any per-slot leaves; S_kv = min(cache_len,
         window) for a sliding window (a ring of slot = pos % S_kv), else
-        cache_len."""
-        cfg = self.cfg
-        win = cfg.sliding_window
+        cache_len. ``experts`` = K puts K at axis 1 of every leaf."""
+        win = self.cfg.sliding_window
         S_kv = min(cache_len, win) if win > 0 else cache_len
-        shape = (self.n_groups, batch, S_kv, cfg.n_kv_heads, cfg.head_dim)
-        return {**self._direct_leaves(batch, device),
-                "k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
-                "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}
+        return {**self._direct_leaves(batch, device, experts),
+                **self._kv_leaves((batch, S_kv), experts, device)}
 
     def init_paged_cache(self, n_slots: int, n_blocks: int, block_size: int,
-                         cache_len: int, device="cuda") -> Dict[str, Tensor]:
+                         cache_len: int, device="cuda",
+                         experts: int = 0) -> Dict[str, Tensor]:
         """Zeroed (L, n_blocks, block_size, KV, dh) K and V pools in the
         compute dtype; per-slot (direct) leaves keep their ``n_slots``
-        rows. ``cache_len`` sizes nothing the ported families have."""
-        cfg = self.cfg
-        shape = (self.n_groups, n_blocks, block_size, cfg.n_kv_heads,
-                 cfg.head_dim)
-        return {**self._direct_leaves(n_slots, device),
-                "k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
-                "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}
+        rows. ``cache_len`` sizes nothing the ported families have.
+        ``experts`` = K puts K at axis 1 of every leaf."""
+        return {**self._direct_leaves(n_slots, device, experts),
+                **self._kv_leaves((n_blocks, block_size), experts, device)}
 
     # ------------------------------------------------------------------
     # The layer stack
@@ -281,12 +327,14 @@ class Model:
         cfg = self.cfg
         eps = cfg.norm_eps
         shared = params.get("shared_attn")
+        m_axis = 1 if n_stacked(params) else 0   # a group's Mamba2 layers
 
         def block(i, layer, x):
             if self.hybrid:
                 for m in range(self.group_m):
-                    x = x + mamba(i, m, layer_slice(layer["mamba"], m),
-                                  rms_norm(x, layer["m_ln"][m], eps))
+                    x = x + mamba(i, m, layer_slice(layer["mamba"], m, m_axis),
+                                  rms_norm(x, layer["m_ln"].select(m_axis, m),
+                                           eps))
                 layer = shared
             h = x + attend(i, layer["attn"], rms_norm(x, layer["ln1"], eps))
             return h + swiglu(layer["ffn"], rms_norm(h, layer["ln2"], eps))
@@ -297,18 +345,27 @@ class Model:
                 else block(i, layer, x)
         return rms_norm(x, params["final_norm"], eps)
 
-    def _step_mamba(self, cache):
+    def _mamba_in_place(self, states, K: int, step):
+        """``mamba`` of ``_stack`` over the per-row states of ``states``
+        (a decode cache or a chunk carry): ``step(p, h, (ssm, conv))`` →
+        (y, new states); layer (g, m)'s states advance in place. An expert
+        stack's states (G, K, gm, B, ...) step as K·B rows."""
+        def mamba(g, m, p, h):
+            rows = [states[n][g, :, m] if K else states[n][g, m]
+                    for n in ("ssm", "conv")]
+            y, new = step(p, h, tuple(r.flatten(0, 1) if K else r
+                                      for r in rows))
+            for r, t in zip(rows, new):
+                r.copy_(t.reshape(r.shape))
+            return y
+        return mamba
+
+    def _step_mamba(self, cache, K: int = 0):
         """``mamba`` of ``_stack`` for one decode token: each slot row's
         SSM and conv state advances in place."""
         cfg = self.cfg
-
-        def mamba(g, m, p, h):
-            ssm_st, conv_st = cache["ssm"][g, m], cache["conv"][g, m]
-            y, (st, cc) = ssm_lib.mamba2_step(p, h, cfg, (ssm_st, conv_st))
-            ssm_st.copy_(st)
-            conv_st.copy_(cc)
-            return y
-        return mamba
+        return self._mamba_in_place(
+            cache, K, lambda p, h, st: ssm_lib.mamba2_step(p, h, cfg, st))
 
     # ------------------------------------------------------------------
     # Teacher-forced forward (training / eval)
@@ -359,8 +416,10 @@ class Model:
         (L, B, S_kv, KV, dh): the prompt's K/V right-padded to S_kv, or,
         windowed, its last S_kv positions in the ring layout (slot =
         pos % S_kv); the hybrid family adds each Mamba2 layer's SSM state
-        and conv window after the prompt."""
+        and conv window after the prompt. An expert stack gives logits
+        (K,B,S,V) and K at axis 1 of every cache leaf."""
         cfg = self.cfg
+        K = n_stacked(params)
         x = embed(params["embed"], batch["tokens"], cfg.cdtype)
         S = x.shape[1]
         win = cfg.sliding_window
@@ -387,32 +446,49 @@ class Model:
 
         x = self._stack(params, x, attend, mamba)
         logits = unembed(params["embed"], x, cfg.tie_embeddings, cfg.vocab)
-        cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+        cache = {}
         if self.hybrid:
             lead = (self.n_groups, self.group_m)
-            ssm_s = torch.stack([st for st, _ in states])
-            conv_s = torch.stack([cc for _, cc in states])
-            cache = {"ssm": ssm_s.reshape(lead + ssm_s.shape[1:]),
-                     "conv": conv_s.reshape(lead + conv_s.shape[1:]),
-                     **cache}
-        return logits, cache
+            for name, leaves in (("ssm", [st for st, _ in states]),
+                                 ("conv", [cc for _, cc in states])):
+                t = torch.stack(leaves)
+                t = _unfold(t.reshape(lead + t.shape[1:]), K, 2)
+                cache[name] = t.movedim(2, 1) if K else t
+        cache["k"] = _unfold(torch.stack(ks), K, 1)
+        cache["v"] = _unfold(torch.stack(vs), K, 1)
+        return _unfold(logits, K, 0), cache
 
     # ------------------------------------------------------------------
     # Chunked prefill
     # ------------------------------------------------------------------
 
     def embed_prompt(self, params, batch) -> Tensor:
-        """Embedded prompt (1, W, D) for chunked prefill."""
+        """Embedded prompt (1, W, D) for chunked prefill ((K, W, D) for an
+        expert stack)."""
         return embed(params["embed"], batch["tokens"], self.cfg.cdtype)
 
     def init_chunk_carry(self, params, batch, cache_len: int):
         """Per-request carry between chunks: the direct (per-slot) decode
         leaves at batch extent 1, zeroed — the hybrid family's SSM states
-        and conv windows. Attention K/V chunks write straight into the
-        pool, so their entries are placeholders, as in the reference."""
+        and conv windows (K at axis 1 for an expert stack). Attention K/V
+        chunks write straight into the pool, so their entries are
+        placeholders, as in the reference."""
         dev = params["final_norm"].device
         dummy = torch.zeros((1,), dtype=self.cfg.cdtype, device=dev)
-        return {**self._direct_leaves(1, dev), "k": dummy, "v": dummy}
+        return {**self._direct_leaves(1, dev, n_stacked(params)),
+                "k": dummy, "v": dummy}
+
+    @staticmethod
+    def _expert_tables(tables: Tensor, pool: Tensor, K: int) -> Tensor:
+        """(B, NB) block tables for the attention kernels: one model's as
+        they are; for an expert stack, whose pool leaf is (L, K, P, ...),
+        expert k's copy offset by k·P into the (K·P, ...) view, (K·B, NB)
+        expert-major (scratch entries land on expert k's block k·P)."""
+        if not K:
+            return tables
+        off = torch.arange(K, dtype=tables.dtype, device=tables.device) \
+            * pool.shape[2]
+        return (tables[None] + off[:, None, None]).flatten(0, 1)
 
     def prefill_chunk(self, params, cache, carry, x: Tensor, start: int,
                       length: int, block_table: Tensor):
@@ -421,32 +497,47 @@ class Model:
         block_table: (NB,) int32. Writes the chunk's K/V into the pool and
         advances the carry's recurrent state (both in place); padded rows
         are exact no-ops on both. Returns (last_logits (1, V) at the final
-        valid row, carry, cache)."""
+        valid row, carry, cache). An expert stack takes x (K,C,D), the
+        request's one table shared by its K experts, and gives (K, 1, V)."""
         cfg = self.cfg
+        K = n_stacked(params)
+        tables = self._expert_tables(block_table[None], cache["k"], K)
 
         def attend(i, p, h):
             a, _ = attn.chunk_attention(
-                p, h, cfg, (cache["k"][i], cache["v"][i]), start, length,
-                block_table)
+                p, h, cfg, (_kv(cache["k"], i, K), _kv(cache["v"], i, K)),
+                start, length, tables)
             return a
 
-        def mamba(g, m, p, h):
-            ssm_st, conv_st = carry["ssm"][g, m], carry["conv"][g, m]
-            y, (st, cc) = ssm_lib.mamba2_chunk(p, h, cfg, (ssm_st, conv_st),
-                                               length)
-            ssm_st.copy_(st)
-            conv_st.copy_(cc)
-            return y
-
+        mamba = self._mamba_in_place(
+            carry, K, lambda p, h, st: ssm_lib.mamba2_chunk(p, h, cfg, st,
+                                                            length))
         x = self._stack(params, x, attend, mamba)
         h_last = x[:, length - 1:length]
         logits = unembed(params["embed"], h_last, cfg.tie_embeddings,
                          cfg.vocab)
-        return logits[:, 0], carry, cache
+        return _unfold(logits[:, 0], K, 0), carry, cache
 
     # ------------------------------------------------------------------
     # Decode
     # ------------------------------------------------------------------
+
+    def _decode(self, params, cache, tokens: Tensor, pos: Tensor, attend):
+        """One token per slot through ``attend(i, p, h, k, v, pos)`` over
+        attention layer i's cache or pool leaves: (logits (B, V), or
+        (K, B, V) for an expert stack, cache)."""
+        cfg = self.cfg
+        K = n_stacked(params)
+        if K:          # shared by the K experts of each slot
+            pos = pos.expand(tokens.shape[0]).repeat(K)
+        x = embed(params["embed"], tokens[:, None], cfg.cdtype)   # (B,1,D)
+        x = self._stack(
+            params, x,
+            lambda i, p, h: attend(i, p, h, _kv(cache["k"], i, K),
+                                   _kv(cache["v"], i, K), pos)[0],
+            self._step_mamba(cache, K))
+        logits = unembed(params["embed"], x, cfg.tie_embeddings, cfg.vocab)
+        return _unfold(logits[:, 0], K, 0), cache
 
     def decode_step(self, params, cache, tokens: Tensor, pos: Tensor):
         """One token per slot against the contiguous cache (written in
@@ -454,16 +545,10 @@ class Model:
         (logits (B, V), cache). Every slot row's recurrent state steps,
         idle ones included, as in the reference; admission overwrites it."""
         cfg = self.cfg
-        x = embed(params["embed"], tokens[:, None], cfg.cdtype)   # (B,1,D)
-
-        def attend(i, p, h):
-            a, _ = attn.decode_attention(
-                p, h, cfg, (cache["k"][i], cache["v"][i]), pos)
-            return a
-
-        x = self._stack(params, x, attend, self._step_mamba(cache))
-        logits = unembed(params["embed"], x, cfg.tie_embeddings, cfg.vocab)
-        return logits[:, 0], cache
+        return self._decode(
+            params, cache, tokens, pos,
+            lambda i, p, h, k, v, pos: attn.decode_attention(
+                p, h, cfg, (k, v), pos))
 
     def decode_step_paged(self, params, cache, tokens: Tensor, pos: Tensor,
                           block_tables: Tensor):
@@ -471,16 +556,12 @@ class Model:
         int32; block_tables: (B, NB) int32. Returns (logits (B, V), cache);
         the direct leaves step as in ``decode_step``."""
         cfg = self.cfg
-        x = embed(params["embed"], tokens[:, None], cfg.cdtype)   # (B,1,D)
-
-        def attend(i, p, h):
-            a, _ = attn.paged_decode_attention(
-                p, h, cfg, (cache["k"][i], cache["v"][i]), pos, block_tables)
-            return a
-
-        x = self._stack(params, x, attend, self._step_mamba(cache))
-        logits = unembed(params["embed"], x, cfg.tie_embeddings, cfg.vocab)
-        return logits[:, 0], cache
+        tables = self._expert_tables(block_tables, cache["k"],
+                                     n_stacked(params))
+        return self._decode(
+            params, cache, tokens, pos,
+            lambda i, p, h, k, v, pos: attn.paged_decode_attention(
+                p, h, cfg, (k, v), pos, tables))
 
     def verify_step_paged(self, params, cache, tokens: Tensor, pos: Tensor,
                           block_tables: Tensor):

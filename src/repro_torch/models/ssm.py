@@ -7,7 +7,10 @@ chunks: the intra-chunk part goes through ``kernels.ops.chunk_scan`` (the
 CUDA kernel on the card, its plain version on the CPU), the carry between
 chunks is a loop over the chunks, as the reference's ``lax.scan``, and
 decode is the O(1)-per-token state update. Casts follow the reference:
-states and decays in float32, projections in the working dtype.
+states and decays in float32, projections in the working dtype. The
+Mamba2 functions also take a stack of K experts' parameters with K folded
+into the batch of the activations and states (``layers``' expert-stack
+convention).
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 
-from .layers import rms_norm
+from .layers import linear, per_expert, rms_norm
 from .params import ParamSpec
 
 Tensor = torch.Tensor
@@ -93,15 +96,17 @@ def mamba2_specs(cfg) -> Dict[str, ParamSpec]:
 def _causal_conv(x: Tensor, w: Tensor, carry: Optional[Tensor] = None):
     """Depthwise causal conv1d as the reference writes it: a sum of W
     shifted products, then SiLU (no cuDNN convolution, which would run
-    float32 in TF32). x: (B,S,C); w: (W,C). Returns (y, new_carry), the
-    carry being the last W−1 inputs (decode state)."""
-    W = w.shape[0]
+    float32 in TF32). x: (B,S,C); w: (W,C) (or an expert stack (K,W,C)).
+    Returns (y, new_carry), the carry being the last W−1 inputs (decode
+    state)."""
+    W = w.shape[-2]
     if carry is None:
         carry = torch.zeros((x.shape[0], W - 1, x.shape[2]), dtype=x.dtype,
                             device=x.device)
     xp = torch.cat([carry, x], dim=1)
     S = x.shape[1]
-    y = sum(xp[:, i:i + S] * w[i][None, None, :] for i in range(W))
+    y = sum(per_expert(torch.mul, xp[:, i:i + S], w[..., i, :])
+            for i in range(W))
     return F.silu(y), xp[:, -(W - 1):] if W > 1 else carry
 
 
@@ -109,7 +114,7 @@ def _mamba2_inner(params, x: Tensor, cfg):
     B, S, D = x.shape
     Di, N, H = _d_inner(cfg), cfg.ssm.state, cfg.n_heads
     P = Di // H
-    proj = x @ params["w_in"].to(x.dtype)
+    proj = linear(x, params["w_in"])
     xs, z, Bm, Cm, dt_raw = torch.split(proj, [Di, Di, N, N, H], dim=-1)
     return xs, z, Bm, Cm, dt_raw, (B, S, Di, N, H, P)
 
@@ -123,7 +128,7 @@ def mamba2_scan_inputs(params, conv_out: Tensor, dt: Tensor, cfg, x_dtype):
     Di, N, H = _d_inner(cfg), cfg.ssm.state, cfg.n_heads
     xs, Bm, Cm = torch.split(conv_out, [Di, N, N], dim=-1)
     A = -torch.exp(params["A_log"].float())                       # (H,)
-    log_g = dt * A[None, None, :]                                 # (B,S,H)
+    log_g = per_expert(torch.mul, dt, A)                          # (B,S,H)
     q = Cm[:, :, None, :].expand(B, S, H, N)
     k = Bm[:, :, None, :].expand(B, S, H, N) * dt[..., None].to(x_dtype)
     v = xs.reshape(B, S, H, Di // H)
@@ -134,14 +139,15 @@ def mamba2_out(params, y: Tensor, v: Tensor, z: Tensor, cfg) -> Tensor:
     """D-skip, SiLU gate, norm and the output projection."""
     B, S = y.shape[:2]
     dt_ = z.dtype
-    y = y + params["D_skip"].to(dt_)[None, None, :, None] * v
+    y = y + per_expert(torch.mul, v, params["D_skip"].to(dt_)[..., None], 2)
     y = y.reshape(B, S, -1) * F.silu(z)
     y = rms_norm(y, params["norm"], cfg.norm_eps)
-    return y @ params["w_out"].to(dt_)
+    return linear(y, params["w_out"])
 
 
 def _softplus_dt(params, dt_raw: Tensor) -> Tensor:
-    return F.softplus(dt_raw.float() + params["dt_bias"].float())
+    return F.softplus(per_expert(torch.add, dt_raw.float(),
+                                 params["dt_bias"].float()))
 
 
 def mamba2_block(params, x: Tensor, cfg) -> Tensor:
@@ -158,7 +164,7 @@ def mamba2_prefill(params, x: Tensor, cfg):
     conv_in = torch.cat([xs, Bm, Cm], dim=-1)
     conv_out, conv_carry = _causal_conv(conv_in,
                                         params["conv_w"].to(x.dtype))
-    W = params["conv_w"].shape[0]
+    W = params["conv_w"].shape[-2]
     if W > 1:
         conv_carry = conv_in[:, -(W - 1):]
     dt = _softplus_dt(params, dt_raw)
@@ -176,7 +182,7 @@ def mamba2_chunk(params, x: Tensor, cfg, state, length: int):
     ssm_state, conv_carry = state
     xs, z, Bm, Cm, dt_raw, (B, S, _, _, _, _) = _mamba2_inner(params, x, cfg)
     conv_in = torch.cat([xs, Bm, Cm], dim=-1)
-    W = params["conv_w"].shape[0]
+    W = params["conv_w"].shape[-2]
     conv_out, _ = _causal_conv(conv_in, params["conv_w"].to(x.dtype),
                                conv_carry)
     if W > 1:
@@ -204,15 +210,16 @@ def mamba2_step(params, x: Tensor, cfg, state):
     xs, Bm, Cm = torch.split(conv_out, [Di, N, N], dim=-1)
     dt = _softplus_dt(params, dt_raw)[:, 0]                       # (B,H)
     A = -torch.exp(params["A_log"].float())
-    g = torch.exp(dt * A[None, :])                                # (B,H)
+    g = torch.exp(per_expert(torch.mul, dt, A))                   # (B,H)
     q = Cm[:, 0, None, :].expand(B, H, N)
     k = Bm[:, 0, None, :].expand(B, H, N) * dt[..., None].to(x.dtype)
     v = xs[:, 0].reshape(B, H, P)
     y, ssm_state = linear_attention_step(ssm_state, q, k, v, g)
-    y = y + params["D_skip"].to(x.dtype)[None, :, None] * v
+    y = y + per_expert(torch.mul, v, params["D_skip"].to(x.dtype)[..., None],
+                       2)
     y = y.reshape(B, 1, Di) * F.silu(z)
     y = rms_norm(y, params["norm"], cfg.norm_eps)
-    return y @ params["w_out"].to(x.dtype), (ssm_state, conv_carry)
+    return linear(y, params["w_out"]), (ssm_state, conv_carry)
 
 
 def mamba2_state_shapes(cfg, batch: int):

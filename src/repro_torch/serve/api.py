@@ -178,7 +178,8 @@ class EngineConfig:
                 f"preemption must be 'off', 'recompute' or 'swap', got "
                 f"{self.preemption!r}")
         refused = [
-            (self.strategy == "mixture", "strategy='mixture'"),
+            (self.strategy == "mixture" and self.speculative is not None,
+             f"speculative={self.speculative!r} under strategy='mixture'"),
             (self.qos is not None, "qos"),
             (self.preemption != "off", f"preemption={self.preemption!r}"),
             (self.prefix_cache, "prefix_cache=True"),

@@ -13,12 +13,19 @@ Semantics are exactly the reference's:
 * the capacity bound is position-exact: position ``cache_len - 1`` is
   decodable, the write that would land at ``cache_len`` is not.
 
+With ``from_probs`` the scores are the Eq. 27 mixture's probabilities
+(the mixture server's): the pick takes log(max(p, ``PROB_FLOOR``)) first,
+as the reference does, so ties below the floor resolve to the first index
+exactly as there.
+
 Seeded sampling (``temperature > 0``) is not ported yet (see ROADMAP.md);
 ``SamplingParams`` refuses it.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core.ensemble import PROB_FLOOR
 
 Tensor = torch.Tensor
 
@@ -32,21 +39,30 @@ def argmax_tokens(scores: Tensor) -> Tensor:
     return torch.argmax(scores, dim=-1).to(torch.int32)
 
 
-def pick_first(row: Tensor) -> Tensor:
-    """First token from a prefill's last-position scores (``row``: (1, V))
-    — greedy. Returns the (1,) int32 token on the device."""
-    return argmax_tokens(row)
+def _floor_log(probs: Tensor) -> Tensor:
+    return torch.log(probs.clamp_min(PROB_FLOOR))
 
 
-def decode_epilogue(scores: Tensor, state, *, cache_len: int):
+def pick_first(row: Tensor, *, from_probs: bool = False) -> Tensor:
+    """First token from a prefill's last-position scores (``row``: (1, V);
+    mixture probabilities with ``from_probs``) — greedy. Returns the (1,)
+    int32 token on the device."""
+    return argmax_tokens(_floor_log(row) if from_probs else row)
+
+
+def decode_epilogue(scores: Tensor, state, *, cache_len: int,
+                    from_probs: bool = False):
     """One lockstep decode step's epilogue as tensor ops.
 
-    scores: (n_slots, V); state: the per-slot device-state dict (see
+    scores: (n_slots, V) (mixture probabilities with ``from_probs``);
+    state: the per-slot device-state dict (see
     ``_SlotTable._device_state``) with tok/pos/counts/max_new (int32),
     active (bool) and stop_ids (int32, padded with -1). Returns
     ``(new_state, next_tok, done)``: finished rows are parked at tok/pos 0
     (the scratch-writing idle configuration) and deactivated; inactive rows
     keep their input token; ``done`` is the ``DONE_REASONS`` bitmap."""
+    if from_probs:
+        scores = _floor_log(scores)
     active = state["active"]
     act = active.to(torch.int32)
     nxt = torch.where(active, argmax_tokens(scores), state["tok"])

@@ -21,6 +21,13 @@ slot, the committed token plus host n-gram drafts (``serve.speculate``),
 in one forward (``Model.fused_verify_step``) and emit the accepted run:
 the same tokens as vanilla decode, up to ``spec_len`` of them per step.
 
+With ``strategy="mixture"`` the deployment is one ``MixtureSlotServer``
+instead of the pods: the K experts stacked on one tensor dim
+(``core.ensemble``), every request routed at admission to an (n_slots,
+K) row of router weights, and each step one stacked forward whose K
+experts' next-token distributions are mixed by Eq. 27 before the greedy
+pick, in each of the three configurations above.
+
 **The single-dispatch contract.** Each step is one forward (decode or
 span verify, plus at most one prefill chunk beside a decode) and its
 on-device epilogue, followed by ONE host readback: ``(next_tok, done)``,
@@ -31,9 +38,9 @@ rebuilt from the host mirrors only on admission, retirement or
 block-table growth. No ``.item()`` sits in the layer loop.
 
 What this port does not run yet is refused by ``EngineConfig.validate``:
-the mixture core (and with it expert-0 drafting), QoS and preemption, the
-prefix cache, the sanitizer, tracing and metrics export, sampling, and the
-unfused step (see ROADMAP.md).
+speculation under the mixture (n-gram or expert-0 drafting), QoS and
+preemption, the prefix cache, the sanitizer, tracing and metrics export,
+sampling, and the unfused step (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -44,6 +51,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.ensemble import (make_stacked_fused, mix_expert_logits,
+                                       stack_experts_for_decode)
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
 from repro_torch.serve.api import (EngineConfig, RequestOutput,
@@ -194,11 +203,19 @@ class _SlotTable:
     subject to ``token_budget`` (decoding slots count 1 each, the chunk
     counts ``chunk``)."""
 
-    def __init__(self, n_slots: int, cache_len: int, *, block_size: int = 0,
-                 n_blocks: int = 0, window: int = 0, chunk: int = 0,
-                 token_budget: int = 0, device):
+    def __init__(self, model: Model, config: EngineConfig, device):
+        """The table of ``config`` (validated against ``model``) on
+        ``device``."""
+        config.validate(model)
+        self.config = config
+        n_slots, cache_len = config.n_slots, config.cache_len
+        block_size = effective_page_block(
+            model, config.page_block if config.paged else 0)
+        n_blocks, window = config.pool_blocks, model.cfg.sliding_window
+        chunk = config.chunk if config.chunked_prefill else 0
+        token_budget = config.token_budget
         self.n_slots, self.cache_len = n_slots, cache_len
-        self.device = device
+        self.device = resolve_device(device)
         self.pos = np.zeros(n_slots, dtype=np.int32)      # next position
         self.slot_req: List[Optional[Request]] = [None] * n_slots
         self.last_tok = np.zeros(n_slots, dtype=np.int32)
@@ -577,10 +594,26 @@ class _SlotTable:
                 "counts": counts, "max_new": max_new, "stop_ids": stops}
         if self.paged:
             host["tables"] = self._decode_tables()[:, :self._nb_live()]
-        self._dstate = {k: torch.as_tensor(np.ascontiguousarray(v),
-                                           device=dev)
-                        for k, v in host.items()}
+        self._dstate = self._state_extras(
+            {k: torch.as_tensor(np.ascontiguousarray(v), device=dev)
+             for k, v in host.items()})
         return self._dstate
+
+    def _state_extras(self, st: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        """Extra per-slot device state the fused step needs (the mixture
+        server adds its router weights)."""
+        return st
+
+    def _new_cache(self, model: Model, experts: int = 0):
+        """The zeroed serving cache: the paged pool or contiguous rows,
+        with ``experts`` = K at axis 1 of every leaf for an expert
+        stack."""
+        if self.paged:
+            return model.init_paged_cache(
+                self.n_slots, self.allocator.n_blocks, self.block_size,
+                self.cache_len, device=self.device, experts=experts)
+        return model.init_cache(self.n_slots, self.cache_len,
+                                device=self.device, experts=experts)
 
     def _advance_fused(self, dec: List[int], nxt: np.ndarray,
                        done: np.ndarray) -> List[Request]:
@@ -877,25 +910,10 @@ class SlotServer(_SlotTable):
 
     def __init__(self, model: Model, params, *, config: EngineConfig,
                  device="cuda", fused_fns=None):
-        config.validate(model)
-        self.config = config
-        device = resolve_device(device)
-        block = effective_page_block(
-            model, config.page_block if config.paged else 0)
-        super().__init__(config.n_slots, config.cache_len, block_size=block,
-                         n_blocks=config.pool_blocks,
-                         window=model.cfg.sliding_window,
-                         chunk=config.chunk if config.chunked_prefill else 0,
-                         token_budget=config.token_budget, device=device)
+        super().__init__(model, config, device)
         self.model, self.params = model, params
-        if self.paged:
-            self.cache = model.init_paged_cache(
-                self.n_slots, self.allocator.n_blocks, block, self.cache_len,
-                device=device)
-        else:
-            self.cache = model.init_cache(self.n_slots, self.cache_len,
-                                          device=device)
-        self.spec = model.cache_spec(block)
+        self.cache = self._new_cache(model)
+        self.spec = model.cache_spec(self.block_size)
         self._prep = make_chunk_fns(model, self.cache_len)
         self._fstep, self._fstep_chunk, self._fchunk_only = \
             fused_fns or make_fused_fns(model, self.cache_len,
@@ -951,10 +969,111 @@ class SlotServer(_SlotTable):
         return first
 
 
+class MixtureSlotServer(_SlotTable):
+    """Continuous batching over the stacked expert ensemble (port of
+    ``repro.serve.scheduler.MixtureSlotServer``): one cache carrying the
+    expert (K) dim at axis 1 of every leaf, one stacked decode step per
+    scheduler step with the Eq. 27 mixture and the greedy epilogue fused in
+    (``core.ensemble.make_stacked_fused``), and per-slot router weights
+    fixed at admission. In the paged layout the pool carries the K dim too,
+    and all K experts of a slot share ONE block table. A request is routed
+    when admission pays for its prefill: after its blocks are reserved, so
+    a request blocked on free KV blocks does not run the router again each
+    retry."""
+
+    def __init__(self, model: Model, expert_params: List[Any], router, *,
+                 config: EngineConfig, device="cuda"):
+        super().__init__(model, config, device)
+        self.model, self.router = model, router.to(self.device)
+        self.K = len(expert_params)
+        self.stacked = stack_experts_for_decode(
+            [tree_map(lambda t: t.to(self.device), p)
+             for p in expert_params])
+        self.cache = self._new_cache(model, experts=self.K)
+        self.spec = model.cache_spec(self.block_size).shifted(1)
+        self.weights = np.zeros((self.n_slots, self.K), np.float32)
+        self._prep = make_chunk_fns(model, self.cache_len)
+        self._fstep, self._fstep_chunk, self._fchunk_only = \
+            make_stacked_fused(model, self.cache_len, paged=self.paged)
+
+    def _route(self, req: Request) -> np.ndarray:
+        """The request's (K,) top-k-filtered Eq. 28 weights: one router
+        launch, read back once (the host keeps the weights mirror)."""
+        feats = torch.as_tensor(np.asarray(req.features, np.float32)[None],
+                                device=self.device)
+        return self.router.route(
+            feats.to(self.router.centroids.dtype)).float().cpu().numpy()[0]
+
+    def admit(self, req: Request) -> bool:
+        """Admit a request into a free slot, as ``SlotServer.admit`` does,
+        over the expert stack: chunked, reserve its blocks, park the slot
+        mid-prefill and route it; monolithic, prefill it on every expert,
+        route it and pick its first token from the Eq. 27 mixture of the
+        experts' last rows."""
+        free = self.free_slots()
+        if not free:
+            return False
+        if req.features is None:
+            raise ValueError("mixture admission routes on request features")
+        slot, width = free[0], len(req.tokens)
+        if self.chunked:
+            if not self._admit_chunked(
+                    req, slot, width, lambda b: self._prep(self.stacked, b)):
+                return False
+            self.weights[slot] = self._route(req)
+            return True
+        if not self._admission_precheck(req, slot, width):
+            return False
+        w = self._route(req)
+        logits, row_cache = self.model.prefill(
+            self.stacked, req.batch(self.device), self.cache_len)
+        probs = mix_expert_logits(logits[:, :, -1], torch.as_tensor(
+            w[None], device=self.device))                       # (1, V)
+        first = int(pick_first(probs, from_probs=True).cpu()[0])
+        if width == self.cache_len:
+            self._retire_at_admission(req, first)
+            return True
+        self.weights[slot] = w
+        self._admit_prefilled(slot, req, first, width, row_cache)
+        return True
+
+    def _state_extras(self, st):
+        st["weights"] = torch.as_tensor(self.weights, device=self.device)
+        return st
+
+    def _weights_row(self, slot: int) -> Tensor:
+        return torch.as_tensor(self.weights[slot:slot + 1],
+                               device=self.device)
+
+    def _run_fused(self, st):
+        self.cache, self._dstate, nxt, done = self._fstep(
+            self.stacked, self.cache, st)
+        return nxt, done
+
+    def _run_fused_chunk(self, st, slot, xc, start, length, cbt):
+        (self.cache, self._dstate, nxt, done, first,
+         self.prefill_carry[slot]) = self._fstep_chunk(
+            self.stacked, self.cache, st, self.prefill_carry[slot], xc,
+            start, length, cbt, self._weights_row(slot))
+        return nxt, done, first
+
+    def _run_chunk_only(self, slot, xc, start, length, cbt):
+        first, self.prefill_carry[slot], self.cache = self._fchunk_only(
+            self.stacked, self.cache, self.prefill_carry[slot], xc, start,
+            length, cbt, self._weights_row(slot))
+        return first
+
+
 class DecentralizedSlotServer:
-    """Front-end centroid router over continuously batched expert pods
-    (strategy "top1"): one ``SlotServer`` per expert; each request decodes
-    on exactly the expert the router assigns it."""
+    """Front-end centroid router over continuously batched expert pods.
+
+    strategy="top1"    — one ``SlotServer`` per expert; the router runs at
+                         submission and each request decodes on exactly
+                         the expert it assigns.
+    strategy="mixture" — one ``MixtureSlotServer`` (``core``, and the only
+                         entry of ``pods``) over the stacked experts; the
+                         router runs at admission.
+    """
 
     def __init__(self, model: Model, expert_params: List[Any], router, *,
                  config: EngineConfig, device="cuda"):
@@ -969,6 +1088,11 @@ class DecentralizedSlotServer:
                              f"{router.K} centroids")
         self.strategy = config.strategy
         self._next_rid = 0
+        if self.strategy == "mixture":
+            self.core = MixtureSlotServer(model, expert_params, self.router,
+                                          config=config, device=self.device)
+            self.pods = [self.core]
+            return
         fns = make_fused_fns(model, config.cache_len, paged=config.paged)
         self.pods = [SlotServer(model,
                                 tree_map(lambda t: t.to(self.device), p),
@@ -989,7 +1113,9 @@ class DecentralizedSlotServer:
     def add_request(self, prompt, params: Optional[SamplingParams] = None,
                     *, features: Optional[np.ndarray] = None,
                     rid: Optional[int] = None) -> int:
-        """Submit a request: the Eq. 28 router (B = 1) picks its pod."""
+        """Submit a request: the Eq. 28 router (B = 1) picks its pod (top-1),
+        or the request joins the mixture core's queue and is routed at
+        admission."""
         req = _as_request(prompt, params, features,
                           self._next_rid if rid is None else rid)
         if req.features is None:
@@ -997,6 +1123,8 @@ class DecentralizedSlotServer:
         self._next_rid = max(self._next_rid, req.rid + 1)
         # submission is now: the routing dispatch counts toward TTFT
         req.t_submit = req.t_submit or time.perf_counter()
+        if self.strategy == "mixture":
+            return self.core.add_request(req)
         k = int(self.router.top1(self._features(req.features[None])).cpu()[0])
         return self.pods[k].add_request(req)
 
@@ -1027,8 +1155,9 @@ def make_engine(model: Model, params: Any = None, *,
     """Build the serving engine from ONE validated ``EngineConfig``:
     ``make_engine(model, params, config=cfg)`` → a ``SlotServer``;
     ``make_engine(model, experts=[...], router=r, config=cfg)`` → the
-    top-1 decentralized deployment. Runs on ``device`` (the card unless
-    the caller passes ``device="cpu"``); params and router move there."""
+    decentralized deployment, top-1 pods or (``strategy="mixture"``) the
+    stacked Eq. 27 core. Runs on ``device`` (the card unless the caller
+    passes ``device="cpu"``); params and router move there."""
     config = config if config is not None else EngineConfig()
     config.validate(model)
     if experts is not None:

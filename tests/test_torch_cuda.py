@@ -87,6 +87,116 @@ def test_chunk_prefill_kernel_on_card(cuda, dtype, tol):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,C,NB,block,H,KV,dh,start", [
+    (2, 40, 8, 16, 32, 8, 128, 60),       # Qwen3-8B heads, an expert pair
+    (2, 33, 8, 32, 32, 32, 80, 200),      # Zamba2's MHA heads
+    (3, 100, 16, 8, 8, 2, 64, 20),        # two row tiles, block 8
+])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
+                                       (torch.bfloat16, 8e-3)])
+def test_batched_chunk_prefill_on_card(cuda, B, C, NB, block, H, KV, dh,
+                                       start, dtype, tol):
+    """B chunks at one start, each through its own table row (an expert
+    stack's chunk step): against the plain version in float32 on the same
+    values, and each batch row exactly the unbatched launch of its own."""
+    rng = np.random.default_rng(B * C)
+    P = B * NB + 1
+    q, kp, vp = (torch.as_tensor(a, device=cuda).to(dtype) for a in (
+        f32(rng, B, C, H, dh), f32(rng, P, block, KV, dh),
+        f32(rng, P, block, KV, dh)))
+    bt = torch.as_tensor(rng.permutation(np.arange(1, P))[:B * NB]
+                         .reshape(B, NB).astype(np.int32), device=cuda)
+    got = dk.chunk_prefill_attention(q, kp, vp, start, bt)
+    want = dk.chunk_prefill_attention_ref(q.float(), kp.float(), vp.float(),
+                                          start, bt)
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+    for b in range(B):
+        torch.testing.assert_close(
+            got[b], dk.chunk_prefill_attention(q[b].contiguous(), kp, vp,
+                                               start, bt[b].contiguous()),
+            rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,KV,dh", [(8, 2, 128), (4, 4, 80)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
+                                       (torch.bfloat16, 8e-3)])
+def test_paged_decode_under_expert_table_offsets_on_card(cuda, H, KV, dh,
+                                                         dtype, tol):
+    """Paged decode as a stacked decode step launches it: 2 experts' pools
+    viewed as one pool of 2·P pages, each slot's shared table offset by
+    k·P for expert k (``Model._expert_tables``; scratch entries land on
+    page k·P), 2·B rows in one launch, against the plain version in
+    float32 on the same values."""
+    from repro_torch.models.model import Model
+    K, pos = 2, (0, 31, 63)
+    q0, kp0, vp0, pos, bt = paged_inputs(21, 3, 4, 16, H, KV, dh, pos=pos,
+                                         unallocated=True)
+    q1, kp1, vp1, _, _ = paged_inputs(22, 3, 4, 16, H, KV, dh, pos=pos,
+                                      unallocated=True)
+    q, kp, vp = (torch.as_tensor(np.stack(a), device=cuda).to(dtype)
+                 for a in ((q0, q1), (kp0, kp1), (vp0, vp1)))
+    tables = Model._expert_tables(torch.as_tensor(bt, device=cuda), kp[None],
+                                  K)
+    args = (q.flatten(0, 1), kp.flatten(0, 1), vp.flatten(0, 1),
+            torch.as_tensor(pos, device=cuda).repeat(K), tables)
+    launched = dk.paged_decode_attention.launches
+    got = dk.paged_decode_attention(*args)
+    assert dk.paged_decode_attention.launches == launched + 1
+    want = dk.paged_decode_attention_ref(*(a.float() if a.is_floating_point()
+                                           else a for a in args))
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_mixture_serves_as_on_the_cpu_with_one_launch_a_layer(cuda):
+    """The smoke-size float32 Qwen3 mixture (3 experts, top_k 2, paged +
+    chunked) on the card gives the CPU's tokens and finish reasons, and
+    each stacked decode step launches paged decode once per attention
+    layer, not once per expert."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.router import CentroidRouter, RouterConfig
+    from repro_torch.models import build_model
+    from repro_torch.serve.api import EngineConfig, SamplingParams
+    from repro_torch.serve.scheduler import make_engine
+
+    cfg = get_smoke_config("qwen3_8b")
+    model = build_model(cfg)
+    experts = [model.init(torch.Generator().manual_seed(k)) for k in range(3)]
+    rng = np.random.default_rng(1)
+    router = CentroidRouter(torch.as_tensor(f32(rng, 3, 16)),
+                            RouterConfig(top_k=2))
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (5, 19, 30, 8)]
+    feats = f32(rng, 4, 16)
+    ecfg = EngineConfig(n_slots=2, cache_len=48, paged=True, page_block=8,
+                        chunked_prefill=True, chunk=8, strategy="mixture")
+    res, steps = [], []
+    for dev in ("cpu", "cuda"):
+        eng = make_engine(model, experts=experts, router=router, config=ecfg,
+                          device=dev)
+        core, n = eng.core, [0]
+        for name in ("_fstep", "_fstep_chunk"):
+            def counted(*a, _fn=getattr(core, name)):
+                n[0] += 1
+                return _fn(*a)
+            setattr(core, name, counted)
+        ops.reset_launch_counts()
+        for i, p in enumerate(prompts):
+            eng.add_request(p, SamplingParams(max_new=10), features=feats[i],
+                            rid=i)
+        out = {}
+        while eng.has_unfinished():
+            for o in eng.step():
+                if o.finished:
+                    out[o.rid] = (o.token_ids, o.finish_reason)
+        res.append(out)
+        steps.append(n[0])
+    assert res[0] == res[1] and len(res[1]) == 4
+    assert dk.paged_decode_attention.launches == steps[1] * cfg.n_layers
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("B,S,H,KV,dh,causal,window", [
     (2, 77, 8, 2, 64, True, 0),        # ragged S, GQA 4:1
     (2, 96, 8, 2, 64, False, 0),       # not causal
@@ -346,6 +456,38 @@ def test_router_kernel_on_card(cuda):
     torch.testing.assert_close(rk.router_scores(x, c, 10.0),
                                rk.router_scores_ref(x, c, 10.0),
                                rtol=5e-5, atol=5e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,D,K,dtype,offset", [
+    (1, 32, 2, torch.float32, 0),          # one warp, 16-byte loads
+    (16, 32, 2, torch.float32, 0),         # 4 rows a warp
+    (5, 32, 2, torch.float32, 0),          # rows past B in a warp
+    (6, 32, 12, torch.float32, 0),         # more centroids than a row's lanes
+    (40, 4, 3, torch.float32, 0),          # a lane a row, 32 rows a warp
+    (65536, 32, 2, torch.float32, 0),
+    (100, 64, 6, torch.float32, 0),
+    (9, 64, 6, torch.bfloat16, 0),         # 8 bf16 a load
+    (5, 33, 3, torch.float32, 0),          # D not a multiple: scalar loads
+    (5, 32, 2, torch.float32, 1),          # unaligned rows: scalar loads
+    (12, 8192, 8, torch.float32, 0),       # K·D past 48 KB: 6 slabs of D
+    (3, 5000, 4, torch.bfloat16, 0),       # slabs, bf16
+    (7, 64, 9, torch.float32, 0),          # a second chunk of centroids
+    (5, 96, 40, torch.float32, 0),         # more centroids than lanes
+])
+def test_router_kernel_launch_plans_on_card(cuda, B, D, K, dtype, offset):
+    """Each launch plan of ``router_plan`` (warps a block, lanes a row,
+    slabs, vector width) against the plain version, float32 at 5e-5, bf16
+    at one bf16 ulp of a probability (8e-3)."""
+    gen = torch.Generator(device=cuda).manual_seed(B + D)
+    flat = torch.randn(B * D + offset, generator=gen, device=cuda)
+    x = flat[offset:].view(B, D).to(dtype)
+    c = torch.randn((K, D), generator=gen, device=cuda).to(dtype)
+    tol = 5e-5 if dtype == torch.float32 else 8e-3
+    torch.testing.assert_close(rk.router_scores(x, c, 10.0).float(),
+                               rk.router_scores_ref(x.float(), c.float(),
+                                                    10.0),
+                               rtol=tol, atol=tol)
 
 
 # Zamba2's shared attention block: MHA (H = KV = 32) at dh = 80

@@ -3,11 +3,14 @@ decentralized deployment over 2 expert pods with the paged pool, chunked
 prefill and the fused decode step must emit exactly the reference's greedy
 tokens, finish reasons and per-request routing on the same weights. Plus
 the router, checkpoints, the default engine, the launcher twin, the
-reference's dependency errors and the options the port refuses. (The
+reference's dependency errors and the options the port refuses, and the
+launcher twin under ``--strategy mixture`` against the reference
+launcher. (The
 monolithic paths are held against the reference in
 ``test_torch_monolithic.py``.)
 """
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -21,6 +24,7 @@ from repro.checkpoint import ckpt as jckpt  # noqa: E402
 from repro.configs.base import get_smoke_config as jax_smoke  # noqa: E402
 from repro.core.router import CentroidRouter as JaxRouter  # noqa: E402
 from repro.core.router import RouterConfig as JaxRouterConfig  # noqa: E402
+from repro.launch import serve as jax_launch_serve  # noqa: E402
 from repro.models import build_model as jax_build  # noqa: E402
 from repro.serve import api as japi  # noqa: E402
 from repro.serve.scheduler import make_engine as jax_make_engine  # noqa: E402
@@ -98,7 +102,8 @@ def test_top1_slice_matches_reference_token_for_token(deployment):
 
 
 @pytest.mark.parametrize("override,option", [
-    (dict(strategy="mixture"), "strategy='mixture'"),
+    (dict(strategy="mixture", speculative="ngram"),
+     "speculative='ngram' under strategy='mixture'"),
     (dict(qos=object()), "qos"),
     (dict(preemption="swap"), "preemption='swap'"),
     (dict(prefix_cache=True), "prefix_cache=True"),
@@ -293,14 +298,16 @@ def test_checkpoints_written_by_reference_load(run_dir, deployment):
     assert ckpt.restore_expert(run_dir, 2) == (None, None)
 
 
-def test_launcher_twin_serves_and_refuses(run_dir):
+def test_launcher_twin_serves_and_refuses(run_dir, capsys, monkeypatch):
     """Without --paged/--chunked-prefill the twin serves the contiguous,
-    monolithic path, and the paged + chunked run gives the same tokens."""
+    monolithic path, and the paged + chunked run gives the same tokens.
+    With ``--strategy mixture --top-k 2`` it streams the reference
+    launcher's tokens, paged + chunked and contiguous."""
     base = ["--run", run_dir, "--requests", "3", "--prompt-len", "10",
             "--new-tokens", "5", "--slots", "2", "--device", "cpu"]
-    report = launch_serve.main(base + ["--paged", "--page-block", "8",
-                                       "--chunked-prefill",
-                                       "--prefill-chunk", "8"])
+    chunked = ["--paged", "--page-block", "8", "--chunked-prefill",
+               "--prefill-chunk", "8"]
+    report = launch_serve.main(base + chunked)
     assert report["finish_reasons"] == ["length"] * 3
     assert all(len(t) == 5 for t in report["tokens"].values())
     plain = launch_serve.main(base)
@@ -308,6 +315,18 @@ def test_launcher_twin_serves_and_refuses(run_dir):
     assert plain["tokens"] == report["tokens"]
     with pytest.raises(ValueError, match="fused_step=False is not ported"):
         launch_serve.main(base + ["--no-fused-step"])
+    mixture = ["--strategy", "mixture", "--top-k", "2"]
+    monkeypatch.setattr("sys.argv", ["serve"] + base[:-2] + chunked + mixture
+                        + ["--stream"])
+    jax_launch_serve.main()
+    want = {}
+    for rid, toks in re.findall(r"rid=\s*(\d+) \+(\[[^\]]*\])",
+                                capsys.readouterr().out):
+        want.setdefault(int(rid), []).extend(eval(toks))
+    assert len(want) == 3
+    mixed = launch_serve.main(base + chunked + mixture)
+    assert mixed["tokens"] == want and len(mixed["pods"]) == 1   # one core
+    assert launch_serve.main(base + mixture)["tokens"] == want
 
 
 def test_bfloat16_weights_cross_bit_exactly():

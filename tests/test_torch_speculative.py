@@ -528,7 +528,8 @@ def test_validate_serves_ngram_and_refuses_expert_drafting():
     with pytest.raises(ValueError) as e:
         EngineConfig(**cfg).validate()
     assert str(e.value) == \
-        "strategy='mixture' is not ported to repro_torch yet (see ROADMAP.md)"
+        "speculative='expert' under strategy='mixture' is not ported to " \
+        "repro_torch yet (see ROADMAP.md)"
 
 
 def test_launcher_twin_speculates_with_the_same_tokens(tmp_path, models):
