@@ -49,16 +49,26 @@ Phases, each fatal on failure:
    block) at the path's D = 32, K = 2 for B = 1, 16 and 65536, each timed
    with its bound, and at its edges (K = 6, bf16, scalar loads, unaligned
    rows, rows past B in a warp, K·D staged in slabs of D); and the card's
-   floor for one launch in a graph (an in-place add on one element);
+   floor for one launch in a graph (an in-place add on one element); paged
+   verify as the mixture's stacked verify launches it (2 experts' pools as
+   one, tables offset by k·P, 16 span rows of ``SPEC_LEN``) in both
+   dtypes, the bf16 call timed with its bound; seeded sampling's threefry
+   keys, bits and uniforms at V = 151936 on the card equal to the CPU's
+   bit for bit, and the sampler timed at 32 rows;
 4. parity — the smoke-size float32 Qwen3 deployment (2 pods, top-1) served
    on the card (kernels) and on the CPU (plain versions) in four
    configurations (paged + chunked, paged + chunked + n-gram speculation,
    paged + monolithic, contiguous + monolithic), then the three without
-   speculation under the Eq. 27 mixture (top_k 2): greedy tokens, finish
-   reasons and routing must be equal, and the speculative one must accept
-   drafts (``spec_tokens > spec_steps``) with equal counts on both; then
-   the smoke-size float32 Zamba2 deployment in the three configurations
-   without speculation, top-1 and mixture, with the same checks;
+   speculation under the Eq. 27 mixture (top_k 2), then the mixture with
+   n-gram and with expert-0 speculation, then seeded sampling
+   (temperature 0.7, top_k 0 and 40) on top-1 and the mixture, speculation
+   off and on: tokens, finish reasons, routing and the spec counters must
+   be equal, and the n-gram ones must accept drafts (``spec_tokens >
+   spec_steps``); a sampled token that differs is printed with its
+   Gumbel-plus-logit margin and fails unless that margin is within
+   ``SAMPLE_MARGIN_ULPS`` ulps; then the smoke-size float32 Zamba2
+   deployment in the three configurations without speculation, top-1 and
+   mixture, and sampled, top-1 and mixture, with the same checks;
 5. main path — full-width Qwen3-8B (36 layers, bf16, 2 experts of seeded
    random weights) served through ``make_engine`` → ``add_request``/
    ``step`` with the paged pool, chunked prefill and the fused decode
@@ -72,6 +82,11 @@ Phases, each fatal on failure:
    with the paged verify kernel launched besides the main path's three. It
    prints the spec counters, the accept rate and how many requests got the
    same tokens as on the main path (information only, as below);
+6b. sampled path — the main path's deployment with seeded sampling
+   (``main_path.sampled``: temperature 0.8, top_k 50, a seed a request),
+   served twice on fresh engines: the main path's checks, the two runs
+   must give the same tokens, and it prints ms a step and tokens/s beside
+   the greedy main path's;
 7. contiguous path — the reference's default serving configuration over
    the same model, experts and requests: contiguous per-slot caches,
    monolithic prefill at admission, the fused step; the same checks (the
@@ -86,6 +101,14 @@ Phases, each fatal on failure:
    ``MIXTURE_NEW_TOKENS``, once the per-expert tensors are dropped: the
    main path's checks, and each stacked decode step must launch paged
    decode once per attention layer (36), not once per expert;
+7c. mixture speculative path — the same deployment with expert-0
+   drafting and the stacked verify (``main_path.mixture(speculative=
+   "expert")``, ``spec_len`` 4, ``MIXTURE_NEW_TOKENS`` a request), built
+   from views of the mixture path's stack: the main path's checks, and
+   each verify step must launch paged verify once per attention layer (36
+   for both experts) and paged decode 3 × 36 times for the drafts; it
+   prints steps, ms a step, tokens/s, mean TTFT, peak GiB and the accept
+   rate (information only: random weights accept few drafts);
 8. float32 agreement — one expert of full-width Qwen3-8B in float32: the
    monolithic prefill (flash-attention kernel) and the chunked prefill
    (chunk-prefill kernel over the paged pool) of two prompts, then one
@@ -863,6 +886,101 @@ def _mixture_kernel_cases(cases, rec, gen):
                 cases)
 
 
+def _speculation_kernel_cases(cases, rec, gen):
+    """Paged verify as the mixture's stacked verify launches it: K = 2
+    experts' pools viewed as one pool of K·P pages, the 8 slots' shared
+    tables offset by k·P (``Model._expert_tables``), K·B = 16 span rows of
+    ``SPEC_LEN`` at Qwen3-8B's heads, in bf16 and float32, against the
+    plain version run in float32 (and each row against paged decode's plain
+    version at pos + j); the bf16 call timed in device ms beside its bound
+    (each expert's keys read once: about twice the single-model row's)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.models.model import Model
+
+    Kx, Bs, NB, block, L, H, KV, dh = 2, 8, 64, 16, SPEC_LEN, 32, 8, 128
+    pos = np.random.default_rng(9).integers(200, NB * block - L + 1, Bs)
+    pos[0] = NB * block - L
+    for dtype, name in ((torch.bfloat16, "bfloat16"),
+                        (torch.float32, "float32")):
+        _, kp0, vp0, pos_t, bt = _verify_case(Bs, NB, block, L, H, KV, dh,
+                                              pos.tolist(), dtype, gen)
+        _, kp1, vp1, _, _ = _verify_case(Bs, NB, block, L, H, KV, dh,
+                                         pos.tolist(), dtype, gen)
+        kp, vp = torch.stack([kp0, kp1]), torch.stack([vp0, vp1])
+        tables = Model._expert_tables(bt, kp[None], Kx)
+        q = torch.randn((Kx * Bs, L, H, dh), generator=gen,
+                        device="cuda").to(dtype)
+        args = (q, kp.flatten(0, 1), vp.flatten(0, 1), pos_t.repeat(Kx),
+                tables)
+        _check_verify(dk, cases, name, *args)
+        if dtype is torch.bfloat16:
+            keys = Kx * int((pos + L).sum())
+            pairs = Kx * int(sum(p * L + L * (L + 1) // 2 for p in pos))
+            live = Kx * int(((pos + L - 1) // block + 1).sum())
+            nbytes = (2 * Kx * Bs * L * H * dh * 2 + keys * KV * dh * 2 * 2
+                      + Kx * Bs * 4 + live * 4)
+            t_bytes = nbytes / HBM_BPS * 1e3
+            t_ops = 4 * H * dh * pairs / PEAK_FLOPS["bfloat16"] * 1e3
+            rec["paged_verify_attention"]["batched"] = {
+                "shape": f"K={Kx} experts x B={Bs} slots L={L} H={H} "
+                         f"KV={KV} dh={dh} block={block} NB={NB} bf16, "
+                         f"tables offset by k*P",
+                "device_ms": device_ms(
+                    lambda: dk.paged_verify_attention(*args)),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    log(f"paged_verify_attention batched: "
+        f"{json.dumps(rec['paged_verify_attention']['batched'])}")
+
+
+#: (seed, count) pairs whose threefry keys, bits and uniforms the card
+#: must reproduce bit for bit
+PRNG_CASES = ((0, 0), (123, 3), (7, 31), (2**32 - 1, 2**31 - 1),
+              (2**31, 2**31 - 1))
+
+
+def _sampling_bits_cases():
+    """Seeded sampling's random numbers at Qwen3-8B's vocabulary (V =
+    151936) for ``PRNG_CASES``: the card's keys, 32-bit words and float32
+    uniforms must equal the CPU's bit for bit; and the sampler at the
+    speculative verify's shape (8 slots x ``SPEC_LEN`` rows) timed, for the
+    record."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.serve import fused
+
+    V = 151936
+    seeds = torch.tensor([s for s, _ in PRNG_CASES], dtype=torch.int64)
+    counts = torch.tensor([c for _, c in PRNG_CASES], dtype=torch.int32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        key = prng.fold_in(prng.threefry_seed(seeds.to(dev)),
+                           counts.to(dev))
+        bits = prng.random_bits(key, V)
+        out[dev] = [t.cpu() for t in (*key, bits,
+                                      prng.uniform(bits).view(torch.int32))]
+    for name, a, b in zip(("key0", "key1", "bits", "uniform bits"),
+                          out["cuda"], out["cpu"]):
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"seeded sampling: {name} differ between the card and the "
+                f"CPU at V={V} for (seed, count) {PRNG_CASES}")
+    R = 8 * SPEC_LEN
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    scores = torch.randn((R, V), generator=gen, device="cuda")
+    temps = torch.full((R,), 0.8, device="cuda")
+    top_ks = torch.full((R,), 50, dtype=torch.int32, device="cuda")
+    sd = torch.arange(R, dtype=torch.int64, device="cuda")
+    ct = torch.zeros(R, dtype=torch.int32, device="cuda")
+    ms = cuda_ms(lambda: fused._sample_tokens(scores, temps, top_ks, sd, ct))
+    log(f"seeded sampling: threefry keys, random bits and uniforms at "
+        f"V={V} bit-equal on the card and the CPU for (seed, count) "
+        f"{list(PRNG_CASES)}; the sampler (torch ops) at {R} rows x {V}: "
+        f"{ms:.3f} ms (events)")
+
+
 def _check_flash_bwd(fk, fbk, cases, dtype_name, q, k, v, do, causal=True,
                      window=0):
     """The backward kernel against its plain version on the same q, k, v,
@@ -1384,6 +1502,8 @@ def phase_kernels():
                 "bfloat16", cases)
     _hybrid_kernel_cases(cases, rec, gen)
     _mixture_kernel_cases(cases, rec, gen)
+    _speculation_kernel_cases(cases, rec, gen)
+    _sampling_bits_cases()
     _training_kernel_cases(cases, rec, gen)
     torch.cuda.synchronize()
 
@@ -1417,11 +1537,12 @@ def phase_kernels():
 # ---------------------------------------------------------------------------
 
 def _serve(engine, prompts, feats, params):
-    """Drive ``engine`` to completion; returns ({rid: (tokens, reason)},
-    [[rids] per pod], outputs-by-rid, steps, wall seconds)."""
+    """Drive ``engine`` to completion, request i with ``params(i)``;
+    returns ({rid: (tokens, reason)}, [[rids] per pod], outputs-by-rid,
+    steps, wall seconds)."""
     import torch
     for i, p in enumerate(prompts):
-        engine.add_request(p, params, features=feats[i], rid=i)
+        engine.add_request(p, params(i), features=feats[i], rid=i)
     routing = [[r.rid for r in pod.waiting] for pod in engine.pods]
     res, outs, steps = {}, {}, 0
     t0 = time.perf_counter()
@@ -1436,14 +1557,60 @@ def _serve(engine, prompts, feats, params):
     return res, routing, outs, steps, time.perf_counter() - t0
 
 
+#: a sampled draw may change with the last ulp of the Gumbel noise's two
+#: float32 logs (torch's and XLA's, or the card's and the CPU's) only
+#: where its top-two gap is within this many ulps of its top value
+#: (tests/test_torch_sampling.py)
+SAMPLE_MARGIN_ULPS = 4
+
+
+def _sample_margin(host, model, prompt, toks, t, sp, feats, route):
+    """The Gumbel-plus-logit margin of token ``t`` of a sampled request on
+    the CPU engine ``host``: its scores recomputed by a prefill of the
+    prompt and its first ``t`` tokens (the top-1 pod ``route``'s expert,
+    or the Eq. 27 mixture under the router's weights), then
+    ``fused.sample_margin`` at count ``t``. Returns (margin, allowed)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.ensemble import mix_expert_logits
+    from repro_torch.serve import fused
+
+    seq = np.concatenate([prompt, np.asarray(toks[:t], np.int32)])
+    batch = {"tokens": torch.as_tensor(seq[None].astype(np.int64))}
+    if host.config.strategy == "mixture":
+        core = host.core
+        logits, _ = model.prefill(core.stacked, batch, len(seq))
+        w = core.router.route(torch.as_tensor(np.asarray(feats,
+                                                         np.float32)[None]))
+        row = torch.log(mix_expert_logits(logits[:, :, -1], w).clamp_min(
+            fused.PROB_FLOOR))
+    else:
+        logits, _ = model.prefill(host.pods[route].params, batch, len(seq))
+        row = logits[0, -1:]
+    margin = float(fused.sample_margin(
+        row, torch.tensor([sp.temperature]),
+        torch.tensor([sp.top_k], dtype=torch.int32),
+        torch.tensor([sp.seed & 0xFFFFFFFF]),
+        torch.tensor([t], dtype=torch.int32))[0])
+    top = float(row.abs().max()) / sp.temperature + 16.0
+    return margin, SAMPLE_MARGIN_ULPS * float(np.spacing(np.float32(top)))
+
+
 def phase_parity(arch="qwen3_8b"):
     """Smoke-size float32 deployment of ``arch``: card (kernels) vs CPU
-    (plain), in the paged + chunked, paged + chunked + speculative (a
-    ``speculative_capable`` model only), paged + monolithic and contiguous
-    + monolithic configurations, then the same three without speculation
-    under the Eq. 27 mixture (``strategy="mixture"``, top_k 2). The
-    speculative one serves period-4 prompts of the same lengths (the
-    traffic n-gram drafts target), so drafts are accepted."""
+    (plain), top-1 in the paged + chunked, paged + chunked + n-gram
+    speculative (a ``speculative_capable`` model only), paged + monolithic
+    and contiguous + monolithic configurations, then the same three
+    without speculation under the Eq. 27 mixture (``strategy="mixture"``,
+    top_k 2), then the mixture's paged + chunked with n-gram and with
+    expert speculation, then seeded sampling (temperature 0.7, top_k 0 and
+    40 on alternate requests) on top-1 and the mixture, paged + chunked,
+    speculation off and on. The n-gram ones serve period-4 prompts of the
+    same lengths (the traffic n-gram drafts target), so drafts are
+    accepted. Tokens, finish reasons, routing and the spec counters must
+    be equal; a sampled token that differs is reported with its
+    Gumbel-plus-logit margin and fails unless that margin is within
+    ``SAMPLE_MARGIN_ULPS`` ulps."""
     import numpy as np
     import torch
     from repro_torch.configs import get_smoke_config
@@ -1463,49 +1630,96 @@ def phase_parity(arch="qwen3_8b"):
     periodic = [np.tile(rng.integers(1, cfg.vocab, 4), n // 4 + 1)[:n]
                 .astype(np.int32) for n in lens]
     feats = rng.normal(size=(len(lens), 32)).astype(np.float32)
-    sp = SamplingParams(max_new=12)
+
+    def greedy(i):
+        return SamplingParams(max_new=12)
+
+    def sampled(i):
+        return SamplingParams(max_new=12, temperature=0.7,
+                              top_k=40 * (i % 2), seed=500 + i)
+
     chunked = dict(paged=True, chunked_prefill=True)
+    ngram = dict(chunked, speculative="ngram", spec_len=SPEC_LEN)
+    expert = dict(chunked, strategy="mixture", speculative="expert",
+                  spec_len=SPEC_LEN)
     configs = [("paged + chunked", chunked, prompts),
-               ("paged + chunked + speculative",
-                dict(chunked, speculative="ngram", spec_len=SPEC_LEN),
-                periodic),
+               ("paged + chunked + speculative", ngram, periodic),
                ("paged + monolithic", dict(paged=True), prompts),
                ("contiguous + monolithic", {}, prompts)]
-    if not model.speculative_capable:
-        configs.pop(1)
     configs += [(f"mixture, {kind}", dict(over, strategy="mixture"), reqs)
                 for kind, over, reqs in configs if "speculative" not in over]
+    configs += [
+        ("mixture, paged + chunked + ngram speculative",
+         dict(ngram, strategy="mixture"), periodic),
+        ("mixture, paged + chunked + expert speculative", expert, prompts)]
+    configs = [(kind, over, reqs, greedy) for kind, over, reqs in configs]
+    configs += [
+        ("paged + chunked, sampled", chunked, prompts, sampled),
+        ("paged + chunked + speculative, sampled", ngram, periodic, sampled),
+        ("mixture, paged + chunked, sampled",
+         dict(chunked, strategy="mixture"), prompts, sampled),
+        ("mixture, paged + chunked + expert speculative, sampled", expert,
+         prompts, sampled)]
+    if not model.speculative_capable:
+        configs = [c for c in configs if "speculative" not in c[1]]
     mix_router = CentroidRouter(router.centroids, RouterConfig(top_k=2))
-    for kind, over, reqs in configs:
+    for kind, over, reqs, params in configs:
         ecfg = EngineConfig(n_slots=2, cache_len=56, page_block=8, chunk=16,
                             **over)
         card, host = (make_engine(
             model, experts=experts, config=ecfg, device=dev,
             router=mix_router if "strategy" in over else router)
             for dev in ("cuda", "cpu"))
-        gpu, groute, *_ = _serve(card, reqs, feats, sp)
-        cpu, croute, *_ = _serve(host, reqs, feats, sp)
-        if groute != croute or gpu != cpu:
-            diff = [i for i in cpu if gpu.get(i) != cpu[i]]
-            raise AssertionError(
-                f"{cfg.arch_id}, {kind}: card and CPU disagree: routing "
-                f"{groute} vs "
-                f"{croute}; requests {diff}: "
-                f"{[(gpu.get(i), cpu[i]) for i in diff]}")
-        extra = ""
+        gpu, groute, *_ = _serve(card, reqs, feats, params)
+        cpu, croute, *_ = _serve(host, reqs, feats, params)
+        if groute != croute:
+            raise AssertionError(f"{cfg.arch_id}, {kind}: routing differs: "
+                                 f"card {groute}, CPU {croute}")
+        diverged = []
+        for i in cpu:
+            if gpu.get(i) == cpu[i]:
+                continue
+            sp = params(i)
+            if sp.temperature <= 0 or gpu.get(i) is None:
+                raise AssertionError(
+                    f"{cfg.arch_id}, {kind}: card and CPU disagree on "
+                    f"request {i}: {gpu.get(i)} vs {cpu[i]}")
+            a, b = gpu[i][0], cpu[i][0]
+            t = next(j for j in range(min(len(a), len(b)) + 1)
+                     if j == min(len(a), len(b)) or a[j] != b[j])
+            route = next(k for k, rids in enumerate(croute) if i in rids)
+            margin, allowed = _sample_margin(host, model, reqs[i], b, t, sp,
+                                             feats[i], route)
+            log(f"{cfg.arch_id}, {kind}: request {i} sampled token {t} "
+                f"differs (card {a[t:t + 1]}, CPU {b[t:t + 1]}): its "
+                f"Gumbel-plus-logit margin {margin:.3e}, allowed "
+                f"{allowed:.3e}")
+            if margin > allowed:
+                raise AssertionError(
+                    f"{cfg.arch_id}, {kind}: request {i}'s sampled token "
+                    f"{t} differs at a margin of {margin:.3e}, past the "
+                    f"{SAMPLE_MARGIN_ULPS} ulps ({allowed:.3e}) a log's "
+                    f"last ulp can move")
+            diverged.append(i)
+        extra = f"; requests {diverged} diverged at a near-tie" \
+            if diverged else ""
         if "speculative" in over:
             on_card, on_cpu = _spec_counts(card), _spec_counts(host)
             steps, toks = on_card
-            if on_card != on_cpu or not toks > steps:
+            # a trajectory that diverged at a near-tie speculates otherwise
+            same = on_card == on_cpu or bool(diverged)
+            if not same or not steps or (
+                    reqs is periodic and params is greedy
+                    and not toks > steps):
                 raise AssertionError(
                     f"{kind}: (spec_steps, spec_tokens) card {on_card}, "
-                    f"CPU {on_cpu}: they must be equal, with "
-                    f"spec_tokens > spec_steps")
-            extra = f"; spec_steps {steps}, spec_tokens {toks} on both"
+                    f"CPU {on_cpu}: they must be equal and nonzero, with "
+                    f"spec_tokens > spec_steps on n-gram traffic")
+            extra += f"; spec_steps, spec_tokens {on_card} on the card, " \
+                f"{on_cpu} on the CPU"
         log(f"parity ({cfg.arch_id}, {kind}): {len(cpu)} requests, "
-            f"routing {groute}, "
-            f"greedy tokens and finish reasons equal on the card and the "
-            f"CPU{extra}")
+            f"routing {groute}, tokens and finish reasons equal on the "
+            f"card and the CPU{extra}")
 
 
 def _spec_counts(engine):
@@ -1522,9 +1736,13 @@ def _serve_watched(label, mp, watch, kernels):
     folded into one finiteness flag kept on the card and read once after
     the run. The launch counts are zeroed just before the run and read
     just after; each of ``kernels`` must have launched. Under the mixture
-    the stacked decode steps are counted over the same run, and each must
-    have launched paged decode once per attention layer (not once per
-    expert). Returns (results, launches)."""
+    the stacked decode steps and verify steps are counted over the same
+    run: each decode step must have launched paged decode once per
+    attention layer (not once per expert), each verify step paged verify
+    once per attention layer and, when expert 0 drafts, paged decode
+    ``SPEC_LEN - 1`` times per attention layer. Request i is served with
+    ``mp.params(i)``. Returns (results, launches); the stats printed are
+    kept in ``PATH_STATS[label]``."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
@@ -1545,21 +1763,21 @@ def _serve_watched(label, mp, watch, kernels):
     for name, rows in watch:
         setattr(model, name, watched(getattr(model, name), rows))
     mixture = mp.engine.config.strategy == "mixture"
-    decodes, fused = [0], {}
+    calls, fused = {"_fstep": 0, "_fstep_chunk": 0, "_vstep": 0}, {}
     if mixture:                   # each fused step runs one stacked decode
         core = mp.engine.core
-        fused = {name: getattr(core, name)
-                 for name in ("_fstep", "_fstep_chunk")}
+        fused = {name: getattr(core, name) for name in calls
+                 if hasattr(core, name)}
         for name, fn in fused.items():
-            def counted(*args, _fn=fn):
-                decodes[0] += 1
+            def counted(*args, _fn=fn, _name=name):
+                calls[_name] += 1
                 return _fn(*args)
             setattr(core, name, counted)
     try:
         ops.reset_launch_counts()
-        decodes[0] = 0
+        calls.update(dict.fromkeys(calls, 0))
         res, routing, outs, steps, wall = _serve(
-            mp.engine, mp.prompts, mp.features, mp.sampling)
+            mp.engine, mp.prompts, mp.features, mp.params)
         launches = {n: fn.launches for n, fn in ops.KERNELS.items()}
     finally:
         for name, _ in watch:
@@ -1587,15 +1805,32 @@ def _serve_watched(label, mp, watch, kernels):
              "step_ms": wall / steps * 1e3, "launches": launches,
              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
     if mixture:
-        per_step = launches["paged_decode_attention"] / max(decodes[0], 1)
-        stats.update(experts=mp.engine.core.K, decode_steps=decodes[0],
-                     paged_decode_launches_per_decode_step=per_step,
-                     attention_layers=model.n_groups)
-        if launches["paged_decode_attention"] != decodes[0] * model.n_groups:
+        n, decodes, verifies = (model.n_groups,
+                                calls["_fstep"] + calls["_fstep_chunk"],
+                                calls["_vstep"])
+        drafts = verifies * (SPEC_LEN - 1) if core._can_spec \
+            and core._ngram is None else 0
+        stats.update(experts=core.K, decode_steps=decodes,
+                     verify_steps=verifies, attention_layers=n,
+                     paged_decode_launches_per_decode_step=(
+                         launches["paged_decode_attention"] - drafts * n)
+                     / max(decodes, 1))
+        if launches["paged_decode_attention"] != (decodes + drafts) * n:
             raise AssertionError(
                 f"{label}: {launches['paged_decode_attention']} paged "
-                f"decode launches over {decodes[0]} stacked decode steps: "
-                f"not one per attention layer ({model.n_groups}) a step")
+                f"decode launches over {decodes} stacked decode steps and "
+                f"{drafts} expert-0 draft micro-steps: not one per "
+                f"attention layer ({n}) a step")
+        if verifies:
+            stats.update(
+                paged_verify_launches_per_verify_step=launches[
+                    "paged_verify_attention"] / verifies,
+                draft_decode_launches_per_verify_step=drafts * n / verifies)
+            if launches["paged_verify_attention"] != verifies * n:
+                raise AssertionError(
+                    f"{label}: {launches['paged_verify_attention']} paged "
+                    f"verify launches over {verifies} stacked verify "
+                    f"steps: not one per attention layer ({n}) a step")
     if mp.engine.config.speculative is not None:
         steps, toks = _spec_counts(mp.engine)
         stats.update(spec_steps=steps, spec_tokens=toks,
@@ -1603,7 +1838,12 @@ def _serve_watched(label, mp, watch, kernels):
                      accept_rate=(toks - steps) / (steps * (SPEC_LEN - 1))
                      if steps else 0.0)
     log(f"{label}: " + json.dumps(stats))
+    PATH_STATS[label] = stats
     return res, launches
+
+
+#: each full-width path's printed stats, by label
+PATH_STATS = {}
 
 
 def phase_main_path():
@@ -1635,7 +1875,7 @@ def phase_speculative_path(mp, main_res):
     import torch
     from repro_torch.launch import main_path
 
-    sp = main_path.speculative(mp, spec_len=SPEC_LEN)
+    sp = main_path.speculative(mp)
     torch.cuda.empty_cache()
     # each span verify's rows, the decode forward of the steps that carry a
     # chunk or fall back, the last row of each prefill chunk
@@ -1674,14 +1914,46 @@ def phase_contiguous_path(mp, main_res):
     return launches
 
 
-def _mixture_of(mp):
-    """``main_path.mixture(mp)`` with ``MIXTURE_NEW_TOKENS`` a request."""
+def _mixture_of(mp, **kw):
+    """``main_path.mixture(mp, **kw)`` with ``MIXTURE_NEW_TOKENS`` a
+    request."""
     from dataclasses import replace
     from repro_torch.launch import main_path
-    from repro_torch.serve.api import SamplingParams
 
-    return replace(main_path.mixture(mp),
-                   sampling=SamplingParams(max_new=MIXTURE_NEW_TOKENS))
+    return replace(main_path.mixture(mp, **kw), sampling=replace(
+        mp.sampling, max_new=MIXTURE_NEW_TOKENS))
+
+
+def phase_sampled_path(mp, main_res):
+    """The main path's deployment with seeded sampling
+    (``main_path.sampled``: temperature 0.8, top_k 50, request i seeded
+    ``SAMPLE_SEED + i``) over the same model, experts and requests, served
+    twice on fresh engines: the main path's checks, and the two runs must
+    give the same tokens. Prints its ms a step and tokens/s beside the
+    greedy main path's."""
+    import torch
+    from repro_torch.launch import main_path
+
+    runs = []
+    for label in ("sampled path", "sampled path, again"):
+        sp = main_path.sampled(mp)
+        torch.cuda.empty_cache()
+        res, launches = _serve_watched(
+            label, sp, (("decode_step_paged", lambda x: x),
+                        ("prefill_chunk", lambda x: x)), MAIN_KERNELS)
+        runs.append(res)
+        sp.engine = None
+    if runs[0] != runs[1]:
+        diff = [i for i in runs[0] if runs[0][i] != runs[1].get(i)]
+        raise AssertionError(f"sampled path: two runs of the same seeded "
+                             f"requests differ on requests {diff}")
+    same = sum(runs[0][i][0] == main_res[i][0] for i in main_res)
+    greedy, st = PATH_STATS["main path"], PATH_STATS["sampled path"]
+    log(f"sampled path: both runs gave the same tokens; {same} of "
+        f"{len(main_res)} requests match the greedy main path; ms a step "
+        f"{st['step_ms']:.2f} (greedy {greedy['step_ms']:.2f}), tokens/s "
+        f"{st['tok_per_s']:.1f} (greedy {greedy['tok_per_s']:.1f})")
+    return launches
 
 
 def phase_mixture_path(mp, main_res):
@@ -1689,7 +1961,8 @@ def phase_mixture_path(mp, main_res):
     (``main_path.mixture``: both experts stacked, top_k 2, so both weigh
     in at every token) over the same model, experts and requests. The
     stack is a copy: the per-expert tensors are dropped once it is made.
-    Returns its launch counts."""
+    Returns the deployment (the stack is kept for the speculative mixture
+    path) and its launch counts."""
     import torch
 
     t0 = time.perf_counter()
@@ -1708,7 +1981,44 @@ def phase_mixture_path(mp, main_res):
     log(f"mixture path: {same} of {len(main_res)} requests got the top-1 "
         f"main path's first {MIXTURE_NEW_TOKENS} tokens (information only: "
         f"the mixture weighs both experts in)")
-    xp.engine = None
+    return xp, launches
+
+
+def phase_mixture_speculative_path(xp):
+    """The mixture path's deployment with ``speculative="expert"`` and
+    ``spec_len`` = ``SPEC_LEN`` (``main_path.mixture``): expert 0 drafts
+    on the device, the stacked verify checks all K·B rows at once. Its
+    experts are views of the mixture path's stack, stacked again before
+    that engine is dropped, so the card holds two stacks at most. The
+    main path's checks, and each verify step must launch paged verify once
+    per attention layer and paged decode ``SPEC_LEN - 1`` times per layer
+    for the drafts. Prints steps, ms a step, tokens/s, mean TTFT, peak GiB
+    and the accept rate (information only: random weights accept few
+    drafts). Returns its launch counts."""
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.core.ensemble import expert_slice
+
+    t0 = time.perf_counter()
+    core = xp.engine.core
+    views = [expert_slice(core.stacked, k) for k in range(core.K)]
+    sp = _mixture_of(replace(xp, experts=views), speculative="expert")
+    # the views hold the old stack: drop them with its engine
+    xp.engine = sp.experts = core = views = None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"mixture speculative path: {sp.engine.core.K} experts stacked in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    # each span verify's rows, each decode forward (the expert-0 draft
+    # micro-steps' included), the last row of each prefill chunk
+    _, launches = _serve_watched(
+        "mixture speculative path", sp,
+        (("verify_step_paged", lambda x: x),
+         ("decode_step_paged", lambda x: x),
+         ("prefill_chunk", lambda x: x)), SPEC_KERNELS)
+    sp.engine = None
     return launches
 
 
@@ -2323,9 +2633,12 @@ def main() -> int:
     timed(phase_parity, "zamba2_2_7b")
     mp, main_res, main_launches = timed(phase_main_path)
     spec_launches = timed(phase_speculative_path, mp, main_res)
+    sampled_launches = timed(phase_sampled_path, mp, main_res)
     contiguous_launches = timed(phase_contiguous_path, mp, main_res)
-    mixture_launches = timed(phase_mixture_path, mp, main_res)
+    xp, mixture_launches = timed(phase_mixture_path, mp, main_res)
     del mp                           # the bf16 experts
+    mixspec_launches = timed(phase_mixture_speculative_path, xp)
+    del xp
     torch.cuda.empty_cache()
     timed(phase_float32_agreement)
     torch.cuda.empty_cache()
@@ -2354,7 +2667,9 @@ def main() -> int:
                         "flash_attention_bwd"])
     # every full-width path's count of each kernel, for the record
     by_path = {"main": main_launches, "speculative": spec_launches,
+               "sampled": sampled_launches,
                "contiguous": contiguous_launches, "mixture": mixture_launches,
+               "mixture speculative": mixspec_launches,
                "hybrid": hybrid_launches, "hybrid mixture": hybrid_mix_launches,
                "training": train_launches}
 

@@ -13,10 +13,14 @@ chunkwise-scan length, 16 at smoke size).
 experts, router and requests: the reference's default serving path,
 contiguous per-slot caches with monolithic prefill at admission.
 ``speculative(mp)`` builds the third: the main path's paged + chunked
-config with n-gram speculative decoding (``spec_len`` 4). ``mixture(mp)``
+config with n-gram speculative decoding (``SPEC_LEN`` 4). ``mixture(mp)``
 builds the fourth: the main path's config under the Eq. 27 mixture
 (``strategy="mixture"``, ``RouterConfig(top_k=2)``), so both experts
-weigh in at every token.
+weigh in at every token; ``mixture(mp, speculative="expert")`` the same
+with expert 0 drafting on the device and the stacked verify.
+``sampled(mp)`` serves the main path's deployment with seeded sampling
+(``SAMPLE_TEMPERATURE`` 0.8, ``SAMPLE_TOP_K`` 50). Request i's seed is ``mp.sampling.seed +
+i`` on every path (a greedy request ignores it).
 """
 from __future__ import annotations
 
@@ -47,6 +51,11 @@ FULL_SHAPE = (256, 1024, 16, 256)
 SMOKE_SHAPE = (8, 32, 8, 8)
 CORPUS_SEED = 7       # request features
 PROMPT_SEED = 2       # router centroids, then prompt lengths and tokens
+SAMPLE_SEED = 1000    # request i of a sampled path is seeded 1000 + i
+SAMPLE_TEMPERATURE = 0.8
+SAMPLE_TOP_K = 50
+SPEC_LEN = 4          # positions a speculative step verifies per slot
+MIXTURE_TOP_K = 2     # experts the mixture's router weighs a request over
 
 
 @dataclass
@@ -64,17 +73,23 @@ class MainPath:
 
     def warm(self) -> None:
         """Serve one short request to completion (allocator, library
-        handles) before anything is counted or timed."""
+        handles, the sampler when the path samples) before anything is
+        counted or timed."""
         rid = len(self.prompts)
-        self.engine.add_request(self.prompts[0], SamplingParams(max_new=2),
+        self.engine.add_request(self.prompts[0],
+                                replace(self.params(0), max_new=2),
                                 features=self.features[0], rid=rid)
         while self.engine.has_unfinished():
             self.engine.step()
 
+    def params(self, i: int) -> SamplingParams:
+        """Request i's sampling parameters: ``sampling`` with seed + i."""
+        return replace(self.sampling, seed=self.sampling.seed + i)
+
     def submit(self) -> None:
         """Submit every request (rid = its index); the router places each."""
         for i, p in enumerate(self.prompts):
-            self.engine.add_request(p, self.sampling,
+            self.engine.add_request(p, self.params(i),
                                     features=self.features[i], rid=i)
 
 
@@ -116,26 +131,42 @@ def contiguous(mp: MainPath) -> MainPath:
     return replace(mp, engine=engine)
 
 
-def speculative(mp: MainPath, spec_len: int = 4) -> MainPath:
+def speculative(mp: MainPath) -> MainPath:
     """The main path's deployment (paged pool, chunked prefill, the fused
     step) with ``speculative="ngram"``: decode-only steps verify
-    ``spec_len`` positions per slot. Over ``mp``'s model, expert params,
+    ``SPEC_LEN`` positions per slot. Over ``mp``'s model, expert params,
     router and requests: nothing is initialized again."""
     engine = make_engine(
         mp.model, experts=mp.experts, router=mp.router, device=mp.device,
-        config=replace(mp.config, speculative="ngram", spec_len=spec_len))
+        config=replace(mp.config, speculative="ngram", spec_len=SPEC_LEN))
     return replace(mp, engine=engine)
 
 
-def mixture(mp: MainPath, top_k: int = 2) -> MainPath:
+def mixture(mp: MainPath, speculative=None) -> MainPath:
     """The main path's deployment (paged pool, chunked prefill, the fused
     step) under the Eq. 27 mixture: ``strategy="mixture"`` over ``mp``'s
     experts, stacked on one tensor dim (a copy: the caller drops ``mp``'s
     engine and experts to free theirs), and its router's centroids with
-    ``RouterConfig(top_k)``, serving ``mp``'s requests."""
-    router = CentroidRouter(mp.router.centroids,
-                            RouterConfig(mp.router.config.temperature, top_k))
+    ``RouterConfig(MIXTURE_TOP_K)``, serving ``mp``'s requests.
+    ``speculative`` ("expert" or "ngram") verifies ``SPEC_LEN`` positions
+    a slot on decode-only steps."""
+    router = CentroidRouter(mp.router.centroids, RouterConfig(
+        mp.router.config.temperature, MIXTURE_TOP_K))
     engine = make_engine(
         mp.model, experts=mp.experts, router=router, device=mp.device,
-        config=replace(mp.config, strategy="mixture"))
+        config=replace(mp.config, strategy="mixture",
+                       speculative=speculative, spec_len=SPEC_LEN))
     return replace(mp, engine=engine, router=router)
+
+
+def sampled(mp: MainPath) -> MainPath:
+    """The main path's deployment (a new engine over ``mp``'s model,
+    experts and router) serving its requests with seeded sampling at
+    ``SAMPLE_TEMPERATURE`` and ``SAMPLE_TOP_K``, request i seeded
+    ``SAMPLE_SEED + i``:
+    served twice, it gives the same tokens."""
+    engine = make_engine(mp.model, experts=mp.experts, router=mp.router,
+                         device=mp.device, config=mp.config)
+    return replace(mp, engine=engine, sampling=replace(
+        mp.sampling, temperature=SAMPLE_TEMPERATURE, top_k=SAMPLE_TOP_K,
+        seed=SAMPLE_SEED))

@@ -4,7 +4,7 @@ serves: full-width Qwen3-8B, or Zamba2-2.7B with ``--arch zamba2_2_7b``,
 2 experts, 16 requests).
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve [--speculative]
-        [--contiguous] [--mixture] [--arch zamba2_2_7b]
+        [--contiguous] [--mixture [--speculative]] [--arch zamba2_2_7b]
 
 Serves every request to completion and times each engine step on the
 host. Each step is of one kind: ``chunk`` (some pod consumed a prefill
@@ -19,7 +19,9 @@ reference's default deployment over the same model and requests
 (``main_path.contiguous``: contiguous caches, monolithic prefill at
 admission, so it has no mixed steps); ``--mixture`` the main path's
 deployment under the Eq. 27 mixture (``main_path.mixture``: both experts
-stacked, every step one stacked forward); ``--arch zamba2_2_7b`` the same
+stacked, every step one stacked forward), and ``--mixture
+--speculative`` that deployment with expert 0 drafting on the device and
+the stacked verify; ``--arch zamba2_2_7b`` the same
 deployment of the hybrid family (Mamba2 layers through the
 ``chunk_scan`` kernel, a shared attention block through the paged
 kernels). Two windows of ``WINDOW`` steps run under the profiler: the
@@ -117,7 +119,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--smoke", action="store_true",
                     help="smoke-size config (script check on the CPU)")
     ap.add_argument("--speculative", action="store_true",
-                    help="the main path with n-gram speculation")
+                    help="the main path with n-gram speculation (with "
+                    "--mixture: expert-0 drafting)")
     ap.add_argument("--contiguous", action="store_true",
                     help="the reference's default deployment (contiguous "
                     "caches, monolithic prefill)")
@@ -126,17 +129,18 @@ def main(argv=None) -> dict:
     ap.add_argument("--arch", choices=PORTED_ARCH_IDS,
                     default=main_path.ARCH)
     args = ap.parse_args(argv)
-    if sum((args.speculative, args.contiguous, args.mixture)) > 1:
-        raise ValueError("--speculative, --contiguous and --mixture are "
-                         "separate deployments: pass one of them")
+    if args.contiguous and (args.speculative or args.mixture):
+        raise ValueError("--contiguous is a deployment of its own: pass it "
+                         "without --speculative and --mixture")
     mp = main_path.build(args.device, smoke=args.smoke, arch=args.arch)
-    if args.speculative:
-        mp = main_path.speculative(mp)
     if args.contiguous:
         mp = main_path.contiguous(mp)
-    if args.mixture:
+    elif args.mixture:
         mp.engine = None             # the top-1 pools, before the stack
-        mp = main_path.mixture(mp)
+        mp = main_path.mixture(
+            mp, speculative="expert" if args.speculative else None)
+    elif args.speculative:
+        mp = main_path.speculative(mp)
     engine = mp.engine
     on_card = engine.device.type == "cuda"
     mp.warm()

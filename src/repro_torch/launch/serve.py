@@ -10,8 +10,10 @@ mixes their next-token distributions by Eq. 27, routing each request at
 admission. Either serves contiguous per-slot KV caches with monolithic
 prefill at admission (``--paged`` / ``--chunked-prefill`` switch to the
 paged pool and to chunked prefill; ``--speculative ngram`` adds n-gram
-speculative decoding on the paged pool, top-1 only) and decodes with the
-fused step.
+speculative decoding on the paged pool, and under the mixture
+``--speculative expert`` drafts with expert 0) and decodes with the fused
+step, greedy or, with ``--slot-temperature`` (and ``--slot-top-k``),
+sampled, seeded per request by ``--seed``.
 ``--arch`` takes every ported config: ``qwen3_8b`` (dense) and
 ``zamba2_2_7b`` (hybrid, whose prefill chunk must be a multiple of its
 chunkwise-scan length, 16 at smoke size). Runs on the card unless
@@ -21,13 +23,14 @@ chunkwise-scan length, 16 at smoke size). Runs on the card unless
         --arch qwen3_8b --requests 16 --new-tokens 24 --slots 8 \\
         [--strategy mixture --top-k 2]
         [--paged --page-block 16 [--chunked-prefill --prefill-chunk 16]
-         [--speculative ngram --spec-len 4]]
+         [--speculative ngram|expert --spec-len 4]]
+        [--slot-temperature 0.8 --slot-top-k 50]
 
 The flags are the reference launcher's for this slice. Every serving flag
-lands in ONE ``EngineConfig``; what the port has not reached yet
-(speculation under the mixture, prefix cache, preemption, sanitizer,
-tracing, metrics, sampling, the unfused step) is refused by
-``EngineConfig.validate`` with one ValueError before any work starts.
+lands in ONE ``EngineConfig``; what the port has not reached yet (prefix
+cache, preemption, sanitizer, tracing, metrics, the unfused step) is
+refused by ``EngineConfig.validate`` with one ValueError before any work
+starts.
 """
 from __future__ import annotations
 
@@ -72,7 +75,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--prefill-chunk", type=int, default=16)
     ap.add_argument("--token-budget", type=int, default=0)
     ap.add_argument("--prefix-cache", action="store_true")
-    ap.add_argument("--slot-temperature", type=float, default=0.0)
+    ap.add_argument("--slot-temperature", type=float, default=0.0,
+                    help="per-request sampling temperature (0 → greedy; "
+                         "seeded per request by --seed)")
+    ap.add_argument("--slot-top-k", type=int, default=0,
+                    help="sample from the k highest-scoring tokens (0 → "
+                         "the full vocabulary)")
     ap.add_argument("--stop-token", type=int, action="append", default=None)
     ap.add_argument("--stream", action="store_true",
                     help="print per-token deltas as they decode")
@@ -128,7 +136,7 @@ def main(argv=None) -> dict:
                     params=SamplingParams(
                         max_new=args.new_tokens,
                         temperature=args.slot_temperature,
-                        seed=args.seed + i,
+                        top_k=args.slot_top_k, seed=args.seed + i,
                         stop_token_ids=tuple(args.stop_token or ())))
             for i in range(args.requests)]
     routed = server.route(reqs)             # one batched router launch

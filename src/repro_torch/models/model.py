@@ -18,13 +18,15 @@ Ported: ``cache_spec`` (with ``CacheSpec.insert``/``insert_paged``/
 either cache, for the dense and hybrid (Zamba2: Mamba2 groups + one shared
 attention block) families; the speculative span verify over the paged
 cache for the dense family (``speculative_capable``,
-``verify_step_paged``, ``fused_verify_step``); the teacher-forced
+``verify_step_paged``, ``fused_verify_step``), also over an expert
+stack; the teacher-forced
 ``forward`` and ``loss`` with their gradient for the dense family (the
 hybrid family's forward without it). The other families are not ported
 yet (see ROADMAP.md).
 
 The serving paths (``prefill``, ``embed_prompt``, ``init_chunk_carry``,
-``prefill_chunk``, ``decode_step``, ``decode_step_paged``) also take a
+``prefill_chunk``, ``decode_step``, ``decode_step_paged``,
+``verify_step_paged``) also take a
 stack of K experts' parameters (``core.ensemble.stack_experts_for_decode``:
 ``blocks`` leaves (L, K, ...), every other leaf (K, ...)) with caches that
 carry K at axis 1 of every leaf (``init_cache``/``init_paged_cache`` with
@@ -571,28 +573,40 @@ class Model:
         drafts; pos: (B,) int32, where column 0 writes; block_tables:
         (B, NB) int32. Returns (logits (B, L, V), cache): logits row j is
         what ``decode_step_paged`` at position pos + j would give had
-        drafts 0..j-1 been committed."""
+        drafts 0..j-1 been committed. An expert stack verifies its K·B
+        rows in one launch a layer, as ``decode_step_paged`` does (tokens,
+        positions and the logical tables shared by a slot's K experts),
+        and gives (K, B, L, V). Span positions past the table horizon go
+        to the absolute scratch block 0 of the (K·P) pool view, which is
+        expert 0's scratch block, not expert k's block k·P: no fence ever
+        admits a scratch position, so which scratch block takes the write
+        does not matter."""
         cfg = self.cfg
         if not self.speculative_capable:
             raise ValueError(
                 f"family '{cfg.family}' (window={cfg.sliding_window}) "
                 "cannot verify speculative spans — check "
                 "speculative_capable before dispatching")
-        x = embed(params["embed"], tokens, cfg.cdtype)            # (B,L,D)
+        K = n_stacked(params)
+        tables = self._expert_tables(block_tables, cache["k"], K)
+        if K:
+            pos = pos.repeat(K)
+        x = embed(params["embed"], tokens, cfg.cdtype)          # (K·B,L,D)
 
         def attend(i, p, h):
             a, _ = attn.paged_verify_attention(
-                p, h, cfg, (cache["k"][i], cache["v"][i]), pos, block_tables)
+                p, h, cfg, (_kv(cache["k"], i, K), _kv(cache["v"], i, K)),
+                pos, tables)
             return a
 
         x = self._stack(params, x, attend)
         logits = unembed(params["embed"], x, cfg.tie_embeddings, cfg.vocab)
-        return logits, cache
+        return _unfold(logits, K, 0), cache
 
     def fused_verify_step(self, params, cache, state, drafts: Tensor, *,
                           cache_len: int):
         """One whole speculative step: the span verify forward over
-        ``[committed token, drafts]`` followed by the greedy accept/reject
+        ``[committed token, drafts]`` followed by the seeded accept/reject
         epilogue (per-offset stop, budget and context checks, the
         variable-length position advance). drafts: (B, L-1) int32.
         Returns (cache, new_state, toks, n_emit, done)."""
@@ -607,7 +621,7 @@ class Model:
     def fused_decode_step(self, params, cache, state, *, cache_len: int,
                           paged: bool = False):
         """One whole decode token: the forward (contiguous, or paged through
-        ``state["tables"]``) followed by the serving epilogue (greedy pick,
+        ``state["tables"]``) followed by the serving epilogue (the pick,
         stop ids, budget and context bound, position advance). Returns
         (cache, new_state, next_tok, done)."""
         from repro_torch.serve.fused import decode_epilogue

@@ -32,12 +32,18 @@ def not_ported(option: str) -> ValueError:
 
 @dataclass(frozen=True)
 class SamplingParams:
-    """Per-request decoding controls. Greedy decoding only: a request with
-    ``temperature > 0`` is refused. ``stop_token_ids`` (plus
+    """Per-request decoding controls.
+
+    ``temperature <= 0`` is greedy decoding (the default); otherwise
+    sampling is seeded per request — token ``i`` draws from
+    ``fold_in(PRNGKey(seed), i)`` with the reference's threefry bits, so a
+    request's continuation depends only on (seed, scores), never on slot
+    placement or co-scheduled traffic. ``top_k == 0`` samples the full
+    vocabulary; ``top_k == 1`` is exactly greedy. ``stop_token_ids`` (plus
     ``eos_token_id``) retire the request as soon as one is *generated*,
     with ``finish_reason == "stop"``; the stop token is kept in the output.
-    ``top_k``, ``seed``, ``priority`` and ``tenant`` are carried for API
-    parity with the reference and do not change a greedy request."""
+    ``priority`` and ``tenant`` are carried for API parity with the
+    reference and change no token."""
 
     max_new: int = 16
     temperature: float = 0.0
@@ -56,8 +62,6 @@ class SamplingParams:
         if self.top_k < 0:
             raise ValueError(f"top_k must be >= 0 (0 = full vocabulary), "
                              f"got {self.top_k}")
-        if self.temperature > 0:
-            raise not_ported("temperature > 0 sampling")
         if not self.tenant:
             raise ValueError("tenant must be a non-empty string")
         stops = frozenset(int(t) for t in self.stop_token_ids)
@@ -178,8 +182,6 @@ class EngineConfig:
                 f"preemption must be 'off', 'recompute' or 'swap', got "
                 f"{self.preemption!r}")
         refused = [
-            (self.strategy == "mixture" and self.speculative is not None,
-             f"speculative={self.speculative!r} under strategy='mixture'"),
             (self.qos is not None, "qos"),
             (self.preemption != "off", f"preemption={self.preemption!r}"),
             (self.prefix_cache, "prefix_cache=True"),

@@ -20,13 +20,19 @@ a pod's decode-only steps verify a span of ``spec_len`` positions per
 slot, the committed token plus host n-gram drafts (``serve.speculate``),
 in one forward (``Model.fused_verify_step``) and emit the accepted run:
 the same tokens as vanilla decode, up to ``spec_len`` of them per step.
+A request with ``temperature > 0`` is sampled, seeded per request
+(``serve.fused``): its first token at admission (or inside its final
+chunk's step) and every later one, on every path above.
 
 With ``strategy="mixture"`` the deployment is one ``MixtureSlotServer``
 instead of the pods: the K experts stacked on one tensor dim
 (``core.ensemble``), every request routed at admission to an (n_slots,
 K) row of router weights, and each step one stacked forward whose K
-experts' next-token distributions are mixed by Eq. 27 before the greedy
-pick, in each of the three configurations above.
+experts' next-token distributions are mixed by Eq. 27 before the pick,
+in each of the three configurations above. Its speculation verifies the
+span on all K experts in one stacked forward, with n-gram drafts or
+(``speculative="expert"``) drafts from expert 0's own greedy decode on
+the device (``core.ensemble.make_stacked_verify``).
 
 **The single-dispatch contract.** Each step is one forward (decode or
 span verify, plus at most one prefill chunk beside a decode) and its
@@ -38,9 +44,8 @@ rebuilt from the host mirrors only on admission, retirement or
 block-table growth. No ``.item()`` sits in the layer loop.
 
 What this port does not run yet is refused by ``EngineConfig.validate``:
-speculation under the mixture (n-gram or expert-0 drafting), QoS and
-preemption, the prefix cache, the sanitizer, tracing and metrics export,
-sampling, and the unfused step (see ROADMAP.md).
+QoS and preemption, the prefix cache, the sanitizer, tracing and metrics
+export, and the unfused step (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -51,7 +56,9 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.ensemble import (make_stacked_fused, mix_expert_logits,
+from repro_torch.core.ensemble import (make_stacked_fused,
+                                       make_stacked_verify,
+                                       mix_expert_logits,
                                        stack_experts_for_decode)
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
@@ -506,7 +513,8 @@ class _SlotTable:
         server can roll a span back: paged, ``spec_len > 1``, a
         ``speculative_capable`` model (windowed and hybrid ones degrade
         silently to vanilla decode). ``vstep`` is the verify step
-        (``make_verify_fns``)."""
+        (``make_verify_fns``, or ``make_stacked_verify`` over an expert
+        stack); the host drafts only for ``"ngram"``."""
         self.speculative = config.speculative
         self.spec_len = config.spec_len
         self._can_spec = (config.speculative is not None
@@ -514,7 +522,8 @@ class _SlotTable:
                           and model.speculative_capable)
         if self._can_spec:
             self._vstep = vstep
-            self._ngram = NGramProposer(self.spec_len)
+            self._ngram = NGramProposer(self.spec_len) \
+                if config.speculative == "ngram" else None
 
     def _release(self, slot: int) -> None:
         self.slot_req[slot] = None
@@ -575,7 +584,10 @@ class _SlotTable:
             return self._dstate
         self._tables_dirty = False
         n = self.n_slots
-        counts = np.zeros(n, np.int32)
+        temps = np.zeros(n, np.float32)
+        top_ks = np.zeros(n, np.int32)
+        seeds = np.zeros(n, np.int64)      # uint32 values (torch has no
+        counts = np.zeros(n, np.int32)     # full uint32 arithmetic)
         max_new = np.full(n, np.iinfo(np.int32).max, np.int32)
         active = np.zeros(n, np.bool_)
         dec = self.decoding
@@ -587,22 +599,46 @@ class _SlotTable:
         for s in dec:
             r = self.slot_req[s]
             active[s] = True
-            counts[s] = len(r.out)
+            temps[s], top_ks[s] = r.params.temperature, r.params.top_k
+            # & wraps a negative seed into the uint32 range, as the
+            # reference does
+            seeds[s], counts[s] = r.params.seed & 0xFFFFFFFF, len(r.out)
             max_new[s] = r.max_new
             stops[s] = stop_id_row(r.params, self._stop_width)
+        # a host bool, known without a device sync: an all-greedy step
+        # takes the argmax epilogue, launches no sampling and uploads no
+        # sampling parameters
+        sampled = bool((temps > 0).any())
         host = {"tok": self.last_tok, "pos": self.pos, "active": active,
                 "counts": counts, "max_new": max_new, "stop_ids": stops}
+        if sampled:
+            host.update(temps=temps, top_ks=top_ks, seeds=seeds)
         if self.paged:
             host["tables"] = self._decode_tables()[:, :self._nb_live()]
-        self._dstate = self._state_extras(
-            {k: torch.as_tensor(np.ascontiguousarray(v), device=dev)
-             for k, v in host.items()})
+        st = {k: torch.as_tensor(np.ascontiguousarray(v), device=dev)
+              for k, v in host.items()}
+        st["sampled"] = sampled
+        self._dstate = self._state_extras(st)
         return self._dstate
 
     def _state_extras(self, st: Dict[str, Tensor]) -> Dict[str, Tensor]:
         """Extra per-slot device state the fused step needs (the mixture
         server adds its router weights)."""
         return st
+
+    def _pick_args(self, req: Request):
+        """``(temp, top_k, seed)`` (1,) device rows for a first-token pick
+        (count 0: the pick is token 0), or () for a greedy request, whose
+        pick is the argmax alone."""
+        sp = req.params
+        if sp.temperature <= 0:
+            return ()
+        dev = self.device
+        return (torch.tensor([sp.temperature], dtype=torch.float32,
+                             device=dev),
+                torch.tensor([sp.top_k], dtype=torch.int32, device=dev),
+                torch.tensor([sp.seed & 0xFFFFFFFF], dtype=torch.int64,
+                             device=dev))
 
     def _new_cache(self, model: Model, experts: int = 0):
         """The zeroed serving cache: the paged pool or contiguous rows,
@@ -647,14 +683,16 @@ class _SlotTable:
             return []
         if do_chunk:
             slot, xc, start, length, cbt = self._chunk_args()
+            pick = self._pick_args(self.slot_req[slot])
             if not dec:
-                first = self._run_chunk_only(slot, xc, start, length, cbt)
+                first = self._run_chunk_only(slot, xc, start, length, cbt,
+                                             pick)
                 return self._after_chunk_tok(
                     slot, length, lambda: int(first.cpu()[0]))
             self._grow_active()
             st = self._device_state()
             nxt, done, first = self._run_fused_chunk(st, slot, xc, start,
-                                                     length, cbt)
+                                                     length, cbt, pick)
             host = torch.cat([nxt, done, first]).cpu().numpy()
             n = self.n_slots
             retired = self._advance_fused(dec, host[:n], host[n:2 * n])
@@ -673,21 +711,22 @@ class _SlotTable:
         return self._advance_fused(dec, host[0], host[1])
 
     # ------------------------------------------------------------------
-    # Speculative decoding: n-gram drafts + one span verify
+    # Speculative decoding: drafts + one span verify
     # ------------------------------------------------------------------
 
     def _decode_step_spec(self, dec: List[int]) -> Optional[List[Request]]:
-        """One speculative step, still one forward and one readback:
-        reserve every decoding slot's span blocks, draft on the host, run
-        the fused verify and advance each slot by its accepted run. None →
-        the pool cannot cover the span; the caller takes the vanilla step
-        (the trajectory is the same either way)."""
+        """One speculative step, still one readback: reserve every decoding
+        slot's span blocks, draft (on the host for n-gram; None when
+        expert 0 drafts on the device), run the fused verify and advance
+        each slot by its accepted run. None → the pool cannot cover the
+        span; the caller takes the vanilla step (the trajectory is the
+        same either way)."""
         span = self.spec_len
         if not self._grow_active_span(span):
             return None
         self._step_span = span       # widens the _nb_live horizon
         st = self._device_state()
-        drafts = self._draft_tokens(dec)
+        drafts = self._draft_tokens(dec) if self._ngram is not None else None
         toks, n_emit, done = self._run_verify(st, drafts)
         n = self.n_slots
         host = torch.cat([toks.reshape(-1), n_emit, done]).cpu().numpy()
@@ -707,6 +746,9 @@ class _SlotTable:
         return torch.as_tensor(drafts, device=self.device)
 
     def _run_verify(self, st, drafts):
+        """One fused verify step; returns the device ``(toks, n_emit,
+        done)`` and keeps the new cache and state. ``drafts`` is None when
+        the verify step drafts on the device."""
         raise NotImplementedError
 
     def _advance_span(self, dec: List[int], toks: np.ndarray,
@@ -863,26 +905,29 @@ def make_fused_fns(model: Model, cache_len: int, *, paged: bool):
     run on the paged pool only:
 
     * ``step(params, cache, state)`` → ``(cache, state, next_tok, done)``;
-    * ``step_chunk(params, cache, state, carry, xc, start, length, cbt)``
-      → the same plus ``first`` (the chunk's greedy first-token pick) and
-      the carry — the decode and one prefill chunk in one step;
-    * ``chunk_only(params, cache, carry, xc, start, length, cbt)`` →
-      ``(first, carry, cache)`` when nothing is decoding.
+    * ``step_chunk(params, cache, state, carry, xc, start, length, cbt,
+      temp, top_k, seed)`` → the same plus ``first`` (the chunk's
+      first-token pick: count 0 of the request's seeded stream, or the
+      argmax when ``temp, top_k, seed`` are left out) and the carry — the
+      decode and one prefill chunk in one step;
+    * ``chunk_only(params, cache, carry, xc, start, length, cbt, temp,
+      top_k, seed)`` → ``(first, carry, cache)`` when nothing is
+      decoding.
     """
     def step(p, c, st):
         return model.fused_decode_step(p, c, st, cache_len=cache_len,
                                        paged=paged)
 
-    def step_chunk(p, c, st, carry, xc, start, ln, cbt):
+    def step_chunk(p, c, st, carry, xc, start, ln, cbt, *pick):
         c, st, nxt, done = model.fused_decode_step(p, c, st,
                                                    cache_len=cache_len,
                                                    paged=True)
         c_out, carry, c = model.prefill_chunk(p, c, carry, xc, start, ln, cbt)
-        return c, st, nxt, done, pick_first(c_out), carry
+        return c, st, nxt, done, pick_first(c_out, *pick), carry
 
-    def chunk_only(p, c, carry, xc, start, ln, cbt):
+    def chunk_only(p, c, carry, xc, start, ln, cbt, *pick):
         c_out, carry, c = model.prefill_chunk(p, c, carry, xc, start, ln, cbt)
-        return pick_first(c_out), carry, c
+        return pick_first(c_out, *pick), carry, c
 
     return step, step_chunk, chunk_only
 
@@ -899,8 +944,8 @@ def make_verify_fns(model: Model, cache_len: int):
 
 
 class SlotServer(_SlotTable):
-    """Continuous batching over ONE expert with the fused decode step
-    (greedy). ``config.paged`` puts the KV cache in a pool of
+    """Continuous batching over ONE expert with the fused decode step.
+    ``config.paged`` puts the KV cache in a pool of
     ``page_block``-position blocks (``pool_blocks`` of them, 0 → full
     capacity) instead of contiguous per-slot rows; ``config.
     chunked_prefill`` (paged only) consumes prompts ``chunk`` positions per
@@ -938,7 +983,8 @@ class SlotServer(_SlotTable):
             return False
         logits, row_cache = self.model.prefill(
             self.params, req.batch(self.device), self.cache_len)
-        first = int(pick_first(logits[0, -1:]).cpu()[0])
+        first = int(pick_first(logits[0, -1:],
+                               *self._pick_args(req)).cpu()[0])
         if width == self.cache_len:
             self._retire_at_admission(req, first)
             return True
@@ -955,17 +1001,17 @@ class SlotServer(_SlotTable):
             self.params, self.cache, st, drafts)
         return toks, n_emit, done
 
-    def _run_fused_chunk(self, st, slot, xc, start, length, cbt):
+    def _run_fused_chunk(self, st, slot, xc, start, length, cbt, pick):
         (self.cache, self._dstate, nxt, done, first,
          self.prefill_carry[slot]) = self._fstep_chunk(
             self.params, self.cache, st, self.prefill_carry[slot], xc,
-            start, length, cbt)
+            start, length, cbt, *pick)
         return nxt, done, first
 
-    def _run_chunk_only(self, slot, xc, start, length, cbt):
+    def _run_chunk_only(self, slot, xc, start, length, cbt, pick):
         first, self.prefill_carry[slot], self.cache = self._fchunk_only(
             self.params, self.cache, self.prefill_carry[slot], xc, start,
-            length, cbt)
+            length, cbt, *pick)
         return first
 
 
@@ -973,9 +1019,11 @@ class MixtureSlotServer(_SlotTable):
     """Continuous batching over the stacked expert ensemble (port of
     ``repro.serve.scheduler.MixtureSlotServer``): one cache carrying the
     expert (K) dim at axis 1 of every leaf, one stacked decode step per
-    scheduler step with the Eq. 27 mixture and the greedy epilogue fused in
-    (``core.ensemble.make_stacked_fused``), and per-slot router weights
-    fixed at admission. In the paged layout the pool carries the K dim too,
+    scheduler step with the Eq. 27 mixture and the serving epilogue fused
+    in (``core.ensemble.make_stacked_fused``), and per-slot router weights
+    fixed at admission. Speculation verifies the span on the whole stack
+    at once (``core.ensemble.make_stacked_verify``), drafted by the
+    host's n-gram lookup or by expert 0 on the device. In the paged layout the pool carries the K dim too,
     and all K experts of a slot share ONE block table. A request is routed
     when admission pays for its prefill: after its blocks are reserved, so
     a request blocked on free KV blocks does not run the router again each
@@ -995,6 +1043,9 @@ class MixtureSlotServer(_SlotTable):
         self._prep = make_chunk_fns(model, self.cache_len)
         self._fstep, self._fstep_chunk, self._fchunk_only = \
             make_stacked_fused(model, self.cache_len, paged=self.paged)
+        self._init_speculation(
+            config, model,
+            make_stacked_verify(model, self.cache_len, config.spec_len))
 
     def _route(self, req: Request) -> np.ndarray:
         """The request's (K,) top-k-filtered Eq. 28 weights: one router
@@ -1008,8 +1059,9 @@ class MixtureSlotServer(_SlotTable):
         """Admit a request into a free slot, as ``SlotServer.admit`` does,
         over the expert stack: chunked, reserve its blocks, park the slot
         mid-prefill and route it; monolithic, prefill it on every expert,
-        route it and pick its first token from the Eq. 27 mixture of the
-        experts' last rows."""
+        route it and pick its first token (the request's own sampling
+        parameters, count 0) from the Eq. 27 mixture of the experts' last
+        rows."""
         free = self.free_slots()
         if not free:
             return False
@@ -1029,7 +1081,8 @@ class MixtureSlotServer(_SlotTable):
             self.stacked, req.batch(self.device), self.cache_len)
         probs = mix_expert_logits(logits[:, :, -1], torch.as_tensor(
             w[None], device=self.device))                       # (1, V)
-        first = int(pick_first(probs, from_probs=True).cpu()[0])
+        first = int(pick_first(probs, *self._pick_args(req),
+                               from_probs=True).cpu()[0])
         if width == self.cache_len:
             self._retire_at_admission(req, first)
             return True
@@ -1050,17 +1103,22 @@ class MixtureSlotServer(_SlotTable):
             self.stacked, self.cache, st)
         return nxt, done
 
-    def _run_fused_chunk(self, st, slot, xc, start, length, cbt):
+    def _run_verify(self, st, drafts):
+        self.cache, self._dstate, toks, n_emit, done = self._vstep(
+            self.stacked, self.cache, st, drafts)
+        return toks, n_emit, done
+
+    def _run_fused_chunk(self, st, slot, xc, start, length, cbt, pick):
         (self.cache, self._dstate, nxt, done, first,
          self.prefill_carry[slot]) = self._fstep_chunk(
             self.stacked, self.cache, st, self.prefill_carry[slot], xc,
-            start, length, cbt, self._weights_row(slot))
+            start, length, cbt, self._weights_row(slot), *pick)
         return nxt, done, first
 
-    def _run_chunk_only(self, slot, xc, start, length, cbt):
+    def _run_chunk_only(self, slot, xc, start, length, cbt, pick):
         first, self.prefill_carry[slot], self.cache = self._fchunk_only(
             self.stacked, self.cache, self.prefill_carry[slot], xc, start,
-            length, cbt, self._weights_row(slot))
+            length, cbt, self._weights_row(slot), *pick)
         return first
 
 

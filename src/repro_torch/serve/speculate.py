@@ -4,16 +4,18 @@ Speculative decoding splits a decode step into a cheap DRAFT of the next
 ``spec_len - 1`` tokens and one multi-token VERIFY forward that scores
 every candidate position at once (``Model.verify_step_paged``); the accept
 rule (``serve.fused.verify_epilogue``) keeps the longest prefix that
-matches the vanilla trajectory, so the output is token for token that of
-unspeculated decode and drafting is purely a latency lever.
+matches the vanilla trajectory — greedy or seeded-sampled — so the
+output is token for token that of unspeculated decode and drafting is
+purely a latency lever.
 
 ``NGramProposer`` drafts on the host by prompt lookup: match the
 request's most recent n-gram against its own earlier history (prompt +
 generated tokens) and propose the tokens that followed the previous
 occurrence. It is numpy host code, a copy of the reference's (the
 reference package's ``serve`` imports JAX, so the port cannot import it).
-The reference's other draft source, expert-0 drafting inside the Eq. 27
-mixture, is not ported (see ROADMAP.md).
+The other draft source, expert 0 of the Eq. 27 mixture drafting on the
+device (``speculative="expert"``), lives in
+``core.ensemble.make_stacked_verify``.
 """
 from __future__ import annotations
 

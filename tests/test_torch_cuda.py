@@ -197,6 +197,111 @@ def test_mixture_serves_as_on_the_cpu_with_one_launch_a_layer(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
+                                       (torch.bfloat16, 8e-3)])
+def test_paged_verify_under_expert_table_offsets_on_card(cuda, dtype, tol):
+    """Paged verify as the mixture's stacked verify launches it: 2 experts'
+    pools viewed as one pool of 2·P pages, each slot's shared table offset
+    by k·P (``Model._expert_tables``), 2·B span rows of L = 4 in one
+    launch, against the plain version in float32 on the same values."""
+    from repro_torch.models.model import Model
+    K, B, NB, block, L, H, KV, dh = 2, 3, 4, 16, 4, 8, 2, 128
+    rng = np.random.default_rng(23)
+    P = B * NB + 1
+    q = f32(rng, K * B, L, H, dh)
+    kp, vp = f32(rng, K, P, block, KV, dh), f32(rng, K, P, block, KV, dh)
+    bt = rng.permutation(np.arange(1, P))[:B * NB].reshape(B, NB) \
+        .astype(np.int32)
+    pos = np.array([0, 27, NB * block - L], np.int32)
+    q, kp, vp = (torch.as_tensor(a, device=cuda).to(dtype)
+                 for a in (q, kp, vp))
+    tables = Model._expert_tables(torch.as_tensor(bt, device=cuda), kp[None],
+                                  K)
+    args = (q, kp.flatten(0, 1), vp.flatten(0, 1),
+            torch.as_tensor(pos, device=cuda).repeat(K), tables)
+    launched = dk.paged_verify_attention.launches
+    got = dk.paged_verify_attention(*args)
+    assert dk.paged_verify_attention.launches == launched + 1
+    want = dk.paged_verify_attention_ref(*(a.float() if a.is_floating_point()
+                                           else a for a in args))
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_sampling_bits_on_card_equal_the_cpu(cuda):
+    """Seeded sampling's threefry keys, 32-bit words and float32 uniforms
+    at Qwen3-8B's vocabulary are the CPU's bit for bit; the Gumbel noise
+    within 1e-6 (two float32 logs)."""
+    from repro_torch.core import prng
+    V = 151936
+    seeds = torch.tensor([0, 7, 2**31, 2**32 - 1])
+    counts = torch.tensor([0, 31, 5, 2**31 - 1], dtype=torch.int32)
+    out = []
+    for dev in ("cpu", cuda):
+        key = prng.fold_in(prng.threefry_seed(seeds.to(dev)), counts.to(dev))
+        bits = prng.random_bits(key, V)
+        out.append([t.cpu() for t in (*key, bits, prng.uniform(bits),
+                                      prng.gumbel(bits))])
+    host, card = out
+    for a, b in zip(host[:3], card[:3]):
+        assert torch.equal(a, b)
+    assert torch.equal(host[3].view(torch.int32), card[3].view(torch.int32))
+    torch.testing.assert_close(card[4], host[4], rtol=0, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_mixture_speculation_serves_as_on_the_cpu(cuda):
+    """The smoke-size float32 Qwen3 mixture (3 experts, top_k 2, paged +
+    chunked) with expert drafting, greedy and sampled requests side by
+    side, gives the CPU's tokens, finish reasons and spec counters; each
+    stacked verify step launches paged verify once per attention layer."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.router import CentroidRouter, RouterConfig
+    from repro_torch.models import build_model
+    from repro_torch.serve.api import EngineConfig, SamplingParams
+    from repro_torch.serve.scheduler import make_engine
+
+    cfg = get_smoke_config("qwen3_8b")
+    model = build_model(cfg)
+    experts = [model.init(torch.Generator().manual_seed(k)) for k in range(3)]
+    rng = np.random.default_rng(2)
+    router = CentroidRouter(torch.as_tensor(f32(rng, 3, 16)),
+                            RouterConfig(top_k=2))
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (5, 19, 30, 8)]
+    feats = f32(rng, 4, 16)
+    ecfg = EngineConfig(n_slots=2, cache_len=48, paged=True, page_block=8,
+                        chunked_prefill=True, chunk=8, strategy="mixture",
+                        speculative="expert", spec_len=4)
+    res, verifies = [], []
+    for dev in ("cpu", "cuda"):
+        eng = make_engine(model, experts=experts, router=router, config=ecfg,
+                          device=dev)
+        core, n = eng.core, [0]
+
+        def counted(*a, _fn=core._vstep):
+            n[0] += 1
+            return _fn(*a)
+        core._vstep = counted
+        ops.reset_launch_counts()
+        for i, p in enumerate(prompts):
+            eng.add_request(p, SamplingParams(
+                max_new=10, temperature=0.7 * (i % 2), top_k=20 * (i % 2),
+                seed=40 + i), features=feats[i], rid=i)
+        out = {}
+        while eng.has_unfinished():
+            for o in eng.step():
+                if o.finished:
+                    out[o.rid] = (o.token_ids, o.finish_reason)
+        st = core.stats()
+        res.append((out, st["spec_steps"], st["spec_tokens"]))
+        verifies.append(n[0])
+    assert res[0] == res[1] and len(res[1][0]) == 4
+    assert verifies[1] > 0
+    assert dk.paged_verify_attention.launches == verifies[1] * cfg.n_layers
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("B,S,H,KV,dh,causal,window", [
     (2, 77, 8, 2, 64, True, 0),        # ragged S, GQA 4:1
     (2, 96, 8, 2, 64, False, 0),       # not causal

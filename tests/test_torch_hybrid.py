@@ -381,11 +381,15 @@ def deployment():
     return jm, jexperts, texperts, cent, prompts, feats
 
 
-def _drive(engine, sp_cls, prompts, feats, stops):
-    # request 5's whole budget is its prefill token
+def _drive(engine, sp_cls, prompts, feats, stops, sampled=False):
+    # request 5's whole budget is its prefill token; sampled, the even
+    # requests draw at temperature 0.8 (top_k 0 and 40)
     for i, p in enumerate(prompts):
+        samp = dict(temperature=0.8, top_k=40 * (i % 4 == 2), seed=9 + i) \
+            if sampled and i % 2 == 0 else {}
         engine.add_request(p, sp_cls(max_new=1 if i == 5 else 12,
-                                     stop_token_ids=stops.get(i, ())),
+                                     stop_token_ids=stops.get(i, ()),
+                                     **samp),
                            features=feats[i], rid=i)
     routing = [[r.rid for r in pod.waiting] for pod in engine.pods]
     res = {}
@@ -413,19 +417,20 @@ def stops(deployment):
     return {1: (free[1][0][4],), 3: (free[3][0][2],)}
 
 
-@pytest.mark.parametrize("kind", list(CONFIGS))
+@pytest.mark.parametrize("kind", list(CONFIGS) + ["paged-chunked-sampled"])
 def test_hybrid_slice_matches_reference_token_for_token(deployment, stops,
                                                         kind):
     jm, jexperts, _, cent, prompts, feats = deployment
-    ecfg = CONFIGS[kind]
+    sampled = kind.endswith("-sampled")
+    ecfg = CONFIGS[kind.removesuffix("-sampled")]
     got, got_route = _drive(_port_engine(deployment, **ecfg), SamplingParams,
-                            prompts, feats, stops)
+                            prompts, feats, stops, sampled)
     jeng = jax_make_engine(
         jm, experts=jexperts,
         router=JaxRouter(jnp.asarray(cent), JaxRouterConfig()),
         config=japi.EngineConfig(n_slots=2, cache_len=CACHE_LEN, **ecfg))
     want, want_route = _drive(jeng, japi.SamplingParams, prompts, feats,
-                              stops)
+                              stops, sampled)
     assert got_route == want_route and all(got_route)
     assert got == want
     assert {r for _, r in got.values()} == {"stop", "length", "truncated"}

@@ -108,10 +108,18 @@ def build_deployment(arch):
     return Deployment(arch, jm, jexperts, texperts, cent, prompts, feats)
 
 
-def drive(engine, sp_cls, dep, stops):
+def sampling(i, sampled):
+    """Seeded sampling for the even requests of a sampled run (top_k 0
+    and 40); the odd ones, which carry the stop ids, stay greedy."""
+    return dict(temperature=0.8, top_k=40 * (i % 4 == 2), seed=57 + i) \
+        if sampled and i % 2 == 0 else {}
+
+
+def drive(engine, sp_cls, dep, stops, sampled=False):
     for i, p in enumerate(dep.prompts):
         engine.add_request(p, sp_cls(max_new=1 if i == 5 else 12,
-                                     stop_token_ids=stops.get(i, ())),
+                                     stop_token_ids=stops.get(i, ()),
+                                     **sampling(i, sampled)),
                            features=dep.feats[i], rid=i)
     res = {}
     while engine.has_unfinished():
@@ -145,10 +153,15 @@ def find_stops(dep, chunked):
     return {1: (free[1][0][4],), 3: (free[3][0][2],)}
 
 
-def check_slice_against_reference(dep, stops, ecfg):
-    got = drive(port_engine(dep, **ecfg), SamplingParams, dep, stops)
+def check_slice_against_reference(dep, stops, kind, chunk):
+    """``kind``: one of ``configs``, or one with ``-sampled`` appended (the
+    even requests sample)."""
+    sampled = kind.endswith("-sampled")
+    ecfg = configs(chunk)[kind.removesuffix("-sampled")]
+    got = drive(port_engine(dep, **ecfg), SamplingParams, dep, stops,
+                sampled)
     want = drive(reference_engine(dep, **ecfg), japi.SamplingParams, dep,
-                 stops)
+                 stops, sampled)
     assert got == want
     assert {r for _, r in got.values()} == {"stop", "length", "truncated"}
     last = len(LENS) - 1                          # fills the context
@@ -315,9 +328,10 @@ def stops(deployment):
     return find_stops(deployment, configs(CHUNK)["paged-chunked"])
 
 
-@pytest.mark.parametrize("kind", list(configs(CHUNK)))
+@pytest.mark.parametrize("kind", list(configs(CHUNK))
+                         + ["contiguous-monolithic-sampled"])
 def test_mixture_matches_reference_token_for_token(deployment, stops, kind):
-    check_slice_against_reference(deployment, stops, configs(CHUNK)[kind])
+    check_slice_against_reference(deployment, stops, kind, CHUNK)
 
 
 def test_mixture_invariants(deployment, stops):
@@ -348,10 +362,18 @@ def test_expert_stack_layout_matches_reference(deployment):
 
 
 def test_speculation_under_the_mixture_is_refused(deployment):
-    with pytest.raises(ValueError, match="under strategy='mixture' is not "
-                                         "ported to repro_torch yet"):
-        port_engine(deployment, speculative="ngram",
-                    **configs(CHUNK)["paged-chunked"])
+    """Speculation under the mixture is served on the paged pool (its
+    parity is ``test_torch_mixture_speculative.py``); without the pool
+    the port refuses it as the reference does, with its message."""
+    eng = port_engine(deployment, speculative="expert",
+                      **configs(CHUNK)["paged-chunked"])
+    assert eng.core._can_spec and eng.core._ngram is None
+    for drafter in ("ngram", "expert"):
+        with pytest.raises(ValueError) as want:
+            reference_engine(deployment, speculative=drafter)
+        with pytest.raises(ValueError) as got:
+            port_engine(deployment, speculative=drafter)
+        assert str(got.value) == str(want.value)
 
 
 # ---------------------------------------------------------------------------

@@ -41,10 +41,11 @@ def stops(deployment):
     return find_stops(deployment, configs(CHUNK)["paged-chunked"])
 
 
-@pytest.mark.parametrize("kind", list(configs(CHUNK)))
+@pytest.mark.parametrize("kind", list(configs(CHUNK))
+                         + ["paged-chunked-sampled"])
 def test_hybrid_mixture_matches_reference_token_for_token(deployment, stops,
                                                           kind):
-    check_slice_against_reference(deployment, stops, configs(CHUNK)[kind])
+    check_slice_against_reference(deployment, stops, kind, CHUNK)
 
 
 def test_hybrid_mixture_invariants(deployment, stops):

@@ -2,8 +2,10 @@
 deployment over 2 expert pods with monolithic prefill at admission, on
 contiguous per-slot caches and on the paged pool, plus a sliding-window
 (ring) model on both, must emit exactly the reference's greedy tokens,
-finish reasons and per-request routing on the same weights. Inside the
-port, paged ≡ contiguous and chunked ≡ monolithic hold exactly.
+finish reasons and per-request routing on the same weights, greedy and
+(the ``-sampled`` cases) with seeded sampling on every other request.
+Inside the port, paged ≡ contiguous and chunked ≡ monolithic hold
+exactly.
 """
 import numpy as np
 import pytest
@@ -48,11 +50,14 @@ def deployment():
     return jexperts, texperts, cent, prompts, feats
 
 
-def _drive(engine, sp_cls, prompts, feats):
+def _drive(engine, sp_cls, prompts, feats, sampled=False):
     # request 5's whole budget is its prefill token: it retires from its
-    # slot at admission ("length")
+    # slot at admission ("length"); sampled, odd requests draw at
+    # temperature 0.9 (top_k 0 and 50)
     for i, p in enumerate(prompts):
-        engine.add_request(p, sp_cls(max_new=1 if i == 5 else 12),
+        samp = dict(temperature=0.9, top_k=50 * (i % 4 == 3),
+                    seed=31 * i) if sampled and i % 2 else {}
+        engine.add_request(p, sp_cls(max_new=1 if i == 5 else 12, **samp),
                            features=feats[i], rid=i)
     routing = [[r.rid for r in pod.waiting] for pod in engine.pods]
     res = {}
@@ -63,31 +68,34 @@ def _drive(engine, sp_cls, prompts, feats):
     return res, routing
 
 
-def _port(deployment, window=0, **ecfg):
+def _port(deployment, window=0, sampled=False, **ecfg):
     _, texperts, cent, prompts, feats = deployment
     model = build_model(get_smoke_config("qwen3_8b")
                         .reduced(sliding_window=window))
     return _drive(make_engine(model, experts=texperts,
                               router=CentroidRouter(torch.as_tensor(cent)),
                               config=EngineConfig(**ecfg), device="cpu"),
-                  SamplingParams, prompts, feats)
+                  SamplingParams, prompts, feats, sampled)
 
 
-@pytest.mark.parametrize("window,paged", [(0, False), (0, True),
-                                          (WINDOW, False), (WINDOW, True)],
-                         ids=["contiguous", "paged", "ring-contiguous",
-                              "ring-paged"])
+@pytest.mark.parametrize("window,paged,sampled", [
+    (0, False, False), (0, True, False), (WINDOW, False, False),
+    (WINDOW, True, False), (0, False, True), (0, True, True)],
+    ids=["contiguous", "paged", "ring-contiguous", "ring-paged",
+         "contiguous-sampled", "paged-sampled"])
 def test_monolithic_slice_matches_reference_token_for_token(deployment,
-                                                            window, paged):
+                                                            window, paged,
+                                                            sampled):
     jexperts, _, cent, prompts, feats = deployment
     ecfg = dict(MONOLITHIC, **(PAGED if paged else {}))
-    got, got_route = _port(deployment, window, **ecfg)
+    got, got_route = _port(deployment, window, sampled, **ecfg)
     jm = jax_build(jax_smoke("qwen3_8b").reduced(sliding_window=window))
     jeng = jax_make_engine(
         jm, experts=jexperts,
         router=JaxRouter(jnp.asarray(cent), JaxRouterConfig()),
         config=japi.EngineConfig(**ecfg))
-    want, want_route = _drive(jeng, japi.SamplingParams, prompts, feats)
+    want, want_route = _drive(jeng, japi.SamplingParams, prompts, feats,
+                              sampled)
     assert got_route == want_route and all(got_route)
     assert got == want
     assert {r for _, r in got.values()} == {"length", "truncated"}

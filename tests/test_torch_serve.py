@@ -102,8 +102,6 @@ def test_top1_slice_matches_reference_token_for_token(deployment):
 
 
 @pytest.mark.parametrize("override,option", [
-    (dict(strategy="mixture", speculative="ngram"),
-     "speculative='ngram' under strategy='mixture'"),
     (dict(qos=object()), "qos"),
     (dict(preemption="swap"), "preemption='swap'"),
     (dict(prefix_cache=True), "prefix_cache=True"),
@@ -140,12 +138,19 @@ def test_validate_dependency_errors_match_reference(override, window):
 
 
 def test_validate_refuses_other_families_and_sampling():
+    """Families not ported are refused; seeded sampling is served, and the
+    sampling controls the reference refuses (a negative top_k) are
+    refused with its message."""
     cfg = get_smoke_config("qwen3_8b")
     with pytest.raises(ValueError, match="family 'moe' is not ported"):
         build_model(dataclasses.replace(cfg, family="moe"))
-    with pytest.raises(ValueError, match="temperature > 0 sampling is not "
-                                         "ported to repro_torch yet"):
-        SamplingParams(temperature=0.7)
+    sp = SamplingParams(temperature=0.7, top_k=5, seed=-3)
+    assert (sp.temperature, sp.top_k, sp.seed) == (0.7, 5, -3)
+    with pytest.raises(ValueError) as want:
+        japi.SamplingParams(temperature=0.7, top_k=-1)
+    with pytest.raises(ValueError) as got:
+        SamplingParams(temperature=0.7, top_k=-1)
+    assert str(got.value) == str(want.value)
     with pytest.raises(ValueError, match="cache_len must be >= 2"):
         EngineConfig(**dict(ECFG, cache_len=1)).validate()
 

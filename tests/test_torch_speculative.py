@@ -521,15 +521,21 @@ def test_validate_speculative_errors_match_reference(over):
 
 
 def test_validate_serves_ngram_and_refuses_expert_drafting():
+    """n-gram drafting is served under both strategies and expert drafting
+    under the mixture; expert drafting under top-1 (no expert stack to
+    draft from) is refused with the reference's message."""
     EngineConfig(**dict(ECFG, speculative="ngram")).validate()
     EngineConfig(**dict(ECFG, speculative="ngram", spec_len=1)).validate()
-    cfg = dict(ECFG, speculative="expert", strategy="mixture")
-    japi.EngineConfig(**cfg).validate()          # legal in the reference
-    with pytest.raises(ValueError) as e:
+    for drafter in ("ngram", "expert"):
+        cfg = dict(ECFG, speculative=drafter, strategy="mixture")
+        japi.EngineConfig(**cfg).validate()
         EngineConfig(**cfg).validate()
-    assert str(e.value) == \
-        "speculative='expert' under strategy='mixture' is not ported to " \
-        "repro_torch yet (see ROADMAP.md)"
+    cfg = dict(ECFG, speculative="expert", strategy="top1")
+    with pytest.raises(ValueError) as want:
+        japi.EngineConfig(**cfg).validate()
+    with pytest.raises(ValueError) as got:
+        EngineConfig(**cfg).validate()
+    assert str(got.value) == str(want.value)
 
 
 def test_launcher_twin_speculates_with_the_same_tokens(tmp_path, models):
