@@ -54,7 +54,17 @@ Phases, each fatal on failure:
    one, tables offset by k·P, 16 span rows of ``SPEC_LEN``) in both
    dtypes, the bf16 call timed with its bound; seeded sampling's threefry
    keys, bits and uniforms at V = 151936 on the card equal to the CPU's
-   bit for bit, and the sampler timed at 32 rows;
+   bit for bit, and the sampler timed at 32 rows; and the kernels the
+   vlm and dense-config paths run at their new heads (InternVL2-2B's 16
+   query heads over 8 KV heads, Phi-3-medium's 40/10, Llama-3-405B's
+   128/8, dh 128, at the vlm path's dimensions: 8 slots over 84 blocks of
+   16, a 256-row chunk at position 0 that is all image prefix and a
+   ragged one after it, flash over a ragged S = 256 + 777, spans of
+   ``SPEC_LEN``, contiguous rows of 1344; the Phi and Llama smoke
+   configs' dh 40 and 64 at small shapes), paged decode, chunk prefill,
+   flash, paged verify and contiguous decode in bf16 and float32, each
+   case with its device ms and bound (``new_config_shapes`` in the
+   record), and the flash backward there;
 4. parity — the smoke-size float32 Qwen3 deployment (2 pods, top-1) served
    on the card (kernels) and on the CPU (plain versions) in four
    configurations (paged + chunked, paged + chunked + n-gram speculation,
@@ -68,7 +78,13 @@ Phases, each fatal on failure:
    Gumbel-plus-logit margin and fails unless that margin is within
    ``SAMPLE_MARGIN_ULPS`` ulps; then the smoke-size float32 Zamba2
    deployment in the three configurations without speculation, top-1 and
-   mixture, and sampled, top-1 and mixture, with the same checks;
+   mixture, and sampled, top-1 and mixture, with the same checks; then
+   every configuration of Qwen3's for the smoke-size InternVL2-2B (each
+   request with its own patches), Granite-3-8B, Phi-3-medium-14B and
+   Llama-3-405B. Under expert drafting request 1 sits on expert 0's
+   centroid, so the mixture takes its drafts, which must be accepted on
+   every config; the n-gram acceptance requirement holds on Qwen3's
+   traffic, built for it;
 5. main path — full-width Qwen3-8B (36 layers, bf16, 2 experts of seeded
    random weights) served through ``make_engine`` → ``add_request``/
    ``step`` with the paged pool, chunked prefill and the fused decode
@@ -145,12 +161,31 @@ Phases, each fatal on failure:
    the first Mamba2 layer's final SSM state within ``HYBRID_STATE_TOL``
    (the tolerances and why they differ from Qwen3's are stated where they
    are defined);
+10b. vlm paths — full-width InternVL2-2B (24 layers, bf16, 2 experts of
+   seeded random weights, 256 rows of seeded image patches ahead of each
+   prompt) on the main path's deployment and traffic, then on contiguous
+   caches with monolithic prefill, then under the Eq. 27 mixture
+   (``MIXTURE_NEW_TOKENS``), each with the main path's checks;
+10c. vlm float32 — full-width InternVL2-2B in float32 at
+   ``VLM_F32_LAYERS`` layers: monolithic prefill then a contiguous decode
+   step against chunked prefill then a paged decode step, on two prompts
+   behind their prefix, within ``F32_LOGIT_TOL`` (printed beside Qwen3's
+   measured difference);
+10d. dense-config paths — full-width Granite-3-8B (40 layers, tied
+   table), Phi-3-medium-14B (40 layers) and Llama-3-405B (cut to 2 of
+   126 layers by ``main_path.DEPTH_CUTS``), each on the main path's
+   deployment and traffic, top-1, with the main path's checks and its
+   cut printed;
 11. training parity — the smoke-size float32 training deployment
    (``repro_torch/launch/train_path.py``: the launcher's partition,
    loaders and schedule) trains expert 0 for 3 steps on the card (flash
    forward and backward kernels) and on the CPU (plain versions) from the
    same params: losses, grad norms and lrs, and params, m and v after the
-   third step, within ``TRAIN_PARITY``'s tolerances;
+   third step, within ``TRAIN_PARITY``'s tolerances; then one step's loss
+   and gradients of the smoke-size InternVL2-2B (the projector's among
+   them) and Granite-3-8B (the tied table's) on the card and on the CPU,
+   each against the CPU's float64 gradient, within
+   ``TRAIN_STEP_PARITY``;
 12. training path — full-width Qwen3-8B cut to 8 layers (bf16, remat
    "full"), 2 experts on the launcher's k-means partition, 8 steps each
    of one 4096-token sequence, through ``train_host_loop``; prints each
@@ -1080,6 +1115,145 @@ def _training_kernel_cases(cases, rec, gen):
                              window)
 
 
+# the heads of the configs the vlm and dense-config paths serve at full
+# width, (config, H, KV, dh), and the smoke configs' new head sizes
+NEW_CONFIG_HEADS = (("internvl2_2b", 16, 8, 128),
+                    ("phi3_medium_14b", 40, 10, 128),
+                    ("llama3_405b", 128, 8, 128))
+NEW_SMOKE_HEADS = (("phi3 smoke", 4, 2, 40), ("llama3 smoke", 4, 2, 64))
+# the vlm main path's rows: 1024 text positions + 256 prefix + 64 new
+VLM_CACHE_LEN = 1344
+
+
+def _new_shape_case(cases, rec, kernel, config, shape, dtype_name, call,
+                    want, nbytes, flops):
+    """``call()`` against ``want`` at the tolerance of ``dtype_name``,
+    then its device ms beside its bound (``nbytes`` over the HBM rate,
+    ``flops`` over the dtype's peak), kept in the kernel's record under
+    ``new_config_shapes``."""
+    compare(kernel, call(), want, dtype_name, cases)
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    rec[kernel].setdefault("new_config_shapes", []).append({
+        "config": config, "shape": shape,
+        "dtype": dtype_name, "max_abs_err": cases[-1]["max_abs_err"],
+        "device_ms": device_ms(call), "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+
+
+def _new_config_kernel_cases(cases, rec, gen):
+    """Kernels 1, 2, 4, 5 and 6 (paged decode, chunk prefill, flash,
+    paged verify, contiguous decode) at the heads of InternVL2-2B (16/8),
+    Phi-3-medium (40/10) and Llama-3-405B (128/8), dh 128, at the vlm main
+    path's dimensions, in bf16 and float32, each against its plain version
+    run in float32 on the same values and timed beside its bound: 8 slots
+    over 84 blocks of 16 (cache_len 1344), a 256-row chunk at position 0
+    (all image prefix) and a ragged 100-row chunk after it, flash over a
+    ragged S = 256 + 777, spans of ``SPEC_LEN``, contiguous rows of 1344.
+    Then the smoke configs' dh 40 and 64 at small shapes, and the flash
+    backward at the new heads."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import flash_attention_bwd as fbk
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    block, B, L = 16, 8, SPEC_LEN
+    NB = VLM_CACHE_LEN // block
+    rng = np.random.default_rng(23)
+    pos = rng.integers(256, VLM_CACHE_LEN, B)
+    pos[0] = VLM_CACHE_LEN - 1
+    vpos = rng.integers(256, VLM_CACHE_LEN - L + 1, B)
+    vpos[0] = VLM_CACHE_LEN - L
+    heads = [(c, H, KV, dh, True) for c, H, KV, dh in NEW_CONFIG_HEADS] \
+        + [(c, H, KV, dh, False) for c, H, KV, dh in NEW_SMOKE_HEADS]
+    for config, H, KV, dh, full in heads:
+        for dtype, name in ((bf16, "bfloat16"), (f32, "float32")):
+            es = 2 if dtype is bf16 else 4
+            hd = f"H={H} KV={KV} dh={dh}"
+            # paged decode
+            nb = NB if full else 8
+            p = pos if full else np.array([0, 60, 127])
+            args = _paged_case(len(p), nb, block, H, KV, dh, p.tolist(),
+                               dtype, gen)
+            keys, live = int((p + 1).sum()), int((p // block + 1).sum())
+            _new_shape_case(
+                cases, rec, "paged_decode_attention", config,
+                f"B={len(p)} {hd} block={block} NB={nb}", name,
+                lambda: dk.paged_decode_attention(*args),
+                dk.paged_decode_attention_ref(*_up(*args)),
+                2 * len(p) * H * dh * es + keys * KV * dh * 2 * es
+                + len(p) * 4 + live * 4, 4 * H * dh * keys)
+            # chunk prefill: the image prefix's chunk, then a ragged one
+            for C, start in (((256, 0), (100, 256)) if full
+                             else ((40, 0), (13, 40))):
+                q, kp, vp, start, bt = _chunk_case(C, nb, block, H, KV, dh,
+                                                   start, dtype, gen)
+                S = start + C
+                _new_shape_case(
+                    cases, rec, "chunk_prefill_attention", config,
+                    f"C={C} start={start} {hd} block={block}", name,
+                    lambda: dk.chunk_prefill_attention(q, kp, vp, start,
+                                                       bt),
+                    dk.chunk_prefill_attention_ref(*_up(q, kp, vp), start,
+                                                   bt),
+                    2 * C * H * dh * es + S * KV * dh * 2 * es
+                    + -(-S // block) * 4,
+                    4 * H * dh * sum(start + c + 1 for c in range(C)))
+            # flash, ragged S (the vlm's 256 prefix rows and a prompt)
+            S = 256 + 777 if full else 77
+            q, k, v = _flash_case(1, S, H, KV, dh, dtype, gen)
+            want, want_lse = fk.flash_attention_with_lse_ref(*_up(q, k, v))
+            compare("flash_attention", fk.flash_attention_with_lse(
+                q, k, v)[1], want_lse, name, cases)
+            _new_shape_case(
+                cases, rec, "flash_attention", config,
+                f"B=1 S={S} {hd} causal",
+                name, lambda: fk.flash_attention_with_lse(q, k, v)[0], want,
+                (2 * S * H * dh + 2 * S * KV * dh) * es + S * H * 4,
+                4 * H * dh * S * (S + 1) // 2)
+            # paged verify, and each row against paged decode at pos + j
+            vp_ = vpos if full else np.array([5, 60, 124])
+            args = _verify_case(len(vp_), nb, block, L, H, KV, dh,
+                                vp_.tolist(), dtype, gen)
+            _check_verify(dk, cases, name, *args)
+            keys = int((vp_ + L).sum())
+            live = int(((vp_ + L - 1) // block + 1).sum())
+            pairs = int(sum(x * L + L * (L + 1) // 2 for x in vp_))
+            _new_shape_case(
+                cases, rec, "paged_verify_attention", config,
+                f"B={len(vp_)} L={L} {hd} block={block} NB={nb}", name,
+                lambda: dk.paged_verify_attention(*args),
+                dk.paged_verify_attention_ref(*_up(*args)),
+                2 * len(vp_) * L * H * dh * es + keys * KV * dh * 2 * es
+                + len(vp_) * 4 + live * 4, 4 * H * dh * pairs)
+            # contiguous decode over the vlm path's rows
+            S = VLM_CACHE_LEN if full else 128
+            args = _decode_case(len(p), S, H, KV, dh, p.tolist(), dtype,
+                                gen)
+            keys = int((p + 1).sum())
+            _new_shape_case(
+                cases, rec, "decode_attention", config,
+                f"B={len(p)} S={S} {hd}",
+                name, lambda: dk.decode_attention(*args),
+                dk.decode_attention_ref(*_up(*args)),
+                2 * len(p) * H * dh * es + keys * KV * dh * 2 * es
+                + len(p) * 4, 4 * H * dh * keys)
+            # the flash backward (vlm and dense-config training)
+            Sb = 333 if full else 77
+            q, k, v = _flash_case(1, Sb, H, KV, dh, dtype, gen)
+            do = torch.randn((1, Sb, H, dh), generator=gen,
+                             device="cuda").to(dtype)
+            _check_flash_bwd(fk, fbk, cases, name, q, k, v, do)
+    for name, r in rec.items():
+        for c in r.get("new_config_shapes", ()):
+            log(f"new-shape case {name} ({c['config']}, {c['shape']}, "
+                f"{c['dtype']}): max abs err {c['max_abs_err']:.3e}, device "
+                f"ms {c['device_ms']}, bound {c['bound_ms']:.4f} by "
+                f"{c['bound_by']}")
+
+
 def phase_kernels():
     """Compare and time every kernel; returns {name: record}."""
     import numpy as np
@@ -1505,6 +1679,7 @@ def phase_kernels():
     _speculation_kernel_cases(cases, rec, gen)
     _sampling_bits_cases()
     _training_kernel_cases(cases, rec, gen)
+    _new_config_kernel_cases(cases, rec, gen)
     torch.cuda.synchronize()
 
     for name, r in rec.items():
@@ -1536,13 +1711,15 @@ def phase_kernels():
 # Phases 4-5: serving
 # ---------------------------------------------------------------------------
 
-def _serve(engine, prompts, feats, params):
-    """Drive ``engine`` to completion, request i with ``params(i)``;
-    returns ({rid: (tokens, reason)}, [[rids] per pod], outputs-by-rid,
-    steps, wall seconds)."""
+def _serve(engine, prompts, feats, params, extras=None):
+    """Drive ``engine`` to completion, request i with ``params(i)`` and
+    its modality ``extras[i]`` (none when ``extras`` is None); returns
+    ({rid: (tokens, reason)}, [[rids] per pod], outputs-by-rid, steps,
+    wall seconds)."""
     import torch
     for i, p in enumerate(prompts):
-        engine.add_request(p, params(i), features=feats[i], rid=i)
+        engine.add_request(p, params(i), extras[i] if extras else None,
+                           features=feats[i], rid=i)
     routing = [[r.rid for r in pod.waiting] for pod in engine.pods]
     res, outs, steps = {}, {}, 0
     t0 = time.perf_counter()
@@ -1564,12 +1741,14 @@ def _serve(engine, prompts, feats, params):
 SAMPLE_MARGIN_ULPS = 4
 
 
-def _sample_margin(host, model, prompt, toks, t, sp, feats, route):
+def _sample_margin(host, model, prompt, toks, t, sp, feats, route,
+                   extras=None):
     """The Gumbel-plus-logit margin of token ``t`` of a sampled request on
     the CPU engine ``host``: its scores recomputed by a prefill of the
-    prompt and its first ``t`` tokens (the top-1 pod ``route``'s expert,
-    or the Eq. 27 mixture under the router's weights), then
-    ``fused.sample_margin`` at count ``t``. Returns (margin, allowed)."""
+    prompt (behind its ``extras``' image prefix, if any) and its first
+    ``t`` tokens (the top-1 pod ``route``'s expert, or the Eq. 27 mixture
+    under the router's weights), then ``fused.sample_margin`` at count
+    ``t``. Returns (margin, allowed)."""
     import numpy as np
     import torch
     from repro_torch.core.ensemble import mix_expert_logits
@@ -1577,15 +1756,18 @@ def _sample_margin(host, model, prompt, toks, t, sp, feats, route):
 
     seq = np.concatenate([prompt, np.asarray(toks[:t], np.int32)])
     batch = {"tokens": torch.as_tensor(seq[None].astype(np.int64))}
+    for name, v in (extras or {}).items():
+        batch[name] = torch.as_tensor(np.asarray(v)[None])
+    width = len(seq) + (model.cfg.n_patches if extras else 0)
     if host.config.strategy == "mixture":
         core = host.core
-        logits, _ = model.prefill(core.stacked, batch, len(seq))
+        logits, _ = model.prefill(core.stacked, batch, width)
         w = core.router.route(torch.as_tensor(np.asarray(feats,
                                                          np.float32)[None]))
         row = torch.log(mix_expert_logits(logits[:, :, -1], w).clamp_min(
             fused.PROB_FLOOR))
     else:
-        logits, _ = model.prefill(host.pods[route].params, batch, len(seq))
+        logits, _ = model.prefill(host.pods[route].params, batch, width)
         row = logits[0, -1:]
     margin = float(fused.sample_margin(
         row, torch.tensor([sp.temperature]),
@@ -1630,6 +1812,11 @@ def phase_parity(arch="qwen3_8b"):
     periodic = [np.tile(rng.integers(1, cfg.vocab, 4), n // 4 + 1)[:n]
                 .astype(np.int32) for n in lens]
     feats = rng.normal(size=(len(lens), 32)).astype(np.float32)
+    # the vlm family's image patches, one set a request (its prefix of
+    # n_patches rows goes ahead of each prompt)
+    extras = [{"patches": rng.normal(size=(cfg.n_patches, cfg.vision_dim))
+               .astype(np.float32)} for _ in lens] \
+        if cfg.family == "vlm" else None
 
     def greedy(i):
         return SamplingParams(max_new=12)
@@ -1663,15 +1850,22 @@ def phase_parity(arch="qwen3_8b"):
     if not model.speculative_capable:
         configs = [c for c in configs if "speculative" not in c[1]]
     mix_router = CentroidRouter(router.centroids, RouterConfig(top_k=2))
+    # under expert drafting request 1 sits on expert 0's centroid, so the
+    # mixture weighs expert 0 at > 0.99 and takes its drafts
+    on_expert0 = feats.copy()
+    on_expert0[1] = router.centroids[0].numpy()
+    # the longest prompt and its budget, behind any image prefix
+    cache_len = 56 + (cfg.n_patches if extras else 0)
     for kind, over, reqs, params in configs:
-        ecfg = EngineConfig(n_slots=2, cache_len=56, page_block=8, chunk=16,
-                            **over)
+        ecfg = EngineConfig(n_slots=2, cache_len=cache_len, page_block=8,
+                            chunk=16, **over)
         card, host = (make_engine(
             model, experts=experts, config=ecfg, device=dev,
             router=mix_router if "strategy" in over else router)
             for dev in ("cuda", "cpu"))
-        gpu, groute, *_ = _serve(card, reqs, feats, params)
-        cpu, croute, *_ = _serve(host, reqs, feats, params)
+        fts = on_expert0 if over.get("speculative") == "expert" else feats
+        gpu, groute, *_ = _serve(card, reqs, fts, params, extras)
+        cpu, croute, *_ = _serve(host, reqs, fts, params, extras)
         if groute != croute:
             raise AssertionError(f"{cfg.arch_id}, {kind}: routing differs: "
                                  f"card {groute}, CPU {croute}")
@@ -1689,7 +1883,8 @@ def phase_parity(arch="qwen3_8b"):
                      if j == min(len(a), len(b)) or a[j] != b[j])
             route = next(k for k, rids in enumerate(croute) if i in rids)
             margin, allowed = _sample_margin(host, model, reqs[i], b, t, sp,
-                                             feats[i], route)
+                                             fts[i], route,
+                                             extras[i] if extras else None)
             log(f"{cfg.arch_id}, {kind}: request {i} sampled token {t} "
                 f"differs (card {a[t:t + 1]}, CPU {b[t:t + 1]}): its "
                 f"Gumbel-plus-logit margin {margin:.3e}, allowed "
@@ -1708,13 +1903,20 @@ def phase_parity(arch="qwen3_8b"):
             steps, toks = on_card
             # a trajectory that diverged at a near-tie speculates otherwise
             same = on_card == on_cpu or bool(diverged)
+            # drafts must be accepted where the traffic is built for it:
+            # expert drafting with request 1 on expert 0, and n-gram drafts
+            # on Qwen3's periodic prompts (the other configs' random smoke
+            # weights do not continue the period: InternVL2's, Granite's
+            # and Llama's accept no n-gram draft on this traffic)
+            accepts = over.get("speculative") == "expert" or (
+                reqs is periodic and arch == "qwen3_8b")
             if not same or not steps or (
-                    reqs is periodic and params is greedy
-                    and not toks > steps):
+                    params is greedy and accepts and not toks > steps):
                 raise AssertionError(
                     f"{kind}: (spec_steps, spec_tokens) card {on_card}, "
                     f"CPU {on_cpu}: they must be equal and nonzero, with "
-                    f"spec_tokens > spec_steps on n-gram traffic")
+                    f"spec_tokens > spec_steps on traffic built for "
+                    f"acceptance")
             extra += f"; spec_steps, spec_tokens {on_card} on the card, " \
                 f"{on_cpu} on the CPU"
         log(f"parity ({cfg.arch_id}, {kind}): {len(cpu)} requests, "
@@ -1777,7 +1979,7 @@ def _serve_watched(label, mp, watch, kernels):
         ops.reset_launch_counts()
         calls.update(dict.fromkeys(calls, 0))
         res, routing, outs, steps, wall = _serve(
-            mp.engine, mp.prompts, mp.features, mp.params)
+            mp.engine, mp.prompts, mp.features, mp.params, mp.extras)
         launches = {n: fn.launches for n, fn in ops.KERNELS.items()}
     finally:
         for name, _ in watch:
@@ -1796,6 +1998,8 @@ def _serve_watched(label, mp, watch, kernels):
     n_tok = sum(len(t) for t, _ in res.values())
     stats = {"requests": n_req,
              "prompt_tokens": int(sum(len(p) for p in mp.prompts)),
+             "image_prefix_rows": model.cfg.n_patches
+             if model.cfg.family == "vlm" else 0,
              "new_tokens": mp.sampling.max_new, "generated_tokens": n_tok,
              "requests_per_pod": [len(r) for r in routing],
              "finish_reasons": sorted({r for _, r in res.values()}),
@@ -2324,6 +2528,241 @@ def phase_hybrid_float32_agreement():
             f"{HYBRID_STATE_TOL})")
 
 
+VLM_ARCH = "internvl2_2b"
+# the dense family's other configs at full width: each served on the
+# main path's deployment and traffic, top-1 (main_path.DEPTH_CUTS cuts
+# Llama-3-405B to 2 layers)
+DENSE_CONFIG_ARCHS = ("granite_3_8b", "phi3_medium_14b", "llama3_405b")
+# the vlm float32 check's depth (full width)
+VLM_F32_LAYERS = 2
+# the largest logit difference the Qwen3 float32 agreement phase measured
+# between its two prefill/decode paths (PERF.md), printed beside the vlm's
+QWEN3_F32_LOGIT_DIFF = 9.8e-5
+# card vs CPU training at smoke size (float32, kernels vs plain versions),
+# both held against the CPU's float64 gradient: the loss relative, and the
+# card's worst leaf (its largest difference over its largest element) at
+# most this many times the CPU's. The vlm and Granite smoke configs have no
+# qk-norm, so their large random attention logits magnify summation order:
+# on the card the two float32 sides ended 5.7e-4 of a leaf's largest
+# element apart at 64 tokens (the CPU tests measure each package up to
+# 2.0e-4 from a float64 gradient at 16), while a fault in a gradient puts
+# it O(1) away; the ratio holds the card to the CPU's own rounding
+TRAIN_STEP_PARITY = {"loss_rtol": 1e-4, "grad_vs_cpu": 4.0}
+
+
+def phase_vlm_paths():
+    """Full-width InternVL2-2B (24 layers, D = 2048, bf16, 2 experts of
+    seeded random weights) on the main path's deployment and traffic, each
+    request behind its 256 rows of seeded image patches
+    (``main_path.build(arch="internvl2_2b")``): paged + chunked top-1, then
+    contiguous + monolithic, then the Eq. 27 mixture (top_k 2,
+    ``MIXTURE_NEW_TOKENS``). Returns the three runs' launch counts."""
+    import torch
+    from repro_torch.launch import main_path
+
+    t0 = time.perf_counter()
+    mp = main_path.build("cuda", arch=VLM_ARCH)
+    torch.cuda.synchronize()
+    cfg = mp.cfg
+    log(f"vlm path: {main_path.N_EXPERTS} experts of {cfg.arch_id} "
+        f"({cfg.n_layers} layers, D={cfg.d_model}, {cfg.n_patches} patch "
+        f"rows of {cfg.vision_dim} a request, cache_len "
+        f"{mp.config.cache_len}, bf16) initialized in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    main_res, main = _serve_watched(
+        "vlm path", mp, (("decode_step_paged", lambda x: x),
+                         ("prefill_chunk", lambda x: x)), MAIN_KERNELS)
+    cp = main_path.contiguous(mp)
+    mp.engine = None
+    torch.cuda.empty_cache()
+    res, contiguous = _serve_watched(
+        "vlm contiguous path", cp, (("decode_step", lambda x: x),
+                                    ("prefill", lambda x: x[:, -1])),
+        CONTIGUOUS_KERNELS)
+    same = sum(res[i][0] == main_res[i][0] for i in main_res)
+    log(f"vlm contiguous path: {same} of {len(main_res)} requests got the "
+        f"same tokens as on the vlm path (information only: bf16 rounding "
+        f"differs between the paths)")
+    cp.engine = None
+    xp = _mixture_of(mp)
+    mp.experts = xp.experts = None      # the stack holds the weights now
+    torch.cuda.empty_cache()
+    _, mixture = _serve_watched(
+        "vlm mixture path", xp, (("decode_step_paged", lambda x: x),
+                                 ("prefill_chunk", lambda x: x)),
+        MAIN_KERNELS)
+    xp.engine = None
+    return main, contiguous, mixture
+
+
+def phase_vlm_float32():
+    """Full-width InternVL2-2B in float32 at ``VLM_F32_LAYERS`` layers,
+    one expert: monolithic prefill (the 256-row image prefix and the
+    prompt through flash) then a contiguous decode step, against chunked
+    prefill (the prefix fills the first chunk) then a paged decode step,
+    on two prompts; the largest logit difference within
+    ``F32_LOGIT_TOL``, printed beside Qwen3's."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import main_path
+    from repro_torch.models import build_model
+
+    cfg = get_config(VLM_ARCH).reduced(
+        n_layers=VLM_F32_LAYERS, param_dtype="float32",
+        compute_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    lo, hi, block, chunk = main_path.FULL_SHAPE
+    cache_len = hi + cfg.n_patches + main_path.NEW_TOKENS
+    nb = -(-cache_len // block)
+    table = torch.arange(1, nb + 1, dtype=torch.int32, device="cuda")
+    rng = np.random.default_rng(8)
+    worst, agree, widths = 0.0, 0, (446, hi)
+    for text in widths:
+        width = cfg.n_patches + text
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, text)),
+                               device="cuda")
+        patches = torch.as_tensor(rng.normal(
+            size=(1, cfg.n_patches, cfg.vision_dim)).astype(np.float32),
+            device="cuda")
+        logits, row = model.prefill(params, {"tokens": toks,
+                                             "patches": patches}, cache_len)
+        mono = logits[0, -1]
+        cache = model.cache_spec().insert(
+            model.init_cache(1, cache_len, device="cuda"), row, 0)
+        pool = model.init_paged_cache(1, nb + 1, block, cache_len,
+                                      device="cuda")
+        padded = {"tokens": torch.nn.functional.pad(toks,
+                                                    (0, -width % chunk)),
+                  "patches": patches}
+        x = model.embed_prompt(params, padded)
+        carry = model.init_chunk_carry(params, padded, cache_len)
+        for start in range(0, width, chunk):
+            chunked, carry, pool = model.prefill_chunk(
+                params, pool, carry, x[:, start:start + chunk], start,
+                min(chunk, width - start), table)
+        tok = mono.argmax()[None].to(torch.int32)
+        pos = torch.tensor([width], dtype=torch.int32, device="cuda")
+        dec, _ = model.decode_step(params, cache, tok, pos)
+        dec_paged, _ = model.decode_step_paged(params, pool, tok, pos,
+                                               table[None])
+        agree += int(mono.argmax() == chunked[0].argmax()) \
+            + int(dec[0].argmax() == dec_paged[0].argmax())
+        worst = max(worst, (mono - chunked[0]).abs().max().item(),
+                    (dec - dec_paged).abs().max().item())
+    log(f"vlm float32 agreement: full-width {cfg.arch_id} at "
+        f"{cfg.n_layers} layers, prompts of {widths} text tokens behind "
+        f"{cfg.n_patches} patch rows: monolithic + contiguous vs chunked + "
+        f"paged last-row logits max abs diff {worst:.3e} (Qwen3-8B's "
+        f"{QWEN3_F32_LOGIT_DIFF:.1e}; tolerance {F32_LOGIT_TOL}), greedy "
+        f"picks equal {agree} of 4")
+    if not worst <= F32_LOGIT_TOL:
+        raise AssertionError(f"vlm float32 paths disagree: {worst:.3e} > "
+                             f"{F32_LOGIT_TOL}")
+
+
+def phase_dense_config_path(arch):
+    """Full-width ``arch`` (bf16, 2 experts of seeded random weights,
+    depth cut by ``main_path.DEPTH_CUTS``) on the main path's deployment
+    and traffic, top-1, paged + chunked. Returns its launch counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import main_path
+    from repro_torch.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    mp = main_path.build("cuda", arch=arch)
+    torch.cuda.synchronize()
+    cfg = mp.cfg
+    full = get_config(arch).n_layers
+    cut = f"cut from {full} to {cfg.n_layers} layers" \
+        if cfg.n_layers != full else f"all {full} layers"
+    n_params = sum(t.numel() for _, t in tree_leaves(mp.experts[0]))
+    log(f"{arch} path: {main_path.N_EXPERTS} experts of {cfg.arch_id} "
+        f"({cut}, D={cfg.d_model}, H={cfg.n_heads}, KV={cfg.n_kv_heads}, "
+        f"d_ff={cfg.d_ff}, vocab {cfg.vocab}"
+        f"{', tied table' if cfg.tie_embeddings else ''}, "
+        f"{n_params / 1e9:.2f} B parameters an expert, bf16) initialized in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    _, launches = _serve_watched(
+        f"{arch} path", mp, (("decode_step_paged", lambda x: x),
+                             ("prefill_chunk", lambda x: x)), MAIN_KERNELS)
+    mp.engine = mp.experts = None
+    return launches
+
+
+def phase_train_step_parity():
+    """One smoke-size training step's loss and gradients for
+    ``internvl2_2b`` (the projector's gradient among them) and
+    ``granite_3_8b`` (the tied table's summed gradient among them), from
+    the same params and batch: float32 on the card (flash forward and
+    backward kernels) and on the CPU (plain versions), each held against
+    the CPU's float64 gradient within ``TRAIN_STEP_PARITY``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_from_leaves, tree_leaves, tree_map
+
+    def loss_and_grads(model, params, batch):
+        paths, leaves = zip(*tree_leaves(params))
+        live = [t.detach().requires_grad_() for t in leaves]
+        loss, _ = model.loss(tree_from_leaves(paths, live), batch)
+        grads = torch.autograd.grad(loss, live)
+        return loss.item(), {n: g.double().cpu() for n, g in
+                             zip(paths, grads)}
+
+    def worst(grads, want):
+        """(largest difference over the leaf's largest element, leaf)."""
+        return max((((grads[n] - w).abs().max() / w.abs().max()).item(), n)
+                   for n, w in want.items())
+
+    tol = TRAIN_STEP_PARITY
+    for arch, key in ((VLM_ARCH, "projector/w1"),
+                      ("granite_3_8b", "embed/embedding")):
+        cfg = get_smoke_config(arch)
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(3))
+        rng = np.random.default_rng(4)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 64)))
+        batch = {"tokens": toks, "labels": toks}
+        if cfg.family == "vlm":
+            batch["patches"] = torch.as_tensor(rng.normal(
+                size=(2, cfg.n_patches, cfg.vision_dim)).astype(np.float32))
+        l_gpu, g_gpu = loss_and_grads(
+            model, tree_map(lambda t: t.to("cuda"), params),
+            {k: v.to("cuda") for k, v in batch.items()})
+        l_cpu, g_cpu = loss_and_grads(model, params, batch)
+        l_64, g_64 = loss_and_grads(
+            build_model(cfg.reduced(param_dtype="float64",
+                                    compute_dtype="float64")),
+            tree_map(torch.Tensor.double, params),
+            {k: v.double() if v.is_floating_point() else v
+             for k, v in batch.items()})
+        card, cpu = worst(g_gpu, g_64), worst(g_cpu, g_64)
+        between = worst(g_gpu, g_cpu)
+        loss_diff = abs(l_gpu - l_64) / abs(l_64)
+        log(f"training step parity ({cfg.arch_id}, float32 against the "
+            f"CPU's float64): loss {l_gpu:.6f} on the card, {l_cpu:.6f} on "
+            f"the CPU, {l_64:.6f} in float64 (card relative diff "
+            f"{loss_diff:.3e}, tolerance {tol['loss_rtol']}); worst "
+            f"gradient leaf on the card {card[1]} {card[0]:.3e} of its "
+            f"largest element, on the CPU {cpu[1]} {cpu[0]:.3e} (the card "
+            f"within {tol['grad_vs_cpu']}x the CPU's); card vs CPU "
+            f"{between[0]:.3e} at {between[1]}; {key} on the card "
+            f"{worst({key: g_gpu[key]}, {key: g_64[key]})[0]:.3e}")
+        if not (loss_diff <= tol["loss_rtol"]
+                and card[0] <= tol["grad_vs_cpu"] * cpu[0]
+                and float(g_64[key].abs().max()) > 0):
+            raise AssertionError(
+                f"training step on the card is off the float64 gradient "
+                f"for {arch}: loss {loss_diff:.3e}, gradients {card[0]:.3e} "
+                f"at {card[1]} against the CPU's {cpu[0]:.3e}")
+
+
 # ---------------------------------------------------------------------------
 # Phases 11-13: training
 # ---------------------------------------------------------------------------
@@ -2629,8 +3068,8 @@ def main() -> int:
         return out
 
     rec = timed(phase_kernels)
-    timed(phase_parity, "qwen3_8b")
-    timed(phase_parity, "zamba2_2_7b")
+    for arch in ("qwen3_8b", "zamba2_2_7b", VLM_ARCH) + DENSE_CONFIG_ARCHS:
+        timed(phase_parity, arch)
     mp, main_res, main_launches = timed(phase_main_path)
     spec_launches = timed(phase_speculative_path, mp, main_res)
     sampled_launches = timed(phase_sampled_path, mp, main_res)
@@ -2649,7 +3088,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed(phase_hybrid_float32_agreement)
     torch.cuda.empty_cache()
+    vlm_launches, vlm_contiguous_launches, vlm_mixture_launches = \
+        timed(phase_vlm_paths)
+    torch.cuda.empty_cache()
+    timed(phase_vlm_float32)
+    dense_launches = {}
+    for arch in DENSE_CONFIG_ARCHS:
+        torch.cuda.empty_cache()
+        dense_launches[arch] = timed(phase_dense_config_path, arch)
+    torch.cuda.empty_cache()
     timed(phase_train_parity)
+    timed(phase_train_step_parity)
     train_launches = timed(phase_train_path)
     timed(phase_train_float32_gradients)
     log(f"wall seconds by phase: {json.dumps(seconds)}")
@@ -2671,7 +3120,9 @@ def main() -> int:
                "contiguous": contiguous_launches, "mixture": mixture_launches,
                "mixture speculative": mixspec_launches,
                "hybrid": hybrid_launches, "hybrid mixture": hybrid_mix_launches,
-               "training": train_launches}
+               "vlm": vlm_launches, "vlm contiguous": vlm_contiguous_launches,
+               "vlm mixture": vlm_mixture_launches,
+               **dense_launches, "training": train_launches}
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():
@@ -2688,6 +3139,7 @@ def main() -> int:
             "library_device_ms": r.get("library_device_ms"),
             "launches_by_path": {p: n[name] for p, n in by_path.items()
                                  if n.get(name)},
+            "new_config_shapes": r.get("new_config_shapes", []),
             **{k: r[k] for k in ("float32_ms", "float32_device_ms",
                                  "batched", "by_batch",
                                  "launch_floor_device_ms") if k in r}})

@@ -108,7 +108,8 @@ INPUT_SHAPES = {
 
 #: Architectures whose config module the port has (the others arrive with
 #: their families — see ROADMAP.md).
-PORTED_ARCH_IDS = ["qwen3_8b", "zamba2_2_7b"]
+PORTED_ARCH_IDS = ["qwen3_8b", "zamba2_2_7b", "granite_3_8b", "llama3_405b",
+                   "phi3_medium_14b", "internvl2_2b"]
 
 
 def _module(arch_id: str):

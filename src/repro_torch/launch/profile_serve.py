@@ -1,7 +1,8 @@
 """Where the time goes on the port's main path: ``torch.profiler`` windows
 over the deployment of ``launch/main_path.py`` (the one ``chip_smoke.py``
-serves: full-width Qwen3-8B, or Zamba2-2.7B with ``--arch zamba2_2_7b``,
-2 experts, 16 requests).
+serves: full-width Qwen3-8B, or another ported config with ``--arch``,
+2 experts, 16 requests; Llama-3-405B at its full width is cut to 2
+layers).
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve [--speculative]
         [--contiguous] [--mixture [--speculative]] [--arch zamba2_2_7b]
@@ -24,7 +25,10 @@ stacked, every step one stacked forward), and ``--mixture
 the stacked verify; ``--arch zamba2_2_7b`` the same
 deployment of the hybrid family (Mamba2 layers through the
 ``chunk_scan`` kernel, a shared attention block through the paged
-kernels). Two windows of ``WINDOW`` steps run under the profiler: the
+kernels), ``--arch internvl2_2b`` that of the vlm family (each request
+behind its 256 rows of image prefix), and ``granite_3_8b``,
+``phi3_medium_14b`` and ``llama3_405b`` the dense family's other
+configs. Two windows of ``WINDOW`` steps run under the profiler: the
 first mixed steps (where there are any) and the first steps after the
 last prompt was consumed (``decode``, or ``spec_verify`` with
 ``--speculative``). For

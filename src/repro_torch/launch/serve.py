@@ -14,9 +14,14 @@ speculative decoding on the paged pool, and under the mixture
 ``--speculative expert`` drafts with expert 0) and decodes with the fused
 step, greedy or, with ``--slot-temperature`` (and ``--slot-top-k``),
 sampled, seeded per request by ``--seed``.
-``--arch`` takes every ported config: ``qwen3_8b`` (dense) and
-``zamba2_2_7b`` (hybrid, whose prefill chunk must be a multiple of its
-chunkwise-scan length, 16 at smoke size). Runs on the card unless
+``--arch`` takes every ported config: ``qwen3_8b``, ``granite_3_8b``,
+``llama3_405b`` and ``phi3_medium_14b`` (dense) and ``zamba2_2_7b``
+(hybrid, whose prefill chunk must be a multiple of its chunkwise-scan
+length, 16 at smoke size). Like the reference's, this launcher has no
+image frontend: an ``internvl2_2b`` (vlm) request carries no patches, so
+it is refused where the reference's fails, at submission when its text
+plus the 16-row image prefix overflows the context, else at its first
+admission ("the batch has no 'patches'"). Runs on the card unless
 ``--device cpu``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --run /tmp/run \\

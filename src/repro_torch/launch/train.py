@@ -13,7 +13,9 @@
 The flags are the reference launcher's, plus ``--device`` (the card unless
 ``--device cpu``). The model is the smoke config of ``--arch`` at
 ``--vocab``, as in the reference; training is ported for the dense family
-(``qwen3_8b``).
+(``qwen3_8b``, ``granite_3_8b``, ``llama3_405b``, ``phi3_medium_14b``).
+The synthetic corpus has no images, so ``--arch internvl2_2b`` fails at
+its first step, where the reference's does: the batch has no patches.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_8b \\
         --mode decentralized --experts 2 --steps 200 --out /tmp/run \\

@@ -1,4 +1,4 @@
-"""Model assembly, dense and hybrid families, serving paths (port of
+"""Model assembly, dense, vlm and hybrid families, serving paths (port of
 ``repro.models.model``).
 
 Parameters are nested dicts of tensors in the reference's pytree layout —
@@ -15,14 +15,15 @@ Ported: ``cache_spec`` (with ``CacheSpec.insert``/``insert_paged``/
 ``insert_direct``), ``init_cache``, ``init_paged_cache``, the monolithic
 ``prefill``, ``embed_prompt``, ``init_chunk_carry``, ``prefill_chunk``,
 ``decode_step``, ``decode_step_paged`` and ``fused_decode_step`` over
-either cache, for the dense and hybrid (Zamba2: Mamba2 groups + one shared
+either cache, for the dense, vlm (the dense decoder behind an image-patch
+prefix, ``_embed_inputs``) and hybrid (Zamba2: Mamba2 groups + one shared
 attention block) families; the speculative span verify over the paged
-cache for the dense family (``speculative_capable``,
+cache for the dense and vlm families (``speculative_capable``,
 ``verify_step_paged``, ``fused_verify_step``), also over an expert
 stack; the teacher-forced
-``forward`` and ``loss`` with their gradient for the dense family (the
-hybrid family's forward without it). The other families are not ported
-yet (see ROADMAP.md).
+``forward`` and ``loss`` with their gradient for the dense and vlm
+families (the hybrid family's forward without it). The other families
+are not ported yet (see ROADMAP.md).
 
 The serving paths (``prefill``, ``embed_prompt``, ``init_chunk_carry``,
 ``prefill_chunk``, ``decode_step``, ``decode_step_paged``,
@@ -52,8 +53,8 @@ from repro_torch.tree import tree_leaves
 
 from . import attention as attn
 from . import ssm as ssm_lib
-from .layers import (cross_entropy_loss, embed, embedding_specs, rms_norm,
-                     swiglu, swiglu_specs, unembed)
+from .layers import (cross_entropy_loss, embed, embedding_specs, linear,
+                     rms_norm, swiglu, swiglu_specs, unembed)
 from .params import ParamSpec, init_params, is_spec
 
 Tensor = torch.Tensor
@@ -179,12 +180,13 @@ class CacheSpec:
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family not in ("dense", "hybrid"):
+        if cfg.family not in ("dense", "vlm", "hybrid"):
             raise ValueError(
                 f"family {cfg.family!r} is not ported to repro_torch yet "
                 f"(see ROADMAP.md)")
         self.cfg = cfg
         self.hybrid = cfg.family == "hybrid"
+        self.vlm = cfg.family == "vlm"
 
     # ------------------------------------------------------------------
     # Parameters
@@ -220,6 +222,12 @@ class Model:
             "blocks": stack_specs(self._block_specs(), self.n_groups),
             "final_norm": _norm_spec(D),
         }
+        if self.vlm:
+            specs["projector"] = {
+                "w1": ParamSpec((cfg.vision_dim, D), ("vision", "embed"),
+                                "scaled"),
+                "w2": ParamSpec((D, D), ("embed", None), "scaled"),
+            }
         if self.hybrid:
             specs["shared_attn"] = {
                 "ln1": _norm_spec(D), "attn": attn.attention_specs(cfg),
@@ -370,11 +378,44 @@ class Model:
             cache, K, lambda p, h, st: ssm_lib.mamba2_step(p, h, cfg, st))
 
     # ------------------------------------------------------------------
+    # Input embedding
+    # ------------------------------------------------------------------
+
+    def _embed_inputs(self, params, batch) -> Tensor:
+        """The decoder's input rows (B, W, D): the token embeddings, behind
+        the projected image patches for the vlm family — ``gelu(patches @
+        w1) @ w2`` (tanh gelu, ``jax.nn.gelu``'s default), ``n_patches``
+        rows of prefix. An expert stack embeds the same batch with each
+        expert's tables, (K·B, W, D) expert-major: the patches are repeated
+        K times, expert-major, so each expert's projector sees all of them
+        (``linear`` over a stack splits its rows K ways, it does not
+        broadcast them)."""
+        cfg = self.cfg
+        x = embed(params["embed"], batch["tokens"], cfg.cdtype)
+        if not self.vlm:
+            return x
+        if "patches" not in batch:
+            raise ValueError(
+                f"family 'vlm' ({cfg.arch_id}) prefills an image prefix: "
+                f"the batch has no 'patches' — submit each request with "
+                f"extras={{'patches': ({cfg.n_patches}, {cfg.vision_dim}) "
+                f"array}}")
+        p = params["projector"]
+        patches = batch["patches"].to(cfg.cdtype)             # (B, Np, Dv)
+        K = n_stacked(params)
+        if K:
+            patches = patches.repeat(K, 1, 1)
+        proj = F.gelu(linear(patches, p["w1"]), approximate="tanh")
+        return torch.cat([linear(proj, p["w2"]), x], dim=1)
+
+    # ------------------------------------------------------------------
     # Teacher-forced forward (training / eval)
     # ------------------------------------------------------------------
 
     def forward(self, params, batch) -> Tensor:
-        """Teacher-forced logits (B, S, V) float32 of ``batch["tokens"]``.
+        """Teacher-forced logits (B, S, V) float32 of ``batch["tokens"]``
+        (behind the image prefix for the vlm family: S = n_patches +
+        tokens).
 
         Attention always goes through the kernel seam (``kernels.ops``):
         the CUDA kernels on the card, with the flash backward under
@@ -382,7 +423,7 @@ class Model:
         ``cfg.remat="full"`` recomputes each layer in the backward
         (non-reentrant ``torch.utils.checkpoint`` per layer of the stacked
         ``blocks``) and ``"none"`` keeps every activation; ``"dots"`` and
-        every family but dense are refused then."""
+        the hybrid family are refused then."""
         cfg = self.cfg
         training = torch.is_grad_enabled() and any(
             p.requires_grad for _, p in tree_leaves(params))
@@ -393,7 +434,7 @@ class Model:
             raise ValueError(f"remat={cfg.remat!r} is not ported to "
                              f"repro_torch yet (see ROADMAP.md)")
         x = self._stack(
-            params, embed(params["embed"], batch["tokens"], cfg.cdtype),
+            params, self._embed_inputs(params, batch),
             lambda i, p, h: attn.full_attention(p, h, cfg),
             lambda g, m, p, h: ssm_lib.mamba2_prefill(p, h, cfg)[0],
             remat=training and cfg.remat == "full")
@@ -402,8 +443,10 @@ class Model:
     def loss(self, params, batch):
         """(mean next-token NLL, {"loss": it}): logits of positions
         0..S-2 against labels 1..S-1, over ``batch["loss_mask"]`` when
-        given."""
+        given. The vlm family's image prefix carries no loss."""
         logits = self.forward(params, batch)
+        if self.vlm:
+            logits = logits[:, self.cfg.n_patches:]
         mask = batch.get("loss_mask")
         nll = cross_entropy_loss(logits[:, :-1], batch["labels"][:, 1:],
                                  None if mask is None else mask[:, 1:])
@@ -414,15 +457,16 @@ class Model:
     # ------------------------------------------------------------------
 
     def prefill(self, params, batch, cache_len: int):
-        """Returns (logits (B,S,V) float32, cache) with the K/V leaves
-        (L, B, S_kv, KV, dh): the prompt's K/V right-padded to S_kv, or,
-        windowed, its last S_kv positions in the ring layout (slot =
-        pos % S_kv); the hybrid family adds each Mamba2 layer's SSM state
-        and conv window after the prompt. An expert stack gives logits
+        """Returns (logits (B,S,V) float32 over the prompt's S positions,
+        the vlm family's image prefix first, and the cache) with the K/V
+        leaves (L, B, S_kv, KV, dh): the prompt's K/V right-padded to
+        S_kv, or, windowed, its last S_kv positions in the ring layout
+        (slot = pos % S_kv); the hybrid family adds each Mamba2 layer's
+        SSM state and conv window after the prompt. An expert stack gives logits
         (K,B,S,V) and K at axis 1 of every cache leaf."""
         cfg = self.cfg
         K = n_stacked(params)
-        x = embed(params["embed"], batch["tokens"], cfg.cdtype)
+        x = self._embed_inputs(params, batch)
         S = x.shape[1]
         win = cfg.sliding_window
         S_kv = min(cache_len, win) if win > 0 else cache_len
@@ -465,9 +509,9 @@ class Model:
     # ------------------------------------------------------------------
 
     def embed_prompt(self, params, batch) -> Tensor:
-        """Embedded prompt (1, W, D) for chunked prefill ((K, W, D) for an
-        expert stack)."""
-        return embed(params["embed"], batch["tokens"], self.cfg.cdtype)
+        """Embedded prompt (1, W, D) for chunked prefill, behind any image
+        prefix ((K, W, D) for an expert stack)."""
+        return self._embed_inputs(params, batch)
 
     def init_chunk_carry(self, params, batch, cache_len: int):
         """Per-request carry between chunks: the direct (per-slot) decode

@@ -198,7 +198,7 @@ class EngineConfig:
 
     def _validate_model(self, model) -> None:
         cfg = model.cfg
-        if cfg.family not in ("dense", "hybrid"):
+        if cfg.family not in ("dense", "vlm", "hybrid"):
             raise not_ported(f"family {cfg.family!r}")
         if not self.chunked_prefill:
             return

@@ -84,6 +84,9 @@ class Request:
     tokens: np.ndarray            # (prompt_len,) int32
     max_new: int
     features: Optional[np.ndarray] = None   # frozen-encoder routing features
+    extras: Dict[str, np.ndarray] = field(default_factory=dict)
+    #                             # unbatched modality inputs: "patches"
+    #                             # (vlm)
     params: Optional[SamplingParams] = None
     out: List[int] = field(default_factory=list)
     finish_reason: Optional[str] = None
@@ -123,27 +126,31 @@ class Request:
         self.t_first = self.t_first or t
 
     def batch(self, device, pad_to: int = 0) -> Dict[str, Tensor]:
-        """Single-row prefill batch, the token row right-padded to
-        ``pad_to`` (padded rows are masked by the chunk length)."""
+        """Single-row prefill batch (tokens + modality extras, each with a
+        leading batch dim), the token row right-padded to ``pad_to``
+        (padded rows are masked by the chunk length)."""
         toks = self.tokens
         if pad_to > len(toks):
             toks = np.concatenate(
                 [toks, np.zeros(pad_to - len(toks), np.int32)])
-        return {"tokens": torch.as_tensor(toks[None, :].astype(np.int64),
-                                          device=device)}
+        b = {"tokens": torch.as_tensor(toks[None, :].astype(np.int64),
+                                       device=device)}
+        for name, v in self.extras.items():
+            b[name] = torch.as_tensor(np.asarray(v)[None], device=device)
+        return b
 
 
 _FEATURES_MSG = ("request {rid}: this engine routes on frozen-encoder "
                  "features — pass features= to add_request")
 
 
-def _as_request(prompt, params: Optional[SamplingParams], features,
-                rid: int) -> Request:
+def _as_request(prompt, params: Optional[SamplingParams], extras,
+                features, rid: int) -> Request:
     if isinstance(prompt, Request):
         return prompt
     sp = params if params is not None else SamplingParams()
     return Request(rid, np.asarray(prompt, dtype=np.int32), sp.max_new,
-                   features=features, params=sp)
+                   features=features, extras=dict(extras or {}), params=sp)
 
 
 class BlockAllocator:
@@ -288,12 +295,15 @@ class _SlotTable:
     # ------------------------------------------------------------------
 
     def add_request(self, prompt, params: Optional[SamplingParams] = None,
-                    *, features: Optional[np.ndarray] = None,
+                    extras: Optional[Dict[str, np.ndarray]] = None, *,
+                    features: Optional[np.ndarray] = None,
                     rid: Optional[int] = None) -> int:
-        """Submit a prompt (token ids) — or a prebuilt ``Request`` — to the
-        waiting queue and return its rid. Never dispatches device work. A
-        request no capacity could ever admit raises ValueError here."""
-        req = _as_request(prompt, params, features,
+        """Submit a prompt (token ids) with its modality ``extras`` (a vlm
+        request's ``"patches"``, (n_patches, vision_dim)) — or a prebuilt
+        ``Request`` — to the waiting queue and return its rid. Never
+        dispatches device work. A request no capacity could ever admit
+        raises ValueError here."""
+        req = _as_request(prompt, params, extras, features,
                           self._next_rid if rid is None else rid)
         self._reject_unservable(req)
         self._next_rid = max(self._next_rid, req.rid + 1)
@@ -303,7 +313,7 @@ class _SlotTable:
 
     def _reject_unservable(self, req: Request) -> None:
         """Fail at submission on a request no idle server could admit."""
-        width = len(req.tokens)
+        width = self._prefill_width(req)
         self._reject_overlong(req, width)
         # a monolithic context-filling prompt retires at admission without
         # reserving; every other paged admission reserves the whole prompt
@@ -316,6 +326,15 @@ class _SlotTable:
                     f"{need} KV blocks but the pool has only {usable} "
                     f"usable (pool_blocks={self.allocator.n_blocks}, "
                     f"page_block={self.block_size})")
+
+    def _prefill_width(self, req: Request) -> int:
+        """Decoder positions a request's prefill consumes: its prompt, plus
+        the vlm family's image prefix of ``n_patches`` rows. (The
+        reference also counts a resumed request's regenerated tokens; the
+        port has no preemption, so a prefill is always the prompt.)"""
+        cfg = self.model.cfg
+        return len(req.tokens) + (cfg.n_patches if cfg.family == "vlm"
+                                  else 0)
 
     def _reject_overlong(self, req: Request, width: int) -> None:
         if width > self.cache_len:
@@ -793,8 +812,9 @@ class _SlotTable:
         can't reserve right now."""
         if not self._reserve(slot, width):
             return False
-        pad = -width % self.chunk
-        x, carry = prep(req.batch(self.device, pad_to=width + pad))
+        pad = -width % self.chunk     # the token row pads; x is width + pad
+        x, carry = prep(req.batch(self.device,
+                                  pad_to=len(req.tokens) + pad))
         self.slot_req[slot] = req
         self.prefilling[slot] = True
         self.prefill_pos[slot] = 0
@@ -975,7 +995,7 @@ class SlotServer(_SlotTable):
         free = self.free_slots()
         if not free:
             return False
-        slot, width = free[0], len(req.tokens)
+        slot, width = free[0], self._prefill_width(req)
         if self.chunked:
             return self._admit_chunked(req, slot, width,
                                        lambda b: self._prep(self.params, b))
@@ -1067,7 +1087,7 @@ class MixtureSlotServer(_SlotTable):
             return False
         if req.features is None:
             raise ValueError("mixture admission routes on request features")
-        slot, width = free[0], len(req.tokens)
+        slot, width = free[0], self._prefill_width(req)
         if self.chunked:
             if not self._admit_chunked(
                     req, slot, width, lambda b: self._prep(self.stacked, b)):
@@ -1169,12 +1189,13 @@ class DecentralizedSlotServer:
         return self.router.top1(self._features(feats)).cpu().numpy()
 
     def add_request(self, prompt, params: Optional[SamplingParams] = None,
-                    *, features: Optional[np.ndarray] = None,
+                    extras: Optional[Dict[str, np.ndarray]] = None, *,
+                    features: Optional[np.ndarray] = None,
                     rid: Optional[int] = None) -> int:
-        """Submit a request: the Eq. 28 router (B = 1) picks its pod (top-1),
-        or the request joins the mixture core's queue and is routed at
-        admission."""
-        req = _as_request(prompt, params, features,
+        """Submit a request with its modality ``extras``: the Eq. 28 router
+        (B = 1) picks its pod (top-1), or the request joins the mixture
+        core's queue and is routed at admission."""
+        req = _as_request(prompt, params, extras, features,
                           self._next_rid if rid is None else rid)
         if req.features is None:
             raise ValueError(_FEATURES_MSG.format(rid=req.rid))

@@ -795,3 +795,105 @@ def test_flash_attention_gradient_on_card(cuda, remat):
         q = torch.zeros((2, 4, 8), device=cuda, requires_grad=True)
         ops.decode_attention(q, q[:, None], q[:, None],
                              torch.zeros(2, dtype=torch.int32, device=cuda))
+
+
+# The heads of the configs the vlm and dense-config slice brought in:
+# InternVL2-2B (H 16, KV 8), Phi-3-medium (H 40, KV 10), Llama-3-405B
+# (H 128, KV 8), all at dh 128, and the Phi and Llama smoke configs'
+# dh 40 and 64
+
+NEW_HEADS = [(16, 8, 128), (40, 10, 128), (128, 8, 128), (4, 2, 40),
+             (4, 2, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,KV,dh", NEW_HEADS)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
+                                       (torch.bfloat16, BF16_TOL)])
+def test_attention_kernels_at_new_config_heads_on_card(cuda, H, KV, dh,
+                                                       dtype, tol):
+    """Paged decode, chunk prefill (a 256-row chunk at position 0, as the
+    vlm image prefix's first chunk is, and a ragged one after it), flash
+    (ragged S), paged verify and contiguous decode at the new configs'
+    heads, each against its plain version in float32 on the same values
+    (bf16 at 8e-3: the tensor-core kernels' own rounding)."""
+    def on(*arrays):
+        return [torch.as_tensor(a, device=cuda).to(dtype)
+                if a.dtype == np.float32 else torch.as_tensor(a, device=cuda)
+                for a in arrays]
+
+    def close(got, want):
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+    q, kp, vp, p, bt = on(*paged_inputs(16, 3, 8, 16, H, KV, dh,
+                                        pos=(0, 100, 127), unallocated=True))
+    close(dk.paged_decode_attention(q, kp, vp, p, bt),
+          dk.paged_decode_attention_ref(*up(q, kp, vp), p, bt))
+    rng = np.random.default_rng(H + dh)
+    kp, vp = on(f32(rng, 25, 16, KV, dh), f32(rng, 25, 16, KV, dh))
+    bt = torch.as_tensor(rng.permutation(np.arange(1, 25))[:24]
+                         .astype(np.int32), device=cuda)
+    for C, start in ((256, 0), (77, 256)):
+        q = on(f32(rng, C, H, dh))[0]
+        close(dk.chunk_prefill_attention(q, kp, vp, start, bt),
+              dk.chunk_prefill_attention_ref(*up(q, kp, vp), start, bt))
+    q, k, v = on(f32(rng, 1, 333, H, dh), f32(rng, 1, 333, KV, dh),
+                 f32(rng, 1, 333, KV, dh))
+    out, lse = fk.flash_attention_with_lse(q, k, v)
+    want, want_lse = fk.flash_attention_with_lse_ref(*up(q, k, v))
+    close(out, want)
+    close(lse, want_lse)
+    q, kp, vp, p, bt = on(*verify_inputs(17, 2, 8, 16, 4, H, KV, dh,
+                                         (30, 120)))
+    close(dk.paged_verify_attention(q, kp, vp, p, bt),
+          dk.paged_verify_attention_ref(*up(q, kp, vp), p, bt))
+    q, k, v = on(f32(rng, 2, H, dh), f32(rng, 2, 300, KV, dh),
+                 f32(rng, 2, 300, KV, dh))
+    p = torch.tensor([0, 299], dtype=torch.int32, device=cuda)
+    close(dk.decode_attention(q, k, v, p),
+          dk.decode_attention_ref(*up(q, k, v), p))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy,speculative", [("top1", None),
+                                                  ("mixture", "expert")])
+def test_vlm_serves_as_on_the_cpu(cuda, strategy, speculative):
+    """The smoke-size float32 vlm (``internvl2_2b``: a 16-row image prefix
+    ahead of each prompt), 2 experts, paged + chunked, top-1 and the
+    mixture with expert drafting: the card gives the CPU's tokens and
+    finish reasons."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.router import CentroidRouter, RouterConfig
+    from repro_torch.models import build_model
+    from repro_torch.serve.api import EngineConfig, SamplingParams
+    from repro_torch.serve.scheduler import make_engine
+
+    cfg = get_smoke_config("internvl2_2b")
+    model = build_model(cfg)
+    experts = [model.init(torch.Generator().manual_seed(k)) for k in range(2)]
+    rng = np.random.default_rng(3)
+    router = CentroidRouter(torch.as_tensor(f32(rng, 2, 16)),
+                            RouterConfig(top_k=2))
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (5, 19, 30, 8)]
+    patches = [f32(rng, cfg.n_patches, cfg.vision_dim) for _ in prompts]
+    feats = f32(rng, 4, 16)
+    ecfg = EngineConfig(n_slots=2, cache_len=64, paged=True, page_block=8,
+                        chunked_prefill=True, chunk=8, strategy=strategy,
+                        speculative=speculative, spec_len=4)
+    res = []
+    for dev in ("cpu", "cuda"):
+        eng = make_engine(model, experts=experts, router=router, config=ecfg,
+                          device=dev)
+        for i, p in enumerate(prompts):
+            eng.add_request(p, SamplingParams(max_new=10),
+                            {"patches": patches[i]}, features=feats[i],
+                            rid=i)
+        out = {}
+        while eng.has_unfinished():
+            for o in eng.step():
+                if o.finished:
+                    out[o.rid] = (o.token_ids, o.finish_reason)
+        res.append(out)
+    assert res[0] == res[1] and len(res[1]) == 4
