@@ -64,7 +64,9 @@ Phases, each fatal on failure:
    configs' dh 40 and 64 at small shapes), paged decode, chunk prefill,
    flash, paged verify and contiguous decode in bf16 and float32, each
    case with its device ms and bound (``new_config_shapes`` in the
-   record), and the flash backward there;
+   record), and the flash backward there; and chunk prefill as a prefix
+   hit launches it (2 rows at start 512 whose tables share their first 32
+   permuted blocks), in both dtypes;
 4. parity — the smoke-size float32 Qwen3 deployment (2 pods, top-1) served
    on the card (kernels) and on the CPU (plain versions) in four
    configurations (paged + chunked, paged + chunked + n-gram speculation,
@@ -81,7 +83,12 @@ Phases, each fatal on failure:
    mixture, and sampled, top-1 and mixture, with the same checks; then
    every configuration of Qwen3's for the smoke-size InternVL2-2B (each
    request with its own patches), Granite-3-8B, Phi-3-medium-14B and
-   Llama-3-405B. Under expert drafting request 1 sits on expert 0's
+   Llama-3-405B; then the serving host layer's configurations
+   (``HOST_LAYER_ARCHS``: Qwen3's prefix cache top-1 and mixture, swap
+   and recompute preemption top-1 and mixture, DRR over two tenants;
+   InternVL2-2B's prefix cache under one image; Zamba2's swap and
+   recompute with the cache asked for and not built), where every pod's
+   ``stats()`` must be equal too. Under expert drafting request 1 sits on expert 0's
    centroid, so the mixture takes its drafts, which must be accepted on
    every config; the n-gram acceptance requirement holds on Qwen3's
    traffic, built for it;
@@ -111,6 +118,23 @@ Phases, each fatal on failure:
    prints how many requests got the same tokens, and the same first token,
    on both paths (information only: in bf16 the two paths' logits differ
    by rounding, and greedy picks with close runners-up fall either way);
+7a. prefix path — the main path's deployment with ``prefix_cache=True``
+   on 16 requests behind one 512-token preamble (the first request of
+   each pod served to its first token before the other 14 arrive),
+   traced, against the same traffic without the cache: exactly 14 × 512
+   prompt tokens from the cache, no leaked block, every request finished
+   with ``length``; it prints both runs' chunk-prefill launches, TTFT,
+   ms a step, tokens/s and peak GiB, and the registry's and the trace's
+   dispatch/device_get split (the trace is written to
+   ``build/prefix_path_trace.json`` and read back);
+7b. preemption path — the main path's experts, two tenants (8 batch
+   requests at priority 0, 8 interactive ones at priority 1 arriving
+   after step ``PREEMPT_ARRIVAL_STEP``), a pool of ``PREEMPT_POOL``
+   blocks a pod, served with preemption off (full pool), by swap under
+   the PoolSanitizer and by recompute: each preempting mode must park at
+   least 2 decoding requests, resume every one, end with nothing parked
+   and finish every request with ``length``; it prints TTFT by tenant,
+   swapped bytes and host ms per swap out and in;
 7b. mixture path — the main path's deployment under the Eq. 27 mixture
    (``main_path.mixture``: both experts stacked on one tensor dim, top_k
    2) over the same model, experts and requests at a decode budget of
@@ -1254,6 +1278,40 @@ def _new_config_kernel_cases(cases, rec, gen):
                 f"{c['bound_by']}")
 
 
+def _prefix_kernel_cases(cases, gen):
+    """Chunk prefill as a prefix-cache hit launches it: a 256-row chunk at
+    start 512 (the cached run of 32 blocks of 16), B = 2 rows whose tables
+    map the SAME 32 non-contiguous physical blocks first (the shared run,
+    in a seeded permuted order) and private blocks after them, at
+    Qwen3-8B's heads, in bf16 (against the plain version run in float32 on
+    the same values) and float32."""
+    import torch
+    from repro_torch.kernels import decode_attention as dk
+
+    block, C, NB, start, B, H, KV, dh = 16, 256, 48, 512, 2, 32, 8, 128
+    P = 2 * NB + 1
+    for dtype, name in ((torch.bfloat16, "bfloat16"),
+                        (torch.float32, "float32")):
+        q = torch.randn((B, C, H, dh), generator=gen,
+                        device="cuda").to(dtype)
+        kp, vp = (torch.randn((P, block, KV, dh), generator=gen,
+                              device="cuda").to(dtype) for _ in range(2))
+        perm = torch.randperm(P - 1, generator=gen, device="cuda") + 1
+        shared = perm[:32]
+        bt = torch.stack([
+            torch.cat([shared, perm[32 + r * (NB - 32):
+                                    32 + (r + 1) * (NB - 32)]])
+            for r in range(B)]).to(torch.int32).contiguous()
+        assert not bool((shared[1:] - shared[:-1] == 1).all())
+        compare("chunk_prefill_attention",
+                dk.chunk_prefill_attention(q, kp, vp, start, bt),
+                dk.chunk_prefill_attention_ref(*_up(q, kp, vp), start, bt),
+                name, cases)
+    log("chunk_prefill_attention over a shared prefix run: 2 rows sharing "
+        "their first 32 table entries, start 512, bf16 and float32 within "
+        "tolerance")
+
+
 def phase_kernels():
     """Compare and time every kernel; returns {name: record}."""
     import numpy as np
@@ -1680,6 +1738,7 @@ def phase_kernels():
     _sampling_bits_cases()
     _training_kernel_cases(cases, rec, gen)
     _new_config_kernel_cases(cases, rec, gen)
+    _prefix_kernel_cases(cases, gen)
     torch.cuda.synchronize()
 
     for name, r in rec.items():
@@ -1922,6 +1981,114 @@ def phase_parity(arch="qwen3_8b"):
         log(f"parity ({cfg.arch_id}, {kind}): {len(cpu)} requests, "
             f"routing {groute}, tokens and finish reasons equal on the "
             f"card and the CPU{extra}")
+    if arch in HOST_LAYER_ARCHS:
+        _host_layer_parity(arch, model, experts, router, mix_router)
+
+
+#: the smoke-size configurations of the serving host layer, by arch: the
+#: prefix cache (top-1 and mixture), preemption by swap and by recompute
+#: (top-1 and mixture) and DRR admission over two tenants for Qwen3; the
+#: prefix cache with one image for every request for InternVL2; swap and
+#: recompute with the prefix cache asked for (and not built) for Zamba2
+HOST_LAYER_ARCHS = {
+    "qwen3_8b": ("prefix", "mixture prefix", "swap", "recompute",
+                 "mixture swap", "mixture recompute", "drr"),
+    "internvl2_2b": ("prefix",),
+    "zamba2_2_7b": ("swap", "recompute"),
+}
+#: the preempting smoke configurations' pool: 8 usable blocks of 8 for two
+#: slots whose requests grow to 7 blocks each
+HOST_LAYER_POOL = 9
+
+
+def _host_layer_parity(arch, model, experts, router, mix_router,
+                       devices=("cuda", "cpu")):
+    """The serving host layer at smoke size in float32, card ≡ CPU: each
+    of ``HOST_LAYER_ARCHS[arch]``'s configurations served on both, with
+    equal tokens, finish reasons, routing and ``occupancy()`` (every
+    pod's ``stats()``: prefix, park and tenant counters). The prefix
+    traffic shares a 19-token preamble (it splits a page block of 8) and
+    routes to pod 0, so later requests hit; the preemption traffic's last
+    three requests outrank the first three and the pool cannot hold two
+    grown requests, so both preempting modes must park (or requeue) at
+    least once; DRR serves two tenants weighted 1 : 3."""
+    import numpy as np
+    from repro_torch.serve.api import EngineConfig, QoSConfig, SamplingParams
+    from repro_torch.serve.scheduler import make_engine
+
+    cfg = model.cfg
+    rng = np.random.default_rng(9)
+    pre = rng.integers(0, cfg.vocab, 19).astype(np.int32)
+    prefix_prompts = [np.concatenate([pre, rng.integers(
+        0, cfg.vocab, n).astype(np.int32)]) for n in (5, 13, 9, 21, 3)]
+    prefix_prompts.append(prefix_prompts[0].copy())        # a repeat
+    lens = (30, 22, 8, 14, 26, 19)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
+    image = rng.normal(size=(cfg.n_patches, cfg.vision_dim)) \
+        .astype(np.float32) if cfg.family == "vlm" else None
+    on_pod0 = np.repeat(router.centroids[:1].cpu().numpy(), 6, 0)
+    feats = rng.normal(size=(6, router.centroids.shape[1])) \
+        .astype(np.float32)
+    prefix = 56 + (cfg.n_patches if image is not None else 0)
+    qos = QoSConfig(tenant_weights=(("a", 1.0), ("b", 3.0)))
+
+    def greedy(i):
+        return SamplingParams(max_new=12)
+
+    def ranked(i):
+        return SamplingParams(max_new=24, priority=int(i >= 3),
+                              tenant="ab"[i % 2])
+
+    base = dict(n_slots=2, cache_len=56, page_block=8, paged=True,
+                chunked_prefill=True, chunk=16)
+    kinds = {
+        "prefix": (dict(prefix_cache=True, cache_len=prefix),
+                   prefix_prompts, on_pod0, greedy),
+        "swap": (dict(preemption="swap", pool_blocks=HOST_LAYER_POOL,
+                      prefix_cache=True), prompts, feats, ranked),
+        "recompute": (dict(preemption="recompute",
+                           pool_blocks=HOST_LAYER_POOL, prefix_cache=True),
+                      prompts, feats, ranked),
+        "drr": (dict(qos=qos), prompts, on_pod0, ranked),
+    }
+    for kind in HOST_LAYER_ARCHS[arch]:
+        mixture = kind.startswith("mixture ")
+        over, reqs, fts, params = kinds[kind.removeprefix("mixture ")]
+        ecfg = EngineConfig(**dict(base, **over),
+                            strategy="mixture" if mixture else "top1")
+        extras = [{"patches": image}] * len(reqs) if image is not None \
+            else None
+        runs = []
+        for dev in devices:
+            eng = make_engine(model, experts=experts, config=ecfg,
+                              device=dev,
+                              router=mix_router if mixture else router)
+            res, routing, *_ = _serve(eng, reqs, fts, params, extras)
+            runs.append((res, routing, eng.occupancy()))
+            if over.get("prefix_cache") and not model.prefix_cacheable \
+                    and any(p.prefix is not None for p in eng.pods):
+                raise AssertionError(f"{arch}, {kind}: the prefix cache "
+                                     f"was built for a hybrid model")
+        if runs[0] != runs[1]:
+            raise AssertionError(
+                f"{arch}, host layer {kind}: card and CPU differ: "
+                f"{runs[0]} vs {runs[1]}")
+        res, routing, occ = runs[0]
+        preempted = sum(t["preemptions"] for p in occ
+                        for t in p.get("tenants", {}).values())
+        skipped = sum(p.get("prefix_skipped_tokens", 0) for p in occ)
+        if "preemption" in over and not preempted:
+            raise AssertionError(f"{arch}, {kind}: nothing was preempted")
+        if kind.endswith("prefix") and not skipped:
+            raise AssertionError(f"{arch}, {kind}: no prefix hit")
+        if {r for _, r in res.values()} != {"length"}:
+            raise AssertionError(f"{arch}, {kind}: finish reasons "
+                                 f"{sorted(set(r for _, r in res.values()))}")
+        log(f"parity ({cfg.arch_id}, host layer {kind}): {len(res)} "
+            f"requests, routing {routing}, tokens, finish reasons and "
+            f"every pod's stats equal on the card and the CPU; "
+            f"{skipped} prompt tokens from the prefix cache, "
+            f"{preempted} preemptions")
 
 
 def _spec_counts(engine):
@@ -2115,6 +2282,367 @@ def phase_contiguous_path(mp, main_res):
     log(f"contiguous path: {same} of {len(main_res)} requests got the same "
         f"tokens as on the main path, {first} the same first token "
         f"(information only: bf16 rounding differs between the paths)")
+    return launches
+
+
+#: the prefix path's traffic: one shared preamble of 512 tokens (32 full
+#: blocks of 16, two whole chunks of 256) ahead of each request's own
+#: 128-448 seeded tokens
+PREFIX_PREAMBLE = 512
+PREFIX_SUFFIX = (128, 448)
+PREFIX_SEED = 4000
+#: the preemption path: a pool of 160 blocks a pod (full capacity is
+#: 8 x 68 + 1 = 545), the main path's first 8 prompts as tenant "batch"
+#: (priority 0, weight 1) and 8 seeded 256-token prompts as tenant
+#: "interactive" (priority 1, weight 3), arriving after step 16: by then
+#: every admitted batch request decodes (at step 6 most still prefilled,
+#: so every victim was a mid-prefill requeue, no swap or recompute park)
+PREEMPT_POOL = 160
+PREEMPT_ARRIVAL_STEP = 16
+PREEMPT_NEW_TOKENS = 32
+PREEMPT_SEED = 5000
+
+
+def _step_split_by_kind(doc):
+    """Mean host ms of each step kind's ``dispatch`` (launches queued) and
+    ``device_get`` (the one readback) from an exported trace: on every
+    pod's step track a ``step:<kind>`` span encloses one of each."""
+    from repro_torch.obs.trace import STEP_TID
+    spans = sorted((e for e in doc["traceEvents"]
+                    if e["ph"] == "X" and e["tid"] == STEP_TID),
+                   key=lambda e: (e["pid"], e["ts"], -e["dur"]))
+    split, kind = {}, None
+    for e in spans:
+        if e["name"].startswith("step:"):
+            kind = e["name"][5:]
+            split.setdefault(kind, {"steps": 0, "dispatch": 0.0,
+                                    "device_get": 0.0})
+            split[kind]["steps"] += 1
+        elif kind is not None:
+            split[kind][e["name"]] += e["dur"] / 1e3
+    return {k: {"steps": v["steps"],
+                "dispatch_ms": v["dispatch"] / v["steps"],
+                "device_get_ms": v["device_get"] / v["steps"]}
+            for k, v in split.items()}
+
+
+def _registry_split(engine):
+    """Per pod, the registry's mean ``serve_step_dispatch_seconds`` and
+    ``serve_step_device_get_seconds`` in ms over every step."""
+    return [{"pod": p.obs.pod, "steps": p.obs.dispatch_s.count,
+             "dispatch_ms": p.obs.dispatch_s.sum / p.obs.dispatch_s.count
+             * 1e3 if p.obs.dispatch_s.count else 0.0,
+             "device_get_ms": p.obs.readback_s.sum / p.obs.readback_s.count
+             * 1e3 if p.obs.readback_s.count else 0.0}
+            for p in engine.pods]
+
+
+def _drop(engine):
+    """Free an engine's pools now: its pods hold reference cycles (the
+    sanitizer's table, the swap timers' bound methods) that only the
+    collector breaks, and the next full-width path needs the memory."""
+    import gc
+    import torch
+    engine.pods.clear()
+    del engine
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def _serve_staged(engine, prompts, feats, params, stages):
+    """Serve ``prompts`` submitted in ``stages``: ``(rids, until)`` pairs,
+    each stage's requests submitted once ``until(step, outputs)`` of the
+    stage before holds; then step to the end. Returns (results, outputs,
+    steps, wall seconds, launches)."""
+    import torch
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    res, outs, steps = {}, {}, 0
+    t0 = time.perf_counter()
+    for rids, until in stages:
+        while not until(steps, outs):
+            for o in engine.step():
+                outs[o.rid] = o
+                if o.finished:
+                    res[o.rid] = (o.token_ids, o.finish_reason)
+            steps += 1
+        for i in rids:
+            engine.add_request(prompts[i], params(i), features=feats[i],
+                               rid=i)
+    while engine.has_unfinished():
+        for o in engine.step():
+            outs[o.rid] = o
+            if o.finished:
+                res[o.rid] = (o.token_ids, o.finish_reason)
+        steps += 1
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return res, outs, steps, wall, {n: fn.launches
+                                    for n, fn in ops.KERNELS.items()}
+
+
+def phase_prefix_path(mp, preamble=PREFIX_PREAMBLE, suffix=PREFIX_SUFFIX):
+    """Full-width Qwen3-8B on the main path's deployment with
+    ``prefix_cache=True``: 16 requests of one shared 512-token preamble and
+    their own 128-448 tokens, 64 new tokens each. The first request routed
+    to each pod is served until both have emitted their first token, then
+    the other 14 arrive at once; each must map the preamble's 32 blocks
+    from the cache, so the pods skip exactly 14 x 512 prompt tokens. The
+    same traffic is served without the cache. Every request must finish
+    with ``length`` and no block may leak (a pod's free list holds all but
+    its cached blocks). The cached run is traced and its metrics
+    published: the trace is written under ``build/``, read back and its
+    spans counted."""
+    import numpy as np
+    import torch
+    from dataclasses import replace
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.serve.api import SamplingParams
+    from repro_torch.serve.scheduler import make_engine
+
+    rng = np.random.default_rng(PREFIX_SEED)
+    vocab, n = mp.cfg.vocab, len(mp.prompts)
+    pre = rng.integers(0, vocab, preamble).astype(np.int32)
+    lo, hi = suffix
+    prompts = [np.concatenate([pre, rng.integers(0, vocab, m)
+                               .astype(np.int32)])
+               for m in rng.integers(lo, hi + 1, n)]
+    route = mp.router.top1(torch.as_tensor(
+        mp.features, device=mp.router.centroids.device)).cpu().numpy()
+    firsts = sorted({int(k): i for i, k in
+                     reversed(list(enumerate(route)))}.values())
+    rest = [i for i in range(n) if i not in firsts]
+    cap = max(len(p) for p in prompts) + mp.sampling.max_new
+    runs = {}
+    for cached in (False, True):
+        engine = make_engine(
+            mp.model, experts=mp.experts, router=mp.router,
+            device=mp.device, config=replace(
+                mp.config, cache_len=max(mp.config.cache_len, cap),
+                prefix_cache=cached, trace=cached, metrics=cached))
+        if mp.device.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        stages = [(firsts, lambda s, o: True),
+                  (rest, lambda s, o: all(i in o and o[i].t_first > 0
+                                          for i in firsts))]
+        res, outs, steps, wall, launches = _serve_staged(
+            engine, prompts, mp.features,
+            lambda i: replace(mp.sampling, seed=mp.sampling.seed + i),
+            stages)
+        reasons = sorted({r for _, r in res.values()})
+        if len(res) != n or reasons != ["length"]:
+            raise AssertionError(f"prefix path (cache {cached}): "
+                                 f"{len(res)} of {n} finished, {reasons}")
+        occ = engine.occupancy()
+        n_tok = sum(len(t) for t, _ in res.values())
+        stats = {
+            "prefix_cache": cached, "requests": n,
+            "preamble_tokens": preamble,
+            "prompt_tokens": int(sum(len(p) for p in prompts)),
+            "first_requests": firsts, "steps": steps, "wall_s": wall,
+            "step_ms": wall / steps * 1e3, "tok_per_s": n_tok / wall,
+            "chunk_prefill_launches": launches["chunk_prefill_attention"],
+            "paged_decode_launches": launches["paged_decode_attention"],
+            "hit_requests_mean_ttft_s": float(np.mean(
+                [outs[i].ttft for i in rest])),
+            "first_requests_mean_ttft_s": float(np.mean(
+                [outs[i].ttft for i in firsts])),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30
+            if mp.device.type == "cuda" else None,
+            "registry_step_split": _registry_split(engine)}
+        if cached:
+            skipped = sum(p["prefix_skipped_tokens"] for p in occ)
+            if skipped != len(rest) * preamble:
+                raise AssertionError(
+                    f"prefix path: {skipped} prompt tokens from the cache, "
+                    f"not {len(rest)} x {preamble}")
+            for pod, st in zip(engine.pods, occ):
+                a = pod.allocator
+                if a.n_free != a.n_blocks - 1 - st["prefix_cached_blocks"]:
+                    raise AssertionError(
+                        f"prefix path: pod {pod.obs.pod} leaked blocks: "
+                        f"{a.n_free} free of {a.n_blocks}, "
+                        f"{st['prefix_cached_blocks']} cached")
+            path = HERE / "build" / "prefix_path_trace.json"
+            path.parent.mkdir(exist_ok=True)
+            engine.export_trace(str(path))
+            doc = json.loads(path.read_text())
+            stats.update(
+                prefix_skipped_tokens=skipped,
+                prefix_cached_blocks=[p["prefix_cached_blocks"]
+                                      for p in occ],
+                trace_file=str(path.relative_to(HERE)),
+                trace_events=len(doc["traceEvents"]),
+                trace_spans=sum(e["ph"] == "X" for e in doc["traceEvents"]),
+                trace_split_by_kind=_step_split_by_kind(doc),
+                published_series=len(obs_metrics.snapshot()["metrics"]))
+        runs[cached] = (res, stats)
+        log(f"prefix path: " + json.dumps(stats))
+        _drop(engine)
+    same = sum(runs[True][0][i][0] == runs[False][0][i][0] for i in range(n))
+    log(f"prefix path: {same} of {n} requests got the same tokens with and "
+        f"without the cache (information only: in bf16 a chunk starting "
+        f"at 512 rounds otherwise than the same rows inside a longer "
+        f"prefill); chunk-prefill launches "
+        f"{runs[True][1]['chunk_prefill_launches']} cached, "
+        f"{runs[False][1]['chunk_prefill_launches']} uncached")
+    PATH_STATS["prefix path"] = {
+        "cached": runs[True][1], "uncached": runs[False][1],
+        "same_tokens": same}
+    return launches
+
+
+class _TimedSpec:
+    """A pod's ``CacheSpec`` with its ``swap_in`` timed (host ms, after a
+    device synchronisation the measurement adds) and counted."""
+
+    def __init__(self, spec, log_):
+        self._spec, self._log = spec, log_
+
+    def __getattr__(self, name):
+        return getattr(self._spec, name)
+
+    def swap_in(self, cache, payload, slot, blocks):
+        import torch
+        t = time.perf_counter()
+        out = self._spec.swap_in(cache, payload, slot, blocks)
+        if next(iter(cache.values())).is_cuda:
+            torch.cuda.synchronize()
+        self._log.append(("in", (time.perf_counter() - t) * 1e3,
+                          sum(v.nbytes for v in payload.values())))
+        return out
+
+
+def _time_swaps(engine, log_):
+    """Wrap every pod's swap out (its one readback) and swap in."""
+    for pod in engine.pods:
+        fn = pod._swap_out_host
+
+        def timed(slot, blocks, _fn=fn):
+            t = time.perf_counter()
+            out = _fn(slot, blocks)
+            log_.append(("out", (time.perf_counter() - t) * 1e3,
+                         sum(v.nbytes for v in out.values())))
+            return out
+        pod._swap_out_host = timed
+        pod.spec = _TimedSpec(pod.spec, log_)
+
+
+def phase_preemption_path(mp, pool=PREEMPT_POOL,
+                          arrival=PREEMPT_ARRIVAL_STEP, inter_len=256):
+    """Full-width Qwen3-8B on the main path's experts with ``pool`` blocks a
+    pod and a ``QoSConfig`` of two tenants: the main path's first 8 prompts
+    as ``batch`` (priority 0, weight 1), then, after step ``arrival``, 8
+    seeded ``inter_len``-token prompts as ``interactive`` (priority 1,
+    weight 3), ``PREEMPT_NEW_TOKENS`` new tokens each. Served three times:
+    ``preemption="off"`` on a full-capacity pool (``pool`` blocks without
+    preemption run out while the admitted requests grow: the engine then
+    raises, as the reference's does), ``"swap"`` with the PoolSanitizer,
+    and ``"recompute"``. In both preempting modes at least 2 decoding
+    requests must be parked in that mode, every preempted one resumed, nothing parked at the end, no sanitizer
+    violation and every request finished with ``length``."""
+    import numpy as np
+    import torch
+    from dataclasses import replace
+    from repro_torch.serve.api import QoSConfig, SamplingParams
+    from repro_torch.serve.scheduler import make_engine
+
+    rng = np.random.default_rng(PREEMPT_SEED)
+    n_batch = 8
+    prompts = list(mp.prompts[:n_batch]) + [
+        rng.integers(0, mp.cfg.vocab, inter_len).astype(np.int32)
+        for _ in range(8)]
+    feats = mp.features[:len(prompts)]
+    qos = QoSConfig(tenant_weights=(("batch", 1.0), ("interactive", 3.0)))
+
+    def params(i):
+        inter = i >= n_batch
+        return SamplingParams(max_new=PREEMPT_NEW_TOKENS,
+                              priority=int(inter),
+                              tenant="interactive" if inter else "batch")
+
+    runs = {}
+    for mode in ("off", "swap", "recompute"):
+        engine = make_engine(
+            mp.model, experts=mp.experts, router=mp.router,
+            device=mp.device, config=replace(
+                mp.config, pool_blocks=pool if mode != "off" else 0,
+                qos=qos, preemption=mode, sanitize=mode == "swap"))
+        swaps = []
+        _time_swaps(engine, swaps)
+        stages = [(range(n_batch), lambda s, o: True),
+                  (range(n_batch, len(prompts)),
+                   lambda s, o: s >= arrival)]
+        res, outs, steps, wall, launches = _serve_staged(
+            engine, prompts, feats, params, stages)
+        occ = engine.occupancy()
+        tenants = {}
+        for st in occ:
+            for t, d in st["tenants"].items():
+                for k in ("preemptions", "resumes", "rejections", "tokens"):
+                    tenants.setdefault(t, {}).setdefault(k, 0)
+                    tenants[t][k] += d[k]
+        preempted = sum(d["preemptions"] for d in tenants.values())
+        by_mode = {}
+        for m in engine.export_metrics()["metrics"]:
+            if m["name"] == "serve_preemptions_total":
+                k = m["labels"]["mode"]
+                by_mode[k] = by_mode.get(k, 0) + int(m["value"])
+        resumed = sum(d["resumes"] for d in tenants.values())
+        parked = sum(st["parked"] for st in occ)
+        reasons = sorted({r for _, r in res.values()})
+        out_ = [s for s in swaps if s[0] == "out"]
+        in_ = [s for s in swaps if s[0] == "in"]
+        stats = {
+            "mode": mode, "pool_blocks": engine.pods[0].allocator.n_blocks,
+            "arrival_step": arrival,
+            "steps": steps, "wall_s": wall, "step_ms": wall / steps * 1e3,
+            "tok_per_s": sum(len(t) for t, _ in res.values()) / wall,
+            "interactive_mean_ttft_s": float(np.mean(
+                [outs[i].ttft for i in range(n_batch, len(prompts))])),
+            "batch_mean_ttft_s": float(np.mean(
+                [outs[i].ttft for i in range(n_batch)])),
+            "preemptions": preempted, "resumes": resumed,
+            "preemptions_by_mode": by_mode,
+            "parked_at_end": parked, "tenants": tenants,
+            "chunk_prefill_launches": launches["chunk_prefill_attention"],
+            "swap_outs": len(out_), "swap_ins": len(in_),
+            "swapped_out_bytes": sum(b for _, _, b in out_),
+            "swapped_in_bytes": sum(b for _, _, b in in_),
+            "swap_out_host_ms_mean": float(np.mean([m for _, m, _ in out_]))
+            if out_ else None,
+            "swap_in_host_ms_mean": float(np.mean([m for _, m, _ in in_]))
+            if in_ else None,
+            "registry_step_split": _registry_split(engine)}
+        if mode == "swap":
+            stats["sanitizer"] = [{k: st[k] for k in st
+                                   if k.startswith("sanitize_")}
+                                  for st in occ]
+        if len(res) != len(prompts) or reasons != ["length"]:
+            raise AssertionError(f"preemption path ({mode}): {len(res)} of "
+                                 f"{len(prompts)} finished, {reasons}")
+        if mode != "off" and (by_mode.get(mode, 0) < 2
+                              or resumed != preempted or parked):
+            raise AssertionError(
+                f"preemption path ({mode}): {preempted} preemptions, "
+                f"{resumed} resumes, {parked} parked at the end (pool "
+                f"{pool}, arrival step {arrival})")
+        if mode == "swap" and any(st["sanitize_violations"] for st in occ):
+            raise AssertionError("preemption path: sanitizer violations")
+        runs[mode] = (res, stats)
+        log(f"preemption path: " + json.dumps(stats))
+        _drop(engine)
+    same = {m: sum(runs[m][0][i][0] == runs["off"][0][i][0]
+                   for i in runs["off"][0]) for m in ("swap", "recompute")}
+    log(f"preemption path: requests with the same tokens as the run "
+        f"without preemption: {same} of {len(prompts)} (information "
+        f"only: in bf16 a resumed request's rows round otherwise)")
+    PATH_STATS["preemption path"] = {m: r[1] for m, r in runs.items()}
+    PATH_STATS["preemption path"]["same_tokens"] = same
     return launches
 
 
@@ -3074,6 +3602,9 @@ def main() -> int:
     spec_launches = timed(phase_speculative_path, mp, main_res)
     sampled_launches = timed(phase_sampled_path, mp, main_res)
     contiguous_launches = timed(phase_contiguous_path, mp, main_res)
+    torch.cuda.empty_cache()
+    prefix_launches = timed(phase_prefix_path, mp)
+    preemption_launches = timed(phase_preemption_path, mp)
     xp, mixture_launches = timed(phase_mixture_path, mp, main_res)
     del mp                           # the bf16 experts
     mixspec_launches = timed(phase_mixture_speculative_path, xp)
@@ -3118,6 +3649,7 @@ def main() -> int:
     by_path = {"main": main_launches, "speculative": spec_launches,
                "sampled": sampled_launches,
                "contiguous": contiguous_launches, "mixture": mixture_launches,
+               "prefix": prefix_launches, "preemption": preemption_launches,
                "mixture speculative": mixspec_launches,
                "hybrid": hybrid_launches, "hybrid mixture": hybrid_mix_launches,
                "vlm": vlm_launches, "vlm contiguous": vlm_contiguous_launches,

@@ -13,7 +13,14 @@ paged pool and to chunked prefill; ``--speculative ngram`` adds n-gram
 speculative decoding on the paged pool, and under the mixture
 ``--speculative expert`` drafts with expert 0) and decodes with the fused
 step, greedy or, with ``--slot-temperature`` (and ``--slot-top-k``),
-sampled, seeded per request by ``--seed``.
+sampled, seeded per request by ``--seed``. The serving host layer
+rides on the paged paths: ``--prefix-cache`` (paged + chunked),
+``--preemption swap|recompute`` with ``--priorities`` and ``--tenants``
+(and the QoS knobs ``--tenant-weight``, ``--qos-quantum``,
+``--admit-lookahead``, ``--max-predicted-ttft``, ``--max-waiting``),
+``--sanitize``, and the telemetry exports ``--trace-out`` (a
+Chrome/Perfetto trace of every pod) and ``--metrics-out`` (a JSON
+snapshot of every pod's registry).
 ``--arch`` takes every ported config: ``qwen3_8b``, ``granite_3_8b``,
 ``llama3_405b`` and ``phi3_medium_14b`` (dense) and ``zamba2_2_7b``
 (hybrid, whose prefill chunk must be a multiple of its chunkwise-scan
@@ -30,12 +37,14 @@ admission ("the batch has no 'patches'"). Runs on the card unless
         [--paged --page-block 16 [--chunked-prefill --prefill-chunk 16]
          [--speculative ngram|expert --spec-len 4]]
         [--slot-temperature 0.8 --slot-top-k 50]
+        [--prefix-cache] [--preemption swap --priorities 0 --priorities 1
+         --tenants 2 --tenant-weight tenant-1=3] [--sanitize]
+        [--trace-out /tmp/trace.json --metrics-out /tmp/metrics.json]
 
 The flags are the reference launcher's for this slice. Every serving flag
-lands in ONE ``EngineConfig``; what the port has not reached yet (prefix
-cache, preemption, sanitizer, tracing, metrics, the unfused step) is
-refused by ``EngineConfig.validate`` with one ValueError before any work
-starts.
+lands in ONE ``EngineConfig``; what the port has not reached yet (the
+unfused step, ``--no-fused-step``) is refused by ``EngineConfig.validate``
+with one ValueError before any work starts.
 """
 from __future__ import annotations
 
@@ -52,7 +61,7 @@ from repro_torch.core.router import CentroidRouter, RouterConfig
 from repro_torch.data.synthetic import SyntheticConfig, SyntheticMultimodal
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
-from repro_torch.serve.api import EngineConfig, SamplingParams
+from repro_torch.serve.api import EngineConfig, QoSConfig, SamplingParams
 from repro_torch.serve.scheduler import Request, make_engine
 from repro_torch.weights import from_tree
 
@@ -90,14 +99,45 @@ def main(argv=None) -> dict:
     ap.add_argument("--stream", action="store_true",
                     help="print per-token deltas as they decode")
     ap.add_argument("--preemption", choices=["off", "recompute", "swap"],
-                    default="off")
-    ap.add_argument("--sanitize", action="store_true")
+                    default="off",
+                    help="under pool pressure park a lower-priority "
+                         "request: 'swap' moves its blocks to host memory, "
+                         "'recompute' re-prefills it at resume")
+    ap.add_argument("--tenant-weight", action="append", default=None,
+                    metavar="NAME=W",
+                    help="QoS fair-share weight of a tenant (repeatable; "
+                         "unlisted tenants weigh 1.0)")
+    ap.add_argument("--qos-quantum", type=int, default=0,
+                    help="DRR credit per round in prompt tokens (0 → the "
+                         "prefill chunk)")
+    ap.add_argument("--admit-lookahead", type=int, default=0,
+                    help="admission skip-ahead past an unservable queue "
+                         "head (0 → 8)")
+    ap.add_argument("--max-predicted-ttft", type=float, default=0.0,
+                    help="reject a submission whose predicted TTFT exceeds "
+                         "this many seconds (0 → off; needs "
+                         "--chunked-prefill)")
+    ap.add_argument("--max-waiting", type=int, default=0,
+                    help="reject submissions once the queue is this deep "
+                         "(0 → unbounded)")
+    ap.add_argument("--tenants", type=int, default=1,
+                    help="assign requests round-robin to this many tenants "
+                         "(tenant-0, tenant-1, …)")
+    ap.add_argument("--priorities", type=int, action="append", default=None,
+                    help="request priority cycle (repeatable): request i "
+                         "gets the i-th value mod the list's length")
+    ap.add_argument("--sanitize", action="store_true",
+                    help="run the PoolSanitizer over the paged pool every "
+                         "step (needs --paged)")
     ap.add_argument("--no-fused-step", action="store_true")
     ap.add_argument("--speculative", choices=["ngram", "expert"],
                     default=None)
     ap.add_argument("--spec-len", type=int, default=4)
-    ap.add_argument("--trace-out", default=None, metavar="PATH")
-    ap.add_argument("--metrics-out", default=None, metavar="PATH")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome/Perfetto trace of the run to PATH")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write a JSON snapshot of every pod's metrics to "
+                         "PATH")
     ap.add_argument("--vocab", type=int, default=512)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
@@ -105,13 +145,24 @@ def main(argv=None) -> dict:
 
     cfg = get_smoke_config(args.arch).reduced(vocab=args.vocab)
     model = build_model(cfg)
+    qos = None
+    if (args.tenant_weight or args.qos_quantum or args.admit_lookahead
+            or args.max_predicted_ttft or args.max_waiting):
+        qos = QoSConfig(
+            tenant_weights=tuple(
+                (name, float(w)) for name, _, w in
+                (t.partition("=") for t in args.tenant_weight or ())),
+            quantum=args.qos_quantum,
+            admit_lookahead=args.admit_lookahead or 8,
+            max_predicted_ttft_s=args.max_predicted_ttft,
+            max_waiting=args.max_waiting)
     ecfg = EngineConfig(
         n_slots=args.slots, cache_len=args.prompt_len + args.new_tokens + 1,
         paged=args.paged, page_block=args.page_block,
         pool_blocks=args.pool_blocks, chunked_prefill=args.chunked_prefill,
         chunk=args.prefill_chunk, token_budget=args.token_budget,
         prefix_cache=args.prefix_cache, fused_step=not args.no_fused_step,
-        sanitize=args.sanitize, preemption=args.preemption,
+        sanitize=args.sanitize, qos=qos, preemption=args.preemption,
         strategy=args.strategy, speculative=args.speculative,
         spec_len=args.spec_len, trace=args.trace_out is not None,
         metrics=args.metrics_out is not None)
@@ -136,13 +187,17 @@ def main(argv=None) -> dict:
     batch_np = corpus.sample_batch(args.requests, step=123)
     server = make_engine(model, experts=experts, router=router, config=ecfg,
                          device=device)
+    prios = args.priorities or (0,)
     reqs = [Request(i, batch_np["tokens"][i], args.new_tokens,
                     features=batch_np["features"][i],
                     params=SamplingParams(
                         max_new=args.new_tokens,
                         temperature=args.slot_temperature,
                         top_k=args.slot_top_k, seed=args.seed + i,
-                        stop_token_ids=tuple(args.stop_token or ())))
+                        stop_token_ids=tuple(args.stop_token or ()),
+                        priority=prios[i % len(prios)],
+                        tenant=f"tenant-{i % args.tenants}"
+                        if args.tenants > 1 else "default"))
             for i in range(args.requests)]
     routed = server.route(reqs)             # one batched router launch
 
@@ -177,6 +232,13 @@ def main(argv=None) -> dict:
                           "spec_tokens": toks,
                           "spec_tokens_per_step": toks / steps if steps
                           else 0.0}
+    if args.trace_out:
+        server.export_trace(args.trace_out)
+        print(f"trace written to {args.trace_out} (load in "
+              f"ui.perfetto.dev)")
+    if args.metrics_out:
+        server.export_metrics(args.metrics_out)
+        print(f"metrics snapshot written to {args.metrics_out}")
     print(json.dumps(report, indent=1))
     for i in range(min(4, args.requests)):
         print(f"req {i} → expert {routed[i]}: "

@@ -12,7 +12,8 @@ reference, so the pods of a decentralized deployment share one ``Model``.
 Everything runs on the device of the params and caches it is given.
 
 Ported: ``cache_spec`` (with ``CacheSpec.insert``/``insert_paged``/
-``insert_direct``), ``init_cache``, ``init_paged_cache``, the monolithic
+``insert_direct`` and the preemption park's ``swap_out``/``swap_in``),
+``init_cache``, ``init_paged_cache``, the monolithic
 ``prefill``, ``embed_prompt``, ``init_chunk_carry``, ``prefill_chunk``,
 ``decode_step``, ``decode_step_paged`` and ``fused_decode_step`` over
 either cache, for the dense, vlm (the dense decoder behind an image-patch
@@ -175,6 +176,42 @@ class CacheSpec:
         for name, ax in self.batch_axes.items():
             if self.paged is None or self.paged.seq_axes[name] < 0:
                 self._write_row(cache[name], carry[name], ax, slot)
+        return cache
+
+    def swap_out(self, cache, slot: int, blocks) -> Dict[str, Tensor]:
+        """Read one slot's paged decode state out for parking (preemption
+        by swap): pool leaves gather the listed physical blocks on their
+        block axis (an expert stack's, through ``shifted(1)``, for all K
+        segments at once), direct leaves take the slot's row, extent 1
+        kept. The payload is on the cache's device; the caller moves it to
+        host memory (its one readback). It mirrors the cache dict and
+        round-trips through ``swap_in``."""
+        idx = torch.as_tensor(list(blocks), dtype=torch.long,
+                              device=next(iter(cache.values())).device)
+        out = {}
+        for name, ax in self.batch_axes.items():
+            full = cache[name]
+            if self.paged.seq_axes[name] < 0:
+                out[name] = full.narrow(ax, slot, 1).clone()
+            else:
+                out[name] = full.index_select(ax, idx)
+        return out
+
+    def swap_in(self, cache, payload, slot: int, blocks):
+        """Scatter a ``swap_out`` payload back IN PLACE: pool-leaf contents
+        land in the physical blocks listed in ``blocks``, in the payload's
+        gather order, and direct leaves overwrite ``slot``'s row. Neither
+        need match the ones swapped out; the caller rebuilds the block
+        table."""
+        for name, ax in self.batch_axes.items():
+            full = cache[name]
+            row = payload[name].to(device=full.device, dtype=full.dtype)
+            if self.paged.seq_axes[name] < 0:
+                full.narrow(ax, slot, 1).copy_(row)
+            else:
+                idx = torch.as_tensor(list(blocks), dtype=torch.long,
+                                      device=full.device)
+                full.index_copy_(ax, idx, row)
         return cache
 
 

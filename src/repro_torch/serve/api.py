@@ -2,20 +2,24 @@
 ``SamplingParams``, the ``EngineConfig`` with its one ``validate()``, and
 the streamed ``TokenDelta``/``RequestOutput``.
 
-``validate()`` keeps the reference's dependency checks and adds one rule:
-every option this port has not reached raises a single ``ValueError`` of
-the form "<option> is not ported to repro_torch yet (see ROADMAP.md)" — it
-never quietly takes another path.
+``validate()`` keeps the reference's dependency checks, with its messages,
+and adds one rule: an option this port has not reached (``fused_step=
+False``, and families not ported) raises a single ``ValueError`` of the
+form "<option> is not ported to repro_torch yet (see ROADMAP.md)" — it
+never quietly takes another path. ``qos`` takes the port's ``QoSConfig``
+(``serve.qos``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, FrozenSet, List, Optional, Tuple
+from typing import FrozenSet, List, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["EngineConfig", "RequestOutput", "SamplingParams", "TokenDelta",
-           "FINISH_REASONS", "STOP_PAD", "effective_page_block",
+from repro_torch.serve.qos import QoSConfig
+
+__all__ = ["EngineConfig", "QoSConfig", "RequestOutput", "SamplingParams",
+           "TokenDelta", "FINISH_REASONS", "STOP_PAD", "effective_page_block",
            "not_ported", "stop_id_row"]
 
 #: Pad value of the per-slot stop-id matrix (token ids are non-negative).
@@ -42,8 +46,10 @@ class SamplingParams:
     vocabulary; ``top_k == 1`` is exactly greedy. ``stop_token_ids`` (plus
     ``eos_token_id``) retire the request as soon as one is *generated*,
     with ``finish_reason == "stop"``; the stop token is kept in the output.
-    ``priority`` and ``tenant`` are carried for API parity with the
-    reference and change no token."""
+    ``tenant`` names the fair-share accounting bucket and ``priority``
+    (higher = more urgent) arms preemption under pool pressure
+    (``QoSConfig``, ``EngineConfig.preemption``); neither changes a token:
+    a preempted and resumed request replays token for token."""
 
     max_new: int = 16
     temperature: float = 0.0
@@ -108,7 +114,7 @@ class EngineConfig:
     trace: bool = False
     trace_ring: int = 65536
     metrics: bool = False
-    qos: Optional[Any] = None
+    qos: Optional[QoSConfig] = None
     preemption: str = "off"
     strategy: str = "top1"
 
@@ -145,6 +151,15 @@ class EngineConfig:
             raise ValueError(
                 "token_budget bounds the chunked-prefill step loop — it "
                 "needs chunked_prefill=True (chunk > 0)")
+        if self.prefix_cache and not (self.paged and self.chunked_prefill):
+            raise ValueError(
+                "the prefix cache shares prompt KV through the paged pool "
+                "and fills misses with chunked prefill — enable paging "
+                "(page_block > 0) and chunked prefill (chunk > 0)")
+        if self.sanitize and not self.paged:
+            raise ValueError(
+                "sanitize=True runs the PoolSanitizer, which shadows the "
+                "paged KV block pool — enable paging (page_block > 0)")
         if self.strategy not in ("top1", "mixture"):
             raise ValueError(
                 f"strategy must be 'top1' or 'mixture', got "
@@ -181,18 +196,23 @@ class EngineConfig:
             raise ValueError(
                 f"preemption must be 'off', 'recompute' or 'swap', got "
                 f"{self.preemption!r}")
-        refused = [
-            (self.qos is not None, "qos"),
-            (self.preemption != "off", f"preemption={self.preemption!r}"),
-            (self.prefix_cache, "prefix_cache=True"),
-            (self.sanitize, "sanitize=True"),
-            (self.trace, "trace=True"),
-            (self.metrics, "metrics=True"),
-            (not self.fused_step, "fused_step=False"),
-        ]
-        for bad, option in refused:
-            if bad:
-                raise not_ported(option)
+        if self.preemption != "off" and not self.paged:
+            raise ValueError(
+                "preemption parks/drops a victim's paged KV blocks — "
+                "enable paging (page_block > 0)")
+        if self.preemption == "recompute" and not self.chunked_prefill:
+            raise ValueError(
+                "preemption='recompute' resumes victims through chunked "
+                "prefill — enable chunked_prefill (chunk > 0), or use "
+                "preemption='swap'")
+        if self.qos is not None and self.qos.max_predicted_ttft_s > 0 \
+                and not self.chunked_prefill:
+            raise ValueError(
+                "the predicted-TTFT admission model meters the chunked-"
+                "prefill token budget — max_predicted_ttft_s needs "
+                "chunked_prefill=True (max_waiting works without it)")
+        if not self.fused_step:
+            raise not_ported("fused_step=False")
         if model is not None:
             self._validate_model(model)
 
@@ -200,6 +220,14 @@ class EngineConfig:
         cfg = model.cfg
         if cfg.family not in ("dense", "vlm", "hybrid"):
             raise not_ported(f"family {cfg.family!r}")
+        # (the reference's second preemption check, a family with no
+        # pageable leaves, cannot fire: every ported family pages K/V)
+        if self.preemption != "off" and cfg.sliding_window > 0:
+            raise ValueError(
+                "preemption does not support sliding-window (ring) "
+                "caches — a ring slot's blocks are positionally "
+                "wrapped, not droppable; serve windowed configs with "
+                "preemption='off'")
         if not self.chunked_prefill:
             return
         if cfg.sliding_window > 0:

@@ -897,3 +897,80 @@ def test_vlm_serves_as_on_the_cpu(cuda, strategy, speculative):
                     out[o.rid] = (o.token_ids, o.finish_reason)
         res.append(out)
     assert res[0] == res[1] and len(res[1]) == 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("experts", [0, 2])
+def test_swap_out_in_round_trips_bit_exactly(cuda, experts):
+    """``CacheSpec.swap_out`` of a slot's blocks to host memory, then
+    ``swap_in`` into other physical blocks and another slot: the bf16
+    pool rows and the direct leaves come back bit for bit (one model's
+    cache, and an expert stack's through ``shifted(1)``)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+
+    model = build_model(get_smoke_config("zamba2_2_7b").reduced(
+        compute_dtype="bfloat16"))
+    cache = model.init_paged_cache(3, 12, 8, 32, device=cuda,
+                                   experts=experts)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for t in cache.values():
+        t.copy_(torch.randn(t.shape, generator=gen, device=cuda))
+    spec = model.cache_spec(8)
+    spec = spec.shifted(1) if experts else spec
+    before = {k: v.clone() for k, v in cache.items()}
+    payload = {k: v.cpu() for k, v in
+               spec.swap_out(cache, 1, [3, 7, 5]).items()}
+    spec.swap_in(cache, payload, 2, [9, 2, 11])
+    for name, ax in spec.batch_axes.items():
+        if spec.paged.seq_axes[name] < 0:
+            got, want = cache[name].select(ax, 2), before[name].select(ax, 1)
+        else:
+            idx = torch.tensor([9, 2, 11], device=cuda)
+            got = cache[name].index_select(ax, idx)
+            want = before[name].index_select(ax, torch.tensor([3, 7, 5],
+                                                              device=cuda))
+        assert got.dtype == before[name].dtype
+        assert torch.equal(got, want), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy", ["top1", "mixture"])
+def test_prefix_cached_serves_as_uncached_on_card(cuda, strategy):
+    """The smoke-size float32 Qwen3 deployment with the prefix cache on the
+    card: the tokens of the uncached run and of the CPU, with hits."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.router import CentroidRouter, RouterConfig
+    from repro_torch.models import build_model
+    from repro_torch.serve.api import EngineConfig, SamplingParams
+    from repro_torch.serve.scheduler import make_engine
+
+    cfg = get_smoke_config("qwen3_8b")
+    model = build_model(cfg)
+    experts = [model.init(torch.Generator().manual_seed(k)) for k in range(2)]
+    rng = np.random.default_rng(2)
+    cent = f32(rng, 2, 16)
+    router = CentroidRouter(torch.as_tensor(cent), RouterConfig(
+        top_k=2 if strategy == "mixture" else 1))
+    shared = rng.integers(0, cfg.vocab, 19).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab, n)
+                               .astype(np.int32)]) for n in (5, 9, 3, 7)]
+    res, skipped = [], []
+    for dev, prefix in (("cpu", False), ("cuda", False), ("cuda", True)):
+        eng = make_engine(model, experts=experts, router=router,
+                          device=dev, config=EngineConfig(
+                              n_slots=2, cache_len=48, paged=True,
+                              page_block=8, chunked_prefill=True, chunk=8,
+                              strategy=strategy, prefix_cache=prefix))
+        for i, p in enumerate(prompts):
+            eng.add_request(p, SamplingParams(max_new=8), features=cent[0],
+                            rid=i)
+        out = {}
+        while eng.has_unfinished():
+            out.update({o.rid: (o.token_ids, o.finish_reason)
+                        for o in eng.step() if o.finished})
+        res.append(out)
+        skipped.append(sum(p.get("prefix_skipped_tokens", 0)
+                           for p in eng.occupancy()))
+    assert res[0] == res[1] == res[2] and len(res[2]) == 4
+    assert skipped[2] >= 2 * 16

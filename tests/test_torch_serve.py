@@ -10,6 +10,7 @@ monolithic paths are held against the reference in
 ``test_torch_monolithic.py``.)
 """
 import dataclasses
+import json
 import re
 
 import numpy as np
@@ -102,12 +103,6 @@ def test_top1_slice_matches_reference_token_for_token(deployment):
 
 
 @pytest.mark.parametrize("override,option", [
-    (dict(qos=object()), "qos"),
-    (dict(preemption="swap"), "preemption='swap'"),
-    (dict(prefix_cache=True), "prefix_cache=True"),
-    (dict(sanitize=True), "sanitize=True"),
-    (dict(trace=True), "trace=True"),
-    (dict(metrics=True), "metrics=True"),
     (dict(fused_step=False), "fused_step=False"),
 ])
 def test_validate_refuses_unported_options(override, option):
@@ -116,6 +111,65 @@ def test_validate_refuses_unported_options(override, option):
         cfg.validate()
     assert str(e.value) == \
         f"{option} is not ported to repro_torch yet (see ROADMAP.md)"
+
+
+# each override takes the package's QoSConfig; window is the model's
+# sliding window (0: none)
+HOST_LAYER_OPTIONS = {
+    "qos": (lambda Q: dict(qos=Q(tenant_weights=(("a", 2.0),),
+                                 max_waiting=4)), 0),
+    "preemption swap": (lambda Q: dict(preemption="swap"), 0),
+    "preemption recompute": (lambda Q: dict(preemption="recompute"), 0),
+    "prefix_cache": (lambda Q: dict(prefix_cache=True), 0),
+    "sanitize": (lambda Q: dict(sanitize=True), 0),
+    "trace": (lambda Q: dict(trace=True, trace_ring=8), 0),
+    "metrics": (lambda Q: dict(metrics=True), 0),
+    "prefix cache without paging": (
+        lambda Q: dict(paged=False, chunked_prefill=False,
+                       prefix_cache=True), 0),
+    "prefix cache without chunked prefill": (
+        lambda Q: dict(chunked_prefill=False, prefix_cache=True), 0),
+    "recompute without chunked prefill": (
+        lambda Q: dict(chunked_prefill=False, preemption="recompute"), 0),
+    "swap without paging": (
+        lambda Q: dict(paged=False, chunked_prefill=False,
+                       preemption="swap"), 0),
+    "sanitize without paging": (
+        lambda Q: dict(paged=False, chunked_prefill=False, sanitize=True),
+        0),
+    "max_predicted_ttft_s without chunked prefill": (
+        lambda Q: dict(chunked_prefill=False,
+                       qos=Q(max_predicted_ttft_s=1.0)), 0),
+    "max_waiting without chunked prefill": (
+        lambda Q: dict(paged=False, chunked_prefill=False,
+                       qos=Q(max_waiting=2)), 0),
+    "trace_ring=0": (lambda Q: dict(trace=True, trace_ring=0), 0),
+    "preemption on a sliding-window model": (
+        lambda Q: dict(chunked_prefill=False, preemption="swap"), 8),
+}
+
+
+@pytest.mark.parametrize("option", list(HOST_LAYER_OPTIONS))
+def test_validate_host_layer_options_as_reference(option):
+    """The serving host layer's options: the port's ``validate`` accepts
+    each where the reference's does and raises the reference's message
+    where it raises (model-dependent checks included)."""
+    from repro.serve.qos import QoSConfig as JaxQoS
+    from repro_torch.serve.qos import QoSConfig
+    over, window = HOST_LAYER_OPTIONS[option]
+    jcfg = japi.EngineConfig(**dict(ECFG, **over(JaxQoS)))
+    cfg = EngineConfig(**dict(ECFG, **over(QoSConfig)))
+    jmodel = jax_build(jax_smoke("qwen3_8b").reduced(sliding_window=window))
+    model = build_model(get_smoke_config("qwen3_8b").reduced(
+        sliding_window=window))
+    try:
+        jcfg.validate(jmodel)
+    except ValueError as want:
+        with pytest.raises(ValueError) as got:
+            cfg.validate(model)
+        assert str(got.value) == str(want)
+    else:
+        cfg.validate(model)
 
 
 @pytest.mark.parametrize("override,window", [
@@ -214,7 +268,7 @@ def test_default_engine_config_is_the_ported_path(deployment):
         res.append(out)
     assert res[0] == res[1]
     assert {r for _, r in res[0].values()} == {"length"}
-    assert eng.stats()["prefill_chunks"] == 0
+    assert eng.n_chunks == 0
 
 
 def test_profile_script_rehearses_main_path_on_cpu():
@@ -332,6 +386,44 @@ def test_launcher_twin_serves_and_refuses(run_dir, capsys, monkeypatch):
     mixed = launch_serve.main(base + chunked + mixture)
     assert mixed["tokens"] == want and len(mixed["pods"]) == 1   # one core
     assert launch_serve.main(base + mixture)["tokens"] == want
+
+
+def test_launcher_twin_serves_the_host_layer(run_dir, tmp_path, capsys,
+                                            monkeypatch):
+    """The prefix cache, preemption under a small pool with two tenants
+    and two priorities, the sanitizer and both exports: the twin gives the
+    plain paged + chunked tokens, as the reference launcher does with the
+    same flags, and writes a trace with one pid per pod and a metrics
+    snapshot."""
+    base = ["--run", run_dir, "--requests", "4", "--prompt-len", "10",
+            "--new-tokens", "5", "--slots", "2", "--paged", "--page-block",
+            "8", "--chunked-prefill", "--prefill-chunk", "8"]
+    host = ["--prefix-cache", "--preemption", "swap", "--pool-blocks", "4",
+            "--priorities", "0", "--priorities", "0", "--priorities", "1",
+            "--priorities", "1", "--tenants", "2",
+            "--tenant-weight", "tenant-1=3", "--sanitize"]
+    trace, metrics = tmp_path / "trace.json", tmp_path / "metrics.json"
+    plain = launch_serve.main(base + ["--device", "cpu"])
+    got = launch_serve.main(base + host + [
+        "--device", "cpu", "--trace-out", str(trace),
+        "--metrics-out", str(metrics)])
+    assert got["tokens"] == plain["tokens"]
+    assert got["finish_reasons"] == ["length"] * 4
+    assert sum(sum(t["preemptions"] for t in p["tenants"].values())
+               for p in got["pods"]) > 0
+    doc = json.loads(trace.read_text())
+    assert {e["pid"] for e in doc["traceEvents"]} == {0, 1}
+    names = {m["name"] for m in json.loads(metrics.read_text())["metrics"]}
+    assert {"serve_step_dispatch_seconds", "serve_preemptions_total",
+            "serve_prefix_lookups_total"} <= names
+    capsys.readouterr()
+    monkeypatch.setattr("sys.argv", ["serve"] + base + host + ["--stream"])
+    jax_launch_serve.main()
+    want = {}
+    for rid, toks in re.findall(r"rid=\s*(\d+) \+(\[[^\]]*\])",
+                                capsys.readouterr().out):
+        want.setdefault(int(rid), []).extend(eval(toks))
+    assert want == got["tokens"]
 
 
 def test_bfloat16_weights_cross_bit_exactly():
