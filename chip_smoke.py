@@ -64,7 +64,10 @@ Phases, each fatal on failure:
    configs' dh 40 and 64 at small shapes), paged decode, chunk prefill,
    flash, paged verify and contiguous decode in bf16 and float32, each
    case with its device ms and bound (``new_config_shapes`` in the
-   record), and the flash backward there; and chunk prefill as a prefix
+   record), and the flash backward there; the same six at the moe
+   configs' heads (``MOE_HEADS``: DeepSeek-MoE-16B's 16/16 and
+   Qwen3-MoE-235B-A22B's 64/4, dh 128) at the main path's 1088 rows; and
+   chunk prefill as a prefix
    hit launches it (2 rows at start 512 whose tables share their first 32
    permuted blocks), in both dtypes;
 4. parity — the smoke-size float32 Qwen3 deployment (2 pods, top-1) served
@@ -88,7 +91,10 @@ Phases, each fatal on failure:
    and recompute preemption top-1 and mixture, DRR over two tenants;
    InternVL2-2B's prefix cache under one image; Zamba2's swap and
    recompute with the cache asked for and not built), where every pod's
-   ``stats()`` must be equal too. Under expert drafting request 1 sits on expert 0's
+   ``stats()`` must be equal too; then every configuration of Qwen3's for
+   the smoke-size DeepSeek-MoE-16B and Qwen3-MoE-235B-A22B, at their
+   capacity factor 8.0 (no pair may drop) and at ``MOE_DROP_CF`` (pairs
+   must drop; the dropped pairs by group width are printed). Under expert drafting request 1 sits on expert 0's
    centroid, so the mixture takes its drafts, which must be accepted on
    every config; the n-gram acceptance requirement holds on Qwen3's
    traffic, built for it;
@@ -200,6 +206,18 @@ Phases, each fatal on failure:
    126 layers by ``main_path.DEPTH_CUTS``), each on the main path's
    deployment and traffic, top-1, with the main path's checks and its
    cut printed;
+10e. moe_ffn — one full-width layer of each moe config on the card
+   against the same function on the CPU, a 256-row chunk and 8 decode
+   rows, bf16 and float32: every token's routing compared, the tokens
+   routed alike within ``MOE_FFN_TOL``, at most ``MOE_ROUTE_FLIP_SHARE``
+   routed otherwise in bf16 (none in float32), each at a near-tie; the
+   dropped share and the device ms printed;
+10f. moe paths — full-width DeepSeek-MoE-16B (all 28 layers, 2 experts),
+   its Eq. 27 mixture (built at 12 layers: the stack is made beside the
+   experts) and Qwen3-MoE-235B-A22B (cut to 4 of 94 layers), each on the
+   main path's deployment and traffic with the main path's checks; each
+   prints its dropped share by group width and the registry's
+   dispatch/device_get split;
 11. training parity — the smoke-size float32 training deployment
    (``repro_torch/launch/train_path.py``: the launcher's partition,
    loaders and schedule) trains expert 0 for 3 steps on the card (flash
@@ -218,12 +236,17 @@ Phases, each fatal on failure:
    the first, a parameter leaf whose step-1 gradient is missing or zero
    (its m after step 1 has no nonzero element), or launch counts other
    than layers x steps x experts (backward) and twice that (forward, run
-   again by the recomputation);
+   again by the recomputation); then the same for DeepSeek-MoE-16B cut to
+   4 layers (its dropped share printed);
 13. float32 gradients — full-width Qwen3-8B, 2 layers, in float32 on one
    1024-token sequence: the gradient of ``Model.loss`` through the kernel
    path (flash forward and backward kernels) against autograd through the
    plain attention on the card, each leaf within ``F32_GRAD_TOL`` of its
-   largest element.
+   largest element;
+14. moe launches — ``torch.profiler``'s count of the card's kernels in
+   one ``moe_ffn`` call (decode rows, a chunk) and in one DeepSeek-MoE-16B
+   decode layer (a paged decode step at 2 layers less one at 1), run last
+   since the profiler stays attached to the process.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record (each
 kernel's launches on the full-width path that runs it, and on every path
@@ -1147,6 +1170,12 @@ NEW_CONFIG_HEADS = (("internvl2_2b", 16, 8, 128),
 NEW_SMOKE_HEADS = (("phi3 smoke", 4, 2, 40), ("llama3 smoke", 4, 2, 64))
 # the vlm main path's rows: 1024 text positions + 256 prefix + 64 new
 VLM_CACHE_LEN = 1344
+# the moe configs' heads at full width: DeepSeek-MoE-16B's MHA, 16/16, and
+# Qwen3-MoE-235B-A22B's 64/4 (16 query heads a KV head, qk-norm), dh 128;
+# held at the main path's rows, 1024 prompt positions + 64 new
+MOE_HEADS = (("deepseek_moe_16b", 16, 16, 128),
+             ("qwen3_moe_235b_a22b", 64, 4, 128))
+MOE_CACHE_LEN = 1088
 
 
 def _new_shape_case(cases, rec, kernel, config, shape, dtype_name, call,
@@ -1165,7 +1194,9 @@ def _new_shape_case(cases, rec, kernel, config, shape, dtype_name, call,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
 
 
-def _new_config_kernel_cases(cases, rec, gen):
+def _new_config_kernel_cases(cases, rec, gen, full_heads=NEW_CONFIG_HEADS,
+                             smoke_heads=NEW_SMOKE_HEADS,
+                             cache_len=VLM_CACHE_LEN):
     """Kernels 1, 2, 4, 5 and 6 (paged decode, chunk prefill, flash,
     paged verify, contiguous decode) at the heads of InternVL2-2B (16/8),
     Phi-3-medium (40/10) and Llama-3-405B (128/8), dh 128, at the vlm main
@@ -1175,7 +1206,9 @@ def _new_config_kernel_cases(cases, rec, gen):
     (all image prefix) and a ragged 100-row chunk after it, flash over a
     ragged S = 256 + 777, spans of ``SPEC_LEN``, contiguous rows of 1344.
     Then the smoke configs' dh 40 and 64 at small shapes, and the flash
-    backward at the new heads."""
+    backward at the new heads. ``full_heads``, ``smoke_heads`` and
+    ``cache_len`` take other configs' heads at another path's rows (the
+    moe configs': ``MOE_HEADS`` at the main path's 1088)."""
     import numpy as np
     import torch
     from repro_torch.kernels import decode_attention as dk
@@ -1184,14 +1217,15 @@ def _new_config_kernel_cases(cases, rec, gen):
 
     bf16, f32 = torch.bfloat16, torch.float32
     block, B, L = 16, 8, SPEC_LEN
-    NB = VLM_CACHE_LEN // block
+    NB = cache_len // block
     rng = np.random.default_rng(23)
-    pos = rng.integers(256, VLM_CACHE_LEN, B)
-    pos[0] = VLM_CACHE_LEN - 1
-    vpos = rng.integers(256, VLM_CACHE_LEN - L + 1, B)
-    vpos[0] = VLM_CACHE_LEN - L
-    heads = [(c, H, KV, dh, True) for c, H, KV, dh in NEW_CONFIG_HEADS] \
-        + [(c, H, KV, dh, False) for c, H, KV, dh in NEW_SMOKE_HEADS]
+    pos = rng.integers(256, cache_len, B)
+    pos[0] = cache_len - 1
+    vpos = rng.integers(256, cache_len - L + 1, B)
+    vpos[0] = cache_len - L
+    heads = [(c, H, KV, dh, True) for c, H, KV, dh in full_heads] \
+        + [(c, H, KV, dh, False) for c, H, KV, dh in smoke_heads]
+    names = {c for c, *_ in heads}
     for config, H, KV, dh, full in heads:
         for dtype, name in ((bf16, "bfloat16"), (f32, "float32")):
             es = 2 if dtype is bf16 else 4
@@ -1252,8 +1286,8 @@ def _new_config_kernel_cases(cases, rec, gen):
                 dk.paged_verify_attention_ref(*_up(*args)),
                 2 * len(vp_) * L * H * dh * es + keys * KV * dh * 2 * es
                 + len(vp_) * 4 + live * 4, 4 * H * dh * pairs)
-            # contiguous decode over the vlm path's rows
-            S = VLM_CACHE_LEN if full else 128
+            # contiguous decode over the path's rows
+            S = cache_len if full else 128
             args = _decode_case(len(p), S, H, KV, dh, p.tolist(), dtype,
                                 gen)
             keys = int((p + 1).sum())
@@ -1272,6 +1306,8 @@ def _new_config_kernel_cases(cases, rec, gen):
             _check_flash_bwd(fk, fbk, cases, name, q, k, v, do)
     for name, r in rec.items():
         for c in r.get("new_config_shapes", ()):
+            if c["config"] not in names:
+                continue
             log(f"new-shape case {name} ({c['config']}, {c['shape']}, "
                 f"{c['dtype']}): max abs err {c['max_abs_err']:.3e}, device "
                 f"ms {c['device_ms']}, bound {c['bound_ms']:.4f} by "
@@ -1738,6 +1774,8 @@ def phase_kernels():
     _sampling_bits_cases()
     _training_kernel_cases(cases, rec, gen)
     _new_config_kernel_cases(cases, rec, gen)
+    _new_config_kernel_cases(cases, rec, gen, MOE_HEADS, (),
+                             MOE_CACHE_LEN)
     _prefix_kernel_cases(cases, gen)
     torch.cuda.synchronize()
 
@@ -1837,8 +1875,11 @@ def _sample_margin(host, model, prompt, toks, t, sp, feats, route,
     return margin, SAMPLE_MARGIN_ULPS * float(np.spacing(np.float32(top)))
 
 
-def phase_parity(arch="qwen3_8b"):
-    """Smoke-size float32 deployment of ``arch``: card (kernels) vs CPU
+def phase_parity(arch="qwen3_8b", cf=None):
+    """Smoke-size float32 deployment of ``arch`` (a moe config at capacity
+    factor ``cf`` when given: ``MOE_DROP_CF`` drops (token, choice) pairs,
+    which the phase counts and requires; the smoke configs' own 8.0 drops
+    none, which it requires too): card (kernels) vs CPU
     (plain), top-1 in the paged + chunked, paged + chunked + n-gram
     speculative (a ``speculative_capable`` model only), paged + monolithic
     and contiguous + monolithic configurations, then the same three
@@ -1852,6 +1893,8 @@ def phase_parity(arch="qwen3_8b"):
     be equal; a sampled token that differs is reported with its
     Gumbel-plus-logit margin and fails unless that margin is within
     ``SAMPLE_MARGIN_ULPS`` ulps."""
+    from dataclasses import replace
+
     import numpy as np
     import torch
     from repro_torch.configs import get_smoke_config
@@ -1860,7 +1903,12 @@ def phase_parity(arch="qwen3_8b"):
     from repro_torch.serve.api import EngineConfig, SamplingParams
     from repro_torch.serve.scheduler import make_engine
 
+    from repro_torch.models import moe as moe_lib
+
     cfg = get_smoke_config(arch)
+    if cf is not None:
+        cfg = replace(cfg, moe=replace(cfg.moe, capacity_factor=cf))
+        moe_lib.DROP_TALLY = {}
     model = build_model(cfg)
     experts = [model.init(torch.Generator().manual_seed(k)) for k in (0, 1)]
     rng = np.random.default_rng(1)
@@ -1978,9 +2026,20 @@ def phase_parity(arch="qwen3_8b"):
                     f"acceptance")
             extra += f"; spec_steps, spec_tokens {on_card} on the card, " \
                 f"{on_cpu} on the CPU"
-        log(f"parity ({cfg.arch_id}, {kind}): {len(cpu)} requests, "
+        log(f"parity ({cfg.arch_id}{'' if cf is None else f', cf {cf}'}, "
+            f"{kind}): {len(cpu)} requests, "
             f"routing {groute}, tokens and finish reasons equal on the "
             f"card and the CPU{extra}")
+    if cf is not None:
+        tally, moe_lib.DROP_TALLY = _drop_tally(), None
+        log(f"parity ({cfg.arch_id}, cf {cf}): dropped (token, choice) "
+            f"pairs by group width over every configuration, card and "
+            f"CPU: {json.dumps(tally)}")
+        dropped = sum(t["dropped"] for t in tally.values())
+        if (dropped > 0) != (cf == MOE_DROP_CF):
+            raise AssertionError(
+                f"{cfg.arch_id} at cf {cf}: {dropped} pairs dropped; the "
+                f"smoke configs' cf 8.0 drops none, {MOE_DROP_CF} must")
     if arch in HOST_LAYER_ARCHS:
         _host_layer_parity(arch, model, experts, router, mix_router)
 
@@ -2115,6 +2174,7 @@ def _serve_watched(label, mp, watch, kernels):
     import numpy as np
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.models import moe as moe_lib
 
     model = mp.model
     mp.warm()
@@ -2142,13 +2202,18 @@ def _serve_watched(label, mp, watch, kernels):
                 calls[_name] += 1
                 return _fn(*args)
             setattr(core, name, counted)
+    moe = model.cfg.family == "moe"
     try:
         ops.reset_launch_counts()
         calls.update(dict.fromkeys(calls, 0))
+        if moe:
+            moe_lib.DROP_TALLY = {}
         res, routing, outs, steps, wall = _serve(
             mp.engine, mp.prompts, mp.features, mp.params, mp.extras)
         launches = {n: fn.launches for n, fn in ops.KERNELS.items()}
     finally:
+        drops = _drop_tally() if moe else None
+        moe_lib.DROP_TALLY = None
         for name, _ in watch:
             delattr(model, name)
         for name, fn in fused.items():
@@ -2175,6 +2240,12 @@ def _serve_watched(label, mp, watch, kernels):
              "mean_ttft_s": float(np.mean([o.ttft for o in outs.values()])),
              "step_ms": wall / steps * 1e3, "launches": launches,
              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if drops is not None:
+        pairs = sum(t["pairs"] for t in drops.values())
+        stats.update(
+            dropped_share=sum(t["dropped"] for t in drops.values())
+            / max(pairs, 1), drops_by_group_width=drops,
+            step_split=_registry_split(mp.engine))
     if mixture:
         n, decodes, verifies = (model.n_groups,
                                 calls["_fstep"] + calls["_fstep_chunk"],
@@ -3292,6 +3363,266 @@ def phase_train_step_parity():
 
 
 # ---------------------------------------------------------------------------
+# Phases 10e-10g: the moe family
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("deepseek_moe_16b", "qwen3_moe_235b_a22b")
+# a capacity factor that drops (token, choice) pairs at smoke size: C =
+# int(S·2·1.0/4) slots an expert for a row of S tokens choosing 2 of 4
+# experts (the smoke configs' own 8.0 drops none)
+MOE_DROP_CF = 1.0
+# moe_ffn on the card against the same function on the CPU, one full-width
+# layer: the routing of every token (its choices, positions and drops) is
+# compared, and the outputs of the tokens routed alike are held at these
+# fractions of the output's largest magnitude. float32 differs only by
+# summation order (the products' blocking), so every token must route
+# alike. In bf16 the router logits are rounded to bf16 on both sides, so a
+# logit whose float32 sum lies at a rounding boundary can round otherwise
+# on the card; where that logit ties or crosses a neighbour, that token's
+# choice differs: at most MOE_ROUTE_FLIP_SHARE of the tokens may route
+# otherwise, and each such token's top-(k+1) logits on the CPU must lie
+# within 2 bf16 ulps of each other at the flipped choice. The expert
+# products round each output to bf16 on both sides (a few ulps of ~4e-3 of
+# an element), and a token sums top_k of them
+MOE_FFN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+MOE_ROUTE_FLIP_SHARE = 0.02
+# the moe_ffn phase's rows: one bf16 chunk of the main path's chunk width,
+# and the decode rows of a pod's 8 slots
+MOE_CHUNK, MOE_DECODE_ROWS = 256, 8
+
+
+def _drop_tally():
+    """``models.moe.DROP_TALLY`` read back (one sync): {group width S:
+    {"pairs", "dropped", "share"}}."""
+    from repro_torch.models import moe as moe_lib
+
+    out = {}
+    for S, (kept, pairs) in sorted((moe_lib.DROP_TALLY or {}).items()):
+        kept = int(kept)
+        out[S] = {"pairs": pairs, "dropped": pairs - kept,
+                  "share": (pairs - kept) / pairs if pairs else 0.0}
+    return out
+
+
+def _moe_routing(p, x, cfg):
+    """(idx, pos, keep) of ``moe_ffn``'s routing of x, one model's params."""
+    from repro_torch.models import moe as moe_lib
+
+    _, idx = moe_lib.route_topk(moe_lib._product(x, p["router"], 0),
+                                cfg.moe.top_k)
+    C = moe_lib._capacity(x.shape[1], cfg.moe.n_experts, cfg.moe.top_k,
+                          cfg.moe.capacity_factor)
+    pos, keep = moe_lib.capacity_slots(idx, C, cfg.moe.n_experts)
+    return idx, pos, keep, C
+
+
+def phase_moe_ffn():
+    """``moe_ffn`` on the card against the same function on the CPU, at one
+    full-width layer of each moe config (its routed, shared and router
+    weights drawn by ``init_params`` from ``moe_specs``, capacity factor
+    1.25), on a chunk of ``MOE_CHUNK`` rows and on ``MOE_DECODE_ROWS``
+    decode rows, in bf16 and float32, within ``MOE_FFN_TOL``; the tokens
+    routed otherwise on the card are counted against
+    ``MOE_ROUTE_FLIP_SHARE``. Prints the dropped share of (token, choice)
+    pairs at each width and the card's device ms a call beside the time to
+    read every routed weight once (the dense dispatch reads them all).
+    Returns the records."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.params import init_params
+    from repro_torch.tree import tree_leaves, tree_map
+
+    out = []
+    for arch in MOE_ARCHS:
+        cfg = get_config(arch)
+        E, top_k, D = cfg.moe.n_experts, cfg.moe.top_k, cfg.d_model
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).removeprefix("torch.")
+            gen = torch.Generator(device="cuda").manual_seed(25)
+            p = init_params(gen, moe_lib.moe_specs(cfg), dtype)
+            p_cpu = tree_map(lambda t: t.cpu(), p)
+            routed = sum(t.numel() * t.element_size()
+                         for n, t in tree_leaves(p) if n.startswith("w_"))
+            for R, S in ((1, MOE_CHUNK), (MOE_DECODE_ROWS, 1)):
+                x = torch.randn((R, S, D), generator=gen,
+                                device="cuda").to(dtype)
+                got = moe_lib.moe_ffn(p, x, cfg)
+                want = moe_lib.moe_ffn(p_cpu, x.cpu(), cfg)
+                r_card = _moe_routing(p, x, cfg)
+                r_cpu = _moe_routing(p_cpu, x.cpu(), cfg)
+                C = r_cpu[3]
+                # a token whose choices differ, and (through the positions
+                # its choices take) a later one whose drops differ
+                chose = (r_card[0].cpu() == r_cpu[0]).all(-1)
+                same = chose & (r_card[2].cpu() == r_cpu[2]).all(-1)
+                flips = int((~same).sum())
+                if not bool(chose.all()):
+                    # each token that chose otherwise: its top-(k+1) CPU
+                    # logits lie within 2 bf16 ulps of each other somewhere
+                    lg = moe_lib._product(x.cpu(), p_cpu["router"], 0) \
+                        .float()[~chose]
+                    top = lg.topk(min(top_k + 1, E), -1).values
+                    gaps = (top[:, :-1] - top[:, 1:]).min(-1).values
+                    ulps = 2 * 2.0 ** (torch.floor(torch.log2(
+                        top.abs().max(-1).values)) - 7)
+                    near = bool((gaps <= ulps).all())
+                else:
+                    near = True
+                err = (got.cpu().float() - want.float())[same].abs()
+                scale = want.float().abs().max().item()
+                worst = err.max().item() / scale if err.numel() else 0.0
+                dropped = int((~r_cpu[2]).sum())
+                pairs = r_cpu[2].numel()
+                ms = device_ms(lambda: moe_lib.moe_ffn(p, x, cfg), iters=10)
+                r = {"config": arch, "dtype": name, "rows": R,
+                     "group_width": S, "capacity": C,
+                     "max_err_of_max": worst, "tol": MOE_FFN_TOL[name],
+                     "tokens_routed_otherwise": flips,
+                     "dropped_pairs": dropped, "pairs": pairs,
+                     "dropped_share": dropped / pairs, "device_ms": ms,
+                     "routed_weight_read_ms": routed / HBM_BPS * 1e3}
+                out.append(r)
+                log("moe_ffn card vs CPU: " + json.dumps(r))
+                allowed = MOE_ROUTE_FLIP_SHARE * R * S \
+                    if dtype == torch.bfloat16 else 0
+                if not (worst <= MOE_FFN_TOL[name] and flips <= allowed
+                        and near and bool(torch.isfinite(got).all())):
+                    raise AssertionError(
+                        f"moe_ffn ({arch}, {name}, {R} x {S}): card vs "
+                        f"CPU {worst:.3e} of the largest output (tolerance "
+                        f"{MOE_FFN_TOL[name]}), {flips} tokens routed "
+                        f"otherwise (allowed {allowed}, near a tie: "
+                        f"{near})")
+            del p, p_cpu
+            torch.cuda.empty_cache()
+    return out
+
+
+def _moe_path_stats(label):
+    """The printed stats of a moe path, trimmed to what PERF.md keeps."""
+    st = PATH_STATS[label]
+    return {k: st.get(k) for k in (
+        "steps", "step_ms", "tok_per_s", "mean_ttft_s", "peak_mem_gib",
+        "dropped_share", "step_split")}
+
+
+def phase_moe_paths():
+    """Full-width moe serving on the main path's deployment and traffic
+    (bf16, 2 experts of seeded random weights, top-1, paged + chunked):
+    DeepSeek-MoE-16B at all 28 layers; DeepSeek-MoE-16B under the Eq. 27
+    mixture (both experts stacked, top_k 2, ``MIXTURE_NEW_TOKENS``), built
+    at ``main_path.MIXTURE_DEPTH_CUTS``' 12 layers since the stack is made
+    beside the experts; Qwen3-MoE-235B-A22B cut to
+    ``main_path.DEPTH_CUTS``' 4 of 94 layers. Each with the main path's
+    checks; each prints its dropped share of (token, choice) pairs by group
+    width and the registry's dispatch/device_get split. Returns the launch
+    counts by path."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import main_path
+    from repro_torch.tree import tree_leaves
+
+    launches = {}
+    for arch, mixture in (("deepseek_moe_16b", False),
+                          ("deepseek_moe_16b", True),
+                          ("qwen3_moe_235b_a22b", False)):
+        t0 = time.perf_counter()
+        mp = main_path.build("cuda", arch=arch, mixture=mixture)
+        torch.cuda.synchronize()
+        cfg = mp.cfg
+        full = get_config(arch).n_layers
+        cut = f"cut from {full} to {cfg.n_layers} layers" \
+            if cfg.n_layers != full else f"all {full} layers"
+        n_params = sum(t.numel() for _, t in tree_leaves(mp.experts[0]))
+        label = f"{arch} {'mixture ' if mixture else ''}path"
+        log(f"{label}: {main_path.N_EXPERTS} experts of {cfg.arch_id} "
+            f"({cut}, D={cfg.d_model}, H={cfg.n_heads}, KV={cfg.n_kv_heads}"
+            f", {cfg.moe.n_experts} routed experts of {cfg.moe.d_ff_expert}"
+            f" top-{cfg.moe.top_k}, {cfg.moe.n_shared} shared, capacity "
+            f"factor {cfg.moe.capacity_factor}, vocab {cfg.vocab}, "
+            f"{n_params / 1e9:.2f} B parameters an expert, bf16) "
+            f"initialized in {time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+        if mixture:
+            _drop(mp.engine)             # the top-1 pools, before the stack
+            mp.engine = None
+            xp = _mixture_of(mp)
+            mp.experts = xp.experts = None
+            torch.cuda.empty_cache()
+            mp = xp
+        _, launches[label] = _serve_watched(
+            label, mp, (("decode_step_paged", lambda x: x),
+                        ("prefill_chunk", lambda x: x)), MAIN_KERNELS)
+        log(f"{label} (summary): " + json.dumps(_moe_path_stats(label)))
+        _drop(mp.engine)
+        mp.engine = mp.experts = None
+        del mp
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_moe_launches():
+    """Launches on the card (``torch.profiler``'s CUDA kernel and memset
+    events) of one ``moe_ffn`` call at full width, on the decode rows and
+    on a chunk, and of one paged decode step of DeepSeek-MoE-16B at 1 and
+    at 2 layers (full width, bf16): their difference is one layer's. Run
+    last: the profiler stays attached to the process. Returns the counts;
+    "not measured" where the profiler saw no device events."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.params import init_params
+
+    def launches(fn):
+        fn()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+        return n or "not measured"
+
+    out = {}
+    for arch in MOE_ARCHS:
+        cfg = get_config(arch)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        p = init_params(gen, moe_lib.moe_specs(cfg), torch.bfloat16)
+        for R, S in ((MOE_DECODE_ROWS, 1), (1, MOE_CHUNK)):
+            x = torch.randn((R, S, cfg.d_model), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            out[f"{arch} moe_ffn {R}x{S}"] = launches(
+                lambda: moe_lib.moe_ffn(p, x, cfg))
+        del p
+    step = {}
+    for layers in (1, 2):
+        cfg = get_config("deepseek_moe_16b").reduced(n_layers=layers)
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(6))
+        block, nb = 16, 68
+        pool = model.init_paged_cache(8, 8 * nb + 1, block, block * nb,
+                                      device="cuda")
+        tables = torch.arange(1, 8 * nb + 1, dtype=torch.int32,
+                              device="cuda").reshape(8, nb)
+        tok = torch.zeros(8, dtype=torch.int32, device="cuda")
+        pos = torch.full((8,), 700, dtype=torch.int32, device="cuda")
+        step[layers] = launches(lambda: model.decode_step_paged(
+            params, pool, tok, pos, tables))
+        del params, pool
+        torch.cuda.empty_cache()
+    out["deepseek_moe_16b decode step, 1 layer"] = step[1]
+    out["deepseek_moe_16b decode step, 2 layers"] = step[2]
+    if isinstance(step[1], int) and isinstance(step[2], int):
+        out["deepseek_moe_16b decode step, per layer"] = step[2] - step[1]
+    log("moe launches on the card: " + json.dumps(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phases 11-13: training
 # ---------------------------------------------------------------------------
 
@@ -3361,20 +3692,25 @@ def phase_train_parity():
                              f"{worst} against {tol}")
 
 
-def phase_train_path():
+def phase_train_path(arch="qwen3_8b"):
     """Full-width Qwen3-8B cut to 8 layers, 2 experts, 8 steps each
-    (``repro_torch/launch/train_path.py``). Returns the backward kernel's
-    launches."""
+    (``repro_torch/launch/train_path.py``), or ``arch`` at its
+    ``train_path.DEPTH_CUTS`` (DeepSeek-MoE-16B at 4 layers: the moe
+    training path, which also prints the dropped share of its (token,
+    choice) pairs). Returns the kernels' launches."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import train_path
+    from repro_torch.models import moe as moe_lib
     from repro_torch.tree import tree_leaves
 
     t0 = time.perf_counter()
-    tp = train_path.build("cuda")
+    tp = train_path.build("cuda", arch=arch)
     cfg = tp.cfg
-    log(f"training path: {cfg.arch_id} at full width cut to "
+    label = "training path" if arch == train_path.ARCH \
+        else f"{arch} training path"
+    log(f"{label}: {cfg.arch_id} at full width cut to "
         f"{cfg.n_layers} layers (D={cfg.d_model}, vocab {cfg.vocab}, "
         f"{cfg.param_dtype}, remat {cfg.remat}), {tp.args.experts} experts "
         f"on shards of {[len(s) for s in tp.partition.shards]} samples, "
@@ -3384,6 +3720,8 @@ def phase_train_path():
     torch.cuda.reset_peak_memory_stats()
     bad = []
     ops.reset_launch_counts()
+    if cfg.family == "moe":
+        moe_lib.DROP_TALLY = {}
     experts = []
     for k in range(tp.args.experts):
         state = tp.init_state(k)
@@ -3426,9 +3764,15 @@ def phase_train_path():
     stats = {"experts": experts,
              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
              "launches": launches}
-    log("training path: " + json.dumps(stats))
+    if cfg.family == "moe":
+        # the forward and its recomputation under remat both route
+        drops = _drop_tally()
+        moe_lib.DROP_TALLY = None
+        stats["dropped_share"] = sum(t["dropped"] for t in drops.values()) \
+            / max(sum(t["pairs"] for t in drops.values()), 1)
+    log(f"{label}: " + json.dumps(stats))
     if bad:
-        raise AssertionError("training path: " + "; ".join(bad))
+        raise AssertionError(f"{label}: " + "; ".join(bad))
     return launches
 
 
@@ -3591,13 +3935,17 @@ def main() -> int:
         out = phase(*args)
         name = phase.__name__.removeprefix("phase_")
         if args and isinstance(args[0], str):
-            name += f" {args[0]}"
+            name += "".join(f" {a}" for a in args
+                            if isinstance(a, (str, float)))
         seconds[name] = round(time.perf_counter() - t, 1)
         return out
 
     rec = timed(phase_kernels)
     for arch in ("qwen3_8b", "zamba2_2_7b", VLM_ARCH) + DENSE_CONFIG_ARCHS:
         timed(phase_parity, arch)
+    for arch in MOE_ARCHS:
+        for cf in (None, MOE_DROP_CF):
+            timed(phase_parity, arch, cf)
     mp, main_res, main_launches = timed(phase_main_path)
     spec_launches = timed(phase_speculative_path, mp, main_res)
     sampled_launches = timed(phase_sampled_path, mp, main_res)
@@ -3628,10 +3976,18 @@ def main() -> int:
         torch.cuda.empty_cache()
         dense_launches[arch] = timed(phase_dense_config_path, arch)
     torch.cuda.empty_cache()
+    timed(phase_moe_ffn)
+    torch.cuda.empty_cache()
+    moe_launches = timed(phase_moe_paths)
+    torch.cuda.empty_cache()
     timed(phase_train_parity)
     timed(phase_train_step_parity)
     train_launches = timed(phase_train_path)
+    torch.cuda.empty_cache()
+    moe_train_launches = timed(phase_train_path, "deepseek_moe_16b")
     timed(phase_train_float32_gradients)
+    torch.cuda.empty_cache()
+    timed(phase_moe_launches)
     log(f"wall seconds by phase: {json.dumps(seconds)}")
     # each kernel's launches on the full-width path that runs it (the
     # verify kernel runs on the speculative path only, the chunk scan on
@@ -3654,7 +4010,8 @@ def main() -> int:
                "hybrid": hybrid_launches, "hybrid mixture": hybrid_mix_launches,
                "vlm": vlm_launches, "vlm contiguous": vlm_contiguous_launches,
                "vlm mixture": vlm_mixture_launches,
-               **dense_launches, "training": train_launches}
+               **dense_launches, **moe_launches, "training": train_launches,
+               "deepseek_moe_16b training": moe_train_launches}
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():

@@ -11,10 +11,14 @@ seeded (256, 1024) float32 image patches ahead of its prompt, so
 ``phi3_medium_14b`` and ``llama3_405b`` the dense family's other
 configs, Llama-3-405B cut to ``DEPTH_CUTS``' 2 of its 126 layers (its
 full width, D = 16384 and d_ff = 53248, is kept: one card cannot hold
-the whole model). ``smoke=True`` builds it at smoke size (2 layers,
-8–32 prompt tokens, 8-position blocks and chunks; a recurrent family's
-chunk is rounded up to a multiple of its chunkwise-scan length, 16 at
-smoke size).
+the whole model); ``deepseek_moe_16b`` and ``qwen3_moe_235b_a22b`` the
+moe family, DeepSeek-MoE-16B whole and Qwen3-MoE-235B-A22B cut to 4 of
+its 94 layers. ``mixture=True`` builds the deployment that
+``mixture(mp)`` will stack, at ``MIXTURE_DEPTH_CUTS`` where the stack
+beside the two experts would not fit the card. ``smoke=True`` builds
+it at smoke size (2 layers, 8–32 prompt tokens, 8-position blocks and
+chunks; a recurrent family's chunk is rounded up to a multiple of its
+chunkwise-scan length, 16 at smoke size).
 
 ``contiguous(mp)`` builds the second deployment over the same model,
 experts, router and requests: the reference's default serving path,
@@ -66,9 +70,20 @@ SAMPLE_TOP_K = 50
 SPEC_LEN = 4          # positions a speculative step verifies per slot
 MIXTURE_TOP_K = 2     # experts the mixture's router weighs a request over
 PATCH_SEED = 3000     # request i's image patches (vlm): default_rng(3000 + i)
-# full-width depth cuts of the configs one card cannot hold whole (80 GB):
-# Llama-3-405B's two layers and tables are ~21 GB an expert in bf16
-DEPTH_CUTS = {"llama3_405b": 2}
+# full-width depth cuts of the configs one card cannot hold whole (80 GB),
+# in bf16: Llama-3-405B's two layers and tables are ~21 GB an expert;
+# Qwen3-MoE-235B-A22B's layer is 2.49 B params (4.63 GiB: 128 routed
+# experts of 3 x 4096 x 1536, attention 64/4 heads of 128) and its tables
+# 2.32 GiB, so 4 layers are 20.9 GiB an expert and 41.8 GiB for two
+DEPTH_CUTS = {"llama3_405b": 2, "qwen3_moe_235b_a22b": 4}
+# the depth of a deployment built to be stacked (``mixture``): the stack is
+# a copy, so the card holds both experts and their stack while it is made.
+# DeepSeek-MoE-16B's layer is 0.588 B params (64 routed experts of 3 x 2048
+# x 1408, 2 shared, attention) and its tables 0.419 B: 31.4 GiB an expert
+# at all 28 layers, 4 x 31.4 GiB with the stack; at 12 layers 13.9 GiB an
+# expert, 55.7 GiB for the two and their stack. Qwen3-MoE-235B-A22B at its
+# 4 layers would need 4 x 20.9 GiB; at 2, 4 x 11.6 GiB
+MIXTURE_DEPTH_CUTS = {"deepseek_moe_16b": 12, "qwen3_moe_235b_a22b": 2}
 
 
 @dataclass
@@ -119,12 +134,13 @@ def patches_for(cfg: ModelConfig, n: int) -> List[Dict[str, np.ndarray]]:
         for i in range(n)]
 
 
-def build(device="cuda", *, smoke: bool = False, arch: str = ARCH
-          ) -> MainPath:
+def build(device="cuda", *, smoke: bool = False, arch: str = ARCH,
+          mixture: bool = False) -> MainPath:
     dev = resolve_device(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
-    if not smoke and arch in DEPTH_CUTS:
-        cfg = cfg.reduced(n_layers=DEPTH_CUTS[arch])
+    cuts = dict(DEPTH_CUTS, **MIXTURE_DEPTH_CUTS) if mixture else DEPTH_CUTS
+    if not smoke and arch in cuts:
+        cfg = cfg.reduced(n_layers=cuts[arch])
     model = build_model(cfg)
     experts = [model.init(torch.Generator(device=dev).manual_seed(k))
                for k in range(N_EXPERTS)]

@@ -28,10 +28,12 @@ deployment of the hybrid family (Mamba2 layers through the
 kernels), ``--arch internvl2_2b`` that of the vlm family (each request
 behind its 256 rows of image prefix), and ``granite_3_8b``,
 ``phi3_medium_14b`` and ``llama3_405b`` the dense family's other
-configs. Two windows of ``WINDOW`` steps run under the profiler: the
-first mixed steps (where there are any) and the first steps after the
-last prompt was consumed (``decode``, or ``spec_verify`` with
-``--speculative``). For
+configs, ``deepseek_moe_16b`` and ``qwen3_moe_235b_a22b`` the moe family
+(cut as ``main_path.DEPTH_CUTS`` says; with ``--mixture`` at
+``main_path.MIXTURE_DEPTH_CUTS``). Two windows of ``WINDOW`` steps run
+under the profiler: the first mixed steps (where there are any) and the
+first steps after the last prompt was consumed (``decode``, or
+``spec_verify`` with ``--speculative``). For
 each window it prints the device time by kernel group (the port's CUDA
 kernels, matrix products, everything else), the top kernels, and the
 device busy share: kernel time over wall time, one stream, so kernels
@@ -136,7 +138,8 @@ def main(argv=None) -> dict:
     if args.contiguous and (args.speculative or args.mixture):
         raise ValueError("--contiguous is a deployment of its own: pass it "
                          "without --speculative and --mixture")
-    mp = main_path.build(args.device, smoke=args.smoke, arch=args.arch)
+    mp = main_path.build(args.device, smoke=args.smoke, arch=args.arch,
+                         mixture=args.mixture)
     if args.contiguous:
         mp = main_path.contiguous(mp)
     elif args.mixture:

@@ -16,9 +16,12 @@ at ``seq_len`` 4096 (the ``train_4k`` shape) with the launcher's
 each with the launcher's schedule (lr 1e-3, warmup max(steps // 20, 5),
 cosine). No checkpoint is written at full width (44.6 GB per expert).
 
-``smoke=True`` builds it at smoke size: the float32 ``qwen3_8b`` smoke
-config (2 layers, D = 128), ``SMOKE_SEQ_LEN`` tokens, ``SMOKE_STEPS``
-steps.
+``arch`` trains another ported config on the same deployment, cut to
+``DEPTH_CUTS[arch]`` layers: ``deepseek_moe_16b`` (the moe family) at 4 of
+its 28 layers, 2.77 B params with its tables, the size of Qwen3-8B's 8
+layers. ``smoke=True`` builds it at smoke size: the float32 smoke config
+of ``arch`` (2 layers, D = 128), ``SMOKE_SEQ_LEN`` tokens,
+``SMOKE_STEPS`` steps.
 """
 from __future__ import annotations
 
@@ -40,6 +43,9 @@ from repro_torch.train.trainer import TrainConfig, init_train_state
 
 ARCH = "qwen3_8b"
 N_LAYERS = 8
+# each trained config's full-width depth: at 16 bytes of train state a
+# parameter, ~2.8 B parameters fit one card beside the activations
+DEPTH_CUTS = {ARCH: N_LAYERS, "deepseek_moe_16b": 4}
 N_EXPERTS = 2
 BATCH = 2                 # the launcher's --batch: one sequence per expert
 SEQ_LEN = INPUT_SHAPES["train_4k"].seq_len
@@ -76,14 +82,15 @@ class TrainPath:
                                 self.config.opt)
 
 
-def build(device="cuda", *, smoke: bool = False) -> TrainPath:
+def build(device="cuda", *, smoke: bool = False, arch: str = ARCH
+          ) -> TrainPath:
     dev = resolve_device(device)
     seq, steps = (SMOKE_SEQ_LEN, SMOKE_STEPS) if smoke else (SEQ_LEN, STEPS)
-    args = train.parse_args(["--arch", ARCH, "--experts", str(N_EXPERTS),
+    args = train.parse_args(["--arch", arch, "--experts", str(N_EXPERTS),
                              "--batch", str(BATCH), "--steps", str(steps),
                              "--seq-len", str(seq), "--device", str(dev)])
-    cfg = get_smoke_config(ARCH) if smoke else \
-        get_config(ARCH).reduced(n_layers=N_LAYERS)
+    cfg = get_smoke_config(arch) if smoke else \
+        get_config(arch).reduced(n_layers=DEPTH_CUTS[arch])
     part, loaders = train.partition_and_loaders(args,
                                                 train.build_corpus(args))
     return TrainPath(cfg, build_model(cfg), args, part, loaders,

@@ -1,5 +1,5 @@
-"""Model assembly, dense, vlm and hybrid families, serving paths (port of
-``repro.models.model``).
+"""Model assembly, dense, vlm, moe and hybrid families, serving paths (port
+of ``repro.models.model``).
 
 Parameters are nested dicts of tensors in the reference's pytree layout —
 ``{"embed": {...}, "blocks": {...}, "final_norm": ...}`` with every
@@ -17,14 +17,16 @@ Ported: ``cache_spec`` (with ``CacheSpec.insert``/``insert_paged``/
 ``prefill``, ``embed_prompt``, ``init_chunk_carry``, ``prefill_chunk``,
 ``decode_step``, ``decode_step_paged`` and ``fused_decode_step`` over
 either cache, for the dense, vlm (the dense decoder behind an image-patch
-prefix, ``_embed_inputs``) and hybrid (Zamba2: Mamba2 groups + one shared
-attention block) families; the speculative span verify over the paged
-cache for the dense and vlm families (``speculative_capable``,
-``verify_step_paged``, ``fused_verify_step``), also over an expert
-stack; the teacher-forced
-``forward`` and ``loss`` with their gradient for the dense and vlm
-families (the hybrid family's forward without it). The other families
-are not ported yet (see ROADMAP.md).
+prefix, ``_embed_inputs``), moe (DeepSeek-MoE, Qwen3-MoE: the dense
+decoder with ``models.moe.moe_ffn`` for its FFN, each row of every site a
+routing group of that site's width, so capacity drops fall where the
+reference's do) and hybrid (Zamba2: Mamba2 groups + one shared attention
+block) families; the speculative span verify over the paged cache for the
+dense, vlm and moe families (``speculative_capable``,
+``verify_step_paged``, ``fused_verify_step``), also over an expert stack;
+the teacher-forced ``forward`` and ``loss`` with their gradient for the
+dense, vlm and moe families (the hybrid family's forward without it). The
+other families are not ported yet (see ROADMAP.md).
 
 The serving paths (``prefill``, ``embed_prompt``, ``init_chunk_carry``,
 ``prefill_chunk``, ``decode_step``, ``decode_step_paged``,
@@ -53,6 +55,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.tree import tree_leaves
 
 from . import attention as attn
+from . import moe as moe_lib
 from . import ssm as ssm_lib
 from .layers import (cross_entropy_loss, embed, embedding_specs, linear,
                      rms_norm, swiglu, swiglu_specs, unembed)
@@ -78,7 +81,9 @@ def layer_slice(tree, i: int, axis: int = 0):
 
 
 def n_stacked(params) -> int:
-    """K for a stack of K experts' parameters, 0 for one model's."""
+    """K for a stack of K experts' parameters, 0 for one model's: read from
+    ``final_norm``, whose rank is 1 in every family's one model (a weight's
+    rank does not tell: the moe family's routed weights are 3-D)."""
     norm = params["final_norm"]
     return norm.shape[0] if norm.dim() == 2 else 0
 
@@ -217,13 +222,14 @@ class CacheSpec:
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family not in ("dense", "vlm", "hybrid"):
+        if cfg.family not in ("dense", "vlm", "moe", "hybrid"):
             raise ValueError(
                 f"family {cfg.family!r} is not ported to repro_torch yet "
                 f"(see ROADMAP.md)")
         self.cfg = cfg
         self.hybrid = cfg.family == "hybrid"
         self.vlm = cfg.family == "vlm"
+        self.moe = cfg.family == "moe"
 
     # ------------------------------------------------------------------
     # Parameters
@@ -248,6 +254,9 @@ class Model:
             gm = self.group_m
             return {"m_ln": stack_specs(_norm_spec(D), gm),
                     "mamba": stack_specs(ssm_lib.mamba2_specs(cfg), gm)}
+        if self.moe:
+            return {"ln1": _norm_spec(D), "attn": attn.attention_specs(cfg),
+                    "ln2": _norm_spec(D), "moe": moe_lib.moe_specs(cfg)}
         return {"ln1": _norm_spec(D), "attn": attn.attention_specs(cfg),
                 "ln2": _norm_spec(D), "ffn": swiglu_specs(D, cfg.d_ff)}
 
@@ -370,11 +379,14 @@ class Model:
         reads and writes its own cache or carry. ``remat``: each layer
         (group) runs under non-reentrant ``torch.utils.checkpoint``, so
         the backward recomputes its activations instead of keeping
-        them."""
+        them. The moe family's FFN routes each row of x as one group of
+        x's width, the site's: each caller's rows are what the reference
+        hands ``moe_ffn`` at the same site, padding included."""
         cfg = self.cfg
         eps = cfg.norm_eps
         shared = params.get("shared_attn")
-        m_axis = 1 if n_stacked(params) else 0   # a group's Mamba2 layers
+        K = n_stacked(params)
+        m_axis = 1 if K else 0                   # a group's Mamba2 layers
 
         def block(i, layer, x):
             if self.hybrid:
@@ -384,7 +396,10 @@ class Model:
                                            eps))
                 layer = shared
             h = x + attend(i, layer["attn"], rms_norm(x, layer["ln1"], eps))
-            return h + swiglu(layer["ffn"], rms_norm(h, layer["ln2"], eps))
+            y = rms_norm(h, layer["ln2"], eps)
+            if self.moe:
+                return h + moe_lib.moe_ffn(layer["moe"], y, cfg, K)
+            return h + swiglu(layer["ffn"], y)
 
         for i in range(self.n_groups):
             layer = layer_slice(params["blocks"], i)

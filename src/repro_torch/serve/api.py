@@ -218,7 +218,7 @@ class EngineConfig:
 
     def _validate_model(self, model) -> None:
         cfg = model.cfg
-        if cfg.family not in ("dense", "vlm", "hybrid"):
+        if cfg.family not in ("dense", "vlm", "moe", "hybrid"):
             raise not_ported(f"family {cfg.family!r}")
         # (the reference's second preemption check, a family with no
         # pageable leaves, cannot fire: every ported family pages K/V)

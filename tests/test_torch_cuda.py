@@ -800,10 +800,11 @@ def test_flash_attention_gradient_on_card(cuda, remat):
 # The heads of the configs the vlm and dense-config slice brought in:
 # InternVL2-2B (H 16, KV 8), Phi-3-medium (H 40, KV 10), Llama-3-405B
 # (H 128, KV 8), all at dh 128, and the Phi and Llama smoke configs'
-# dh 40 and 64
+# dh 40 and 64; then the moe configs': DeepSeek-MoE-16B's MHA (16/16) and
+# Qwen3-MoE-235B-A22B's 64/4, dh 128
 
 NEW_HEADS = [(16, 8, 128), (40, 10, 128), (128, 8, 128), (4, 2, 40),
-             (4, 2, 64)]
+             (4, 2, 64), (16, 16, 128), (64, 4, 128)]
 
 
 @pytest.mark.gpu
@@ -974,3 +975,87 @@ def test_prefix_cached_serves_as_uncached_on_card(cuda, strategy):
                            for p in eng.occupancy()))
     assert res[0] == res[1] == res[2] and len(res[2]) == 4
     assert skipped[2] >= 2 * 16
+
+
+# The moe family: ``moe_ffn`` and its serving paths on the card against
+# the CPU
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "qwen3_moe_235b_a22b"])
+def test_moe_ffn_on_card_matches_cpu(cuda, arch):
+    """One full-width moe layer in float32 (its weights from
+    ``moe_specs``), 8 decode rows and a 64-row chunk at capacity factor
+    1.25: the card routes every token as the CPU does (choices, positions,
+    drops) and its output is within 1e-4 of the CPU's largest magnitude
+    (summation order only)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.params import init_params
+    from repro_torch.tree import tree_map
+
+    cfg = get_config(arch)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    p = init_params(gen, moe.moe_specs(cfg), torch.float32)
+    p_cpu = tree_map(lambda t: t.cpu(), p)
+    for R, S in ((8, 1), (1, 64)):
+        x = torch.randn((R, S, cfg.d_model), generator=gen, device=cuda)
+        want = moe.moe_ffn(p_cpu, x.cpu(), cfg)
+        torch.testing.assert_close(moe.moe_ffn(p, x, cfg).cpu(), want,
+                                   rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
+        C = moe._capacity(S, cfg.moe.n_experts, cfg.moe.top_k,
+                          cfg.moe.capacity_factor)
+        routes = [moe.capacity_slots(moe.route_topk(
+            xx @ pp["router"], cfg.moe.top_k)[1], C, cfg.moe.n_experts)
+            for xx, pp in ((x, p), (x.cpu(), p_cpu))]
+        assert all(bool((a.cpu() == b).all())
+                   for a, b in zip(*routes))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,strategy,speculative,cf", [
+    ("deepseek_moe_16b", "top1", "ngram", 8.0),
+    ("deepseek_moe_16b", "top1", "ngram", 1.0),
+    ("deepseek_moe_16b", "mixture", "expert", 1.0),
+    ("qwen3_moe_235b_a22b", "top1", None, 1.0)])
+def test_moe_serves_as_on_the_cpu(cuda, arch, strategy, speculative, cf):
+    """The smoke-size float32 moe configs at capacity factor ``cf`` (1.0
+    drops pairs), 2 experts, paged + chunked, top-1 and the mixture with
+    expert drafting: the card gives the CPU's tokens and finish reasons."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.router import CentroidRouter, RouterConfig
+    from repro_torch.models import build_model
+    from repro_torch.serve.api import EngineConfig, SamplingParams
+    from repro_torch.serve.scheduler import make_engine
+
+    cfg = get_smoke_config(arch)
+    model = build_model(replace(cfg, moe=replace(cfg.moe,
+                                                 capacity_factor=cf)))
+    experts = [model.init(torch.Generator().manual_seed(k)) for k in range(2)]
+    rng = np.random.default_rng(4)
+    router = CentroidRouter(torch.as_tensor(f32(rng, 2, 16)),
+                            RouterConfig(top_k=2 if strategy == "mixture"
+                                         else 1))
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (5, 19, 30, 8)]
+    feats = f32(rng, 4, 16)
+    ecfg = EngineConfig(n_slots=2, cache_len=48, paged=True, page_block=8,
+                        chunked_prefill=True, chunk=8, strategy=strategy,
+                        speculative=speculative, spec_len=4)
+    res = []
+    for dev in ("cpu", "cuda"):
+        eng = make_engine(model, experts=experts, router=router, config=ecfg,
+                          device=dev)
+        for i, p in enumerate(prompts):
+            eng.add_request(p, SamplingParams(max_new=10), features=feats[i],
+                            rid=i)
+        out = {}
+        while eng.has_unfinished():
+            for o in eng.step():
+                if o.finished:
+                    out[o.rid] = (o.token_ids, o.finish_reason)
+        res.append(out)
+    assert res[0] == res[1] and len(res[1]) == 4

@@ -196,8 +196,8 @@ def test_validate_refuses_other_families_and_sampling():
     sampling controls the reference refuses (a negative top_k) are
     refused with its message."""
     cfg = get_smoke_config("qwen3_8b")
-    with pytest.raises(ValueError, match="family 'moe' is not ported"):
-        build_model(dataclasses.replace(cfg, family="moe"))
+    with pytest.raises(ValueError, match="family 'ssm' is not ported"):
+        build_model(dataclasses.replace(cfg, family="ssm"))
     sp = SamplingParams(temperature=0.7, top_k=5, seed=-3)
     assert (sp.temperature, sp.top_k, sp.seed) == (0.7, 5, -3)
     with pytest.raises(ValueError) as want:
