@@ -69,7 +69,9 @@ Phases, each fatal on failure:
    Qwen3-MoE-235B-A22B's 64/4, dh 128) at the main path's 1088 rows; and
    chunk prefill as a prefix
    hit launches it (2 rows at start 512 whose tables share their first 32
-   permuted blocks), in both dtypes;
+   permuted blocks), in both dtypes; the chunk scan at mLSTM's
+   full-width shape (``MLSTM_SCAN``), both dtypes on its scalar route,
+   with device ms and bound;
 4. parity — the smoke-size float32 Qwen3 deployment (2 pods, top-1) served
    on the card (kernels) and on the CPU (plain versions) in four
    configurations (paged + chunked, paged + chunked + n-gram speculation,
@@ -94,7 +96,15 @@ Phases, each fatal on failure:
    ``stats()`` must be equal too; then every configuration of Qwen3's for
    the smoke-size DeepSeek-MoE-16B and Qwen3-MoE-235B-A22B, at their
    capacity factor 8.0 (no pair may drop) and at ``MOE_DROP_CF`` (pairs
-   must drop; the dropped pairs by group width are printed). Under expert drafting request 1 sits on expert 0's
+   must drop; the dropped pairs by group width are printed); the
+   smoke-size xLSTM-125M (ssm) in every configuration without
+   speculation, and contiguous + chunked (it has no pool); Qwen3's and
+   xLSTM's configurations without speculation again with the unfused step
+   (``fused_step=False``), and their whole-batch engines
+   (``ServeEngine.generate``, ``DecentralizedServer.generate_top1`` and
+   ``generate_mixture`` greedy: tokens equal, a row differing only at a
+   near-tie within ``SAMPLE_MARGIN_ULPS`` ulps; the mixture's
+   probabilities and eval NLL within 1e-4). Under expert drafting request 1 sits on expert 0's
    centroid, so the mixture takes its drafts, which must be accepted on
    every config; the n-gram acceptance requirement holds on Qwen3's
    traffic, built for it;
@@ -105,6 +115,15 @@ Phases, each fatal on failure:
    (each decode step and each prefill chunk) must be finite, and each of
    the path's kernels (paged decode, chunk prefill, router) must have
    launched;
+5a. unfused path — the main path's deployment with the unfused step: its
+   greedy tokens must be the main path's (a request differing only at a
+   near-tie); it prints ms a step and the registry's dispatch /
+   device_get split beside the fused path's;
+5b. batch engine — the whole-batch ``DecentralizedServer`` over the main
+   path's model and experts, its first ``BATCH_REQUESTS`` prompts cut to
+   one length, ``BATCH_NEW_TOKENS`` greedy tokens, top-1 and the Eq. 27
+   mixture: tokens/s, peak GiB and launches printed, and the top-1
+   tokens' equality with the slot path (information only);
 6. speculative path — the main path's deployment with n-gram speculation
    (``spec_len`` 4) over the same model, experts and requests; the same
    checks (the sampled logits now include every row of each span verify),
@@ -191,6 +210,13 @@ Phases, each fatal on failure:
    the first Mamba2 layer's final SSM state within ``HYBRID_STATE_TOL``
    (the tolerances and why they differ from Qwen3's are stated where they
    are defined);
+10a. ssm path — full-width xLSTM-125M (12 layers: 3 groups of 3 mLSTM
+   layers and an sLSTM layer, bf16, 2 experts) on the main path's
+   deployment and traffic (paged, which serves its per-slot states) with
+   ``SSM_NEW_TOKENS`` a request, top-1 then under the Eq. 27 mixture: the
+   main path's checks with the chunk-scan and router kernels launched,
+   every chunk-scan call on the scalar route; ms a step, tokens/s, peak
+   GiB and the dispatch / device_get split printed;
 10b. vlm paths — full-width InternVL2-2B (24 layers, bf16, 2 experts of
    seeded random weights, 256 rows of seeded image patches ahead of each
    prompt) on the main path's deployment and traffic, then on contiguous
@@ -337,6 +363,22 @@ CONTIGUOUS_KERNELS = ("flash_attention", "decode_attention",
                       "router_scores")
 SPEC_KERNELS = MAIN_KERNELS + ("paged_verify_attention",)
 HYBRID_KERNELS = ("chunk_scan",) + MAIN_KERNELS
+# the ssm family has no attention: its paths run the chunk scan (every
+# mLSTM layer of every prefill chunk) and the router
+SSM_KERNELS = ("chunk_scan", "router_scores")
+SSM_ARCH = "xlstm_125m"
+# the ssm path's decode budget a request (8 slots a pod, 256-token chunks)
+SSM_NEW_TOKENS = 32
+# mLSTM's chunk-scan shape at full width (xLSTM-125M): L = 256 positions a
+# chunk, H = 4 heads of dk = 384, dv = 385 with the normalizer channel
+MLSTM_SCAN = (256, 4, 384, 385)
+# the archs whose parity phase also serves the unfused step and holds the
+# whole-batch engines (``ServeEngine``, ``DecentralizedServer``) card vs CPU
+UNFUSED_PARITY_ARCHS = ("qwen3_8b", SSM_ARCH)
+# the full-width batch-engine phase: the main path's first prompts, cut to
+# the shortest prompt length, and its decode budget a request
+BATCH_REQUESTS = 8
+BATCH_NEW_TOKENS = 32
 SPEC_LEN = 4          # positions a speculative step verifies per slot
 # depth of the float32 stacked-vs-single mixture check (full width)
 MIXTURE_F32_LAYERS = 2
@@ -814,6 +856,47 @@ def _hybrid_kernel_cases(cases, rec, gen):
     _decode_sweep(dk, cases, "decode_attention", f"{shape} S={S}",
                   lambda: dk.decode_attention(*args),
                   dk.decode_attention_ref(*_up(*args)), S, 8 * KV)
+
+
+def _mlstm_scan_cases(cases, rec, gen):
+    """The chunk scan at mLSTM's full-width shape (``MLSTM_SCAN``: one
+    256-position chunk of the ssm path's chunked prefill), bf16 and
+    float32, both on the scalar route (dv = 385 rows are no TMA box, dk =
+    384 is past the tensor-core route's 128): each against its plain
+    version at ``SCAN_TOL``, its device ms beside its bound (the bytes of
+    its inputs and outputs over the HBM rate, the causal q·k and P·v
+    products and the dk × dv summary over the peak rate of its inputs'
+    type), kept in the record's ``new_config_shapes``."""
+    import torch
+    from repro_torch.kernels import chunk_scan as cs
+
+    L, H, dk, dv = MLSTM_SCAN
+    flops = H * (L * (L + 1) // 2 * 2 * (dk + dv) + 2 * L * dk * dv)
+    for dtype, name in ((torch.bfloat16, "bfloat16"),
+                        (torch.float32, "float32")):
+        args = _scan_case(1, 1, L, H, dk, dv, dtype, gen)
+        _check_scan(cs, cases, name, args)
+        es = args[0].element_size()
+        nbytes = L * H * (2 * dk * es + dv * es + 4 + dv * 4) \
+            + H * dk * dv * 4
+        t_bytes = nbytes / HBM_BPS * 1e3
+        t_ops = flops / PEAK_FLOPS[name] * 1e3
+        entry = {
+            "config": f"{SSM_ARCH} (mLSTM)",
+            "shape": f"B=1 NC=1 L={L} H={H} dk={dk} dv={dv}",
+            "dtype": name, "route": "tensor cores" if cs.tensor_core_route(
+                dtype, dk, dv) else "scalar",
+            "max_abs_err": max(c["max_abs_err"] for c in cases[-2:]),
+            "device_ms": device_ms(lambda a=args: cs.chunk_scan(*a)),
+            "plain_ms": cuda_ms(lambda a=args: cs.chunk_scan_ref(*a)),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        rec["chunk_scan"].setdefault("new_config_shapes", []).append(entry)
+        log(f"new-shape case chunk_scan {entry['config']} {entry['shape']} "
+            f"{name} ({entry['route']} route): max abs err "
+            f"{entry['max_abs_err']:.3e}, device ms {entry['device_ms']}, "
+            f"plain {entry['plain_ms']:.4f} ms, bound "
+            f"{entry['bound_ms']:.4f} by {entry['bound_by']}")
 
 
 def _router_bound(B, D, K):
@@ -1769,6 +1852,7 @@ def phase_kernels():
                 dk.decode_attention_ref(*_up(*args), window=window),
                 "bfloat16", cases)
     _hybrid_kernel_cases(cases, rec, gen)
+    _mlstm_scan_cases(cases, rec, gen)
     _mixture_kernel_cases(cases, rec, gen)
     _speculation_kernel_cases(cases, rec, gen)
     _sampling_bits_cases()
@@ -1892,7 +1976,11 @@ def phase_parity(arch="qwen3_8b", cf=None):
     accepted. Tokens, finish reasons, routing and the spec counters must
     be equal; a sampled token that differs is reported with its
     Gumbel-plus-logit margin and fails unless that margin is within
-    ``SAMPLE_MARGIN_ULPS`` ulps."""
+    ``SAMPLE_MARGIN_ULPS`` ulps. A family with no pageable leaves (ssm)
+    also serves contiguous + chunked. For ``UNFUSED_PARITY_ARCHS`` every
+    configuration without speculation is served again with the unfused
+    step (``fused_step=False``), and the whole-batch engines are held card
+    vs CPU (``_batch_engine_parity``)."""
     from dataclasses import replace
 
     import numpy as np
@@ -1900,7 +1988,8 @@ def phase_parity(arch="qwen3_8b", cf=None):
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.router import CentroidRouter, RouterConfig
     from repro_torch.models import build_model
-    from repro_torch.serve.api import EngineConfig, SamplingParams
+    from repro_torch.serve.api import (EngineConfig, SamplingParams,
+                                       effective_page_block)
     from repro_torch.serve.scheduler import make_engine
 
     from repro_torch.models import moe as moe_lib
@@ -1956,6 +2045,15 @@ def phase_parity(arch="qwen3_8b", cf=None):
          prompts, sampled)]
     if not model.speculative_capable:
         configs = [c for c in configs if "speculative" not in c[1]]
+    if effective_page_block(model, 8) == 0:       # no pool: chunks direct
+        configs += [(f"{mix}contiguous + chunked", dict(
+            chunked_prefill=True, **over), prompts, greedy)
+            for mix, over in (("", {}), ("mixture, ",
+                                         dict(strategy="mixture")))]
+    if arch in UNFUSED_PARITY_ARCHS:
+        configs += [(f"{kind}, unfused", dict(over, fused_step=False), reqs,
+                     params) for kind, over, reqs, params in configs
+                    if "speculative" not in over]
     mix_router = CentroidRouter(router.centroids, RouterConfig(top_k=2))
     # under expert drafting request 1 sits on expert 0's centroid, so the
     # mixture weighs expert 0 at > 0.99 and takes its drafts
@@ -2042,6 +2140,113 @@ def phase_parity(arch="qwen3_8b", cf=None):
                 f"smoke configs' cf 8.0 drops none, {MOE_DROP_CF} must")
     if arch in HOST_LAYER_ARCHS:
         _host_layer_parity(arch, model, experts, router, mix_router)
+    if arch in UNFUSED_PARITY_ARCHS:
+        _batch_engine_parity(model, experts, router, mix_router, prompts,
+                             feats)
+
+
+def _greedy_gap(model, params, seq, weights=None):
+    """The top-two gap of the CPU's greedy scores after ``seq`` — one
+    model's logits, or with ``weights`` (1, K) the Eq. 27 mixture of an
+    expert stack's — and the gap ``SAMPLE_MARGIN_ULPS`` ulps of the top
+    value allow: a greedy pick can change between the card and the CPU
+    only within it."""
+    import numpy as np
+    import torch
+    from repro_torch.core.ensemble import mix_expert_logits
+
+    batch = {"tokens": torch.as_tensor(np.asarray(seq)[None]
+                                       .astype(np.int64))}
+    logits, _ = model.prefill(params, batch, len(seq))
+    row = logits[0, -1] if weights is None else \
+        mix_expert_logits(logits[:, :, -1], weights)[0]
+    top2 = torch.topk(row.float(), 2).values
+    return (float(top2[0] - top2[1]),
+            SAMPLE_MARGIN_ULPS * float(np.spacing(np.float32(abs(top2[0])))))
+
+
+def _check_greedy_rows(label, got, want, gap):
+    """Rows of greedy tokens, card against CPU: a row may differ only from
+    a near-tie, where ``gap(row, prefix)`` (the CPU's scores after the
+    prompt and the row's first tokens) is within its allowance. Returns
+    the rows that diverged."""
+    diverged = []
+    for b, (a, w) in enumerate(zip(got, want)):
+        if list(a) == list(w):
+            continue
+        t = next(j for j in range(len(w)) if a[j] != w[j])
+        g, allowed = gap(b, list(w[:t]))
+        log(f"{label}: row {b} token {t} differs (card {a[t]}, CPU {w[t]}): "
+            f"its top-two gap {g:.3e}, allowed {allowed:.3e}")
+        if g > allowed:
+            raise AssertionError(f"{label}: row {b} token {t} differs at a "
+                                 f"gap of {g:.3e}, past {allowed:.3e}")
+        diverged.append(b)
+    return diverged
+
+
+def _batch_engine_parity(model, experts, router, mix_router, prompts,
+                         feats, new=8):
+    """The whole-batch engines at smoke size, card (kernels) vs CPU
+    (plain): ``ServeEngine.generate`` greedy on expert 0 and
+    ``DecentralizedServer.generate_top1`` and ``generate_mixture``
+    (top_k 2) greedy over the prompts at least 13 tokens long, cut to 13:
+    tokens equal, a row diverging only at a near-tie
+    (``_check_greedy_rows``); ``mixture_next_probs`` and
+    ``ensemble_eval_nll`` within rtol 1e-4."""
+    import numpy as np
+    import torch
+    from repro_torch.serve.api import SamplingParams
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.ensemble_engine import DecentralizedServer
+    from repro_torch.tree import tree_map
+
+    S = 13
+    keep = [i for i, p in enumerate(prompts) if len(p) >= S]
+    toks = np.stack([prompts[i][:S] for i in keep])
+    labels = np.roll(toks, -1, axis=1)
+    greedy = SamplingParams(max_new=new, temperature=0.0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        ex = [tree_map(lambda t: t.to(dev), p) for p in experts]
+        batch = {"tokens": torch.as_tensor(toks, device=dev),
+                 "labels": torch.as_tensor(labels, device=dev),
+                 "features": torch.as_tensor(feats[keep], device=dev)}
+        top1 = DecentralizedServer(model, ex, router.to(dev), S + new)
+        mix = DecentralizedServer(model, ex, mix_router.to(dev), S + new)
+        out[dev] = {
+            "ServeEngine.generate": ServeEngine(model, S + new).generate(
+                ex[0], {"tokens": batch["tokens"]}, greedy).cpu().numpy(),
+            "generate_top1": top1.generate_top1(batch, greedy),
+            "generate_mixture": mix.generate_mixture(batch, greedy)
+            .cpu().numpy(),
+            "mixture_next_probs": mix.mixture_next_probs(batch).cpu(),
+            "ensemble_eval_nll": mix.ensemble_eval_nll(batch).cpu()}
+        if dev == "cpu":
+            cpu_mix, routes = mix, router.top1(batch["features"]).numpy()
+    stacked = cpu_mix._stacked_core()[0]
+    weights = cpu_mix.route(torch.as_tensor(feats[keep]))
+    gaps = {
+        "ServeEngine.generate": lambda b, pre: _greedy_gap(
+            model, experts[0], np.concatenate([toks[b], pre])),
+        "generate_top1": lambda b, pre: _greedy_gap(
+            model, experts[int(routes[b])], np.concatenate([toks[b], pre])),
+        "generate_mixture": lambda b, pre: _greedy_gap(
+            model, stacked, np.concatenate([toks[b], pre]),
+            weights[b:b + 1])}
+    notes = []
+    for name, gap in gaps.items():
+        d = _check_greedy_rows(f"parity ({model.cfg.arch_id}, {name})",
+                               out["cuda"][name], out["cpu"][name], gap)
+        notes.append(f"{name} {len(toks)} rows x {new} tokens equal"
+                     + (f" but rows {d} (near-ties)" if d else ""))
+    for name in ("mixture_next_probs", "ensemble_eval_nll"):
+        torch.testing.assert_close(out["cuda"][name], out["cpu"][name],
+                                   rtol=1e-4, atol=1e-9)
+    log(f"parity ({model.cfg.arch_id}, whole-batch engines): "
+        + "; ".join(notes) + f"; mixture probs and eval NLL within 1e-4 "
+        f"(NLL card {float(out['cuda']['ensemble_eval_nll']):.6f}, CPU "
+        f"{float(out['cpu']['ensemble_eval_nll']):.6f})")
 
 
 #: the smoke-size configurations of the serving host layer, by arch: the
@@ -2239,17 +2444,18 @@ def _serve_watched(label, mp, watch, kernels):
              "steps": steps, "wall_s": wall, "tok_per_s": n_tok / wall,
              "mean_ttft_s": float(np.mean([o.ttft for o in outs.values()])),
              "step_ms": wall / steps * 1e3, "launches": launches,
-             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+             "step_split": _registry_split(mp.engine)}
     if drops is not None:
         pairs = sum(t["pairs"] for t in drops.values())
         stats.update(
             dropped_share=sum(t["dropped"] for t in drops.values())
-            / max(pairs, 1), drops_by_group_width=drops,
-            step_split=_registry_split(mp.engine))
+            / max(pairs, 1), drops_by_group_width=drops)
     if mixture:
-        n, decodes, verifies = (model.n_groups,
-                                calls["_fstep"] + calls["_fstep_chunk"],
-                                calls["_vstep"])
+        # the attention layers (the ssm family has none)
+        n = 0 if model.cfg.family == "ssm" else model.n_groups
+        decodes, verifies = (calls["_fstep"] + calls["_fstep_chunk"],
+                             calls["_vstep"])
         drafts = verifies * (SPEC_LEN - 1) if core._can_spec \
             and core._ngram is None else 0
         stats.update(experts=core.K, decode_steps=decodes,
@@ -2309,6 +2515,142 @@ def phase_main_path():
         "main path", mp, (("decode_step_paged", lambda x: x),
                           ("prefill_chunk", lambda x: x)), MAIN_KERNELS)
     return mp, res, launches
+
+
+def _greedy_divergence(label, mp, res, ref_res):
+    """Requests whose greedy tokens in ``res`` differ from ``ref_res``'s
+    (both served from ``mp``'s requests on the card): each must differ
+    first at a near-tie, where the top-two gap of the card's scores (a
+    prefill of the prompt and the tokens before it on the request's pod's
+    expert, in the model's dtype) is within ``SAMPLE_MARGIN_ULPS`` ulps of
+    the top value in that dtype. Returns the diverging requests."""
+    import numpy as np
+    import torch
+
+    model, diverged = mp.model, []
+    ulp_rel = torch.finfo(model.cfg.cdtype).eps
+    for i, (toks, _) in ref_res.items():
+        if res[i][0] == toks:
+            continue
+        route = mp.router.to(mp.device).top1(torch.as_tensor(
+            mp.features, device=mp.device)).cpu().numpy()
+        got = res[i][0]
+        t = next(j for j in range(min(len(got), len(toks)))
+                 if got[j] != toks[j])
+        seq = np.concatenate([mp.prompts[i], np.asarray(toks[:t], np.int32)])
+        with torch.no_grad():
+            logits, _ = model.prefill(
+                mp.experts[int(route[i])],
+                {"tokens": torch.as_tensor(seq[None].astype(np.int64),
+                                           device=mp.device)}, len(seq))
+        top2 = torch.topk(logits[0, -1].float(), 2).values
+        gap = float(top2[0] - top2[1])
+        allowed = SAMPLE_MARGIN_ULPS * ulp_rel * float(abs(top2[0]))
+        log(f"{label}: request {i} token {t} differs ({got[t]} vs "
+            f"{toks[t]}): top-two gap {gap:.3e}, allowed {allowed:.3e}")
+        if gap > allowed:
+            raise AssertionError(f"{label}: request {i} token {t} differs "
+                                 f"at a gap of {gap:.3e}, past {allowed:.3e}")
+        diverged.append(i)
+    return diverged
+
+
+def phase_unfused_path(mp, main_res):
+    """The main path's deployment (paged + chunked, the same model,
+    experts and requests) with the unfused step (``main_path.unfused``):
+    the same forwards at the same batch shapes, so its greedy tokens must
+    be the main path's, a request differing only at a near-tie
+    (``_greedy_divergence``). Prints its ms a step and the registry's
+    dispatch / device_get split beside the fused main path's."""
+    import torch
+    from repro_torch.launch import main_path
+
+    up = main_path.unfused(mp)
+    torch.cuda.empty_cache()
+    res, launches = _serve_watched(
+        "unfused path", up, (("decode_step_paged", lambda x: x),
+                             ("prefill_chunk", lambda x: x)), MAIN_KERNELS)
+    diverged = _greedy_divergence("unfused path", mp, res, main_res)
+    fused, st = PATH_STATS["main path"], PATH_STATS["unfused path"]
+    log(f"unfused path: {len(main_res) - len(diverged)} of {len(main_res)} "
+        f"requests got the main path's tokens"
+        + (f", requests {diverged} diverged at near-ties" if diverged else "")
+        + f"; ms a step {st['step_ms']:.2f} (fused {fused['step_ms']:.2f}), "
+        f"tokens/s {st['tok_per_s']:.1f} (fused {fused['tok_per_s']:.1f}); "
+        f"dispatch / device_get ms a step by pod "
+        f"{json.dumps(st['step_split'])} (fused "
+        f"{json.dumps(_registry_split(mp.engine))})")
+    _drop(up.engine)
+    return launches
+
+
+def phase_batch_engine(mp):
+    """The whole-batch ``DecentralizedServer`` at full width over the main
+    path's model, experts and router: its first ``BATCH_REQUESTS``
+    prompts cut to the shortest one's length, ``BATCH_NEW_TOKENS`` greedy
+    tokens each, top-1 (grouped by routed expert) and the Eq. 27 mixture
+    (top_k 2, the experts stacked). Tokens must be ids of the
+    vocabulary; the top-1 run's equality with the slot path (the main
+    engine serving the same cut prompts) is printed as information only,
+    since the batch shapes differ and bf16 rounds them otherwise. Prints
+    tokens/s and the kernel launches of each run."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+    from repro_torch.core.router import CentroidRouter, RouterConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import main_path
+    from repro_torch.serve.api import SamplingParams
+    from repro_torch.serve.ensemble_engine import DecentralizedServer
+
+    B, new = BATCH_REQUESTS, BATCH_NEW_TOKENS
+    S = min(len(p) for p in mp.prompts[:B])
+    toks = np.stack([p[:S] for p in mp.prompts[:B]])
+    batch = {"tokens": torch.as_tensor(toks, device=mp.device),
+             "features": torch.as_tensor(mp.features[:B], device=mp.device)}
+    greedy = SamplingParams(max_new=new, temperature=0.0)
+    # the slot path over the same cut prompts, for the information line
+    slot = replace(mp, prompts=list(toks), features=mp.features[:B],
+                   sampling=replace(mp.sampling, max_new=new),
+                   extras=mp.extras[:B])
+    slot_res = _serve(slot.engine, slot.prompts, slot.features, slot.params,
+                      slot.extras)[0]
+    top1_router = mp.router.to(mp.device)
+    mix_router = CentroidRouter(top1_router.centroids, RouterConfig(
+        mp.router.config.temperature, main_path.MIXTURE_TOP_K))
+    launches = {}
+    for label, router, gen in (("top1", top1_router, "generate_top1"),
+                               ("mixture", mix_router, "generate_mixture")):
+        server = DecentralizedServer(mp.model, mp.experts, router,
+                                     cache_len=S + new)
+        getattr(server, gen)({k: v[:1] for k, v in batch.items()},
+                             replace(greedy, max_new=2))        # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = np.asarray(torch.as_tensor(getattr(server, gen)(
+            batch, greedy)).cpu())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[label] = {n: fn.launches for n, fn in ops.KERNELS.items()}
+        if out.shape != (B, new) or not ((out >= 0)
+                                         & (out < mp.cfg.vocab)).all():
+            raise AssertionError(f"batch engine ({label}): tokens of shape "
+                                 f"{out.shape} outside [0, vocab)")
+        same = f"; {sum(out[i].tolist() == slot_res[i][0] for i in range(B))}" \
+            f" of {B} rows equal the top-1 slot path's tokens (information " \
+            f"only: bf16, other batch shapes)" if label == "top1" else ""
+        log(f"batch engine ({label}): {B} prompts of {S} tokens, {new} "
+            f"greedy tokens each in {wall:.2f} s, "
+            f"{B * new / wall:.1f} tok/s, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB{same}; "
+            f"launches "
+            f"{json.dumps({k: v for k, v in launches[label].items() if v})}")
+        del server                  # the mixture's stack is a copy
+        torch.cuda.empty_cache()
+    return launches
 
 
 def phase_speculative_path(mp, main_res):
@@ -3045,6 +3387,56 @@ def phase_hybrid_path():
         raise AssertionError("hybrid mixture path: a chunk-scan call took "
                              "the scalar route")
     return launches, tensor_core, mix_launches
+
+
+def phase_ssm_path():
+    """Full-width xLSTM-125M (12 layers: 3 groups of 3 mLSTM layers and one
+    sLSTM layer, D = 768, vocab 50304, bf16), 2 experts, top-1, on the main
+    path's deployment and traffic (``main_path.build(arch=SSM_ARCH)``: 8
+    slots a pod, prompts of 256-1024 tokens in chunks of 256; paged, which
+    for this family serves its per-slot states) with ``SSM_NEW_TOKENS`` a
+    request; then the same under the Eq. 27 mixture. Every chunk-scan
+    call takes the scalar route (mLSTM's dv = 385, dk = 384). Returns the
+    two runs' launch counts."""
+    from dataclasses import replace
+
+    import torch
+    from repro_torch.kernels import chunk_scan as cs
+    from repro_torch.launch import main_path
+
+    t0 = time.perf_counter()
+    mp = main_path.build("cuda", arch=SSM_ARCH)
+    mp = replace(mp, sampling=replace(mp.sampling, max_new=SSM_NEW_TOKENS))
+    torch.cuda.synchronize()
+    cfg = mp.cfg
+    log(f"ssm path: {main_path.N_EXPERTS} experts of {cfg.arch_id} "
+        f"({cfg.n_layers} layers in {mp.model.n_groups} groups of "
+        f"{mp.model.group_m} mLSTM + 1 sLSTM, D={cfg.d_model}, bf16) "
+        f"initialized in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card; "
+        f"pods paged: {[p.paged for p in mp.engine.pods]}")
+    out = []
+    for label in ("ssm path", "ssm mixture path"):
+        if label == "ssm mixture path":
+            mp.engine = None
+            mp = _mixture_of(mp)
+            mp = replace(mp, sampling=replace(mp.sampling,
+                                              max_new=SSM_NEW_TOKENS))
+        _, launches = _serve_watched(
+            label, mp, (("decode_step", lambda x: x),
+                        ("prefill_chunk", lambda x: x)), SSM_KERNELS)
+        tc = cs.chunk_scan.tensor_core_launches
+        log(f"{label}: chunk_scan launches {launches['chunk_scan']}, of "
+            f"them on the tensor cores {tc}; ms a step "
+            f"{PATH_STATS[label]['step_ms']:.2f}, dispatch / device_get "
+            f"ms a step by pod {json.dumps(PATH_STATS[label]['step_split'])}")
+        if tc:
+            raise AssertionError(f"{label}: {tc} chunk-scan calls took the "
+                                 f"tensor-core route at mLSTM's widths")
+        out.append(launches)
+    mp.engine = None
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_hybrid_float32_agreement():
@@ -3941,12 +4333,16 @@ def main() -> int:
         return out
 
     rec = timed(phase_kernels)
-    for arch in ("qwen3_8b", "zamba2_2_7b", VLM_ARCH) + DENSE_CONFIG_ARCHS:
+    for arch in ("qwen3_8b", "zamba2_2_7b", VLM_ARCH, SSM_ARCH) \
+            + DENSE_CONFIG_ARCHS:
         timed(phase_parity, arch)
     for arch in MOE_ARCHS:
         for cf in (None, MOE_DROP_CF):
             timed(phase_parity, arch, cf)
     mp, main_res, main_launches = timed(phase_main_path)
+    unfused_launches = timed(phase_unfused_path, mp, main_res)
+    batch_launches = timed(phase_batch_engine, mp)
+    torch.cuda.empty_cache()
     spec_launches = timed(phase_speculative_path, mp, main_res)
     sampled_launches = timed(phase_sampled_path, mp, main_res)
     contiguous_launches = timed(phase_contiguous_path, mp, main_res)
@@ -3966,6 +4362,8 @@ def main() -> int:
         timed(phase_hybrid_path)
     torch.cuda.empty_cache()
     timed(phase_hybrid_float32_agreement)
+    torch.cuda.empty_cache()
+    ssm_launches, ssm_mix_launches = timed(phase_ssm_path)
     torch.cuda.empty_cache()
     vlm_launches, vlm_contiguous_launches, vlm_mixture_launches = \
         timed(phase_vlm_paths)
@@ -4002,7 +4400,11 @@ def main() -> int:
                     flash_attention_bwd=train_launches[
                         "flash_attention_bwd"])
     # every full-width path's count of each kernel, for the record
-    by_path = {"main": main_launches, "speculative": spec_launches,
+    by_path = {"main": main_launches, "unfused": unfused_launches,
+               "batch top1": batch_launches["top1"],
+               "batch mixture": batch_launches["mixture"],
+               "ssm": ssm_launches, "ssm mixture": ssm_mix_launches,
+               "speculative": spec_launches,
                "sampled": sampled_launches,
                "contiguous": contiguous_launches, "mixture": mixture_launches,
                "prefix": prefix_launches, "preemption": preemption_launches,
@@ -4033,11 +4435,15 @@ def main() -> int:
                                  "batched", "by_batch",
                                  "launch_floor_device_ms") if k in r}})
         if name == "chunk_scan":
-            # the hybrid path's calls by route
+            # the hybrid path's calls by route, and the ssm path's (every
+            # one scalar at mLSTM's widths)
             kernels[-1].update(
                 tensor_core_launches=scan_tensor_core,
                 scalar_launches=launches[name] - scan_tensor_core,
-                scan_parts=r["parts"])
+                scan_parts=r["parts"],
+                ssm_path={"launches": ssm_launches[name],
+                          "tensor_core_launches": 0,
+                          "scalar_launches": ssm_launches[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

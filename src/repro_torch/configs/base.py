@@ -110,7 +110,7 @@ INPUT_SHAPES = {
 #: their families — see ROADMAP.md).
 PORTED_ARCH_IDS = ["qwen3_8b", "zamba2_2_7b", "granite_3_8b", "llama3_405b",
                    "phi3_medium_14b", "internvl2_2b", "deepseek_moe_16b",
-                   "qwen3_moe_235b_a22b"]
+                   "qwen3_moe_235b_a22b", "xlstm_125m"]
 
 
 def _module(arch_id: str):

@@ -13,11 +13,13 @@ The reference runs the K experts under ``jax.vmap`` over a stacked
 (``stack_experts_for_decode``) and ``Model``'s serving paths take the
 stack directly: K rides in the batch of every activation and kernel launch
 (``models/model.py``), so a mixture step launches each kernel once, not K
-times. ``make_stacked_fused`` is the twin of the reference's
-``make_stacked_fused`` (and, with it, of the decode and chunk halves of
-``make_stacked_serving`` and ``make_stacked_chunk_fns``, which the port's
-fused-only scheduler does not need apart): the mixture step plus the
-serving epilogue over the mixed probabilities. ``make_stacked_verify``
+times. ``make_stacked_serving`` and ``make_stacked_chunk_fns`` are the
+twins of the reference's: the stacked prefill and the mixed decode, and
+the chunked-prefill companions, with no epilogue (the whole-batch
+``DecentralizedServer`` and the mixture core's unfused step run on them).
+``make_stacked_fused`` is the twin of the reference's
+``make_stacked_fused``: the mixture step plus the serving epilogue over
+the mixed probabilities. ``make_stacked_verify``
 is the twin of the reference's: the span verify of all K experts in one
 stacked forward, the Eq. 27 mixture at every span offset and the seeded
 accept rule, with drafts from the host (n-gram) or from expert 0's own
@@ -57,6 +59,31 @@ def mix_expert_logits(expert_logits: Tensor, weights: Tensor, *,
     return mixed
 
 
+def ensemble_next_token_probs(router, features: Tensor,
+                              expert_logits: Tensor) -> Tensor:
+    """features: (B, D) routing features for each request; expert_logits:
+    (K, B, V) per-expert next-token logits → (B, V) mixed probabilities."""
+    return mix_expert_logits(expert_logits, router.route(features))
+
+
+def stack_expert_params(expert_params: List[Dict[str, Any]]):
+    """K per-expert parameter trees → one tree with a leading K dim on
+    every leaf (``select_expert_params`` takes one back out)."""
+    return tree_map(lambda *leaves: torch.stack(leaves), *expert_params)
+
+
+def select_expert_params(stacked_params, expert_idx: int):
+    """One expert's parameters out of a ``stack_expert_params`` tree (views):
+    the top-1 fast path gathers the selected expert alone."""
+    return tree_map(lambda leaf: leaf[expert_idx], stacked_params)
+
+
+def stacked_cache_axes(cache_like):
+    """The expert axis of every leaf of a stacked decode cache: 1, after
+    its layer (or group) dim (``Model.init_cache(..., experts=K)``)."""
+    return tree_map(lambda _: 1, cache_like)
+
+
 def stack_experts_for_decode(expert_params: List[Dict[str, Any]]):
     """K experts' parameter trees → one tree in the decode layout: every
     ``blocks`` leaf carries K at axis 1, after its scanned layer dim, (L, K,
@@ -82,6 +109,64 @@ def expert_slice(stacked, k: int):
             for name, sub in stacked.items()}
 
 
+def make_stacked_serving(model, expert_params, cache_len: int, *,
+                         paged: bool = False):
+    """The stacked-expert decode core of the mixture servers
+    (``DecentralizedServer``, the mixture core's unfused step): the experts
+    stacked in the decode layout plus the whole-ensemble steps. Returns
+    ``(stacked, prefill_all, mix_decode)``:
+
+    * ``prefill_all(stacked, batch)`` → ``(logits (K, B, S, V), caches)``
+      with K at axis 1 of every cache leaf;
+    * ``mix_decode(stacked, caches, tok, pos, weights)`` → ``(Eq. 27
+      mixed probabilities (B, V), caches)``: one stacked decode forward
+      under the (B, K) router ``weights``. With ``paged`` it takes the
+      per-slot block tables as a trailing argument, shared by the K
+      experts."""
+    def prefill_all(sp, batch):
+        return model.prefill(sp, batch, cache_len)
+
+    return (stack_experts_for_decode(expert_params), prefill_all,
+            _mix_decode(model, paged))
+
+
+def _mix_decode(model, paged: bool):
+    """``mix_decode`` of ``make_stacked_serving``."""
+    def mix_decode(sp, caches, tok, pos, weights, *tables):
+        if paged:
+            logits, caches = model.decode_step_paged(sp, caches, tok, pos,
+                                                     *tables)
+        else:
+            logits, caches = model.decode_step(sp, caches, tok, pos)
+        return mix_expert_logits(logits, weights), caches
+    return mix_decode
+
+
+def make_stacked_chunk_fns(model, cache_len: int):
+    """Chunked-prefill companions to ``make_stacked_serving``: ``(prep_all,
+    chunk_all)``.
+
+    * ``prep_all(stacked, batch)`` → (the embedded prompt (K, W, D), one
+      row per expert, and the per-expert chunk carry with K at axis 1 of
+      every leaf, where the stacked cache keeps it);
+    * ``chunk_all(stacked, caches, carry, xc, start, length, block_table,
+      weights)`` → (the Eq. 27 mixed next-token probabilities (1, V) at
+      the chunk's last valid position under the (1, K) ``weights``, carry,
+      caches): one stacked ``prefill_chunk``, the table shared by the K
+      experts."""
+    def prep_all(sp, batch):
+        return model.embed_prompt(sp, batch), \
+            model.init_chunk_carry(sp, batch, cache_len)
+
+    def chunk_all(sp, caches, carry, xc, start, length, block_table,
+                  weights):
+        logits, carry, caches = model.prefill_chunk(
+            sp, caches, carry, xc, start, length, block_table)
+        return mix_expert_logits(logits, weights), carry, caches
+
+    return prep_all, chunk_all
+
+
 def make_stacked_fused(model, cache_len: int, *, paged: bool):
     """``(step, step_chunk, chunk_only)`` over an expert stack, the
     mixture's twins of ``serve.scheduler.make_fused_fns``:
@@ -103,23 +188,20 @@ def make_stacked_fused(model, cache_len: int, *, paged: bool):
     """
     # function-level import: serve.fused imports PROB_FLOOR from here
     from repro_torch.serve.fused import decode_epilogue, pick_first
+    mix_decode = _mix_decode(model, paged)
+    _, chunk_all = make_stacked_chunk_fns(model, cache_len)
 
     def step(sp, c, st):
-        if paged:
-            logits, c = model.decode_step_paged(sp, c, st["tok"], st["pos"],
-                                                st["tables"])
-        else:
-            logits, c = model.decode_step(sp, c, st["tok"], st["pos"])
-        st, nxt, done = decode_epilogue(
-            mix_expert_logits(logits, st["weights"]), st,
-            cache_len=cache_len, from_probs=True)
+        tables = (st["tables"],) if paged else ()
+        probs, c = mix_decode(sp, c, st["tok"], st["pos"], st["weights"],
+                              *tables)
+        st, nxt, done = decode_epilogue(probs, st, cache_len=cache_len,
+                                        from_probs=True)
         return c, st, nxt, done
 
     def chunk_only(sp, c, carry, xc, start, ln, cbt, w_row, *pick):
-        logits, carry, c = model.prefill_chunk(sp, c, carry, xc, start, ln,
-                                               cbt)
-        return (pick_first(mix_expert_logits(logits, w_row), *pick,
-                           from_probs=True), carry, c)
+        probs, carry, c = chunk_all(sp, c, carry, xc, start, ln, cbt, w_row)
+        return pick_first(probs, *pick, from_probs=True), carry, c
 
     def step_chunk(sp, c, st, carry, xc, start, ln, cbt, w_row, *pick):
         c, st, nxt, done = step(sp, c, st)

@@ -20,7 +20,12 @@ The pieces, each the reference's own:
   as the mantissa of a float in [1, 2), minus 1, scaled and clamped as
   ``jax.random.uniform(minval=tiny, maxval=1)`` does;
 * ``gumbel``: ``-log(-log(u))``, the ``"low"`` mode of
-  ``jax.random.gumbel``.
+  ``jax.random.gumbel``;
+* ``PRNGKey``, ``split`` and ``categorical``: the key chain of the
+  whole-batch engines (``serve.engine``, ``serve.ensemble_engine``) —
+  ``split`` hashes the counter pairs (0, i) under the key
+  (``_threefry_split_foldlike``), ``categorical`` takes the argmax of
+  the logits plus Gumbel noise drawn over their whole shape.
 
 torch has only partial uint32 arithmetic, and less of it on CUDA, so
 every 32-bit word rides in an int64 tensor and is masked back to 32 bits
@@ -102,3 +107,27 @@ def gumbel(bits: Tensor) -> Tensor:
     """float32 Gumbel noise ``-log(-log(u))`` from 32-bit words (the
     ``"low"`` mode of ``jax.random.gumbel`` at float32)."""
     return -torch.log(-torch.log(uniform(bits)))
+
+
+def PRNGKey(seed: int, device=None) -> Key:
+    """``jax.random.PRNGKey(seed)`` for an integer seed, as a pair of int64
+    scalars on ``device``."""
+    return threefry_seed(torch.tensor(seed, dtype=torch.int64,
+                                      device=device))
+
+
+def split(key: Key, num: int = 2):
+    """``jax.random.split(key, num)``: key i is the hash of the counter
+    pair (0, i) under ``key``. Returns a list of ``num`` keys."""
+    iota = torch.arange(num, dtype=torch.int64, device=key[0].device)
+    b0, b1 = threefry2x32(key, torch.zeros_like(iota), iota)
+    return [(b0[i], b1[i]) for i in range(num)]
+
+
+def categorical(key: Key, logits: Tensor) -> Tensor:
+    """``jax.random.categorical(key, logits, axis=-1)`` of float32 logits
+    (..., V): the argmax of ``logits`` plus the Gumbel noise of
+    ``random_bits`` over the whole shape, flattened row-major (first index
+    among ties). Returns the (...) int64 draws."""
+    bits = random_bits(key, logits.numel()).reshape(logits.shape)
+    return torch.argmax(gumbel(bits) + logits, dim=-1)

@@ -13,7 +13,9 @@ configs, Llama-3-405B cut to ``DEPTH_CUTS``' 2 of its 126 layers (its
 full width, D = 16384 and d_ff = 53248, is kept: one card cannot hold
 the whole model); ``deepseek_moe_16b`` and ``qwen3_moe_235b_a22b`` the
 moe family, DeepSeek-MoE-16B whole and Qwen3-MoE-235B-A22B cut to 4 of
-its 94 layers. ``mixture=True`` builds the deployment that
+its 94 layers; ``xlstm_125m`` the ssm family (xLSTM-125M, whole: it has
+no pageable leaves, so the paged config serves its per-slot states).
+``mixture=True`` builds the deployment that
 ``mixture(mp)`` will stack, at ``MIXTURE_DEPTH_CUTS`` where the stack
 beside the two experts would not fit the card. ``smoke=True`` builds
 it at smoke size (2 layers, 8–32 prompt tokens, 8-position blocks and
@@ -29,6 +31,8 @@ builds the fourth: the main path's config under the Eq. 27 mixture
 (``strategy="mixture"``, ``RouterConfig(top_k=2)``), so both experts
 weigh in at every token; ``mixture(mp, speculative="expert")`` the same
 with expert 0 drafting on the device and the stacked verify.
+``unfused(mp)`` serves the main path's deployment with the unfused step
+(``fused_step=False``).
 ``sampled(mp)`` serves the main path's deployment with seeded sampling
 (``SAMPLE_TEMPERATURE`` 0.8, ``SAMPLE_TOP_K`` 50). Request i's seed is
 ``mp.sampling.seed + i`` on every path (a greedy request ignores it),
@@ -150,7 +154,7 @@ def build(device="cuda", *, smoke: bool = False, arch: str = ARCH,
     router = CentroidRouter(torch.as_tensor(
         rng.normal(size=(N_EXPERTS, features.shape[1])).astype(np.float32)))
     lo, hi, block, chunk = SMOKE_SHAPE if smoke else FULL_SHAPE
-    if cfg.family == "hybrid":      # chunks whole in the scan's chunks
+    if cfg.family in ("hybrid", "ssm"):   # chunks whole in the scan's
         chunk = -(-chunk // cfg.ssm.chunk) * cfg.ssm.chunk
     lens = rng.integers(lo, hi + 1, N_REQUESTS)
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
@@ -203,6 +207,16 @@ def mixture(mp: MainPath, speculative=None) -> MainPath:
         config=replace(mp.config, strategy="mixture",
                        speculative=speculative, spec_len=SPEC_LEN))
     return replace(mp, engine=engine, router=router)
+
+
+def unfused(mp: MainPath) -> MainPath:
+    """The main path's deployment (a new engine over ``mp``'s model,
+    experts, router and requests) with ``fused_step=False``: the forward
+    returns the scores and the host epilogue picks the tokens."""
+    engine = make_engine(mp.model, experts=mp.experts, router=mp.router,
+                         device=mp.device,
+                         config=replace(mp.config, fused_step=False))
+    return replace(mp, engine=engine)
 
 
 def sampled(mp: MainPath) -> MainPath:

@@ -12,8 +12,13 @@ prefill at admission (``--paged`` / ``--chunked-prefill`` switch to the
 paged pool and to chunked prefill; ``--speculative ngram`` adds n-gram
 speculative decoding on the paged pool, and under the mixture
 ``--speculative expert`` drafts with expert 0) and decodes with the fused
-step, greedy or, with ``--slot-temperature`` (and ``--slot-top-k``),
-sampled, seeded per request by ``--seed``. The serving host layer
+step (``--no-fused-step``: the unfused one, the same tokens), greedy or,
+with ``--slot-temperature`` (and ``--slot-top-k``), sampled, seeded per
+request by ``--seed``. ``--engine batch`` serves the whole request batch
+with the ``DecentralizedServer`` instead (``generate_top1`` or
+``generate_mixture``: lockstep over the whole budget, greedy at
+``--temperature 0``, else drawn from the split key chain of ``--seed``).
+The serving host layer
 rides on the paged paths: ``--prefix-cache`` (paged + chunked),
 ``--preemption swap|recompute`` with ``--priorities`` and ``--tenants``
 (and the QoS knobs ``--tenant-weight``, ``--qos-quantum``,
@@ -22,9 +27,11 @@ rides on the paged paths: ``--prefix-cache`` (paged + chunked),
 Chrome/Perfetto trace of every pod) and ``--metrics-out`` (a JSON
 snapshot of every pod's registry).
 ``--arch`` takes every ported config: ``qwen3_8b``, ``granite_3_8b``,
-``llama3_405b`` and ``phi3_medium_14b`` (dense) and ``zamba2_2_7b``
-(hybrid, whose prefill chunk must be a multiple of its chunkwise-scan
-length, 16 at smoke size). Like the reference's, this launcher has no
+``llama3_405b`` and ``phi3_medium_14b`` (dense), ``deepseek_moe_16b`` and
+``qwen3_moe_235b_a22b`` (moe), ``zamba2_2_7b`` (hybrid) and ``xlstm_125m``
+(ssm; it has no pageable leaves, so ``--paged`` serves its per-slot
+states) — a recurrent family's prefill chunk must be a multiple of its
+chunkwise-scan length, 16 at smoke size. Like the reference's, this launcher has no
 image frontend: an ``internvl2_2b`` (vlm) request carries no patches, so
 it is refused where the reference's fails, at submission when its text
 plus the 16-row image prefix overflows the context, else at its first
@@ -36,15 +43,15 @@ admission ("the batch has no 'patches'"). Runs on the card unless
         [--strategy mixture --top-k 2]
         [--paged --page-block 16 [--chunked-prefill --prefill-chunk 16]
          [--speculative ngram|expert --spec-len 4]]
-        [--slot-temperature 0.8 --slot-top-k 50]
+        [--slot-temperature 0.8 --slot-top-k 50] [--no-fused-step]
         [--prefix-cache] [--preemption swap --priorities 0 --priorities 1
          --tenants 2 --tenant-weight tenant-1=3] [--sanitize]
         [--trace-out /tmp/trace.json --metrics-out /tmp/metrics.json]
+        [--engine batch [--temperature 0.8]]
 
-The flags are the reference launcher's for this slice. Every serving flag
-lands in ONE ``EngineConfig``; what the port has not reached yet (the
-unfused step, ``--no-fused-step``) is refused by ``EngineConfig.validate``
-with one ValueError before any work starts.
+The flags are the reference launcher's. Every slot-engine flag lands in
+ONE ``EngineConfig``, whose ``validate`` refuses a bad combination with
+one ValueError before any work starts.
 """
 from __future__ import annotations
 
@@ -62,6 +69,7 @@ from repro_torch.data.synthetic import SyntheticConfig, SyntheticMultimodal
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.serve.api import EngineConfig, QoSConfig, SamplingParams
+from repro_torch.serve.ensemble_engine import DecentralizedServer
 from repro_torch.serve.scheduler import Request, make_engine
 from repro_torch.weights import from_tree
 
@@ -74,8 +82,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=24)
     ap.add_argument("--top-k", type=int, default=1)
+    ap.add_argument("--temperature", type=float, default=1.0,
+                    help="batch engine only; the slot engine samples with "
+                         "--slot-temperature")
     ap.add_argument("--strategy", choices=["top1", "mixture"],
                     default="top1")
+    ap.add_argument("--engine", choices=["slots", "batch"], default="slots")
     ap.add_argument("--slots", type=int, default=8,
                     help="cache slots per pod")
     ap.add_argument("--paged", action="store_true",
@@ -145,6 +157,8 @@ def main(argv=None) -> dict:
 
     cfg = get_smoke_config(args.arch).reduced(vocab=args.vocab)
     model = build_model(cfg)
+    cache_len = args.prompt_len + args.new_tokens + 1
+    slots = args.engine == "slots"
     qos = None
     if (args.tenant_weight or args.qos_quantum or args.admit_lookahead
             or args.max_predicted_ttft or args.max_waiting):
@@ -157,8 +171,7 @@ def main(argv=None) -> dict:
             max_predicted_ttft_s=args.max_predicted_ttft,
             max_waiting=args.max_waiting)
     ecfg = EngineConfig(
-        n_slots=args.slots, cache_len=args.prompt_len + args.new_tokens + 1,
-        paged=args.paged, page_block=args.page_block,
+        n_slots=args.slots, cache_len=cache_len, paged=args.paged, page_block=args.page_block,
         pool_blocks=args.pool_blocks, chunked_prefill=args.chunked_prefill,
         chunk=args.prefill_chunk, token_budget=args.token_budget,
         prefix_cache=args.prefix_cache, fused_step=not args.no_fused_step,
@@ -166,7 +179,8 @@ def main(argv=None) -> dict:
         strategy=args.strategy, speculative=args.speculative,
         spec_len=args.spec_len, trace=args.trace_out is not None,
         metrics=args.metrics_out is not None)
-    ecfg.validate(model)
+    if slots:
+        ecfg.validate(model)
     device = resolve_device(args.device)
 
     centroids, tau, _ = ckpt.load_router(args.run)
@@ -185,6 +199,9 @@ def main(argv=None) -> dict:
     corpus = SyntheticMultimodal(SyntheticConfig(
         vocab=args.vocab, seq_len=args.prompt_len, seed=args.seed + 7))
     batch_np = corpus.sample_batch(args.requests, step=123)
+    if not slots:
+        return _serve_batch(args, model, experts, router, batch_np,
+                            cache_len, device)
     server = make_engine(model, experts=experts, router=router, config=ecfg,
                          device=device)
     prios = args.priorities or (0,)
@@ -217,7 +234,11 @@ def main(argv=None) -> dict:
     n_tok = sum(len(v) for v in finished.values())
     report = {
         "requests": args.requests, "new_tokens": args.new_tokens,
-        "strategy": args.strategy, "slots": args.slots,
+        "engine": args.engine, "strategy": args.strategy,
+        "slots": args.slots, "paged": args.paged,
+        "chunked_prefill": args.chunked_prefill,
+        "prefix_cache": args.prefix_cache,
+        "fused_step": not args.no_fused_step, "stream": args.stream,
         "device": str(device), "pods": server.occupancy(),
         "wall_s": dt, "tok_per_s": n_tok / dt,
         "requests_per_expert": np.bincount(
@@ -239,6 +260,44 @@ def main(argv=None) -> dict:
     if args.metrics_out:
         server.export_metrics(args.metrics_out)
         print(f"metrics snapshot written to {args.metrics_out}")
+    return _finish(report, args, batch_np, routed, finished)
+
+
+def _serve_batch(args, model, experts, router, batch_np, cache_len,
+                 device) -> dict:
+    """``--engine batch``: the whole request batch through the
+    ``DecentralizedServer`` — grouped top-1 or the stacked Eq. 27 mixture,
+    every request for the whole ``--new-tokens`` budget."""
+    batch = {name: torch.as_tensor(batch_np[name], device=device)
+             for name in ("tokens", "labels", "features")}
+    router = router.to(device)
+    routed = router.top1(batch["features"]).cpu().numpy()
+    server = DecentralizedServer(model, experts, router, cache_len=cache_len)
+    gen = server.generate_top1 if args.strategy == "top1" \
+        else server.generate_mixture
+    t0 = time.perf_counter()
+    arr = np.asarray(torch.as_tensor(gen(batch, SamplingParams(
+        max_new=args.new_tokens, temperature=args.temperature,
+        seed=args.seed))).cpu())
+    dt = time.perf_counter() - t0
+    report = {
+        "requests": args.requests, "new_tokens": args.new_tokens,
+        "engine": args.engine, "strategy": args.strategy,
+        "slots": None, "paged": None, "chunked_prefill": None,
+        "prefix_cache": None, "fused_step": None, "stream": None,
+        "device": str(device), "pods": None, "wall_s": dt,
+        "tok_per_s": args.requests * args.new_tokens / dt,
+        "requests_per_expert": np.bincount(
+            routed, minlength=len(experts)).tolist(),
+        "finish_reasons": None,
+    }
+    return _finish(report, args, batch_np, routed,
+                   {i: arr[i].tolist() for i in range(args.requests)})
+
+
+def _finish(report: dict, args, batch_np, routed, finished) -> dict:
+    """Print the JSON report and the first requests' routes and tokens;
+    return the report with the tokens of every request."""
     print(json.dumps(report, indent=1))
     for i in range(min(4, args.requests)):
         print(f"req {i} → expert {routed[i]}: "

@@ -1,10 +1,11 @@
-"""Model assembly, dense, vlm, moe and hybrid families, serving paths (port
-of ``repro.models.model``).
+"""Model assembly, dense, vlm, moe, hybrid and ssm families, serving paths
+(port of ``repro.models.model``).
 
 Parameters are nested dicts of tensors in the reference's pytree layout —
 ``{"embed": {...}, "blocks": {...}, "final_norm": ...}`` with every
 ``blocks`` leaf stacked on a leading layer dim (the hybrid family's
-Mamba2 leaves on (G, gm, ...), plus the plain ``shared_attn`` dict) — so
+Mamba2 leaves and the ssm family's mLSTM leaves on (G, gm, ...), plus the
+hybrid family's plain ``shared_attn`` dict) — so
 weights cross between the packages without transposes
 (``repro_torch.weights``). The reference's ``scan_layers`` over that dim
 is a Python loop here. Methods take the params explicitly, as in the
@@ -20,13 +21,16 @@ either cache, for the dense, vlm (the dense decoder behind an image-patch
 prefix, ``_embed_inputs``), moe (DeepSeek-MoE, Qwen3-MoE: the dense
 decoder with ``models.moe.moe_ffn`` for its FFN, each row of every site a
 routing group of that site's width, so capacity drops fall where the
-reference's do) and hybrid (Zamba2: Mamba2 groups + one shared attention
-block) families; the speculative span verify over the paged cache for the
-dense, vlm and moe families (``speculative_capable``,
-``verify_step_paged``, ``fused_verify_step``), also over an expert stack;
-the teacher-forced ``forward`` and ``loss`` with their gradient for the
-dense, vlm and moe families (the hybrid family's forward without it). The
-other families are not ported yet (see ROADMAP.md).
+reference's do), hybrid (Zamba2: Mamba2 groups + one shared attention
+block) and ssm (xLSTM: groups of gm mLSTM layers and one sLSTM layer; its
+cache holds recurrent state only, so it has no pageable leaves and the
+paged paths take the direct one) families; the speculative span verify
+over the paged cache for the dense, vlm and moe families
+(``speculative_capable``, ``verify_step_paged``, ``fused_verify_step``),
+also over an expert stack; the teacher-forced ``forward`` and ``loss``
+with their gradient for the dense, vlm and moe families (the hybrid and
+ssm families' forward without it). The audio family is not ported yet
+(see ROADMAP.md).
 
 The serving paths (``prefill``, ``embed_prompt``, ``init_chunk_carry``,
 ``prefill_chunk``, ``decode_step``, ``decode_step_paged``,
@@ -52,7 +56,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import flat_leaves, tree_leaves, tree_map
 
 from . import attention as attn
 from . import moe as moe_lib
@@ -133,11 +137,24 @@ class CacheSpec:
         dst = full.narrow(ax, slot, 1)
         dst[tuple(slice(0, n) for n in row.shape)] = row.to(full.dtype)
 
+    def _direct(self, name: str) -> bool:
+        """True when leaf ``name`` stays per slot (no paged layout, or a
+        seq axis of −1 on every one of its leaves)."""
+        return self.paged is None or all(
+            a < 0 for a in flat_leaves(self.paged.seq_axes[name]))
+
+    def _write_rows(self, name: str, full, row, slot: int) -> None:
+        """``_write_row`` over every leaf of entry ``name`` (the ssm
+        family's sLSTM state is a tuple of four)."""
+        for f, r, ax in zip(flat_leaves(full), flat_leaves(row),
+                            flat_leaves(self.batch_axes[name])):
+            self._write_row(f, r, ax, slot)
+
     def insert(self, cache, row_cache, slot: int):
         """Write a single-request cache (extent 1 on each leaf's batch
         axis) into ``cache`` at slot index ``slot``."""
-        for name, ax in self.batch_axes.items():
-            self._write_row(cache[name], row_cache[name], ax, slot)
+        for name in self.batch_axes:
+            self._write_rows(name, cache[name], row_cache[name], slot)
         return cache
 
     def insert_paged(self, cache, row_cache, slot: int, blocks: Tensor):
@@ -150,8 +167,8 @@ class CacheSpec:
         idx = blocks.long()
         for name, ax in self.batch_axes.items():
             full = cache[name]
-            if self.paged.seq_axes[name] < 0:
-                self._write_row(full, row_cache[name], ax, slot)
+            if self._direct(name):
+                self._write_rows(name, full, row_cache[name], slot)
                 continue
             row = row_cache[name].squeeze(ax)          # seq now at ax
             take = min(nb * bs, row.shape[ax])
@@ -168,19 +185,17 @@ class CacheSpec:
         stack's K at axis 1): batch and sequence axes move by ``n``."""
         paged = None if self.paged is None else PagedLayout(
             self.paged.block_size,
-            {k: a + n if a >= 0 else a
-             for k, a in self.paged.seq_axes.items()})
-        return CacheSpec({k: a + n for k, a in self.batch_axes.items()},
-                         paged)
+            tree_map(lambda a: a + n if a >= 0 else a, self.paged.seq_axes))
+        return CacheSpec(tree_map(lambda a: a + n, self.batch_axes), paged)
 
     def insert_direct(self, cache, carry, slot: int):
         """Write a chunked-prefill carry (single-request direct-leaf decode
         states; its pool-leaf entries are placeholders, their data went
         into the pool chunk by chunk) into the batched cache at ``slot``.
         Without a paged layout every leaf is direct."""
-        for name, ax in self.batch_axes.items():
-            if self.paged is None or self.paged.seq_axes[name] < 0:
-                self._write_row(cache[name], carry[name], ax, slot)
+        for name in self.batch_axes:
+            if self._direct(name):
+                self._write_rows(name, cache[name], carry[name], slot)
         return cache
 
     def swap_out(self, cache, slot: int, blocks) -> Dict[str, Tensor]:
@@ -222,12 +237,13 @@ class CacheSpec:
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family not in ("dense", "vlm", "moe", "hybrid"):
+        if cfg.family not in ("dense", "vlm", "moe", "hybrid", "ssm"):
             raise ValueError(
                 f"family {cfg.family!r} is not ported to repro_torch yet "
                 f"(see ROADMAP.md)")
         self.cfg = cfg
         self.hybrid = cfg.family == "hybrid"
+        self.ssm = cfg.family == "ssm"
         self.vlm = cfg.family == "vlm"
         self.moe = cfg.family == "moe"
 
@@ -237,15 +253,27 @@ class Model:
 
     @property
     def group_m(self) -> int:
-        """Mamba2 layers per group, each group followed by the shared
-        attention block (hybrid); 1 for the dense family."""
+        """Recurrent layers per group: Mamba2 layers, each group followed
+        by the shared attention block (hybrid), or mLSTM layers, each
+        group followed by one sLSTM layer (ssm); 1 for the other
+        families."""
         if self.hybrid:
             return self.cfg.ssm.shared_attn_every or self.cfg.n_layers
+        if self.ssm:
+            k = self.cfg.ssm.slstm_every or self.cfg.n_layers
+            return max(k - 1, 1)
         return 1
 
     @property
     def n_groups(self) -> int:
+        if self.ssm:
+            return self.cfg.n_layers // (self.group_m + 1)
         return self.cfg.n_layers // self.group_m
+
+    @property
+    def _recur_names(self) -> tuple:
+        """The per-slot state leaves of a group's recurrent layers."""
+        return ("mlstm",) if self.ssm else ("ssm", "conv")
 
     def _block_specs(self) -> Dict[str, Any]:
         cfg = self.cfg
@@ -254,6 +282,12 @@ class Model:
             gm = self.group_m
             return {"m_ln": stack_specs(_norm_spec(D), gm),
                     "mamba": stack_specs(ssm_lib.mamba2_specs(cfg), gm)}
+        if self.ssm:                   # xLSTM group: gm mLSTM + 1 sLSTM
+            gm = self.group_m
+            return {"m_ln": stack_specs(_norm_spec(D), gm),
+                    "mlstm": stack_specs(ssm_lib.mlstm_specs(cfg), gm),
+                    "s_ln": _norm_spec(D),
+                    "slstm": ssm_lib.slstm_specs(cfg)}
         if self.moe:
             return {"ln1": _norm_spec(D), "attn": attn.attention_specs(cfg),
                     "ln2": _norm_spec(D), "moe": moe_lib.moe_specs(cfg)}
@@ -288,10 +322,10 @@ class Model:
     @property
     def prefix_cacheable(self) -> bool:
         """True when a prompt's pool-resident K/V fully determines its
-        decode state. The hybrid family's recurrent state accumulates over
-        every prompt position outside the pool, so a cached prefix cannot
-        be spliced in."""
-        return not self.hybrid
+        decode state. The recurrent families' (hybrid, ssm) state
+        accumulates over every prompt position outside the pool, so a
+        cached prefix cannot be spliced in."""
+        return not (self.hybrid or self.ssm)
 
     @property
     def speculative_capable(self) -> bool:
@@ -302,7 +336,7 @@ class Model:
         sliding-window (ring) cache would overwrite live slots when the
         span wraps: both degrade to the vanilla one-token step (the
         scheduler consults this flag)."""
-        return not self.hybrid and self.cfg.sliding_window <= 0
+        return not (self.hybrid or self.ssm) and self.cfg.sliding_window <= 0
 
     # ------------------------------------------------------------------
     # Decode cache
@@ -310,11 +344,16 @@ class Model:
 
     def cache_spec(self, block_size: int = 0) -> CacheSpec:
         """Slot axes of the cache leaves; with ``block_size > 0`` also the
-        paged layout: attention K/V page through the pool, the hybrid
-        family's SSM and conv states stay per slot (seq axis −1)."""
+        paged layout: attention K/V page through the pool, the recurrent
+        states (the hybrid family's SSM and conv states, the ssm family's
+        mLSTM memory and its tuple of four sLSTM leaves) stay per slot
+        (seq axis −1). The ssm family thus has no pageable leaf."""
         if self.hybrid:
             axes = {"ssm": 2, "conv": 2, "k": 1, "v": 1}
             seq = {"ssm": -1, "conv": -1, "k": 2, "v": 2}
+        elif self.ssm:
+            axes = {"mlstm": 2, "slstm": (1, 1, 1, 1)}
+            seq = {"mlstm": -1, "slstm": (-1, -1, -1, -1)}
         else:
             axes = {"k": 1, "v": 1}
             seq = {"k": 2, "v": 2}
@@ -325,12 +364,20 @@ class Model:
                        experts: int = 0) -> Dict[str, Tensor]:
         """Zeroed per-slot leaves: the hybrid family's SSM states (G, gm,
         batch, H, N, P) in float32 and conv windows (G, gm, batch, W−1, C)
-        in the compute dtype, (G, K, gm, ...) for ``experts`` = K; none for
-        the dense family."""
+        in the compute dtype; the ssm family's float32 mLSTM memories (G,
+        gm, batch, H, dh, dh+1) and sLSTM (c, n, m, h), each (G, batch, Di);
+        (G, K, ...) for ``experts`` = K; none for the dense family."""
+        lead_g = (self.n_groups, *((experts,) if experts else ()))
+        lead = lead_g + (self.group_m,)
+        if self.ssm:
+            cfg = self.cfg
+            f32 = dict(dtype=torch.float32, device=device)
+            return {"mlstm": torch.zeros(
+                        lead + ssm_lib.mlstm_state_shape(cfg, batch), **f32),
+                    "slstm": tuple(torch.zeros(lead_g + s, **f32) for s in
+                                   ssm_lib.slstm_state_shapes(cfg, batch))}
         if not self.hybrid:
             return {}
-        lead = (self.n_groups, *((experts,) if experts else ()),
-                self.group_m)
         ssm_s, conv_s = ssm_lib.mamba2_state_shapes(self.cfg, batch)
         return {"ssm": torch.zeros(lead + ssm_s, dtype=torch.float32,
                                    device=device),
@@ -350,9 +397,12 @@ class Model:
         compute dtype (L = the attention layers: one per group for the
         hybrid family), beside any per-slot leaves; S_kv = min(cache_len,
         window) for a sliding window (a ring of slot = pos % S_kv), else
-        cache_len. ``experts`` = K puts K at axis 1 of every leaf."""
+        cache_len. ``experts`` = K puts K at axis 1 of every leaf. The ssm
+        family has its per-slot states only."""
         win = self.cfg.sliding_window
         S_kv = min(cache_len, win) if win > 0 else cache_len
+        if self.ssm:
+            return self._direct_leaves(batch, device, experts)
         return {**self._direct_leaves(batch, device, experts),
                 **self._kv_leaves((batch, S_kv), experts, device)}
 
@@ -362,7 +412,10 @@ class Model:
         """Zeroed (L, n_blocks, block_size, KV, dh) K and V pools in the
         compute dtype; per-slot (direct) leaves keep their ``n_slots``
         rows. ``cache_len`` sizes nothing the ported families have.
-        ``experts`` = K puts K at axis 1 of every leaf."""
+        ``experts`` = K puts K at axis 1 of every leaf. The ssm family
+        has no pool leaf: its paged cache is its contiguous one."""
+        if self.ssm:
+            return self._direct_leaves(n_slots, device, experts)
         return {**self._direct_leaves(n_slots, device, experts),
                 **self._kv_leaves((n_blocks, block_size), experts, device)}
 
@@ -370,13 +423,15 @@ class Model:
     # The layer stack
     # ------------------------------------------------------------------
 
-    def _stack(self, params, x: Tensor, attend, mamba=None, *,
+    def _stack(self, params, x: Tensor, attend, recur=None, slstm=None, *,
                remat: bool = False) -> Tensor:
         """Run the layer stack on x and return the final-normed rows.
         ``attend(i, attn_params, h)`` is the attention of layer (or, for
-        the hybrid family, group) i on its normed input h, and
-        ``mamba(g, m, mamba_params, h)`` Mamba2 layer m of group g; each
-        reads and writes its own cache or carry. ``remat``: each layer
+        the hybrid family, group) i on its normed input h,
+        ``recur(g, m, params, h)`` recurrent layer m of group g (Mamba2,
+        or the ssm family's mLSTM) and ``slstm(g, params, h)`` the ssm
+        family's sLSTM layer closing group g; each reads and writes its
+        own cache or carry. ``remat``: each layer
         (group) runs under non-reentrant ``torch.utils.checkpoint``, so
         the backward recomputes its activations instead of keeping
         them. The moe family's FFN routes each row of x as one group of
@@ -389,11 +444,15 @@ class Model:
         m_axis = 1 if K else 0                   # a group's Mamba2 layers
 
         def block(i, layer, x):
-            if self.hybrid:
+            if self.hybrid or self.ssm:
+                cores = layer["mlstm" if self.ssm else "mamba"]
                 for m in range(self.group_m):
-                    x = x + mamba(i, m, layer_slice(layer["mamba"], m, m_axis),
+                    x = x + recur(i, m, layer_slice(cores, m, m_axis),
                                   rms_norm(x, layer["m_ln"].select(m_axis, m),
                                            eps))
+                if self.ssm:
+                    return x + slstm(i, layer["slstm"],
+                                     rms_norm(x, layer["s_ln"], eps))
                 layer = shared
             h = x + attend(i, layer["attn"], rms_norm(x, layer["ln1"], eps))
             y = rms_norm(h, layer["ln2"], eps)
@@ -407,26 +466,42 @@ class Model:
                 else block(i, layer, x)
         return rms_norm(x, params["final_norm"], eps)
 
-    def _mamba_in_place(self, states, K: int, step):
-        """``mamba`` of ``_stack`` over the per-row states of ``states``
-        (a decode cache or a chunk carry): ``step(p, h, (ssm, conv))`` →
-        (y, new states); layer (g, m)'s states advance in place. An expert
-        stack's states (G, K, gm, B, ...) step as K·B rows."""
-        def mamba(g, m, p, h):
-            rows = [states[n][g, :, m] if K else states[n][g, m]
-                    for n in ("ssm", "conv")]
-            y, new = step(p, h, tuple(r.flatten(0, 1) if K else r
-                                      for r in rows))
-            for r, t in zip(rows, new):
+    def _recur_in_place(self, states, K: int, step, slstm_step=None):
+        """``(recur, slstm)`` of ``_stack`` over the per-row states of
+        ``states`` (a decode cache or a chunk carry): ``step(p, h, st)`` →
+        (y, new st) for recurrent layer (g, m), st being the hybrid
+        family's (ssm, conv) pair or the ssm family's mLSTM memory, and
+        ``slstm_step(p, h, (c, n, m, h))`` → (y, new state) for group g's
+        sLSTM; each layer's states advance in place. An expert stack's
+        states (G, K, [gm,] B, ...) step as K·B rows."""
+        names = self._recur_names
+
+        def advance(rows, fn):
+            y, new = fn(tuple(r.flatten(0, 1) if K else r for r in rows))
+            for r, t in zip(rows, new if isinstance(new, tuple) else (new,)):
                 r.copy_(t.reshape(r.shape))
             return y
-        return mamba
 
-    def _step_mamba(self, cache, K: int = 0):
-        """``mamba`` of ``_stack`` for one decode token: each slot row's
-        SSM and conv state advances in place."""
+        def recur(g, m, p, h):
+            rows = [states[n][g, :, m] if K else states[n][g, m]
+                    for n in names]
+            return advance(rows, lambda st: step(
+                p, h, st if len(st) > 1 else st[0]))
+
+        def slstm(g, p, h):
+            return advance([s[g] for s in states["slstm"]],
+                           lambda st: slstm_step(p, h, st))
+        return recur, slstm
+
+    def _step_recur(self, cache, K: int = 0):
+        """``(recur, slstm)`` of ``_stack`` for one decode token: each slot
+        row's recurrent state advances in place."""
         cfg = self.cfg
-        return self._mamba_in_place(
+        if self.ssm:
+            return self._recur_in_place(
+                cache, K, lambda p, h, st: ssm_lib.mlstm_step(p, h, cfg, st),
+                lambda p, h, st: ssm_lib.slstm_scan(p, h, cfg, state=st))
+        return self._recur_in_place(
             cache, K, lambda p, h, st: ssm_lib.mamba2_step(p, h, cfg, st))
 
     # ------------------------------------------------------------------
@@ -475,20 +550,22 @@ class Model:
         ``cfg.remat="full"`` recomputes each layer in the backward
         (non-reentrant ``torch.utils.checkpoint`` per layer of the stacked
         ``blocks``) and ``"none"`` keeps every activation; ``"dots"`` and
-        the hybrid family are refused then."""
+        the hybrid and ssm families are refused then."""
         cfg = self.cfg
         training = torch.is_grad_enabled() and any(
             p.requires_grad for _, p in tree_leaves(params))
-        if training and self.hybrid:
+        if training and (self.hybrid or self.ssm):
             raise ValueError(f"training family {cfg.family!r} is not ported "
                              f"to repro_torch yet (see ROADMAP.md)")
         if training and cfg.remat not in ("full", "none"):
             raise ValueError(f"remat={cfg.remat!r} is not ported to "
                              f"repro_torch yet (see ROADMAP.md)")
+        block = ssm_lib.mlstm_block if self.ssm else ssm_lib.mamba2_block
         x = self._stack(
             params, self._embed_inputs(params, batch),
             lambda i, p, h: attn.full_attention(p, h, cfg),
-            lambda g, m, p, h: ssm_lib.mamba2_prefill(p, h, cfg)[0],
+            lambda g, m, p, h: block(p, h, cfg),
+            lambda g, p, h: ssm_lib.slstm_scan(p, h, cfg)[0],
             remat=training and cfg.remat == "full")
         return unembed(params["embed"], x, cfg.tie_embeddings, cfg.vocab)
 
@@ -514,8 +591,10 @@ class Model:
         leaves (L, B, S_kv, KV, dh): the prompt's K/V right-padded to
         S_kv, or, windowed, its last S_kv positions in the ring layout
         (slot = pos % S_kv); the hybrid family adds each Mamba2 layer's
-        SSM state and conv window after the prompt. An expert stack gives logits
-        (K,B,S,V) and K at axis 1 of every cache leaf."""
+        SSM state and conv window after the prompt; the ssm family's cache
+        is its mLSTM memories and sLSTM states after the prompt. An expert
+        stack gives logits (K,B,S,V) and K at axis 1 of every cache
+        leaf."""
         cfg = self.cfg
         K = n_stacked(params)
         x = self._embed_inputs(params, batch)
@@ -529,7 +608,9 @@ class Model:
                 return torch.roll(k[:, S - S_kv:], (S - S_kv) % S_kv, dims=1)
             return F.pad(k, (0, 0, 0, 0, 0, S_kv - S))
 
-        ks, vs, states = [], [], []
+        ks, vs, states, s_states = [], [], [], []
+        prefill_recur = ssm_lib.mlstm_prefill if self.ssm \
+            else ssm_lib.mamba2_prefill
 
         def attend(i, p, h):
             a, (k, v) = attn.prefill_attention(p, h, cfg, S)
@@ -537,21 +618,30 @@ class Model:
             vs.append(pad_kv(v))
             return a
 
-        def mamba(g, m, p, h):
-            y, st = ssm_lib.mamba2_prefill(p, h, cfg)
-            states.append(st)
+        def recur(g, m, p, h):
+            y, st = prefill_recur(p, h, cfg)
+            states.append(st if isinstance(st, tuple) else (st,))
             return y
 
-        x = self._stack(params, x, attend, mamba)
+        def slstm(g, p, h):
+            y, st = ssm_lib.slstm_scan(p, h, cfg)
+            s_states.append(st)
+            return y
+
+        x = self._stack(params, x, attend, recur, slstm)
         logits = unembed(params["embed"], x, cfg.tie_embeddings, cfg.vocab)
         cache = {}
-        if self.hybrid:
+        if states:
             lead = (self.n_groups, self.group_m)
-            for name, leaves in (("ssm", [st for st, _ in states]),
-                                 ("conv", [cc for _, cc in states])):
-                t = torch.stack(leaves)
+            for j, name in enumerate(self._recur_names):
+                t = torch.stack([st[j] for st in states])
                 t = _unfold(t.reshape(lead + t.shape[1:]), K, 2)
                 cache[name] = t.movedim(2, 1) if K else t
+        if self.ssm:
+            cache["slstm"] = tuple(
+                _unfold(torch.stack([st[j] for st in s_states]), K, 1)
+                for j in range(4))
+            return _unfold(logits, K, 0), cache
         cache["k"] = _unfold(torch.stack(ks), K, 1)
         cache["v"] = _unfold(torch.stack(vs), K, 1)
         return _unfold(logits, K, 0), cache
@@ -567,14 +657,20 @@ class Model:
 
     def init_chunk_carry(self, params, batch, cache_len: int):
         """Per-request carry between chunks: the direct (per-slot) decode
-        leaves at batch extent 1, zeroed — the hybrid family's SSM states
-        and conv windows (K at axis 1 for an expert stack). Attention K/V
-        chunks write straight into the pool, so their entries are
-        placeholders, as in the reference."""
+        leaves at batch extent 1 at their initial values — the hybrid
+        family's SSM states and conv windows, zeroed, or the ssm family's
+        mLSTM memories, zeroed, and sLSTM states with m at −1e30 (K at
+        axis 1 for an expert stack). Attention K/V chunks write straight
+        into the pool, so their entries are placeholders, as in the
+        reference."""
         dev = params["final_norm"].device
+        carry = self._direct_leaves(1, dev, n_stacked(params))
+        if self.ssm:
+            c, n, m, h = carry["slstm"]
+            carry["slstm"] = (c, n, m.fill_(-1e30), h)
+            return carry
         dummy = torch.zeros((1,), dtype=self.cfg.cdtype, device=dev)
-        return {**self._direct_leaves(1, dev, n_stacked(params)),
-                "k": dummy, "v": dummy}
+        return {**carry, "k": dummy, "v": dummy}
 
     @staticmethod
     def _expert_tables(tables: Tensor, pool: Tensor, K: int) -> Tensor:
@@ -599,7 +695,8 @@ class Model:
         request's one table shared by its K experts, and gives (K, 1, V)."""
         cfg = self.cfg
         K = n_stacked(params)
-        tables = self._expert_tables(block_table[None], cache["k"], K)
+        tables = None if self.ssm else \
+            self._expert_tables(block_table[None], cache["k"], K)
 
         def attend(i, p, h):
             a, _ = attn.chunk_attention(
@@ -607,10 +704,17 @@ class Model:
                 start, length, tables)
             return a
 
-        mamba = self._mamba_in_place(
-            carry, K, lambda p, h, st: ssm_lib.mamba2_chunk(p, h, cfg, st,
-                                                            length))
-        x = self._stack(params, x, attend, mamba)
+        if self.ssm:
+            recur = self._recur_in_place(
+                carry, K,
+                lambda p, h, st: ssm_lib.mlstm_prefill(p, h, cfg, st, length),
+                lambda p, h, st: ssm_lib.slstm_scan(p, h, cfg, state=st,
+                                                    length=length))
+        else:
+            recur = self._recur_in_place(
+                carry, K,
+                lambda p, h, st: ssm_lib.mamba2_chunk(p, h, cfg, st, length))
+        x = self._stack(params, x, attend, *recur)
         h_last = x[:, length - 1:length]
         logits = unembed(params["embed"], h_last, cfg.tie_embeddings,
                          cfg.vocab)
@@ -633,7 +737,7 @@ class Model:
             params, x,
             lambda i, p, h: attend(i, p, h, _kv(cache["k"], i, K),
                                    _kv(cache["v"], i, K), pos)[0],
-            self._step_mamba(cache, K))
+            *self._step_recur(cache, K))
         logits = unembed(params["embed"], x, cfg.tie_embeddings, cfg.vocab)
         return _unfold(logits[:, 0], K, 0), cache
 
@@ -652,8 +756,11 @@ class Model:
                           block_tables: Tensor):
         """One token per slot against the paged cache. tokens, pos: (B,)
         int32; block_tables: (B, NB) int32. Returns (logits (B, V), cache);
-        the direct leaves step as in ``decode_step``."""
+        the direct leaves step as in ``decode_step``. The ssm family has no
+        pageable leaves and takes ``decode_step``."""
         cfg = self.cfg
+        if self.ssm:
+            return self.decode_step(params, cache, tokens, pos)
         tables = self._expert_tables(block_tables, cache["k"],
                                      n_stacked(params))
         return self._decode(

@@ -1,19 +1,20 @@
-"""Chunkwise linear attention and the Mamba2 (SSD) block (port of the
-Mamba2 half of ``repro.models.ssm``; mLSTM and sLSTM arrive with the ssm
-family, see ROADMAP.md).
+"""Chunkwise linear attention, the xLSTM blocks (mLSTM, sLSTM) and the
+Mamba2 (SSD) block (port of ``repro.models.ssm``).
 
 The recurrence y_t = q_t · Σ_{s≤t} (Π_{r=s+1..t} g_r) k_s v_sᵀ runs in
 chunks: the intra-chunk part goes through ``kernels.ops.chunk_scan`` (the
 CUDA kernel on the card, its plain version on the CPU), the carry between
 chunks is a loop over the chunks, as the reference's ``lax.scan``, and
-decode is the O(1)-per-token state update. Casts follow the reference:
-states and decays in float32, projections in the working dtype. The
-Mamba2 functions also take a stack of K experts' parameters with K folded
-into the batch of the activations and states (``layers``' expert-stack
-convention).
+decode is the O(1)-per-token state update. The sLSTM is a sequential
+per-token loop with no kernel, as in the reference. Casts follow the
+reference: states and decays in float32, projections in the working
+dtype. Every block also takes a stack of K experts' parameters with K
+folded into the batch of the activations and states (``layers``'
+expert-stack convention).
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -75,6 +76,169 @@ def linear_attention_step(state: Tensor, q: Tensor, k: Tensor, v: Tensor,
 
 def _d_inner(cfg) -> int:
     return cfg.ssm.expand * cfg.d_model
+
+
+# ---------------------------------------------------------------------------
+# mLSTM block (xLSTM): matrix memory, chunkwise in time
+# ---------------------------------------------------------------------------
+
+def mlstm_specs(cfg) -> Dict[str, ParamSpec]:
+    D, Di, H = cfg.d_model, _d_inner(cfg), cfg.n_heads
+    return {
+        "w_in": ParamSpec((D, 2 * Di), ("embed", "inner"), "scaled"),
+        "w_qkv": ParamSpec((Di, 3 * Di), ("inner", "inner_qkv"), "scaled"),
+        "w_gates": ParamSpec((Di, 2 * H), ("inner", None), "scaled"),
+        "b_gates": ParamSpec((2 * H,), (None,), "zeros"),
+        "w_out": ParamSpec((Di, D), ("inner", "embed"), "scaled"),
+        "norm": ParamSpec((Di,), (None,), "ones"),
+    }
+
+
+def _mlstm_qkvg(params, x: Tensor, cfg):
+    """(q, k·i_gate, v, log_f, z): the heads (B,S,H,dh) in the working
+    dtype, q over sqrt(dh) rounded to that dtype as the reference does,
+    the float32 log forget gate (B,S,H) and the output gate's input z."""
+    dt = x.dtype
+    B, S, _ = x.shape
+    Di, H = _d_inner(cfg), cfg.n_heads
+    dh = Di // H
+    xm, z = linear(x, params["w_in"]).chunk(2, dim=-1)
+    q, k, v = linear(xm, params["w_qkv"]).chunk(3, dim=-1)
+    shape = (B, S, H, dh)
+    scale = torch.tensor(math.sqrt(dh), dtype=torch.float32).to(dt).item()
+    q = q.reshape(shape) / scale
+    k, v = k.reshape(shape), v.reshape(shape)
+    gates = per_expert(torch.add, linear(xm, params["w_gates"]),
+                       params["b_gates"].to(dt))
+    i_pre, f_pre = gates.chunk(2, dim=-1)                   # (B,S,H) ×2
+    log_f = F.logsigmoid(f_pre.float())
+    i_gate = torch.sigmoid(i_pre.float()).to(dt)
+    return q, k * i_gate[..., None], v, log_f, z
+
+
+def _mlstm_out(params, y: Tensor, z: Tensor, cfg) -> Tensor:
+    """The normalizer division, the norm, the output gate and the output
+    projection of the scan's (B,S,H,dh+1) rows."""
+    B, S = y.shape[:2]
+    num, den = y[..., :-1], y[..., -1:]
+    h = (num / (den.abs() + 1.0)).reshape(B, S, -1)
+    h = rms_norm(h, params["norm"], cfg.norm_eps) * F.silu(z)
+    return linear(h, params["w_out"])
+
+
+def _with_ones(v: Tensor) -> Tensor:
+    """v with the all-ones value channel of the matrix memory's
+    normalizer appended."""
+    return torch.cat([v, torch.ones_like(v[..., :1])], dim=-1)
+
+
+def mlstm_prefill(params, x: Tensor, cfg, state: Optional[Tensor] = None,
+                  length: Optional[int] = None):
+    """The full-sequence mLSTM that also returns the decode state (B,H,dh,
+    dh+1) float32, from ``state`` (zeros when None). With ``length`` (a host
+    int: a right-padded prefill chunk) rows at or past it are exact no-ops
+    on the state: their k is zeroed and their decay is 1."""
+    q, k, v, log_f, z = _mlstm_qkvg(params, x, cfg)
+    if length is not None:
+        valid = torch.arange(x.shape[1], device=x.device) < length
+        k = k * valid[None, :, None, None].to(k.dtype)
+        log_f = torch.where(valid[None, :, None], log_f, 0.0)
+    y, st = chunked_linear_attention(q, k, _with_ones(v), log_f,
+                                     cfg.ssm.chunk, state=state)
+    return _mlstm_out(params, y, z, cfg), st
+
+
+def mlstm_block(params, x: Tensor, cfg) -> Tensor:
+    """Full-sequence mLSTM (pre-norm residual handled by the caller)."""
+    return mlstm_prefill(params, x, cfg)[0]
+
+
+def mlstm_step(params, x: Tensor, cfg, state: Tensor):
+    """x: (B, 1, D); state: (B, H, dh, dh+1) float32 matrix memory with
+    its normalizer column. Returns (y (B,1,D), new state)."""
+    q, k, v, log_f, z = _mlstm_qkvg(params, x, cfg)
+    y, state = linear_attention_step(state, q[:, 0], k[:, 0],
+                                     _with_ones(v)[:, 0],
+                                     torch.exp(log_f[:, 0]))
+    return _mlstm_out(params, y[:, None], z, cfg), state
+
+
+def mlstm_state_shape(cfg, batch: int) -> Tuple[int, ...]:
+    Di, H = _d_inner(cfg), cfg.n_heads
+    dh = Di // H
+    return (batch, H, dh, dh + 1)
+
+
+# ---------------------------------------------------------------------------
+# sLSTM block (xLSTM): scalar memory, sequential
+# ---------------------------------------------------------------------------
+
+def slstm_specs(cfg) -> Dict[str, ParamSpec]:
+    D, Di = cfg.d_model, _d_inner(cfg)
+    return {
+        "w_gates": ParamSpec((D, 4 * Di), ("embed", "inner"), "scaled"),
+        "r_gates": ParamSpec((4 * Di,), (None,), "zeros"),
+        "b_gates": ParamSpec((4 * Di,), (None,), "zeros"),
+        "w_out": ParamSpec((Di, D), ("inner", "embed"), "scaled"),
+        "norm": ParamSpec((Di,), (None,), "ones"),
+    }
+
+
+def slstm_init_state(batch: int, Di: int, device) -> Tuple[Tensor, ...]:
+    """The sLSTM's initial (c, n, m, h), each (batch, Di) float32: zeros,
+    with the stabilizer m at −1e30."""
+    z = torch.zeros((batch, Di), dtype=torch.float32, device=device)
+    return z, z.clone(), torch.full_like(z, -1e30), z.clone()
+
+
+def slstm_scan(params, x: Tensor, cfg, state=None,
+               length: Optional[int] = None):
+    """Sequential sLSTM with stabilized exponential gating, one step a
+    position. state: (c, n, m, h), each (B, Di) float32 (the initial state
+    when None). Returns (y (B,S,D), state). The recurrence is diagonal
+    (elementwise h feedback), the reference's simplification.
+
+    ``length`` (a host int) freezes the state from position ``length``
+    on: chunked prefill right-pads its final chunk, and the padded steps
+    are exact no-ops on (c, n, m, h) — they are not computed, and their
+    output row repeats the last valid h, as the reference's select
+    does."""
+    dt = x.dtype
+    B, S, _ = x.shape
+    pre = per_expert(torch.add, linear(x, params["w_gates"]),
+                     params["b_gates"].to(dt)).float()          # (B,S,4Di)
+    r = params["r_gates"].float()
+    if state is None:
+        state = slstm_init_state(B, _d_inner(cfg), x.device)
+    c, n, m, h = state
+    steps = S if length is None else min(S, length)
+    hs = []
+    for t in range(steps):
+        g = pre[:, t] + per_expert(torch.mul, h.repeat(1, 4), r)
+        i_pre, f_pre, z_pre, o_pre = g.chunk(4, dim=-1)
+        log_f = F.logsigmoid(f_pre)
+        m_new = torch.maximum(log_f + m, i_pre)
+        i_g = torch.exp(i_pre - m_new)
+        f_g = torch.exp(log_f + m - m_new)
+        c = f_g * c + i_g * torch.tanh(z_pre)
+        n = f_g * n + i_g
+        h = torch.sigmoid(o_pre) * c / n.clamp_min(1.0)
+        m = m_new
+        hs.append(h)
+    hs += [h] * (S - steps)
+    out = rms_norm(torch.stack(hs, dim=1).to(dt), params["norm"],
+                   cfg.norm_eps)
+    return linear(out, params["w_out"]), (c, n, m, h)
+
+
+def slstm_state_shapes(cfg, batch: int):
+    Di = _d_inner(cfg)
+    return tuple((batch, Di) for _ in range(4))
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD) block
+# ---------------------------------------------------------------------------
 
 
 def mamba2_specs(cfg) -> Dict[str, ParamSpec]:

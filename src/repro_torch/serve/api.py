@@ -2,11 +2,11 @@
 ``SamplingParams``, the ``EngineConfig`` with its one ``validate()``, and
 the streamed ``TokenDelta``/``RequestOutput``.
 
-``validate()`` keeps the reference's dependency checks, with its messages,
-and adds one rule: an option this port has not reached (``fused_step=
-False``, and families not ported) raises a single ``ValueError`` of the
-form "<option> is not ported to repro_torch yet (see ROADMAP.md)" — it
-never quietly takes another path. ``qos`` takes the port's ``QoSConfig``
+``validate()`` keeps the reference's dependency checks, in its order and
+with its messages, and adds one rule: an option this port has not reached
+(the audio family) raises a single ``ValueError`` of the form "<option>
+is not ported to repro_torch yet (see ROADMAP.md)" — it never quietly
+takes another path. ``qos`` takes the port's ``QoSConfig``
 (``serve.qos``).
 """
 from __future__ import annotations
@@ -17,6 +17,7 @@ from typing import FrozenSet, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.serve.qos import QoSConfig
+from repro_torch.tree import flat_leaves
 
 __all__ = ["EngineConfig", "QoSConfig", "RequestOutput", "SamplingParams",
            "TokenDelta", "FINISH_REASONS", "STOP_PAD", "effective_page_block",
@@ -211,23 +212,27 @@ class EngineConfig:
                 "the predicted-TTFT admission model meters the chunked-"
                 "prefill token budget — max_predicted_ttft_s needs "
                 "chunked_prefill=True (max_waiting works without it)")
-        if not self.fused_step:
-            raise not_ported("fused_step=False")
         if model is not None:
             self._validate_model(model)
 
     def _validate_model(self, model) -> None:
         cfg = model.cfg
-        if cfg.family not in ("dense", "vlm", "moe", "hybrid"):
+        if cfg.family not in ("dense", "vlm", "moe", "hybrid", "ssm"):
             raise not_ported(f"family {cfg.family!r}")
-        # (the reference's second preemption check, a family with no
-        # pageable leaves, cannot fire: every ported family pages K/V)
-        if self.preemption != "off" and cfg.sliding_window > 0:
-            raise ValueError(
-                "preemption does not support sliding-window (ring) "
-                "caches — a ring slot's blocks are positionally "
-                "wrapped, not droppable; serve windowed configs with "
-                "preemption='off'")
+        eff_block = effective_page_block(
+            model, self.page_block if self.paged else 0)
+        if self.preemption != "off":
+            if cfg.sliding_window > 0:
+                raise ValueError(
+                    "preemption does not support sliding-window (ring) "
+                    "caches — a ring slot's blocks are positionally "
+                    "wrapped, not droppable; serve windowed configs with "
+                    "preemption='off'")
+            if eff_block == 0:
+                raise ValueError(
+                    f"preemption parks/drops paged KV blocks but family "
+                    f"'{cfg.family}' has no pageable cache leaves — serve "
+                    f"it with preemption='off'")
         if not self.chunked_prefill:
             return
         if cfg.sliding_window > 0:
@@ -235,8 +240,9 @@ class EngineConfig:
                 "chunked prefill does not support sliding-window (ring) "
                 "caches yet — serve windowed configs with monolithic "
                 "admission")
-        if effective_page_block(
-                model, self.page_block if self.paged else 0) == 0:
+        has_pool = any(a >= 0 for a in
+                       flat_leaves(model.cache_spec(1).paged.seq_axes))
+        if has_pool and eff_block == 0:
             raise ValueError(
                 "chunked prefill writes prompt KV through the paged pool — "
                 "enable paging (page_block > 0)")
@@ -250,12 +256,11 @@ class EngineConfig:
 def effective_page_block(model, page_block: int) -> int:
     """0 when the model has no pageable cache leaves (ssm: recurrent state
     only) — paging such a family would run pool accounting that backs no
-    memory, so it degrades to the direct path instead. Every family ported
-    so far has attention K/V in the pool, so this is ``page_block``."""
+    memory, so it degrades to the direct path instead."""
     if page_block <= 0:
         return 0
     seq_axes = model.cache_spec(page_block).paged.seq_axes
-    return page_block if any(a >= 0 for a in seq_axes.values()) else 0
+    return page_block if any(a >= 0 for a in flat_leaves(seq_axes)) else 0
 
 
 @dataclass(frozen=True)

@@ -5,6 +5,9 @@ tensor ops on the device of the scores, so one decode token needs one
 forward plus this epilogue and ONE host readback of ``(next_tok, done)``.
 ``verify_epilogue`` is its speculative sibling: the accept rule over a
 verified span, read back as ``(toks, n_emit, done)`` in one transfer.
+``sample_tokens``, ``sample_tokens_probs`` and ``argmax_tokens`` are the
+unfused step's host epilogue (``fused_step=False``): the pick alone, on
+scores the forward already returned.
 
 Semantics are exactly the reference's:
 
@@ -99,6 +102,13 @@ def _sample_tokens_probs(probs: Tensor, temps: Tensor, top_ks: Tensor,
     """``_sample_tokens`` over Eq. 27 mixture probabilities: the floor and
     log first, as the reference does."""
     return _sample_tokens(_floor_log(probs), temps, top_ks, seeds, counts)
+
+
+#: The reference's jitted dispatches of the unfused host epilogue, by its
+#: public names: per-row seeded sampling over scores, over Eq. 27 mixture
+#: probabilities, and the all-greedy argmax (``argmax_tokens`` above).
+sample_tokens = _sample_tokens
+sample_tokens_probs = _sample_tokens_probs
 
 
 def pick_first(row: Tensor, temp: Tensor = None, top_k: Tensor = None,

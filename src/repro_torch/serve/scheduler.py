@@ -7,11 +7,17 @@ runs at submission on each request's features and sends it to its top-1
 expert's pod, a ``SlotServer``. A pod admits requests into free slots
 (FCFS with a bounded skip-ahead, or deficit round robin over tenants with
 a ``QoSConfig``) and decodes every decoding slot in lockstep with the
-fused step (``Model.fused_decode_step``). Its KV state is either
-contiguous per-slot cache rows or, with ``paged``, a shared pool of blocks
-reached through per-slot block tables. Its admission either prefills the
-whole prompt at once (``Model.prefill``, then a splice into the slot's
-cache row or blocks) or, with ``chunked_prefill`` (paged only), reserves
+fused step (``Model.fused_decode_step``), or with ``fused_step=False``
+the reference's unfused one: the forward returns the scores and the host
+epilogue picks from them (``_next_tokens``: ``serve.fused.argmax_tokens``
+for an all-greedy step, else ``sample_tokens``), then checks stop ids,
+budgets and the context bound on the host (``_advance``). Its KV state is
+either contiguous per-slot cache rows or, with ``paged``, a shared pool of
+blocks reached through per-slot block tables (a family with no pageable
+leaves, ssm, keeps its per-slot states: ``effective_page_block`` is 0).
+Its admission either prefills the whole prompt at once (``Model.prefill``,
+then a splice into the slot's cache row or blocks) or, with
+``chunked_prefill`` (paged, or a family with no pageable leaves), reserves
 the prompt's blocks and consumes it ``chunk`` positions per step
 (``Model.prefill_chunk``) co-scheduled with the decode under a token
 budget; a recurrent family's per-slot state rides in the request's carry
@@ -61,18 +67,19 @@ the device (``core.ensemble.make_stacked_verify``). Its one prefix cache
 and its parks cover the K stacked experts at once: the pool carries K at
 axis 1, and expert k's table is offset by k·P.
 
-**The single-dispatch contract.** Each step is one forward (decode or
-span verify, plus at most one prefill chunk beside a decode) and its
+**The single-dispatch contract.** Each fused step is one forward (decode
+or span verify, plus at most one prefill chunk beside a decode) and its
 on-device epilogue, followed by ONE host readback: ``(next_tok, done)``,
 or ``(toks, n_emit, done)`` for a verify — plus the chunk's first token
 on a prompt's final chunk, read in the same transfer. A monolithic
 admission reads back its first token once, a swap park its payload once.
 The per-slot device state is rebuilt from the host mirrors only on
 admission, retirement, park, resume or block-table growth. No ``.item()``
-sits in the layer loop.
-
-What this port does not run yet is refused by ``EngineConfig.validate``:
-the unfused step, ``fused_step=False`` (see ROADMAP.md).
+sits in the layer loop. The unfused step uploads the tokens, positions
+and tables each step and reads back the picked tokens, and a final
+chunk's first token in a second readback, as the reference does. Both
+steps record the registry's ``dispatch`` / ``device_get`` split
+(``EngineObs.step_timing``).
 """
 from __future__ import annotations
 
@@ -86,10 +93,11 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.sanitizer import PoolSanitizer
-from repro_torch.core.ensemble import (make_stacked_fused,
+from repro_torch.core.ensemble import (make_stacked_chunk_fns,
+                                       make_stacked_fused,
+                                       make_stacked_serving,
                                        make_stacked_verify,
-                                       mix_expert_logits,
-                                       stack_experts_for_decode)
+                                       mix_expert_logits)
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
 from repro_torch.obs import metrics as _obs_metrics
@@ -98,7 +106,9 @@ from repro_torch.obs.trace import ADMIT_TID, merge_chrome
 from repro_torch.serve.api import (EngineConfig, RequestOutput,
                                    SamplingParams, TokenDelta,
                                    effective_page_block, stop_id_row)
-from repro_torch.serve.fused import DONE_REASONS, pick_first
+from repro_torch.serve.fused import (DONE_REASONS, argmax_tokens,
+                                     pick_first, sample_tokens,
+                                     sample_tokens_probs)
 from repro_torch.serve.prefix_cache import PrefixCache, block_keys
 from repro_torch.serve.qos import (DEFAULT_ADMIT_LOOKAHEAD, ParkedState,
                                    TenantScheduler, predict_ttft,
@@ -313,6 +323,8 @@ class _SlotTable:
     ``pod`` label, the trace's pid)."""
 
     _needs_features = False       # the mixture core routes at admission
+    _from_probs = False           # the mixture core's scores are Eq. 27
+    #                             # probabilities
 
     def __init__(self, model: Model, config: EngineConfig, device,
                  pod: int = 0):
@@ -327,6 +339,7 @@ class _SlotTable:
         chunk = config.chunk if config.chunked_prefill else 0
         token_budget = config.token_budget
         self.n_slots, self.cache_len = n_slots, cache_len
+        self.fused = config.fused_step
         self.device = resolve_device(device)
         # multi-tenant QoS (serve.qos): None / "off" keeps FCFS with the
         # bounded admission skip-ahead
@@ -555,7 +568,7 @@ class _SlotTable:
         if self.active:
             if self.sanitizer is not None:
                 self.sanitizer.begin_step()
-            finished += self._decode_step_fused()
+            finished += self._decode_step()
             if self.sanitizer is not None:
                 self.sanitizer.check_step()
         outs = [self._output(r) for r in finished]
@@ -1392,6 +1405,147 @@ class _SlotTable:
                 retired.append(req)
         return retired
 
+    def _decode_step(self) -> List[Request]:
+        """One scheduler step: the fused one (``_decode_step_fused``) or,
+        with ``fused_step=False``, the reference's unfused one. Unfused,
+        the forward (the lockstep decode of every decoding slot, beside
+        one prefill chunk when the budget allows) returns the scores, and
+        the host epilogue picks the tokens from them (``_next_tokens``) and
+        checks stop ids, budgets and the context bound (``_advance``); a
+        final chunk's first token is picked from its scores
+        (``_after_chunk``). The step's ``dispatch`` time ends when the
+        forward's launches are queued, its ``device_get`` time covers the
+        pick and its readback."""
+        if self.fused:
+            return self._decode_step_fused()
+        dec = self.decoding
+        do_chunk = self.chunked and self._schedule_chunk()
+        if not dec and not do_chunk:
+            return []
+        if do_chunk:
+            slot, xc, start, length, cbt = self._chunk_args()
+            if not dec:
+                t0 = time.perf_counter()
+                c_out = self._run_chunk(slot, xc, start, length, cbt)
+                t1 = self._obs_chunk_span(slot, start, t0)
+                retired = self._after_chunk(slot, length, c_out)
+                self.obs.step_timing("chunk", t0, t1)
+                return retired
+            self._grow_active()
+            args = self._decode_args()
+            t0 = time.perf_counter()
+            scores, c_out = self._run_decode_chunk(args, slot, xc, start,
+                                                   length, cbt)
+            t1 = self._obs_chunk_span(slot, start, t0)
+            nxt = self._next_tokens(scores, from_probs=self._from_probs)
+            self.obs.step_timing("decode+chunk", t0, t1)
+            retired = self._advance(nxt)
+            return retired + self._after_chunk(slot, length, c_out)
+        self._grow_active()
+        args = self._decode_args()
+        t0 = time.perf_counter()
+        scores = self._run_decode(args)
+        t1 = time.perf_counter()
+        nxt = self._next_tokens(scores, from_probs=self._from_probs)
+        self.obs.step_timing("decode", t0, t1)
+        return self._advance(nxt)
+
+    def _decode_args(self) -> Tuple[Tensor, ...]:
+        """The unfused decode's per-step inputs, uploaded from the host
+        mirrors: ``(tokens, positions)``, plus the decode tables (mid-
+        prefill slots masked to scratch, cut to the live horizon) when
+        paged."""
+        dev = self.device
+        args = (torch.tensor(self.last_tok, device=dev),
+                torch.tensor(self.pos, device=dev))
+        if self.paged:
+            args += (torch.tensor(self._decode_tables()[:, :self._nb_live()],
+                                  device=dev),)
+        return args
+
+    def _run_decode(self, args) -> Tensor:
+        """The unfused lockstep decode: (n_slots, V) scores (mixture
+        probabilities for the mixture core); keeps the new cache."""
+        raise NotImplementedError
+
+    def _run_decode_chunk(self, args, slot, xc, start, length, cbt):
+        """The unfused decode beside one prefill chunk: (decode scores,
+        the chunk's (1, V) scores); keeps the new cache and carry."""
+        raise NotImplementedError
+
+    def _run_chunk(self, slot, xc, start, length, cbt) -> Tensor:
+        """One prefill chunk with nothing decoding: its (1, V) scores."""
+        raise NotImplementedError
+
+    def _advance(self, next_tok: np.ndarray) -> List[Request]:
+        """Host half of the unfused step: record one token per decoding
+        slot and retire finished requests — budget exhausted (``length``),
+        a generated stop id (``stop``), or the capacity bound
+        (``truncated``; position cache_len − 1 is decodable). next_tok:
+        (n_slots,) int32, inactive and mid-prefill rows ignored."""
+        retired = []
+        t = time.perf_counter()
+        for slot in self.decoding:
+            req = self.slot_req[slot]
+            req.record(int(next_tok[slot]), t)
+            self.pos[slot] += 1
+            self.last_tok[slot] = next_tok[slot]
+            reason = req.reason_now() or \
+                ("truncated" if self.pos[slot] >= self.cache_len else None)
+            if reason:
+                self._retire_from_slot(slot, req, reason)
+                retired.append(req)
+        return retired
+
+    def _pick_first(self, req: Request, row: Tensor, *,
+                    from_probs: bool = False) -> int:
+        """First token from a prefill's last-position scores ((V,) row),
+        the unfused epilogue's pick: token ``len(req.out)`` of the
+        request's seeded stream, or the argmax for a greedy request
+        (``sample_tokens``' greedy rows; floor and log first for
+        probabilities). One readback."""
+        sp = req.params
+        if sp.temperature <= 0:
+            return int(pick_first(row[None], from_probs=from_probs).cpu()[0])
+        fn = sample_tokens_probs if from_probs else sample_tokens
+        dev = row.device
+        return int(fn(
+            row[None],
+            torch.tensor([sp.temperature], dtype=torch.float32, device=dev),
+            torch.tensor([sp.top_k], dtype=torch.int32, device=dev),
+            torch.tensor([sp.seed & 0xFFFFFFFF], dtype=torch.int64,
+                         device=dev),
+            torch.tensor([len(req.out)], dtype=torch.int32, device=dev))
+            .cpu()[0])
+
+    def _next_tokens(self, scores: Tensor, *,
+                     from_probs: bool = False) -> np.ndarray:
+        """Next token per slot from the unfused step's (n_slots, V) scores,
+        read back once. An all-greedy step takes ``argmax_tokens`` of the
+        scores as they are (probabilities too, as the reference does); any
+        sampled slot routes the whole step through the seeded sampler,
+        whose greedy rows take their argmax inside it (floor and log first
+        for probabilities)."""
+        dec = self.decoding
+        if all(self.slot_req[s].params.temperature <= 0 for s in dec):
+            return argmax_tokens(scores).cpu().numpy()
+        n = self.n_slots
+        temps = np.zeros(n, np.float32)
+        top_ks = np.zeros(n, np.int32)
+        seeds = np.zeros(n, np.int64)
+        counts = np.zeros(n, np.int32)
+        for s in dec:
+            req = self.slot_req[s]
+            temps[s], top_ks[s] = req.params.temperature, req.params.top_k
+            # & wraps a negative seed into the uint32 range
+            seeds[s] = req.params.seed & 0xFFFFFFFF
+            counts[s] = len(req.out)
+        fn = sample_tokens_probs if from_probs else sample_tokens
+        dev = scores.device
+        return fn(scores, *(torch.tensor(a, device=dev)
+                            for a in (temps, top_ks, seeds, counts))
+                  ).cpu().numpy()
+
     def _decode_step_fused(self) -> List[Request]:
         """One scheduler step: the fused decode of every decoding slot plus,
         when the budget allows, one prefill chunk — then ONE readback. The
@@ -1566,7 +1720,7 @@ class _SlotTable:
                             args={"rid": req.rid,
                                   "hit_blocks": len(shared)})
             base = len(shared) * self.block_size
-        if not self._reserve(slot, width, shared=shared):
+        if self.paged and not self._reserve(slot, width, shared=shared):
             return False
         if self.prefix is not None:
             self.prefix.record(width, base)
@@ -1646,8 +1800,19 @@ class _SlotTable:
         length = min(self.chunk, int(self.prefill_width[slot]) - start)
         xc = self.prefill_x[slot][
             (start - int(self.prefill_base[slot])) // self.chunk]
-        cbt = torch.as_tensor(self.block_tables[slot], device=self.device)
+        cbt = torch.as_tensor(self.block_tables[slot], device=self.device) \
+            if self.paged else torch.zeros((1,), dtype=torch.int32,
+                                           device=self.device)
         return slot, xc, start, length, cbt
+
+    def _after_chunk(self, slot: int, length: int,
+                     c_out: Tensor) -> List[Request]:
+        """Unfused ``_after_chunk_tok``: a final chunk's first token is
+        picked from its (1, V) scores (``_pick_first``)."""
+        req = self.slot_req[slot]
+        return self._after_chunk_tok(
+            slot, length, lambda: self._pick_first(
+                req, c_out[0], from_probs=self._from_probs))
 
     def _after_chunk_tok(self, slot: int, length: int,
                          first_fn) -> List[Request]:
@@ -1806,19 +1971,58 @@ class _SlotTable:
         return self.obs.registry.to_prometheus()
 
 
-def make_chunk_fns(model: Model, cache_len: int):
-    """Admission prep for chunked prefill: embed the padded prompt and build
-    the carry (the port's chunk steps live in ``make_fused_fns``)."""
+def make_serve_fns(model: Model, cache_len: int, *, paged: bool = False):
+    """The ``(prefill, decode)`` pair one SlotServer runs on: ``prefill(
+    params, batch)`` → ``(logits, cache)`` and the unfused step's
+    ``decode(params, cache, tokens, pos)`` → ``(logits, cache)``, which
+    with ``paged`` takes the per-slot block tables as its last
+    argument."""
+    def prefill(p, b):
+        return model.prefill(p, b, cache_len)
+
+    if paged:
+        def decode(p, c, t, pos, bt):
+            return model.decode_step_paged(p, c, t, pos, bt)
+    else:
+        def decode(p, c, t, pos):
+            return model.decode_step(p, c, t, pos)
+    return prefill, decode
+
+
+def make_chunk_fns(model: Model, cache_len: int, *, paged: bool = False):
+    """``(prep, fused, chunk_only)`` of chunked prefill: ``prep(params,
+    batch)`` embeds the padded prompt and builds the carry; the unfused
+    step's ``fused(params, cache, tokens, pos, [tables,] carry, xc, start,
+    length, cbt)`` → ``(decode logits, chunk logits, carry, cache)`` runs
+    the lockstep decode and one prefill chunk, and ``chunk_only(params,
+    cache, carry, xc, start, length, cbt)`` → ``(chunk logits, carry,
+    cache)`` the chunk alone. The two halves touch disjoint state: decode
+    writes land in the decoding slots' own blocks (the chunk slot's table
+    row is masked to scratch), the chunk's in its reserved blocks and its
+    carry."""
     def prep(p, b):
         return model.embed_prompt(p, b), model.init_chunk_carry(p, b,
                                                                 cache_len)
-    return prep
+
+    def chunk_only(p, c, carry, xc, start, ln, cbt):
+        return model.prefill_chunk(p, c, carry, xc, start, ln, cbt)
+
+    if paged:
+        def fused(p, c, toks, pos, dbt, carry, xc, start, ln, cbt):
+            d_logits, c = model.decode_step_paged(p, c, toks, pos, dbt)
+            c_logits, carry, c = chunk_only(p, c, carry, xc, start, ln, cbt)
+            return d_logits, c_logits, carry, c
+    else:
+        def fused(p, c, toks, pos, carry, xc, start, ln, cbt):
+            d_logits, c = model.decode_step(p, c, toks, pos)
+            c_logits, carry, c = chunk_only(p, c, carry, xc, start, ln, cbt)
+            return d_logits, c_logits, carry, c
+    return prep, fused, chunk_only
 
 
 def make_fused_fns(model: Model, cache_len: int, *, paged: bool):
     """``(step, step_chunk, chunk_only)`` — plain functions one SlotServer
-    runs on (shared by the pods of a top-1 deployment); the chunk steps
-    run on the paged pool only:
+    runs on (shared by the pods of a top-1 deployment):
 
     * ``step(params, cache, state)`` → ``(cache, state, next_tok, done)``;
     * ``step_chunk(params, cache, state, carry, xc, start, length, cbt,
@@ -1837,7 +2041,7 @@ def make_fused_fns(model: Model, cache_len: int, *, paged: bool):
     def step_chunk(p, c, st, carry, xc, start, ln, cbt, *pick):
         c, st, nxt, done = model.fused_decode_step(p, c, st,
                                                    cache_len=cache_len,
-                                                   paged=True)
+                                                   paged=paged)
         c_out, carry, c = model.prefill_chunk(p, c, carry, xc, start, ln, cbt)
         return c, st, nxt, done, pick_first(c_out, *pick), carry
 
@@ -1860,13 +2064,14 @@ def make_verify_fns(model: Model, cache_len: int):
 
 
 class SlotServer(_SlotTable):
-    """Continuous batching over ONE expert with the fused decode step.
-    ``config.paged`` puts the KV cache in a pool of
-    ``page_block``-position blocks (``pool_blocks`` of them, 0 → full
-    capacity) instead of contiguous per-slot rows; ``config.
-    chunked_prefill`` (paged only) consumes prompts ``chunk`` positions per
-    step instead of prefilling each whole at admission; ``config.
-    speculative="ngram"`` (paged only) verifies ``spec_len``-position
+    """Continuous batching over ONE expert with the fused decode step, or
+    with ``config.fused_step=False`` the unfused one. ``config.paged``
+    puts the KV cache in a pool of ``page_block``-position blocks
+    (``pool_blocks`` of them, 0 → full capacity) instead of contiguous
+    per-slot rows; ``config.chunked_prefill`` (paged, or a family with no
+    pageable leaves) consumes prompts ``chunk`` positions per step
+    instead of prefilling each whole at admission; ``config.
+    speculative="ngram"`` (paged, fused) verifies ``spec_len``-position
     spans on decode-only steps."""
 
     def __init__(self, model: Model, params, *, config: EngineConfig,
@@ -1875,10 +2080,14 @@ class SlotServer(_SlotTable):
         self.model, self.params = model, params
         self.cache = self._new_cache(model)
         self.spec = model.cache_spec(self.block_size)
-        self._prep = make_chunk_fns(model, self.cache_len)
-        self._fstep, self._fstep_chunk, self._fchunk_only = \
-            fused_fns or make_fused_fns(model, self.cache_len,
-                                        paged=self.paged)
+        self._prefill, self._decode = make_serve_fns(
+            model, self.cache_len, paged=self.paged)
+        self._prep, self._fused_chunk, self._chunk_only = make_chunk_fns(
+            model, self.cache_len, paged=self.paged)
+        if self.fused:
+            self._fstep, self._fstep_chunk, self._fchunk_only = \
+                fused_fns or make_fused_fns(model, self.cache_len,
+                                            paged=self.paged)
         self._init_speculation(config, model,
                                make_verify_fns(model, self.cache_len))
 
@@ -1897,8 +2106,8 @@ class SlotServer(_SlotTable):
                                        lambda b: self._prep(self.params, b))
         if not self._admission_precheck(req, slot, width):
             return False
-        logits, row_cache = self.model.prefill(
-            self.params, req.batch(self.device), self.cache_len)
+        logits, row_cache = self._prefill(self.params,
+                                          req.batch(self.device))
         first = int(pick_first(logits[0, -1:],
                                *self._pick_args(req)).cpu()[0])
         if width == self.cache_len:
@@ -1930,14 +2139,33 @@ class SlotServer(_SlotTable):
             length, cbt, *pick)
         return first
 
+    def _run_decode(self, args):
+        logits, self.cache = self._decode(self.params, self.cache, *args)
+        return logits
+
+    def _run_decode_chunk(self, args, slot, xc, start, length, cbt):
+        d_logits, c_logits, self.prefill_carry[slot], self.cache = \
+            self._fused_chunk(self.params, self.cache, *args,
+                              self.prefill_carry[slot], xc, start, length,
+                              cbt)
+        return d_logits, c_logits
+
+    def _run_chunk(self, slot, xc, start, length, cbt):
+        c_logits, self.prefill_carry[slot], self.cache = self._chunk_only(
+            self.params, self.cache, self.prefill_carry[slot], xc, start,
+            length, cbt)
+        return c_logits
+
 
 class MixtureSlotServer(_SlotTable):
     """Continuous batching over the stacked expert ensemble (port of
     ``repro.serve.scheduler.MixtureSlotServer``): one cache carrying the
     expert (K) dim at axis 1 of every leaf, one stacked decode step per
     scheduler step with the Eq. 27 mixture and the serving epilogue fused
-    in (``core.ensemble.make_stacked_fused``), and per-slot router weights
-    fixed at admission. Speculation verifies the span on the whole stack
+    in (``core.ensemble.make_stacked_fused``; unfused, the stacked decode
+    and the mixture of ``make_stacked_serving`` and the host epilogue over
+    the mixed probabilities), and per-slot router weights fixed at
+    admission. Speculation verifies the span on the whole stack
     at once (``core.ensemble.make_stacked_verify``), drafted by the
     host's n-gram lookup or by expert 0 on the device. In the paged layout the pool carries the K dim too,
     and all K experts of a slot share ONE block table. A request is routed
@@ -1948,21 +2176,26 @@ class MixtureSlotServer(_SlotTable):
     carries all K segments and the slot's router-weight row."""
 
     _needs_features = True        # admission routes on the features
+    _from_probs = True            # the mixed scores are probabilities
 
     def __init__(self, model: Model, expert_params: List[Any], router, *,
                  config: EngineConfig, device="cuda", pod: int = 0):
         super().__init__(model, config, device, pod)
         self.model, self.router = model, router.to(self.device)
         self.K = len(expert_params)
-        self.stacked = stack_experts_for_decode(
-            [tree_map(lambda t: t.to(self.device), p)
-             for p in expert_params])
+        self.stacked, self._prefill_all, self._mix_decode = \
+            make_stacked_serving(
+                model, [tree_map(lambda t: t.to(self.device), p)
+                        for p in expert_params],
+                self.cache_len, paged=self.paged)
         self.cache = self._new_cache(model, experts=self.K)
         self.spec = model.cache_spec(self.block_size).shifted(1)
         self.weights = np.zeros((self.n_slots, self.K), np.float32)
-        self._prep = make_chunk_fns(model, self.cache_len)
-        self._fstep, self._fstep_chunk, self._fchunk_only = \
-            make_stacked_fused(model, self.cache_len, paged=self.paged)
+        self._prep, self._chunk_all = make_stacked_chunk_fns(
+            model, self.cache_len)
+        if self.fused:
+            self._fstep, self._fstep_chunk, self._fchunk_only = \
+                make_stacked_fused(model, self.cache_len, paged=self.paged)
         self._init_speculation(
             config, model,
             make_stacked_verify(model, self.cache_len, config.spec_len))
@@ -1995,8 +2228,8 @@ class MixtureSlotServer(_SlotTable):
         if not self._admission_precheck(req, slot, width):
             return False
         w = self._route(req)
-        logits, row_cache = self.model.prefill(
-            self.stacked, req.batch(self.device), self.cache_len)
+        logits, row_cache = self._prefill_all(self.stacked,
+                                              req.batch(self.device))
         probs = mix_expert_logits(logits[:, :, -1], torch.as_tensor(
             w[None], device=self.device))                       # (1, V)
         first = int(pick_first(probs, *self._pick_args(req),
@@ -2048,6 +2281,23 @@ class MixtureSlotServer(_SlotTable):
             length, cbt, self._weights_row(slot), *pick)
         return first
 
+    def _run_decode(self, args):
+        tok, pos, *tables = args
+        probs, self.cache = self._mix_decode(
+            self.stacked, self.cache, tok, pos,
+            torch.tensor(self.weights, device=self.device), *tables)
+        return probs
+
+    def _run_decode_chunk(self, args, slot, xc, start, length, cbt):
+        return self._run_decode(args), self._run_chunk(slot, xc, start,
+                                                       length, cbt)
+
+    def _run_chunk(self, slot, xc, start, length, cbt):
+        c_probs, self.prefill_carry[slot], self.cache = self._chunk_all(
+            self.stacked, self.cache, self.prefill_carry[slot], xc, start,
+            length, cbt, self._weights_row(slot))
+        return c_probs
+
 
 class DecentralizedSlotServer:
     """Front-end centroid router over continuously batched expert pods.
@@ -2082,7 +2332,12 @@ class DecentralizedSlotServer:
                                           pod=0)
             self.pods = [self.core]
             return
-        fns = make_fused_fns(model, config.cache_len, paged=config.paged)
+        # a family with no pageable leaves serves its paged config on the
+        # direct path; the fused fns exist only for the fused step
+        paged = effective_page_block(
+            model, config.page_block if config.paged else 0) > 0
+        fns = make_fused_fns(model, config.cache_len, paged=paged) \
+            if config.fused_step else None
         self.pods = [SlotServer(model,
                                 tree_map(lambda t: t.to(self.device), p),
                                 config=config, device=self.device,

@@ -33,4 +33,4 @@ def test_input_shapes_match_reference():
 def test_unported_arch_is_refused():
     assert set(base.PORTED_ARCH_IDS) <= set(jbase.ARCH_IDS)
     with pytest.raises(ValueError, match="not ported to repro_torch yet"):
-        base.get_config("xlstm_125m")
+        base.get_config("whisper_small")

@@ -1059,3 +1059,122 @@ def test_moe_serves_as_on_the_cpu(cuda, arch, strategy, speculative, cf):
                     out[o.rid] = (o.token_ids, o.finish_reason)
         res.append(out)
     assert res[0] == res[1] and len(res[1]) == 4
+
+
+def _serve_card_and_cpu(arch, ecfg, n_experts=2, top_k=1, extras=None):
+    """The smoke-size float32 ``arch``, ``n_experts`` random experts, four
+    requests, served on the CPU and on the card: the two runs' tokens and
+    finish reasons."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.router import CentroidRouter, RouterConfig
+    from repro_torch.models import build_model
+    from repro_torch.serve.api import SamplingParams
+    from repro_torch.serve.scheduler import make_engine
+
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg)
+    experts = [model.init(torch.Generator().manual_seed(k))
+               for k in range(n_experts)]
+    rng = np.random.default_rng(6)
+    router = CentroidRouter(torch.as_tensor(f32(rng, n_experts, 16)),
+                            RouterConfig(top_k=top_k))
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (5, 19, 30, 8)]
+    feats = f32(rng, 4, 16)
+    res = []
+    for dev in ("cpu", "cuda"):
+        eng = make_engine(model, experts=experts, router=router, config=ecfg,
+                          device=dev)
+        for i, p in enumerate(prompts):
+            eng.add_request(p, SamplingParams(max_new=10), features=feats[i],
+                            rid=i)
+        out = {}
+        while eng.has_unfinished():
+            for o in eng.step():
+                if o.finished:
+                    out[o.rid] = (o.token_ids, o.finish_reason)
+        res.append(out)
+    return res
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy,chunked,fused", [
+    ("top1", True, True), ("top1", False, False), ("mixture", True, False),
+    ("mixture", False, True)])
+def test_ssm_serves_as_on_the_cpu(cuda, strategy, chunked, fused):
+    """The smoke-size float32 ssm family (``xlstm_125m``), paged (which
+    serves its per-slot states) with chunked or monolithic prefill, fused
+    and unfused, top-1 and the mixture: the card gives the CPU's tokens
+    and finish reasons, and the mLSTM prefill runs the chunk-scan
+    kernel."""
+    from repro_torch.serve.api import EngineConfig
+
+    ecfg = EngineConfig(n_slots=2, cache_len=48, paged=True, page_block=8,
+                        chunked_prefill=chunked, chunk=16, strategy=strategy,
+                        fused_step=fused)
+    ops.reset_launch_counts()
+    res = _serve_card_and_cpu("xlstm_125m", ecfg,
+                              top_k=2 if strategy == "mixture" else 1)
+    assert res[0] == res[1] and len(res[1]) == 4
+    assert cs.chunk_scan.launches > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy,paged", [("top1", True),
+                                            ("mixture", True),
+                                            ("top1", False)])
+def test_unfused_step_serves_as_on_the_cpu(cuda, strategy, paged):
+    """The unfused step (``fused_step=False``) of the float32 dense smoke
+    config, 2 experts, paged + chunked or contiguous: the card gives the
+    CPU's tokens and finish reasons."""
+    from repro_torch.serve.api import EngineConfig
+
+    chunked = dict(paged=True, page_block=8, chunked_prefill=True,
+                   chunk=8) if paged else {}
+    ecfg = EngineConfig(n_slots=2, cache_len=48, strategy=strategy,
+                        fused_step=False, **chunked)
+    res = _serve_card_and_cpu("qwen3_8b", ecfg,
+                              top_k=2 if strategy == "mixture" else 1)
+    assert res[0] == res[1] and len(res[1]) == 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3_8b", "xlstm_125m"])
+def test_serve_engine_generates_as_on_the_cpu(cuda, arch):
+    """``ServeEngine.generate`` (greedy, and sampled from the split key
+    chain) and ``DecentralizedServer.generate_mixture`` on the card give
+    the CPU's tokens; ``ensemble_eval_nll`` agrees within 1e-4."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.router import CentroidRouter, RouterConfig
+    from repro_torch.models import build_model
+    from repro_torch.serve.api import SamplingParams
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.ensemble_engine import DecentralizedServer
+    from repro_torch.tree import tree_map
+
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg)
+    experts = [model.init(torch.Generator().manual_seed(k)) for k in range(2)]
+    rng = np.random.default_rng(8)
+    cent = torch.as_tensor(f32(rng, 2, 16))
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (3, 9))),
+             "labels": torch.as_tensor(rng.integers(0, cfg.vocab, (3, 9))),
+             "features": torch.as_tensor(f32(rng, 3, 16))}
+    out = []
+    for dev in ("cpu", "cuda"):
+        ex = [tree_map(lambda t: t.to(dev), p) for p in experts]
+        b = {k: v.to(dev) for k, v in batch.items()}
+        server = DecentralizedServer(
+            model, ex, CentroidRouter(cent, RouterConfig(top_k=2)).to(dev),
+            cache_len=24)
+        out.append([
+            ServeEngine(model, 24).generate(
+                ex[0], {"tokens": b["tokens"]},
+                SamplingParams(max_new=6, temperature=t, seed=4)).cpu()
+            for t in (0.0, 0.8)]
+            + [torch.as_tensor(server.generate_mixture(
+                b, SamplingParams(max_new=6, temperature=0.0))).cpu(),
+               server.ensemble_eval_nll(b).cpu()])
+    for a, b in zip(out[0][:3], out[1][:3]):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(out[1][3], out[0][3], rtol=1e-4, atol=0)

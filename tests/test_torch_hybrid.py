@@ -67,6 +67,17 @@ CONFIGS = {"paged-chunked": CHUNKED,
            "contiguous-monolithic": {}}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this module, restored after it: with
+    parallel test workers each starting a thread per core, the threads
+    contend and these smoke-size steps run many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def f32(rng, *shape):
     return rng.normal(size=shape).astype(np.float32)
 

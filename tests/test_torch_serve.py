@@ -12,6 +12,7 @@ monolithic paths are held against the reference in
 import dataclasses
 import json
 import re
+import types
 
 import numpy as np
 import pytest
@@ -103,12 +104,14 @@ def test_top1_slice_matches_reference_token_for_token(deployment):
 
 
 @pytest.mark.parametrize("override,option", [
-    (dict(fused_step=False), "fused_step=False"),
+    (dict(family="audio"), "family 'audio'"),
 ])
 def test_validate_refuses_unported_options(override, option):
-    cfg = EngineConfig(**dict(ECFG, **override))
+    """A model of a family the port has not reached (its config alone: the
+    port's ``Model`` refuses to build one) is refused by ``validate``."""
+    cfg = dataclasses.replace(get_smoke_config("qwen3_8b"), **override)
     with pytest.raises(ValueError) as e:
-        cfg.validate()
+        EngineConfig(**ECFG).validate(types.SimpleNamespace(cfg=cfg))
     assert str(e.value) == \
         f"{option} is not ported to repro_torch yet (see ROADMAP.md)"
 
@@ -196,8 +199,8 @@ def test_validate_refuses_other_families_and_sampling():
     sampling controls the reference refuses (a negative top_k) are
     refused with its message."""
     cfg = get_smoke_config("qwen3_8b")
-    with pytest.raises(ValueError, match="family 'ssm' is not ported"):
-        build_model(dataclasses.replace(cfg, family="ssm"))
+    with pytest.raises(ValueError, match="family 'audio' is not ported"):
+        build_model(dataclasses.replace(cfg, family="audio"))
     sp = SamplingParams(temperature=0.7, top_k=5, seed=-3)
     assert (sp.temperature, sp.top_k, sp.seed) == (0.7, 5, -3)
     with pytest.raises(ValueError) as want:
@@ -372,8 +375,13 @@ def test_launcher_twin_serves_and_refuses(run_dir, capsys, monkeypatch):
     plain = launch_serve.main(base)
     assert "pool_blocks" not in plain["pods"][0]
     assert plain["tokens"] == report["tokens"]
-    with pytest.raises(ValueError, match="fused_step=False is not ported"):
-        launch_serve.main(base + ["--no-fused-step"])
+    # the unfused step serves the same tokens; a flag combination the
+    # reference refuses is refused with its message
+    assert launch_serve.main(base + chunked + ["--no-fused-step"])[
+        "tokens"] == report["tokens"]
+    with pytest.raises(ValueError, match="enable paging"):
+        launch_serve.main(base + ["--chunked-prefill", "--prefill-chunk",
+                                  "8"])
     mixture = ["--strategy", "mixture", "--top-k", "2"]
     monkeypatch.setattr("sys.argv", ["serve"] + base[:-2] + chunked + mixture
                         + ["--stream"])

@@ -58,6 +58,17 @@ ECFG = dict(n_slots=2, cache_len=40, paged=True, page_block=8,
 LENS = [7, 11, 5, 9, 13, 21, 6, 30]     # 30 + 12 passes cache_len: truncated
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for this module, restored after it: with
+    parallel test workers each starting a thread per core, the threads
+    contend and these smoke-size steps run many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ---------------------------------------------------------------------------
 # The n-gram proposer
 # ---------------------------------------------------------------------------
