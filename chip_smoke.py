@@ -71,7 +71,17 @@ Phases, each fatal on failure:
    hit launches it (2 rows at start 512 whose tables share their first 32
    permuted blocks), in both dtypes; the chunk scan at mLSTM's
    full-width shape (``MLSTM_SCAN``), both dtypes on its scalar route,
-   with device ms and bound;
+   with device ms and bound; and the kernels at Whisper-small's shapes
+   (``_audio_kernel_cases``: 12/12 heads of dh 64; the five serving
+   attention kernels at 8 slots over 448 positions, and the encoder's
+   flash forward, non-causal and causal, and its backward, non-causal,
+   at S = 1500), both dtypes, each with device ms and bound;
+3a. theory — the paper's §4 theory in float64 on the card
+   (``phase_theory``): the walkthrough twin, then the reference tests'
+   grids (``THEORY_DFM_GRID``, ``THEORY_SPLIT_GRID``); every CE
+   residual, decomposition residual and distance of the decoded chain to
+   its target within ``THEORY_TOL``, and every tensor equal to the
+   CPU's within it;
 4. parity — the smoke-size float32 Qwen3 deployment (2 pods, top-1) served
    on the card (kernels) and on the CPU (plain versions) in four
    configurations (paged + chunked, paged + chunked + n-gram speculation,
@@ -104,9 +114,13 @@ Phases, each fatal on failure:
    (``ServeEngine.generate``, ``DecentralizedServer.generate_top1`` and
    ``generate_mixture`` greedy: tokens equal, a row differing only at a
    near-tie within ``SAMPLE_MARGIN_ULPS`` ulps; the mixture's
-   probabilities and eval NLL within 1e-4). Under expert drafting request 1 sits on expert 0's
-   centroid, so the mixture takes its drafts, which must be accepted on
-   every config; the n-gram acceptance requirement holds on Qwen3's
+   probabilities and eval NLL within 1e-4); the smoke-size Whisper-small
+   (each request with its own frames) in every configuration of Qwen3's,
+   again unfused, and its host layer (the prefix cache under one set of
+   frames, and the repeat of request 0 under another, which must skip
+   fewer tokens; swap preemption). Under expert drafting request 1 sits
+   on expert 0's centroid, so the mixture takes its drafts, which must be
+   accepted on every config; the n-gram acceptance requirement holds on Qwen3's
    traffic, built for it;
 5. main path — full-width Qwen3-8B (36 layers, bf16, 2 experts of seeded
    random weights) served through ``make_engine`` → ``add_request``/
@@ -244,6 +258,13 @@ Phases, each fatal on failure:
    main path's deployment and traffic with the main path's checks; each
    prints its dropped share by group width and the registry's
    dispatch/device_get split;
+10g. audio paths — full-width Whisper-small (12 encoder and 12 decoder
+   layers, 2 experts, each request with its own 1500 seeded frames,
+   prompts of 32–384 tokens, cache_len 448) paged + chunked top-1, then
+   contiguous + monolithic, then under the Eq. 27 mixture, each with the
+   main path's checks; the flash forward must launch 12 times a request
+   on the chunked paths (the encoder at admission, the mixture's experts
+   in one launch) and 24 times a request on the contiguous one;
 11. training parity — the smoke-size float32 training deployment
    (``repro_torch/launch/train_path.py``: the launcher's partition,
    loaders and schedule) trains expert 0 for 3 steps on the card (flash
@@ -263,7 +284,9 @@ Phases, each fatal on failure:
    (its m after step 1 has no nonzero element), or launch counts other
    than layers x steps x experts (backward) and twice that (forward, run
    again by the recomputation); then the same for DeepSeek-MoE-16B cut to
-   4 layers (its dropped share printed);
+   4 layers (its dropped share printed) and for Whisper-small whole (4
+   steps of 8 sequences of 448 tokens and their frames; the encoder's 12
+   layers count among the layers);
 13. float32 gradients — full-width Qwen3-8B, 2 layers, in float32 on one
    1024-token sequence: the gradient of ``Model.loss`` through the kernel
    path (flash forward and backward kernels) against autograd through the
@@ -1860,6 +1883,7 @@ def phase_kernels():
     _new_config_kernel_cases(cases, rec, gen)
     _new_config_kernel_cases(cases, rec, gen, MOE_HEADS, (),
                              MOE_CACHE_LEN)
+    _audio_kernel_cases(cases, rec, gen)
     _prefix_kernel_cases(cases, gen)
     torch.cuda.synchronize()
 
@@ -1977,10 +2001,12 @@ def phase_parity(arch="qwen3_8b", cf=None):
     be equal; a sampled token that differs is reported with its
     Gumbel-plus-logit margin and fails unless that margin is within
     ``SAMPLE_MARGIN_ULPS`` ulps. A family with no pageable leaves (ssm)
-    also serves contiguous + chunked. For ``UNFUSED_PARITY_ARCHS`` every
-    configuration without speculation is served again with the unfused
-    step (``fused_step=False``), and the whole-batch engines are held card
-    vs CPU (``_batch_engine_parity``)."""
+    also serves contiguous + chunked. For ``UNFUSED_PARITY_ARCHS`` and the
+    audio family every configuration without speculation is served again
+    with the unfused step (``fused_step=False``), and for
+    ``UNFUSED_PARITY_ARCHS`` the whole-batch engines are held card vs CPU
+    (``_batch_engine_parity``). Each vlm request carries its own image
+    patches and each audio request its own frames."""
     from dataclasses import replace
 
     import numpy as np
@@ -2009,10 +2035,15 @@ def phase_parity(arch="qwen3_8b", cf=None):
                 .astype(np.int32) for n in lens]
     feats = rng.normal(size=(len(lens), 32)).astype(np.float32)
     # the vlm family's image patches, one set a request (its prefix of
-    # n_patches rows goes ahead of each prompt)
+    # n_patches rows goes ahead of each prompt); the audio family's frames,
+    # one set a request (its encoder's input)
     extras = [{"patches": rng.normal(size=(cfg.n_patches, cfg.vision_dim))
                .astype(np.float32)} for _ in lens] \
         if cfg.family == "vlm" else None
+    if cfg.family == "audio":
+        extras = [{"frames": rng.normal(size=(
+            cfg.n_audio_frames, cfg.audio_dim)).astype(np.float32)}
+            for _ in lens]
 
     def greedy(i):
         return SamplingParams(max_new=12)
@@ -2050,7 +2081,7 @@ def phase_parity(arch="qwen3_8b", cf=None):
             chunked_prefill=True, **over), prompts, greedy)
             for mix, over in (("", {}), ("mixture, ",
                                          dict(strategy="mixture")))]
-    if arch in UNFUSED_PARITY_ARCHS:
+    if arch in UNFUSED_PARITY_ARCHS + (AUDIO_ARCH,):
         configs += [(f"{kind}, unfused", dict(over, fused_step=False), reqs,
                      params) for kind, over, reqs, params in configs
                     if "speculative" not in over]
@@ -2259,6 +2290,7 @@ HOST_LAYER_ARCHS = {
                  "mixture swap", "mixture recompute", "drr"),
     "internvl2_2b": ("prefix",),
     "zamba2_2_7b": ("swap", "recompute"),
+    "whisper_small": ("prefix", "prefix other frames", "swap"),
 }
 #: the preempting smoke configurations' pool: 8 usable blocks of 8 for two
 #: slots whose requests grow to 7 blocks each
@@ -2290,6 +2322,12 @@ def _host_layer_parity(arch, model, experts, router, mix_router,
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
     image = rng.normal(size=(cfg.n_patches, cfg.vision_dim)) \
         .astype(np.float32) if cfg.family == "vlm" else None
+    # the audio family's frames: the prefix traffic's one set (the repeat
+    # of request 0 under another set in "prefix other frames", where the
+    # digest must miss) and the preemption traffic's one set a request
+    frames = [rng.normal(size=(cfg.n_audio_frames, cfg.audio_dim))
+              .astype(np.float32) for _ in range(len(lens))] \
+        if cfg.family == "audio" else None
     on_pod0 = np.repeat(router.centroids[:1].cpu().numpy(), 6, 0)
     feats = rng.normal(size=(6, router.centroids.shape[1])) \
         .astype(np.float32)
@@ -2315,6 +2353,8 @@ def _host_layer_parity(arch, model, experts, router, mix_router,
                       prompts, feats, ranked),
         "drr": (dict(qos=qos), prompts, on_pod0, ranked),
     }
+    kinds["prefix other frames"] = kinds["prefix"]
+    skipped_by_kind = {}
     for kind in HOST_LAYER_ARCHS[arch]:
         mixture = kind.startswith("mixture ")
         over, reqs, fts, params = kinds[kind.removeprefix("mixture ")]
@@ -2322,6 +2362,12 @@ def _host_layer_parity(arch, model, experts, router, mix_router,
                             strategy="mixture" if mixture else "top1")
         extras = [{"patches": image}] * len(reqs) if image is not None \
             else None
+        if frames is not None:
+            extras = [{"frames": frames[i]} for i in range(len(reqs))] \
+                if "preemption" in over else \
+                [{"frames": frames[0]}] * len(reqs)
+            if kind == "prefix other frames":
+                extras[-1] = {"frames": frames[1]}
         runs = []
         for dev in devices:
             eng = make_engine(model, experts=experts, config=ecfg,
@@ -2343,8 +2389,15 @@ def _host_layer_parity(arch, model, experts, router, mix_router,
         skipped = sum(p.get("prefix_skipped_tokens", 0) for p in occ)
         if "preemption" in over and not preempted:
             raise AssertionError(f"{arch}, {kind}: nothing was preempted")
-        if kind.endswith("prefix") and not skipped:
+        if "prefix" in kind and not skipped:
             raise AssertionError(f"{arch}, {kind}: no prefix hit")
+        skipped_by_kind[kind] = skipped
+        if kind == "prefix other frames" and \
+                not skipped < skipped_by_kind["prefix"]:
+            raise AssertionError(
+                f"{arch}, {kind}: the repeat of request 0 under other "
+                f"frames skipped prompt tokens ({skipped} skipped, "
+                f"{skipped_by_kind['prefix']} under the same frames)")
         if {r for _, r in res.values()} != {"length"}:
             raise AssertionError(f"{arch}, {kind}: finish reasons "
                                  f"{sorted(set(r for _, r in res.values()))}")
@@ -4089,7 +4142,9 @@ def phase_train_path(arch="qwen3_8b"):
     (``repro_torch/launch/train_path.py``), or ``arch`` at its
     ``train_path.DEPTH_CUTS`` (DeepSeek-MoE-16B at 4 layers: the moe
     training path, which also prints the dropped share of its (token,
-    choice) pairs). Returns the kernels' launches."""
+    choice) pairs; Whisper-small whole, 4 steps of 8 sequences of 448
+    tokens and their frames, the flash kernels launched by the encoder
+    too). Returns the kernels' launches."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
@@ -4147,7 +4202,9 @@ def phase_train_path(arch="qwen3_8b"):
         del state, first_step_grads
         torch.cuda.empty_cache()
     launches = {n: fn.launches for n, fn in ops.KERNELS.items()}
-    want_bwd = cfg.n_layers * tp.steps * tp.args.experts
+    # the attention layers: the audio family's encoder's too
+    want_bwd = (cfg.n_layers + cfg.n_enc_layers) * tp.steps \
+        * tp.args.experts
     if launches["flash_attention_bwd"] != want_bwd \
             or launches["flash_attention"] != 2 * want_bwd:
         bad.append(f"launches {launches}: want {want_bwd} backward and "
@@ -4221,6 +4278,236 @@ def phase_train_float32_gradients():
 
 # (case, stop id: the pick at this offset or none, max_new, context left
 # after the span's first position or none)
+# ---------------------------------------------------------------------------
+# The paper's §4 theory, and the audio family (Whisper-small)
+# ---------------------------------------------------------------------------
+
+#: the theory phase's bound on every residual and on card vs CPU
+THEORY_TOL = 1e-12
+#: the reference tests' grids: test_dfm.py's (d, N, P) and
+#: test_decentralize.py's (d, N, P, K)
+THEORY_DFM_GRID = ((3, 3, 0), (3, 3, 1), (2, 4, 2), (4, 2, 0))
+THEORY_SPLIT_GRID = ((3, 3, 0, 2), (3, 3, 1, 3), (2, 4, 0, 2), (4, 2, 0, 4))
+AUDIO_ARCH = "whisper_small"
+# Whisper-small's heads (12 query and 12 KV heads of 64) at the audio main
+# path's rows: 384 prompt positions + 64 new = 448, its decoder context
+AUDIO_HEADS = (("whisper_small", 12, 12, 64),)
+AUDIO_CACHE_LEN = 448
+
+
+def _theory_tensors(dev):
+    """Every theory quantity the phase checks, computed in float64 on
+    ``dev`` (CPU copies): over ``THEORY_DFM_GRID`` the AR path's marginal
+    velocities, Continuity Equation residuals and the sampling-rule
+    chain's distance to q; over ``THEORY_SPLIT_GRID`` the exact router and
+    the decomposition residual at every step. The inputs are the reference
+    tests' numpy-seeded ones."""
+    import numpy as np
+    import torch
+    from repro_torch.core import autoregressive as ar
+    from repro_torch.core import decentralize as dec
+    from repro_torch.core import dfm
+
+    f64 = dict(dtype=torch.float64, device=dev)
+    out = {}
+    for d, N, P in THEORY_DFM_GRID:
+        mask = d - 1
+        q = np.random.default_rng(0).random(d**N)
+        q[(dfm.enumerate_states(d, N) == mask).any(1)] = 0.0
+        q = torch.as_tensor(q / q.sum(), **f64)
+        path, nbr = ar.ar_path(q, P, d, N, mask), dfm.neighbor_table(d, N)
+        us = []
+        for t in range(N - P):
+            u = ar.ar_marginal_velocity(q, P, t, d, N, mask)
+            us.append(u)
+            out[f"velocity {d},{N},{P} t={t}"] = u
+            out[f"CE residual {d},{N},{P} t={t}"] = dfm.continuity_residual(
+                path.marginal(t), path.marginal(t + 1), u, nbr)
+        out[f"chain - q {d},{N},{P}"] = \
+            dfm.chain_marginals(path.marginal(0), us, nbr)[-1] - q
+    for d, N, P, K in THEORY_SPLIT_GRID:
+        rng = np.random.default_rng(0)
+        states = dfm.enumerate_states(d, N)
+        q = rng.random(d**N)
+        q[(states == d - 1).any(1)] = 0.0
+        q[rng.random(d**N) < 0.3] = 0.0
+        q = q / q.sum()
+        assignment = rng.integers(0, K, size=d**N)
+        for k, x in enumerate(np.where(q > 0)[0][:K]):
+            assignment[x] = k
+        split = dec.ClusterSplit(torch.as_tensor(q, **f64), assignment, K)
+        for t in range(N - P):
+            out[f"router {d},{N},{P},{K} t={t}"] = dec.router_weights(
+                split, P, t, d, N, d - 1)
+            out[f"decomposition residual {d},{N},{P},{K} t={t}"] = \
+                dec.decomposition_residual(split, P, t, d, N, d - 1)
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def phase_theory():
+    """The paper's §4 theory in float64 on the card: the walkthrough twin
+    (``repro_torch.examples.theory_walkthrough``), then the reference
+    tests' grids (``_theory_tensors``). Fails unless every CE residual,
+    decomposition residual, chain-to-target distance and TV(decoded, q) is
+    within ``THEORY_TOL``, and every tensor equals the CPU's within it."""
+    from repro_torch.examples import theory_walkthrough
+
+    walk = theory_walkthrough.run("cuda", log=lambda m: log(f"theory: {m}"))
+    walk_cpu = theory_walkthrough.run("cpu", log=lambda _: None)
+    card, host = _theory_tensors("cuda"), _theory_tensors("cpu")
+    worst = {"residual": max(walk["ce"] + [walk["tv_chain"],
+                                           walk["tv_decoded"],
+                                           walk["ce_counterexample"]]),
+             "card_vs_cpu": max(abs(walk[k] - walk_cpu[k]) for k in
+                                ("tv_chain", "tv_decoded",
+                                 "tv_counterexample"))}
+    for name, t in card.items():
+        worst["card_vs_cpu"] = max(worst["card_vs_cpu"],
+                                   (t - host[name]).abs().max().item())
+        if not name.startswith(("velocity", "router")):
+            worst["residual"] = max(worst["residual"], t.abs().max().item())
+    log(f"theory: walkthrough on the card: CE residuals "
+        f"{[f'{r:.2e}' for r in walk['ce']]}, 1-sparse "
+        f"{walk['one_sparse']}, counterexample TV "
+        f"{walk['tv_counterexample']:.3f}, TV(decoded, q) "
+        f"{walk['tv_decoded']:.2e}; over the grids {len(card)} float64 "
+        f"tensors: worst residual {worst['residual']:.3e}, worst card vs "
+        f"CPU {worst['card_vs_cpu']:.3e} (tolerance {THEORY_TOL})")
+    if not (worst["residual"] <= THEORY_TOL
+            and worst["card_vs_cpu"] <= THEORY_TOL
+            and all(walk["one_sparse"])
+            and abs(walk["tv_counterexample"] - 0.5) <= THEORY_TOL):
+        raise AssertionError(f"theory: {worst}, walkthrough {walk}")
+
+
+def _audio_kernel_cases(cases, rec, gen):
+    """The kernels at Whisper-small's shapes, each against its plain
+    version run in float32 on the same values and timed beside its bound:
+    paged decode, chunk prefill (C = 256 at 0, C = 100 at 256), paged
+    verify (L = ``SPEC_LEN``) and contiguous decode at 8 slots over 448
+    positions, 12/12 heads of dh 64 (``_new_config_kernel_cases``); then
+    the encoder's flash forward, non-causal and causal, and its backward,
+    non-causal, at B = 1, S = 1500 (one request's frames), in bf16 and
+    float32."""
+    import torch
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import flash_attention_bwd as fbk
+
+    _new_config_kernel_cases(cases, rec, gen, AUDIO_HEADS, (),
+                             AUDIO_CACHE_LEN)
+    (config, H, KV, dh), = AUDIO_HEADS
+    S = 1500
+    for dtype, name in ((torch.bfloat16, "bfloat16"),
+                        (torch.float32, "float32")):
+        es = 2 if dtype is torch.bfloat16 else 4
+        q, k, v = _flash_case(1, S, H, KV, dh, dtype, gen)
+        for causal in (False, True):
+            want, want_lse = fk.flash_attention_with_lse_ref(
+                *_up(q, k, v), causal=causal)
+            compare("flash_attention", fk.flash_attention_with_lse(
+                q, k, v, causal=causal)[1], want_lse, name, cases)
+            pairs = S * (S + 1) // 2 if causal else S * S
+            _new_shape_case(
+                cases, rec, "flash_attention", config,
+                f"B=1 S={S} H={H} KV={KV} dh={dh} "
+                f"{'causal' if causal else 'non-causal'}", name,
+                lambda c=causal: fk.flash_attention_with_lse(
+                    q, k, v, causal=c)[0], want,
+                (2 * S * H * dh + 2 * S * KV * dh) * es + S * H * 4,
+                4 * H * dh * pairs)
+        do = torch.randn((1, S, H, dh), generator=gen, device="cuda") \
+            .to(dtype)
+        out, lse = _check_flash_bwd(fk, fbk, cases, name, q, k, v, do,
+                                    causal=False)
+        # q, out, do, k, v and lse read; dq, dk, dv written; five
+        # products over every (query, key) pair
+        t_bytes = ((4 * S * H * dh + 4 * S * KV * dh) * es
+                   + S * H * 4) / HBM_BPS * 1e3
+        t_ops = 10 * H * dh * S * S / PEAK_FLOPS[name] * 1e3
+        rec["flash_attention_bwd"].setdefault("new_config_shapes", []).append(
+            {"config": config,
+             "shape": f"B=1 S={S} H={H} KV={KV} dh={dh} non-causal",
+             "dtype": name,
+             "max_abs_err": max(c["max_abs_err"] for c in cases[-3:]),
+             "device_ms": device_ms(lambda: fbk.flash_attention_bwd(
+                 q, k, v, out, lse, do, causal=False), iters=5),
+             "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+    for kname in ("flash_attention", "flash_attention_bwd"):
+        for c in rec[kname]["new_config_shapes"]:
+            if c["config"] == config and f"S={S}" in c["shape"]:
+                log(f"new-shape case {kname} ({config}, {c['shape']}, "
+                    f"{c['dtype']}): max abs err {c['max_abs_err']:.3e}, "
+                    f"device ms {c['device_ms']}, bound "
+                    f"{c['bound_ms']:.4f} by {c['bound_by']}")
+
+
+def _flash_per_request(label, launches, n_req, per_request):
+    """The flash-forward launches of a full-width audio path must be
+    ``per_request`` for each admitted request."""
+    if launches["flash_attention"] != per_request * n_req:
+        raise AssertionError(
+            f"{label}: {launches['flash_attention']} flash-forward "
+            f"launches for {n_req} requests, not {per_request} a request")
+
+
+def phase_audio_paths():
+    """Full-width Whisper-small (12 encoder and 12 decoder layers, D = 768,
+    bf16, 2 experts of seeded random weights) on the audio deployment of
+    ``main_path.build(arch="whisper_small")`` (each request with its own
+    seeded 1500 frames, prompts of 32–384 tokens, cache_len 448): paged +
+    chunked top-1, then contiguous + monolithic, then the Eq. 27 mixture
+    (top_k 2, ``MIXTURE_NEW_TOKENS``), each with the main path's checks.
+    The flash forward must launch 12 times a request on the chunked paths
+    (the encoder alone, once at admission; the mixture's K experts in one
+    launch) and 12 + 12 times a request on the contiguous path (the
+    encoder, then the decoder's monolithic prefill). Returns the three
+    runs' launch counts."""
+    import torch
+    from repro_torch.launch import main_path
+    from repro_torch.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    mp = main_path.build("cuda", arch=AUDIO_ARCH)
+    torch.cuda.synchronize()
+    cfg, n = mp.cfg, len(mp.prompts)
+    n_params = sum(t.numel() for _, t in tree_leaves(mp.experts[0]))
+    log(f"audio path: {main_path.N_EXPERTS} experts of {cfg.arch_id} "
+        f"({cfg.n_enc_layers} encoder and {cfg.n_layers} decoder layers, "
+        f"D={cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, {cfg.n_audio_frames} frames of {cfg.audio_dim} "
+        f"a request, cache_len {mp.config.cache_len}, "
+        f"{n_params / 1e9:.3f} B parameters an expert, bf16) initialized "
+        f"in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    watch = (("decode_step_paged", lambda x: x),
+             ("prefill_chunk", lambda x: x))
+    kernels = MAIN_KERNELS + ("flash_attention",)
+    main_res, main = _serve_watched("audio path", mp, watch, kernels)
+    _flash_per_request("audio path", main, n, cfg.n_enc_layers)
+    cp = main_path.contiguous(mp)
+    mp.engine = None
+    torch.cuda.empty_cache()
+    res, contiguous = _serve_watched(
+        "audio contiguous path", cp, (("decode_step", lambda x: x),
+                                      ("prefill", lambda x: x[:, -1])),
+        CONTIGUOUS_KERNELS)
+    _flash_per_request("audio contiguous path", contiguous, n,
+                       cfg.n_enc_layers + cfg.n_layers)
+    same = sum(res[i][0] == main_res[i][0] for i in main_res)
+    log(f"audio contiguous path: {same} of {len(main_res)} requests got "
+        f"the same tokens as on the audio path (information only: bf16 "
+        f"rounding differs between the paths)")
+    cp.engine = None
+    xp = _mixture_of(mp)
+    mp.experts = xp.experts = None      # the stack holds the weights now
+    torch.cuda.empty_cache()
+    _, mixture = _serve_watched("audio mixture path", xp, watch, kernels)
+    _flash_per_request("audio mixture path", mixture, n, cfg.n_enc_layers)
+    xp.engine = None
+    return main, contiguous, mixture
+
+
 FUSED_VERIFY_CASES = (("full accept", None, None, None),
                       ("stop", 1, None, None),
                       ("length", None, 3, None),
@@ -4333,8 +4620,9 @@ def main() -> int:
         return out
 
     rec = timed(phase_kernels)
+    timed(phase_theory)
     for arch in ("qwen3_8b", "zamba2_2_7b", VLM_ARCH, SSM_ARCH) \
-            + DENSE_CONFIG_ARCHS:
+            + DENSE_CONFIG_ARCHS + (AUDIO_ARCH,):
         timed(phase_parity, arch)
     for arch in MOE_ARCHS:
         for cf in (None, MOE_DROP_CF):
@@ -4378,11 +4666,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_launches = timed(phase_moe_paths)
     torch.cuda.empty_cache()
+    audio_launches, audio_contiguous_launches, audio_mixture_launches = \
+        timed(phase_audio_paths)
+    torch.cuda.empty_cache()
     timed(phase_train_parity)
     timed(phase_train_step_parity)
     train_launches = timed(phase_train_path)
     torch.cuda.empty_cache()
     moe_train_launches = timed(phase_train_path, "deepseek_moe_16b")
+    torch.cuda.empty_cache()
+    audio_train_launches = timed(phase_train_path, AUDIO_ARCH)
     timed(phase_train_float32_gradients)
     torch.cuda.empty_cache()
     timed(phase_moe_launches)
@@ -4413,7 +4706,11 @@ def main() -> int:
                "vlm": vlm_launches, "vlm contiguous": vlm_contiguous_launches,
                "vlm mixture": vlm_mixture_launches,
                **dense_launches, **moe_launches, "training": train_launches,
-               "deepseek_moe_16b training": moe_train_launches}
+               "deepseek_moe_16b training": moe_train_launches,
+               "audio": audio_launches,
+               "audio contiguous": audio_contiguous_launches,
+               "audio mixture": audio_mixture_launches,
+               "whisper_small training": audio_train_launches}
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():

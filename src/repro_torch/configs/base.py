@@ -106,11 +106,10 @@ INPUT_SHAPES = {
     "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
 }
 
-#: Architectures whose config module the port has (the others arrive with
-#: their families — see ROADMAP.md).
+#: Architectures whose config module the port has: all of the reference's.
 PORTED_ARCH_IDS = ["qwen3_8b", "zamba2_2_7b", "granite_3_8b", "llama3_405b",
                    "phi3_medium_14b", "internvl2_2b", "deepseek_moe_16b",
-                   "qwen3_moe_235b_a22b", "xlstm_125m"]
+                   "qwen3_moe_235b_a22b", "xlstm_125m", "whisper_small"]
 
 
 def _module(arch_id: str):

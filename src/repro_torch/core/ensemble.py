@@ -84,29 +84,34 @@ def stacked_cache_axes(cache_like):
     return tree_map(lambda _: 1, cache_like)
 
 
+def _expert_dims(tree):
+    """The expert dim of every leaf of a parameter tree in the decode
+    layout: 1 for the layer stacks (``blocks``, and the audio family's
+    ``encoder/blocks``), after their layer dim; 0 for every other leaf."""
+    return {name: tree_map(lambda _: 1, sub) if name == "blocks"
+            else _expert_dims(sub) if isinstance(sub, dict) else 0
+            for name, sub in tree.items()}
+
+
 def stack_experts_for_decode(expert_params: List[Dict[str, Any]]):
     """K experts' parameter trees → one tree in the decode layout: every
-    ``blocks`` leaf carries K at axis 1, after its scanned layer dim, (L, K,
-    ...); every other leaf (``embed``, ``final_norm``, ``shared_attn``)
-    leads with K. The reference stores the layer stacks layer-major so its
-    vmapped scan is transpose-free; the port's layer loop slices layer i as
-    a (K, ...) view the same way. The stack is a copy: the experts' own
-    tensors are left as they are."""
-    stacked = {}
-    for name in expert_params[0]:
-        dim = 1 if name == "blocks" else 0
-        stacked[name] = tree_map(lambda *leaves: torch.stack(leaves, dim=dim),
-                                 *(p[name] for p in expert_params))
-    return stacked
+    leaf of a layer stack (``blocks``, ``encoder/blocks``) carries K at
+    axis 1, after its layer dim, (L, K, ...); every other leaf (``embed``,
+    ``final_norm``, ``shared_attn``, the encoder's ``in_proj`` and
+    ``norm``) leads with K. The reference stores the layer stacks
+    layer-major so its vmapped scan is transpose-free; the port's layer
+    loops slice layer i as a (K, ...) view the same way. The stack is a
+    copy: the experts' own tensors are left as they are."""
+    return tree_map(lambda dim, *leaves: torch.stack(leaves, dim=dim),
+                    _expert_dims(expert_params[0]), *expert_params)
 
 
 def expert_slice(stacked, k: int):
     """Expert ``k``'s parameters out of a stack in the decode layout
-    (``stack_experts_for_decode``), as views: ``blocks`` leaves select
+    (``stack_experts_for_decode``), as views: layer-stack leaves select
     axis 1, every other leaf axis 0."""
-    return {name: tree_map(lambda t: t.select(1 if name == "blocks" else 0,
-                                              k), sub)
-            for name, sub in stacked.items()}
+    return tree_map(lambda dim, t: t.select(dim, k), _expert_dims(stacked),
+                    stacked)
 
 
 def make_stacked_serving(model, expert_params, cache_len: int, *,

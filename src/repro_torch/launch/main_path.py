@@ -14,7 +14,12 @@ full width, D = 16384 and d_ff = 53248, is kept: one card cannot hold
 the whole model); ``deepseek_moe_16b`` and ``qwen3_moe_235b_a22b`` the
 moe family, DeepSeek-MoE-16B whole and Qwen3-MoE-235B-A22B cut to 4 of
 its 94 layers; ``xlstm_125m`` the ssm family (xLSTM-125M, whole: it has
-no pageable leaves, so the paged config serves its per-slot states).
+no pageable leaves, so the paged config serves its per-slot states);
+``whisper_small`` the audio family (Whisper-small, whole), each request
+with its own seeded (1500, 768) float32 frames (30 s of audio at 50
+frames a second) and a prompt of ``AUDIO_SHAPE``'s 32–384 tokens, so
+``cache_len`` is 448, Whisper's published decoder context
+(``n_text_ctx``).
 ``mixture=True`` builds the deployment that
 ``mixture(mp)`` will stack, at ``MIXTURE_DEPTH_CUTS`` where the stack
 beside the two experts would not fit the card. ``smoke=True`` builds
@@ -37,7 +42,7 @@ with expert 0 drafting on the device and the stacked verify.
 (``SAMPLE_TEMPERATURE`` 0.8, ``SAMPLE_TOP_K`` 50). Request i's seed is
 ``mp.sampling.seed + i`` on every path (a greedy request ignores it),
 and its modality extras are ``mp.extras[i]`` (empty but for the vlm
-family's patches).
+family's patches and the audio family's frames).
 """
 from __future__ import annotations
 
@@ -74,6 +79,11 @@ SAMPLE_TOP_K = 50
 SPEC_LEN = 4          # positions a speculative step verifies per slot
 MIXTURE_TOP_K = 2     # experts the mixture's router weighs a request over
 PATCH_SEED = 3000     # request i's image patches (vlm): default_rng(3000 + i)
+FRAME_SEED = 6000     # request i's audio frames (audio): default_rng(6000 + i)
+# the audio family's prompts: 32–384 tokens, so that with NEW_TOKENS the
+# context is Whisper's decoder context of 448 (blocks and chunks as
+# FULL_SHAPE's)
+AUDIO_SHAPE = (32, 384, 16, 256)
 # full-width depth cuts of the configs one card cannot hold whole (80 GB),
 # in bf16: Llama-3-405B's two layers and tables are ~21 GB an expert;
 # Qwen3-MoE-235B-A22B's layer is 2.49 B params (4.63 GiB: 128 routed
@@ -130,12 +140,19 @@ class MainPath:
 def patches_for(cfg: ModelConfig, n: int) -> List[Dict[str, np.ndarray]]:
     """The modality extras of requests 0..n-1: for the vlm family request
     i's (n_patches, vision_dim) float32 patches, drawn from
-    ``default_rng(PATCH_SEED + i)``; none for the other families."""
-    if cfg.family != "vlm":
+    ``default_rng(PATCH_SEED + i)``; for the audio family its
+    (n_audio_frames, audio_dim) float32 frames, from
+    ``default_rng(FRAME_SEED + i)``; none for the other families."""
+    if cfg.family == "vlm":
+        name, seed, shape = "patches", PATCH_SEED, (cfg.n_patches,
+                                                   cfg.vision_dim)
+    elif cfg.family == "audio":
+        name, seed, shape = "frames", FRAME_SEED, (cfg.n_audio_frames,
+                                                  cfg.audio_dim)
+    else:
         return [{} for _ in range(n)]
-    return [{"patches": np.random.default_rng(PATCH_SEED + i).normal(
-        size=(cfg.n_patches, cfg.vision_dim)).astype(np.float32)}
-        for i in range(n)]
+    return [{name: np.random.default_rng(seed + i).normal(size=shape)
+             .astype(np.float32)} for i in range(n)]
 
 
 def build(device="cuda", *, smoke: bool = False, arch: str = ARCH,
@@ -153,7 +170,8 @@ def build(device="cuda", *, smoke: bool = False, arch: str = ARCH,
     rng = np.random.default_rng(PROMPT_SEED)
     router = CentroidRouter(torch.as_tensor(
         rng.normal(size=(N_EXPERTS, features.shape[1])).astype(np.float32)))
-    lo, hi, block, chunk = SMOKE_SHAPE if smoke else FULL_SHAPE
+    lo, hi, block, chunk = SMOKE_SHAPE if smoke else \
+        AUDIO_SHAPE if cfg.family == "audio" else FULL_SHAPE
     if cfg.family in ("hybrid", "ssm"):   # chunks whole in the scan's
         chunk = -(-chunk // cfg.ssm.chunk) * cfg.ssm.chunk
     lens = rng.integers(lo, hi + 1, N_REQUESTS)

@@ -30,8 +30,11 @@ behind its 256 rows of image prefix), and ``granite_3_8b``,
 ``phi3_medium_14b`` and ``llama3_405b`` the dense family's other
 configs, ``deepseek_moe_16b`` and ``qwen3_moe_235b_a22b`` the moe family
 (cut as ``main_path.DEPTH_CUTS`` says; with ``--mixture`` at
-``main_path.MIXTURE_DEPTH_CUTS``). Two windows of ``WINDOW`` steps run
-under the profiler: the first mixed steps (where there are any) and the
+``main_path.MIXTURE_DEPTH_CUTS``), ``xlstm_125m`` the ssm family and
+``whisper_small`` the audio family (each request with its 1500 seeded
+frames; its admissions run the encoder through the flash kernel). Two
+windows of ``WINDOW`` steps run under the profiler: the first mixed
+steps (where there are any) and the
 first steps after the last prompt was consumed (``decode``, or
 ``spec_verify`` with ``--speculative``). For
 each window it prints the device time by kernel group (the port's CUDA

@@ -31,12 +31,14 @@ snapshot of every pod's registry).
 ``qwen3_moe_235b_a22b`` (moe), ``zamba2_2_7b`` (hybrid) and ``xlstm_125m``
 (ssm; it has no pageable leaves, so ``--paged`` serves its per-slot
 states) — a recurrent family's prefill chunk must be a multiple of its
-chunkwise-scan length, 16 at smoke size. Like the reference's, this launcher has no
-image frontend: an ``internvl2_2b`` (vlm) request carries no patches, so
-it is refused where the reference's fails, at submission when its text
-plus the 16-row image prefix overflows the context, else at its first
-admission ("the batch has no 'patches'"). Runs on the card unless
-``--device cpu``.
+chunkwise-scan length, 16 at smoke size — and ``whisper_small`` (audio).
+Like the reference's, this launcher has no image or audio frontend: an
+``internvl2_2b`` (vlm) request carries no patches, so it is refused where
+the reference's fails, at submission when its text plus the 16-row image
+prefix overflows the context, else at its first admission ("the batch has
+no 'patches'"); a ``whisper_small`` request carries no frames and is
+refused at its first admission ("the batch has no 'frames'"), where the
+reference's fails. Runs on the card unless ``--device cpu``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --run /tmp/run \\
         --arch qwen3_8b --requests 16 --new-tokens 24 --slots 8 \\

@@ -1,7 +1,6 @@
 """Grouped-query attention: full-sequence prefill, one-token decode against
-contiguous cache rows, and the paged paths (port of
-``repro.models.attention``; ``cross_attention``/``encode_kv`` are not
-ported yet, see ROADMAP.md).
+contiguous cache rows, the paged paths and the encoder-decoder
+cross-attention (port of ``repro.models.attention``).
 
 Public functions keep the reference's einsum layouts: ``wq`` (D,H,dh),
 ``wk``/``wv`` (D,KV,dh), ``wo`` (H,dh,D), caches (B,S,KV,dh), pools
@@ -272,3 +271,30 @@ def chunk_attention(params, x: Tensor, cfg, pool: Tuple[Tensor, Tensor],
     out = kops.chunk_prefill_attention(q.contiguous(), k_pool, v_pool,
                                        start, block_tables)
     return _project_out(params, out, x.dtype), (k_pool, v_pool)
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+def cross_attention(params, x: Tensor, enc_kv: Tuple[Tensor, Tensor],
+                    cfg) -> Tensor:
+    """x: (B, S_dec, D); enc_kv: the precomputed (K, V), each (B, S_enc,
+    KV, dh). No RoPE and no mask (content-based addressing over every
+    frame); ``q_norm`` only with ``qk_norm``. The reference computes it
+    with ``gqa_sdpa`` outside any Pallas kernel, and so does the port."""
+    dt = x.dtype
+    q = _project_in(x, params["wq"])
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+    k, v = enc_kv
+    out = gqa_sdpa(q, k.to(dt), v.to(dt), None,
+                   getattr(torch, cfg.attn_softmax_dtype))
+    return _project_out(params, out, dt)
+
+
+def encode_kv(params, enc_out: Tensor, cfg) -> Tuple[Tensor, Tensor]:
+    """The encoder output (B, S_enc, D) projected once into the
+    cross-attention K/V, each (B, S_enc, KV, dh)."""
+    return _project_in(enc_out, params["wk"]), \
+        _project_in(enc_out, params["wv"])

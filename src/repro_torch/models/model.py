@@ -1,11 +1,12 @@
-"""Model assembly, dense, vlm, moe, hybrid and ssm families, serving paths
-(port of ``repro.models.model``).
+"""Model assembly, every family (dense, vlm, moe, hybrid, ssm, audio),
+serving paths (port of ``repro.models.model``).
 
 Parameters are nested dicts of tensors in the reference's pytree layout —
 ``{"embed": {...}, "blocks": {...}, "final_norm": ...}`` with every
 ``blocks`` leaf stacked on a leading layer dim (the hybrid family's
 Mamba2 leaves and the ssm family's mLSTM leaves on (G, gm, ...), plus the
-hybrid family's plain ``shared_attn`` dict) — so
+hybrid family's plain ``shared_attn`` dict, and the audio family's
+``encoder`` with its own stacked ``blocks``) — so
 weights cross between the packages without transposes
 (``repro_torch.weights``). The reference's ``scan_layers`` over that dim
 is a Python loop here. Methods take the params explicitly, as in the
@@ -22,21 +23,25 @@ prefix, ``_embed_inputs``), moe (DeepSeek-MoE, Qwen3-MoE: the dense
 decoder with ``models.moe.moe_ffn`` for its FFN, each row of every site a
 routing group of that site's width, so capacity drops fall where the
 reference's do), hybrid (Zamba2: Mamba2 groups + one shared attention
-block) and ssm (xLSTM: groups of gm mLSTM layers and one sLSTM layer; its
+block), ssm (xLSTM: groups of gm mLSTM layers and one sLSTM layer; its
 cache holds recurrent state only, so it has no pageable leaves and the
-paged paths take the direct one) families; the speculative span verify
-over the paged cache for the dense, vlm and moe families
-(``speculative_capable``, ``verify_step_paged``, ``fused_verify_step``),
-also over an expert stack; the teacher-forced ``forward`` and ``loss``
-with their gradient for the dense, vlm and moe families (the hybrid and
-ssm families' forward without it). The audio family is not ported yet
-(see ROADMAP.md).
+paged paths take the direct one) and audio (Whisper: a non-causal encoder
+over precomputed frame embeddings, ``_encode_audio``, and a decoder whose
+blocks add cross-attention to the encoder's K/V; those per-layer K/V,
+``xk``/``xv``, are direct per-slot cache leaves, computed once a request)
+families; the speculative span verify over the paged cache for the dense,
+vlm, moe and audio families (``speculative_capable``,
+``verify_step_paged``, ``fused_verify_step``), also over an expert stack;
+the teacher-forced ``forward`` and ``loss`` with their gradient for the
+dense, vlm, moe and audio families (the hybrid and ssm families' forward
+without it).
 
 The serving paths (``prefill``, ``embed_prompt``, ``init_chunk_carry``,
 ``prefill_chunk``, ``decode_step``, ``decode_step_paged``,
 ``verify_step_paged``) also take a
 stack of K experts' parameters (``core.ensemble.stack_experts_for_decode``:
-``blocks`` leaves (L, K, ...), every other leaf (K, ...)) with caches that
+``blocks`` and ``encoder/blocks`` leaves (L, K, ...), every other leaf
+(K, ...)) with caches that
 carry K at axis 1 of every leaf (``init_cache``/``init_paged_cache`` with
 ``experts=K``, ``CacheSpec.shifted(1)``), as the reference's ``jax.vmap``
 over the expert dim does: the same body runs once with K folded into the
@@ -237,11 +242,11 @@ class CacheSpec:
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family not in ("dense", "vlm", "moe", "hybrid", "ssm"):
-            raise ValueError(
-                f"family {cfg.family!r} is not ported to repro_torch yet "
-                f"(see ROADMAP.md)")
+        if cfg.family not in ("dense", "vlm", "moe", "hybrid", "ssm",
+                              "audio"):
+            raise ValueError(f"unknown model family {cfg.family!r}")
         self.cfg = cfg
+        self.audio = cfg.family == "audio"
         self.hybrid = cfg.family == "hybrid"
         self.ssm = cfg.family == "ssm"
         self.vlm = cfg.family == "vlm"
@@ -291,6 +296,12 @@ class Model:
         if self.moe:
             return {"ln1": _norm_spec(D), "attn": attn.attention_specs(cfg),
                     "ln2": _norm_spec(D), "moe": moe_lib.moe_specs(cfg)}
+        if self.audio:                 # decoder block
+            return {"ln1": _norm_spec(D),
+                    "self_attn": attn.attention_specs(cfg),
+                    "ln2": _norm_spec(D),
+                    "cross_attn": attn.attention_specs(cfg),
+                    "ln3": _norm_spec(D), "ffn": swiglu_specs(D, cfg.d_ff)}
         return {"ln1": _norm_spec(D), "attn": attn.attention_specs(cfg),
                 "ln2": _norm_spec(D), "ffn": swiglu_specs(D, cfg.d_ff)}
 
@@ -308,6 +319,16 @@ class Model:
                                 "scaled"),
                 "w2": ParamSpec((D, D), ("embed", None), "scaled"),
             }
+        if self.audio:
+            enc_block = {"ln1": _norm_spec(D),
+                         "attn": attn.attention_specs(cfg),
+                         "ln2": _norm_spec(D),
+                         "ffn": swiglu_specs(D, cfg.d_ff)}
+            specs["encoder"] = {
+                "in_proj": ParamSpec((cfg.audio_dim, D), ("audio", "embed"),
+                                     "scaled"),
+                "blocks": stack_specs(enc_block, cfg.n_enc_layers),
+                "norm": _norm_spec(D)}
         if self.hybrid:
             specs["shared_attn"] = {
                 "ln1": _norm_spec(D), "attn": attn.attention_specs(cfg),
@@ -322,7 +343,9 @@ class Model:
     @property
     def prefix_cacheable(self) -> bool:
         """True when a prompt's pool-resident K/V fully determines its
-        decode state. The recurrent families' (hybrid, ssm) state
+        decode state (the audio family's cross-attention K/V come from the
+        request's frames, whatever its decoder positions, and the cache's
+        key digests the frames). The recurrent families' (hybrid, ssm) state
         accumulates over every prompt position outside the pool, so a
         cached prefix cannot be spliced in."""
         return not (self.hybrid or self.ssm)
@@ -347,8 +370,13 @@ class Model:
         paged layout: attention K/V page through the pool, the recurrent
         states (the hybrid family's SSM and conv states, the ssm family's
         mLSTM memory and its tuple of four sLSTM leaves) stay per slot
-        (seq axis −1). The ssm family thus has no pageable leaf."""
-        if self.hybrid:
+        (seq axis −1), as do the audio family's cross-attention K/V (written
+        once a request, fixed extent). The ssm family has no pageable
+        leaf."""
+        if self.audio:
+            axes = {"k": 1, "v": 1, "xk": 1, "xv": 1}
+            seq = {"k": 2, "v": 2, "xk": -1, "xv": -1}
+        elif self.hybrid:
             axes = {"ssm": 2, "conv": 2, "k": 1, "v": 1}
             seq = {"ssm": -1, "conv": -1, "k": 2, "v": 2}
         elif self.ssm:
@@ -366,9 +394,17 @@ class Model:
         batch, H, N, P) in float32 and conv windows (G, gm, batch, W−1, C)
         in the compute dtype; the ssm family's float32 mLSTM memories (G,
         gm, batch, H, dh, dh+1) and sLSTM (c, n, m, h), each (G, batch, Di);
-        (G, K, ...) for ``experts`` = K; none for the dense family."""
+        the audio family's cross-attention K/V (L, batch, n_audio_frames,
+        KV, dh) in the compute dtype; (G, K, ...) for ``experts`` = K; none
+        for the dense family."""
         lead_g = (self.n_groups, *((experts,) if experts else ()))
         lead = lead_g + (self.group_m,)
+        if self.audio:
+            cfg = self.cfg
+            shape = lead_g + (batch, cfg.n_audio_frames, cfg.n_kv_heads,
+                              cfg.head_dim)
+            return {n: torch.zeros(shape, dtype=cfg.cdtype, device=device)
+                    for n in ("xk", "xv")}
         if self.ssm:
             cfg = self.cfg
             f32 = dict(dtype=torch.float32, device=device)
@@ -424,10 +460,12 @@ class Model:
     # ------------------------------------------------------------------
 
     def _stack(self, params, x: Tensor, attend, recur=None, slstm=None, *,
-               remat: bool = False) -> Tensor:
+               cross=None, remat: bool = False) -> Tensor:
         """Run the layer stack on x and return the final-normed rows.
         ``attend(i, attn_params, h)`` is the attention of layer (or, for
-        the hybrid family, group) i on its normed input h,
+        the hybrid family, group) i on its normed input h (the audio
+        family's self-attention; ``cross(i, attn_params, h)`` its
+        cross-attention to the encoder),
         ``recur(g, m, params, h)`` recurrent layer m of group g (Mamba2,
         or the ssm family's mLSTM) and ``slstm(g, params, h)`` the ssm
         family's sLSTM layer closing group g; each reads and writes its
@@ -454,6 +492,12 @@ class Model:
                     return x + slstm(i, layer["slstm"],
                                      rms_norm(x, layer["s_ln"], eps))
                 layer = shared
+            if self.audio:
+                h = x + attend(i, layer["self_attn"],
+                               rms_norm(x, layer["ln1"], eps))
+                h = h + cross(i, layer["cross_attn"],
+                              rms_norm(h, layer["ln2"], eps))
+                return h + swiglu(layer["ffn"], rms_norm(h, layer["ln3"], eps))
             h = x + attend(i, layer["attn"], rms_norm(x, layer["ln1"], eps))
             y = rms_norm(h, layer["ln2"], eps)
             if self.moe:
@@ -535,6 +579,61 @@ class Model:
         proj = F.gelu(linear(patches, p["w1"]), approximate="tanh")
         return torch.cat([linear(proj, p["w2"]), x], dim=1)
 
+    def _encode_audio(self, params, batch, *, remat: bool = False) -> Tensor:
+        """The audio family's encoder over ``batch["frames"]`` (B, F, Da):
+        ``frames @ in_proj``, then ``n_enc_layers`` blocks of non-causal
+        self-attention (``full_attention(causal=False)``: the flash kernel
+        on the card) and SwiGLU, then the encoder norm → (B, F, D). An
+        expert stack encodes the frames repeated K times, expert-major,
+        (K·B, F, D). ``remat`` recomputes each block in the backward, as
+        ``_stack`` does."""
+        cfg = self.cfg
+        if "frames" not in batch:
+            raise ValueError(
+                f"family 'audio' ({cfg.arch_id}) encodes audio frames: the "
+                f"batch has no 'frames' — submit each request with "
+                f"extras={{'frames': ({cfg.n_audio_frames}, "
+                f"{cfg.audio_dim}) array}}")
+        eps = cfg.norm_eps
+        enc = params["encoder"]
+        frames = batch["frames"].to(cfg.cdtype)
+        K = n_stacked(params)
+        if K:
+            frames = frames.repeat(K, 1, 1)
+        x = linear(frames, enc["in_proj"])
+
+        def block(layer, x):
+            x = x + attn.full_attention(layer["attn"],
+                                        rms_norm(x, layer["ln1"], eps), cfg,
+                                        causal=False)
+            return x + swiglu(layer["ffn"], rms_norm(x, layer["ln2"], eps))
+
+        for i in range(cfg.n_enc_layers):
+            layer = layer_slice(enc["blocks"], i)
+            x = checkpoint(block, layer, x, use_reentrant=False) if remat \
+                else block(layer, x)
+        return rms_norm(x, enc["norm"], eps)
+
+    def _cross_kv(self, params, enc_out: Tensor) -> Dict[str, Tensor]:
+        """Every decoder layer's cross-attention K/V of ``enc_out``: the
+        cache leaves ``xk``, ``xv`` (L, B, F, KV, dh), (L, K, B, ...) for an
+        expert stack."""
+        K = n_stacked(params)
+        kvs = [attn.encode_kv(layer_slice(params["blocks"], i)["cross_attn"],
+                              enc_out, self.cfg)
+               for i in range(self.n_groups)]
+        return {"xk": _unfold(torch.stack([k for k, _ in kvs]), K, 1),
+                "xv": _unfold(torch.stack([v for _, v in kvs]), K, 1)}
+
+    def _cross_from(self, leaves, K: int):
+        """``cross`` of ``_stack`` over the ``xk``/``xv`` leaves of a cache
+        or chunk carry (None for a family without an encoder)."""
+        if not self.audio:
+            return None
+        cfg = self.cfg
+        return lambda i, p, h: attn.cross_attention(
+            p, h, (_kv(leaves["xk"], i, K), _kv(leaves["xv"], i, K)), cfg)
+
     # ------------------------------------------------------------------
     # Teacher-forced forward (training / eval)
     # ------------------------------------------------------------------
@@ -542,7 +641,8 @@ class Model:
     def forward(self, params, batch) -> Tensor:
         """Teacher-forced logits (B, S, V) float32 of ``batch["tokens"]``
         (behind the image prefix for the vlm family: S = n_patches +
-        tokens).
+        tokens; the audio family's decoder cross-attends to the encoding of
+        ``batch["frames"]``, and the gradient flows through both).
 
         Attention always goes through the kernel seam (``kernels.ops``):
         the CUDA kernels on the card, with the flash backward under
@@ -560,13 +660,21 @@ class Model:
         if training and cfg.remat not in ("full", "none"):
             raise ValueError(f"remat={cfg.remat!r} is not ported to "
                              f"repro_torch yet (see ROADMAP.md)")
+        remat = training and cfg.remat == "full"
+        cross = None
+        if self.audio:
+            enc_out = self._encode_audio(params, batch, remat=remat)
+
+            def cross(i, p, h):
+                return attn.cross_attention(
+                    p, h, attn.encode_kv(p, enc_out, cfg), cfg)
         block = ssm_lib.mlstm_block if self.ssm else ssm_lib.mamba2_block
         x = self._stack(
             params, self._embed_inputs(params, batch),
             lambda i, p, h: attn.full_attention(p, h, cfg),
             lambda g, m, p, h: block(p, h, cfg),
             lambda g, p, h: ssm_lib.slstm_scan(p, h, cfg)[0],
-            remat=training and cfg.remat == "full")
+            cross=cross, remat=remat)
         return unembed(params["embed"], x, cfg.tie_embeddings, cfg.vocab)
 
     def loss(self, params, batch):
@@ -592,7 +700,9 @@ class Model:
         S_kv, or, windowed, its last S_kv positions in the ring layout
         (slot = pos % S_kv); the hybrid family adds each Mamba2 layer's
         SSM state and conv window after the prompt; the ssm family's cache
-        is its mLSTM memories and sLSTM states after the prompt. An expert
+        is its mLSTM memories and sLSTM states after the prompt; the audio
+        family adds every layer's cross-attention K/V of the request's
+        frames, ``xk``/``xv`` (L, B, F, KV, dh). An expert
         stack gives logits (K,B,S,V) and K at axis 1 of every cache
         leaf."""
         cfg = self.cfg
@@ -628,7 +738,10 @@ class Model:
             s_states.append(st)
             return y
 
-        x = self._stack(params, x, attend, recur, slstm)
+        xkv = self._cross_kv(params, self._encode_audio(params, batch)) \
+            if self.audio else {}
+        x = self._stack(params, x, attend, recur, slstm,
+                        cross=self._cross_from(xkv, K))
         logits = unembed(params["embed"], x, cfg.tie_embeddings, cfg.vocab)
         cache = {}
         if states:
@@ -644,7 +757,7 @@ class Model:
             return _unfold(logits, K, 0), cache
         cache["k"] = _unfold(torch.stack(ks), K, 1)
         cache["v"] = _unfold(torch.stack(vs), K, 1)
-        return _unfold(logits, K, 0), cache
+        return _unfold(logits, K, 0), {**cache, **xkv}
 
     # ------------------------------------------------------------------
     # Chunked prefill
@@ -662,8 +775,15 @@ class Model:
         mLSTM memories, zeroed, and sLSTM states with m at −1e30 (K at
         axis 1 for an expert stack). Attention K/V chunks write straight
         into the pool, so their entries are placeholders, as in the
-        reference."""
+        reference. The audio family's carry holds the request's
+        cross-attention K/V: its encoder runs here, once a request, not once
+        a chunk."""
         dev = params["final_norm"].device
+        if self.audio:
+            dummy = torch.zeros((1,), dtype=self.cfg.cdtype, device=dev)
+            return {"k": dummy, "v": dummy,
+                    **self._cross_kv(params,
+                                     self._encode_audio(params, batch))}
         carry = self._direct_leaves(1, dev, n_stacked(params))
         if self.ssm:
             c, n, m, h = carry["slstm"]
@@ -714,7 +834,8 @@ class Model:
             recur = self._recur_in_place(
                 carry, K,
                 lambda p, h, st: ssm_lib.mamba2_chunk(p, h, cfg, st, length))
-        x = self._stack(params, x, attend, *recur)
+        x = self._stack(params, x, attend, *recur,
+                        cross=self._cross_from(carry, K))
         h_last = x[:, length - 1:length]
         logits = unembed(params["embed"], h_last, cfg.tie_embeddings,
                          cfg.vocab)
@@ -737,7 +858,7 @@ class Model:
             params, x,
             lambda i, p, h: attend(i, p, h, _kv(cache["k"], i, K),
                                    _kv(cache["v"], i, K), pos)[0],
-            *self._step_recur(cache, K))
+            *self._step_recur(cache, K), cross=self._cross_from(cache, K))
         logits = unembed(params["embed"], x, cfg.tie_embeddings, cfg.vocab)
         return _unfold(logits[:, 0], K, 0), cache
 
@@ -802,7 +923,8 @@ class Model:
                 pos, tables)
             return a
 
-        x = self._stack(params, x, attend)
+        x = self._stack(params, x, attend,
+                        cross=self._cross_from(cache, K))
         logits = unembed(params["embed"], x, cfg.tie_embeddings, cfg.vocab)
         return _unfold(logits, K, 0), cache
 

@@ -3,11 +3,8 @@
 the streamed ``TokenDelta``/``RequestOutput``.
 
 ``validate()`` keeps the reference's dependency checks, in its order and
-with its messages, and adds one rule: an option this port has not reached
-(the audio family) raises a single ``ValueError`` of the form "<option>
-is not ported to repro_torch yet (see ROADMAP.md)" — it never quietly
-takes another path. ``qos`` takes the port's ``QoSConfig``
-(``serve.qos``).
+with its messages; every family is served. ``qos`` takes the port's
+``QoSConfig`` (``serve.qos``).
 """
 from __future__ import annotations
 
@@ -21,18 +18,13 @@ from repro_torch.tree import flat_leaves
 
 __all__ = ["EngineConfig", "QoSConfig", "RequestOutput", "SamplingParams",
            "TokenDelta", "FINISH_REASONS", "STOP_PAD", "effective_page_block",
-           "not_ported", "stop_id_row"]
+           "stop_id_row"]
 
 #: Pad value of the per-slot stop-id matrix (token ids are non-negative).
 STOP_PAD = -1
 
 #: The closed set of reasons a request can finish with.
 FINISH_REASONS = ("length", "stop", "aborted", "truncated", "rejected")
-
-
-def not_ported(option: str) -> ValueError:
-    return ValueError(
-        f"{option} is not ported to repro_torch yet (see ROADMAP.md)")
 
 
 @dataclass(frozen=True)
@@ -96,8 +88,8 @@ def stop_id_row(params: SamplingParams, width: int) -> np.ndarray:
 class EngineConfig:
     """Engine deployment knobs (the reference's fields and defaults; the
     reference's ``use_kernel`` is gone — the port dispatches kernels on the
-    tensors' device) and the ONE place their dependency matrix and the
-    port's not-yet-ported options are enforced."""
+    tensors' device) and the ONE place their dependency matrix is
+    enforced."""
 
     n_slots: int = 8
     cache_len: int = 128
@@ -120,9 +112,8 @@ class EngineConfig:
     strategy: str = "top1"
 
     def validate(self, model=None) -> None:
-        """Raise ``ValueError`` on an inconsistent configuration or an
-        option not ported yet. Pass the model to also run the
-        model-dependent checks."""
+        """Raise ``ValueError`` on an inconsistent configuration. Pass the
+        model to also run the model-dependent checks."""
         if self.n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {self.n_slots}")
         if self.cache_len < 2:
@@ -217,8 +208,6 @@ class EngineConfig:
 
     def _validate_model(self, model) -> None:
         cfg = model.cfg
-        if cfg.family not in ("dense", "vlm", "moe", "hybrid", "ssm"):
-            raise not_ported(f"family {cfg.family!r}")
         eff_block = effective_page_block(
             model, self.page_block if self.paged else 0)
         if self.preemption != "off":

@@ -132,7 +132,7 @@ class Request:
     features: Optional[np.ndarray] = None   # frozen-encoder routing features
     extras: Dict[str, np.ndarray] = field(default_factory=dict)
     #                             # unbatched modality inputs: "patches"
-    #                             # (vlm)
+    #                             # (vlm), "frames" (audio)
     params: Optional[SamplingParams] = None
     out: List[int] = field(default_factory=list)
     finish_reason: Optional[str] = None
@@ -458,7 +458,8 @@ class _SlotTable:
                     features: Optional[np.ndarray] = None,
                     rid: Optional[int] = None) -> int:
         """Submit a prompt (token ids) with its modality ``extras`` (a vlm
-        request's ``"patches"``, (n_patches, vision_dim)) — or a prebuilt
+        request's ``"patches"``, (n_patches, vision_dim); an audio
+        request's ``"frames"``, (n_audio_frames, audio_dim)) — or a prebuilt
         ``Request`` — to the waiting queue and return its rid. Never
         dispatches device work. A request no capacity could ever admit
         raises ValueError here; one admission control sheds retires with

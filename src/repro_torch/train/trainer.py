@@ -25,7 +25,7 @@ from repro_torch.optim.adamw import AdamWConfig, apply_updates, init_state
 from repro_torch.tree import tree_from_leaves, tree_leaves, tree_map
 
 Tensor = torch.Tensor
-BATCH_KEYS = ("tokens", "labels", "patches", "loss_mask")
+BATCH_KEYS = ("tokens", "labels", "patches", "frames", "loss_mask")
 
 
 @dataclass(frozen=True)

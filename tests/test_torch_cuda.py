@@ -801,10 +801,11 @@ def test_flash_attention_gradient_on_card(cuda, remat):
 # InternVL2-2B (H 16, KV 8), Phi-3-medium (H 40, KV 10), Llama-3-405B
 # (H 128, KV 8), all at dh 128, and the Phi and Llama smoke configs'
 # dh 40 and 64; then the moe configs': DeepSeek-MoE-16B's MHA (16/16) and
-# Qwen3-MoE-235B-A22B's 64/4, dh 128
+# Qwen3-MoE-235B-A22B's 64/4, dh 128; then Whisper-small's MHA, 12/12 at
+# dh 64
 
 NEW_HEADS = [(16, 8, 128), (40, 10, 128), (128, 8, 128), (4, 2, 40),
-             (4, 2, 64), (16, 16, 128), (64, 4, 128)]
+             (4, 2, 64), (16, 16, 128), (64, 4, 128), (12, 12, 64)]
 
 
 @pytest.mark.gpu
@@ -1178,3 +1179,78 @@ def test_serve_engine_generates_as_on_the_cpu(cuda, arch):
     for a, b in zip(out[0][:3], out[1][:3]):
         assert torch.equal(a, b)
     torch.testing.assert_close(out[1][3], out[0][3], rtol=1e-4, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5),
+                                       (torch.bfloat16, BF16_TOL)])
+def test_flash_at_whisper_encoder_shape_on_card(cuda, dtype, tol):
+    """The audio encoder's flash forward, non-causal and causal, and its
+    backward, non-causal, at one request's frames: S = 1500 (not a whole
+    number of tiles), 12/12 heads of dh 64, against the plain versions in
+    float32 on the same values."""
+    rng = np.random.default_rng(19)
+    q, do = (torch.as_tensor(f32(rng, 1, 1500, 12, 64), device=cuda)
+             .to(dtype) for _ in range(2))
+    k, v = (torch.as_tensor(f32(rng, 1, 1500, 12, 64), device=cuda)
+            .to(dtype) for _ in range(2))
+
+    def close(got, want):
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+    for causal in (False, True):
+        out, lse = fk.flash_attention_with_lse(q, k, v, causal=causal)
+        want, want_lse = fk.flash_attention_with_lse_ref(*up(q, k, v),
+                                                         causal=causal)
+        close(out, want)
+        close(lse, want_lse)
+    out, lse = fk.flash_attention_with_lse(q, k, v, causal=False)
+    got = fbk.flash_attention_bwd(q, k, v, out, lse, do, causal=False)
+    want = fbk.flash_attention_bwd_ref(*up(q, k, v, out), lse, do.float(),
+                                       causal=False)
+    for g, w in zip(got, want):
+        close(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy,speculative", [("top1", None),
+                                                  ("mixture", "expert")])
+def test_audio_serves_as_on_the_cpu(cuda, strategy, speculative):
+    """The smoke-size float32 audio family (``whisper_small``: an encoder
+    over each request's 32 frames, cross-attention in every decoder
+    layer), 2 experts, paged + chunked, top-1 and the mixture with expert
+    drafting: the card gives the CPU's tokens and finish reasons."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.router import CentroidRouter, RouterConfig
+    from repro_torch.models import build_model
+    from repro_torch.serve.api import EngineConfig, SamplingParams
+    from repro_torch.serve.scheduler import make_engine
+
+    cfg = get_smoke_config("whisper_small")
+    model = build_model(cfg)
+    experts = [model.init(torch.Generator().manual_seed(k)) for k in range(2)]
+    rng = np.random.default_rng(3)
+    router = CentroidRouter(torch.as_tensor(f32(rng, 2, 16)),
+                            RouterConfig(top_k=2))
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (5, 19, 30, 8)]
+    frames = [f32(rng, cfg.n_audio_frames, cfg.audio_dim) for _ in prompts]
+    feats = f32(rng, 4, 16)
+    ecfg = EngineConfig(n_slots=2, cache_len=48, paged=True, page_block=8,
+                        chunked_prefill=True, chunk=8, strategy=strategy,
+                        speculative=speculative, spec_len=4)
+    res = []
+    for dev in ("cpu", "cuda"):
+        eng = make_engine(model, experts=experts, router=router, config=ecfg,
+                          device=dev)
+        for i, p in enumerate(prompts):
+            eng.add_request(p, SamplingParams(max_new=10),
+                            {"frames": frames[i]}, features=feats[i], rid=i)
+        out = {}
+        while eng.has_unfinished():
+            for o in eng.step():
+                if o.finished:
+                    out[o.rid] = (o.token_ids, o.finish_reason)
+        res.append(out)
+    assert res[0] == res[1] and len(res[1]) == 4

@@ -12,7 +12,6 @@ monolithic paths are held against the reference in
 import dataclasses
 import json
 import re
-import types
 
 import numpy as np
 import pytest
@@ -103,17 +102,18 @@ def test_top1_slice_matches_reference_token_for_token(deployment):
     assert {"stop", "length", "truncated"} <= reasons
 
 
-@pytest.mark.parametrize("override,option", [
-    (dict(family="audio"), "family 'audio'"),
-])
-def test_validate_refuses_unported_options(override, option):
-    """A model of a family the port has not reached (its config alone: the
-    port's ``Model`` refuses to build one) is refused by ``validate``."""
-    cfg = dataclasses.replace(get_smoke_config("qwen3_8b"), **override)
-    with pytest.raises(ValueError) as e:
-        EngineConfig(**ECFG).validate(types.SimpleNamespace(cfg=cfg))
-    assert str(e.value) == \
-        f"{option} is not ported to repro_torch yet (see ROADMAP.md)"
+@pytest.mark.parametrize("arch", ["qwen3_8b", "internvl2_2b",
+                                  "deepseek_moe_16b", "zamba2_2_7b",
+                                  "xlstm_125m", "whisper_small"])
+def test_validate_refuses_unported_options(arch):
+    """No family is refused any more: ``validate`` accepts each of the six
+    families' smoke configs (dense, vlm, moe, hybrid, ssm, audio) in the
+    paged + chunked config, as the reference's does (the recurrent
+    families' chunk a multiple of their scan's)."""
+    cfg = get_smoke_config(arch)
+    ecfg = dict(ECFG, chunk=16) if cfg.family in ("hybrid", "ssm") else ECFG
+    japi.EngineConfig(**ecfg).validate(jax_build(jax_smoke(arch)))
+    EngineConfig(**ecfg).validate(build_model(cfg))
 
 
 # each override takes the package's QoSConfig; window is the model's
@@ -195,12 +195,21 @@ def test_validate_dependency_errors_match_reference(override, window):
 
 
 def test_validate_refuses_other_families_and_sampling():
-    """Families not ported are refused; seeded sampling is served, and the
-    sampling controls the reference refuses (a negative top_k) are
-    refused with its message."""
-    cfg = get_smoke_config("qwen3_8b")
-    with pytest.raises(ValueError, match="family 'audio' is not ported"):
-        build_model(dataclasses.replace(cfg, family="audio"))
+    """``build_model`` builds the audio family (``whisper_small``'s smoke
+    config), hybrid training is still refused; seeded sampling is served,
+    and the sampling controls the reference refuses (a negative top_k)
+    are refused with its message."""
+    model = build_model(get_smoke_config("whisper_small"))
+    assert model.audio and model.speculative_capable \
+        and model.prefix_cacheable
+    hybrid = build_model(get_smoke_config("zamba2_2_7b"))
+    params = hybrid.init(torch.Generator().manual_seed(0))
+    for leaf in params["final_norm"], params["embed"]["embedding"]:
+        leaf.requires_grad_()
+    with pytest.raises(ValueError, match="training family 'hybrid' is not "
+                                         "ported"):
+        hybrid.forward(params, {"tokens": torch.zeros((1, 4),
+                                                      dtype=torch.long)})
     sp = SamplingParams(temperature=0.7, top_k=5, seed=-3)
     assert (sp.temperature, sp.top_k, sp.seed) == (0.7, 5, -3)
     with pytest.raises(ValueError) as want:
