@@ -75,7 +75,10 @@ Phases, each fatal on failure:
    (``_audio_kernel_cases``: 12/12 heads of dh 64; the five serving
    attention kernels at 8 slots over 448 positions, and the encoder's
    flash forward, non-causal and causal, and its backward, non-causal,
-   at S = 1500), both dtypes, each with device ms and bound;
+   at S = 1500), both dtypes, each with device ms and bound; and the
+   flash forward and backward at the hybrid training path's shape
+   (``_hybrid_training_kernel_cases``: Zamba2's 32/32 heads of dh 80, S =
+   4096, causal, bf16), each with device ms and bound;
 3a. theory — the paper's §4 theory in float64 on the card
    (``phase_theory``): the walkthrough twin, then the reference tests'
    grids (``THEORY_DFM_GRID``, ``THEORY_SPLIT_GRID``); every CE
@@ -272,9 +275,10 @@ Phases, each fatal on failure:
    same params: losses, grad norms and lrs, and params, m and v after the
    third step, within ``TRAIN_PARITY``'s tolerances; then one step's loss
    and gradients of the smoke-size InternVL2-2B (the projector's among
-   them) and Granite-3-8B (the tied table's) on the card and on the CPU,
-   each against the CPU's float64 gradient, within
-   ``TRAIN_STEP_PARITY``;
+   them), Granite-3-8B (the tied table's), Zamba2-2.7B (the shared
+   block's, the Mamba2 scans in their training form) and xLSTM-125M (the
+   sLSTM's) on the card and on the CPU, each against the CPU's float64
+   gradient, within ``TRAIN_STEP_PARITY``;
 12. training path — full-width Qwen3-8B cut to 8 layers (bf16, remat
    "full"), 2 experts on the launcher's k-means partition, 8 steps each
    of one 4096-token sequence, through ``train_host_loop``; prints each
@@ -282,16 +286,32 @@ Phases, each fatal on failure:
    and the launches; fails on a non-finite loss, a last loss not below
    the first, a parameter leaf whose step-1 gradient is missing or zero
    (its m after step 1 has no nonzero element), or launch counts other
-   than layers x steps x experts (backward) and twice that (forward, run
-   again by the recomputation); then the same for DeepSeek-MoE-16B cut to
-   4 layers (its dropped share printed) and for Whisper-small whole (4
-   steps of 8 sequences of 448 tokens and their frames; the encoder's 12
-   layers count among the layers);
+   than layers with attention x steps x experts (backward) and twice that
+   (forward, run again by the recomputation), or any chunk-scan launch;
+   then the same for DeepSeek-MoE-16B cut to 4 layers (its dropped share
+   printed), for Whisper-small whole (4 steps of 8 sequences of 448
+   tokens and their frames; the encoder's 12 layers count among the
+   layers), for Zamba2-2.7B whole (4 steps; its 9 shared-block
+   applications are its layers with attention: 72 backward and 144
+   forward flash launches) and for xLSTM-125M whole (4 steps of 2048
+   tokens, its training context; no flash launch; expert 0's final state
+   written with ``checkpoint/ckpt.py`` and restored bit for bit, its bytes
+   and seconds printed); the hybrid and
+   ssm scans take their training form, so no chunk-scan launch;
 13. float32 gradients — full-width Qwen3-8B, 2 layers, in float32 on one
    1024-token sequence: the gradient of ``Model.loss`` through the kernel
    path (flash forward and backward kernels) against autograd through the
    plain attention on the card, each leaf within ``F32_GRAD_TOL`` of its
    largest element;
+13a. remat — full-width Qwen3-8B cut to ``REMAT_LAYERS`` layers (bf16,
+   one ``REMAT_SEQ``-token sequence), one step's loss and gradients from
+   the same params under remat "none", "full" and "dots": equal losses,
+   gradients within the bf16 tolerance of "none"'s, and peak GiB above
+   the state ordered full < dots < none (``phase_remat``);
+13b. examples — the end-to-end example twins on the card, each a
+   subprocess that must exit 0: ``train_decentralized`` (xLSTM-125M at
+   the launchers' smoke size, ``EXAMPLE_STEPS`` steps), ``serve_ensemble``
+   on its run, ``quickstart`` (``phase_examples``);
 14. moe launches — ``torch.profiler``'s count of the card's kernels in
    one ``moe_ffn`` call (decode rows, a chunk) and in one DeepSeek-MoE-16B
    decode layer (a paged decode step at 2 layers less one at 1), run last
@@ -426,6 +446,13 @@ TRAIN_PARITY = {"metrics_rtol": 1e-4, "params_of_lr": 0.1,
 # same float32 products in another order; each leaf is held at this
 # fraction of its largest element
 F32_GRAD_TOL = 1e-3
+# the remat phase: full-width Qwen3-8B at this depth, one sequence of this
+# length, under each remat policy
+REMAT_LAYERS = 2
+REMAT_SEQ = 4096
+# steps of each expert in the examples phase's train_decentralized run
+EXAMPLE_STEPS = 20
+EXAMPLE_TIMEOUT = 300     # seconds an example twin may take
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd")
 # the libraries whose bf16 kernels run on the tensor cores (wgmma)
 TENSOR_CORE_LIBS = ("decode_attention", "flash_attention",
@@ -1884,6 +1911,7 @@ def phase_kernels():
     _new_config_kernel_cases(cases, rec, gen, MOE_HEADS, (),
                              MOE_CACHE_LEN)
     _audio_kernel_cases(cases, rec, gen)
+    _hybrid_training_kernel_cases(cases, rec, gen)
     _prefix_kernel_cases(cases, gen)
     torch.cuda.synchronize()
 
@@ -3592,6 +3620,11 @@ QWEN3_F32_LOGIT_DIFF = 9.8e-5
 # 2.0e-4 from a float64 gradient at 16), while a fault in a gradient puts
 # it O(1) away; the ratio holds the card to the CPU's own rounding
 TRAIN_STEP_PARITY = {"loss_rtol": 1e-4, "grad_vs_cpu": 4.0}
+# (config, a leaf whose gradient must be nonzero) of the one-step parity
+TRAIN_STEP_PARITY_KEYS = ((VLM_ARCH, "projector/w1"),
+                          ("granite_3_8b", "embed/embedding"),
+                          ("zamba2_2_7b", "shared_attn/attn/wq"),
+                          (SSM_ARCH, "blocks/slstm/r_gates"))
 
 
 def phase_vlm_paths():
@@ -3739,12 +3772,16 @@ def phase_dense_config_path(arch):
 
 
 def phase_train_step_parity():
-    """One smoke-size training step's loss and gradients for
-    ``internvl2_2b`` (the projector's gradient among them) and
-    ``granite_3_8b`` (the tied table's summed gradient among them), from
-    the same params and batch: float32 on the card (flash forward and
-    backward kernels) and on the CPU (plain versions), each held against
-    the CPU's float64 gradient within ``TRAIN_STEP_PARITY``."""
+    """One smoke-size training step's loss and gradients of each config of
+    ``TRAIN_STEP_PARITY_KEYS`` (its key leaf's gradient printed on its
+    own): ``internvl2_2b`` (the projector's), ``granite_3_8b`` (the tied
+    table's summed gradient), ``zamba2_2_7b`` (the shared block's, summed
+    over its groups; the Mamba2 scans in their training form) and
+    ``xlstm_125m`` (the sLSTM's recurrent gates, through its per-position
+    loop), from the same params and batch: float32 on the card (flash
+    forward and backward kernels) and on the CPU (plain versions), each
+    held against the CPU's float64 gradient within
+    ``TRAIN_STEP_PARITY``."""
     import numpy as np
     import torch
     from repro_torch.configs import get_smoke_config
@@ -3765,8 +3802,7 @@ def phase_train_step_parity():
                    for n, w in want.items())
 
     tol = TRAIN_STEP_PARITY
-    for arch, key in ((VLM_ARCH, "projector/w1"),
-                      ("granite_3_8b", "embed/embedding")):
+    for arch, key in TRAIN_STEP_PARITY_KEYS:
         cfg = get_smoke_config(arch)
         model = build_model(cfg)
         params = model.init(torch.Generator().manual_seed(3))
@@ -4144,7 +4180,11 @@ def phase_train_path(arch="qwen3_8b"):
     training path, which also prints the dropped share of its (token,
     choice) pairs; Whisper-small whole, 4 steps of 8 sequences of 448
     tokens and their frames, the flash kernels launched by the encoder
-    too). Returns the kernels' launches."""
+    too; Zamba2-2.7B whole, 4 steps of 4096 tokens, and xLSTM-125M whole,
+    4 steps of 2048, their scans in the training form, so no chunk-scan
+    launch; xLSTM's expert 0
+    also writes its final state with ``checkpoint/ckpt.py``, which must
+    restore bit for bit). Returns the kernels' launches."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
@@ -4183,6 +4223,8 @@ def phase_train_path(arch="qwen3_8b"):
                     bad.append(f"expert {k}: step-1 gradient of {path} is "
                                f"zero or not finite")
         hist, walls = _train_expert(tp, k, state, first_step_grads)
+        if arch == SSM_ARCH and k == 0:
+            bad += _checkpoint_round_trip(label, tp, state)
         losses = [h["loss"] for h in hist]
         med = float(np.median(walls))
         experts.append({
@@ -4202,14 +4244,19 @@ def phase_train_path(arch="qwen3_8b"):
         del state, first_step_grads
         torch.cuda.empty_cache()
     launches = {n: fn.launches for n, fn in ops.KERNELS.items()}
-    # the attention layers: the audio family's encoder's too
-    want_bwd = (cfg.n_layers + cfg.n_enc_layers) * tp.steps \
-        * tp.args.experts
+    # the layers with attention: the audio family's encoder's too, one a
+    # group for the hybrid family (the shared block), none for the ssm one
+    attention_layers = {"hybrid": tp.model.n_groups, "ssm": 0}.get(
+        cfg.family, cfg.n_layers + cfg.n_enc_layers)
+    want_bwd = attention_layers * tp.steps * tp.args.experts
     if launches["flash_attention_bwd"] != want_bwd \
             or launches["flash_attention"] != 2 * want_bwd:
         bad.append(f"launches {launches}: want {want_bwd} backward and "
-                   f"{2 * want_bwd} forward (layers x steps x experts, the "
-                   f"forward twice under remat)")
+                   f"{2 * want_bwd} forward (layers with attention x steps "
+                   f"x experts, the forward twice under remat)")
+    if launches["chunk_scan"]:
+        bad.append(f"{launches['chunk_scan']} chunk-scan launches: training "
+                   f"takes the scan's training form")
     stats = {"experts": experts,
              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
              "launches": launches}
@@ -4223,6 +4270,165 @@ def phase_train_path(arch="qwen3_8b"):
     if bad:
         raise AssertionError(f"{label}: " + "; ".join(bad))
     return launches
+
+
+def _checkpoint_round_trip(label, tp, state):
+    """Write ``state`` (expert 0's after its last step) with
+    ``checkpoint/ckpt.py`` into a directory under the ignored ``build/``,
+    restore it and compare every leaf bit for bit; print the file's bytes
+    and the seconds of each way. Returns the failures."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.tree import tree_leaves
+    from repro_torch.weights import from_tree
+
+    (HERE / "build").mkdir(exist_ok=True)
+    base = tempfile.mkdtemp(dir=HERE / "build", prefix="ckpt_")
+    try:
+        t0 = time.perf_counter()
+        path = ckpt.save_expert(base, 0, tp.steps, state)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, step = ckpt.restore_expert(base, 0)
+        back = from_tree(back)
+        t_load = time.perf_counter() - t0
+        size = Path(path).stat().st_size
+    finally:
+        shutil.rmtree(base)
+    want = dict(tree_leaves(state))
+    got = dict(tree_leaves(back))
+    bad = [] if step == tp.steps and sorted(got) == sorted(want) else \
+        [f"checkpoint: step {step} or leaves differ"]
+    bad += [f"checkpoint leaf {n} is not restored bit for bit"
+            for n, w in want.items() if n in got and not (
+                got[n].dtype == w.dtype and got[n].shape == w.shape
+                and torch.equal(got[n], w.cpu()))]
+    log(f"{label}: expert 0's final state ({len(want)} leaves, "
+        f"{sum(w.numel() for w in want.values())} elements) written with "
+        f"checkpoint/ckpt.py: {size} bytes in {t_save:.2f} s, restored in "
+        f"{t_load:.2f} s, {'bit for bit' if not bad else 'NOT EQUAL'}")
+    return bad
+
+
+def phase_remat():
+    """``remat`` "none", "full" and "dots" on one step of full-width
+    Qwen3-8B cut to ``REMAT_LAYERS`` layers (bf16, one ``REMAT_SEQ``-token
+    sequence), from the same params and batch: the loss and every
+    gradient leaf, and the peak GiB the step allocates above the state it
+    starts from. Losses must be equal, each leaf of "full" and "dots"
+    within the bf16 tolerance (``TOL``) of "none"'s largest element, and
+    the peaks must order full < dots < none: "dots" keeps each layer's
+    matrix products with no batch dims (``aten.mm``), "full" none of its
+    activations, "none" all of them."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train_path
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_from_leaves, tree_leaves
+
+    cfg = get_config(train_path.ARCH).reduced(n_layers=REMAT_LAYERS)
+    params = build_model(cfg).init(torch.Generator(device="cuda")
+                                   .manual_seed(8))
+    toks = torch.as_tensor(np.random.default_rng(9).integers(
+        0, cfg.vocab, (1, REMAT_SEQ)), device="cuda")
+    batch = {"tokens": toks, "labels": toks}
+    paths, leaves = zip(*tree_leaves(params))
+    runs = {}
+    for remat in ("none", "full", "dots"):
+        model = build_model(cfg.reduced(remat=remat))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        live = [p.detach().requires_grad_() for p in leaves]
+        loss, _ = model.loss(tree_from_leaves(paths, live), batch)
+        grads = torch.autograd.grad(loss, live)
+        torch.cuda.synchronize()
+        runs[remat] = {
+            "loss": loss.item(), "grads": grads,
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+            "flash_forward": ops.KERNELS["flash_attention"].launches,
+            "flash_backward": ops.KERNELS["flash_attention_bwd"].launches}
+        del live, loss
+    worst = {}
+    for remat in ("full", "dots"):
+        worst[remat] = max(
+            ((a.float() - b.float()).abs().max()
+             / b.float().abs().max()).item()
+            for a, b in zip(runs[remat]["grads"], runs["none"]["grads"]))
+    log(f"remat: full-width {cfg.arch_id} cut to {cfg.n_layers} layers, "
+        f"bf16, one {REMAT_SEQ}-token sequence: " + json.dumps({
+            r: {k: v for k, v in run.items() if k != "grads"}
+            for r, run in runs.items()})
+        + f"; worst gradient leaf against none's, of its largest element: "
+          f"full {worst['full']:.3e}, dots {worst['dots']:.3e} (tolerance "
+          f"{TOL['bfloat16']})")
+    peaks = [runs[r]["peak_gib"] for r in ("full", "dots", "none")]
+    if len({run["loss"] for run in runs.values()}) != 1 \
+            or max(worst.values()) > TOL["bfloat16"] \
+            or not peaks[0] < peaks[1] < peaks[2]:
+        raise AssertionError(f"remat: losses, gradients or peaks off: "
+                             f"worst {worst}, peaks full/dots/none {peaks}")
+
+
+def phase_examples():
+    """The end-to-end example twins on the card, each a subprocess that
+    must exit 0: ``train_decentralized --steps EXAMPLE_STEPS`` (xLSTM-125M
+    at the launchers' smoke size, 2 experts) into a directory under the
+    ignored ``build/``, ``serve_ensemble`` on that run, then
+    ``quickstart``. Prints each one's seconds and the last lines of its
+    output."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    (HERE / "build").mkdir(exist_ok=True)
+    run = tempfile.mkdtemp(dir=HERE / "build", prefix="example_run_")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    try:
+        for name, args in (
+                ("train_decentralized", ["--steps", str(EXAMPLE_STEPS),
+                                         "--out", run]),
+                ("serve_ensemble", ["--run", run]),
+                ("quickstart", [])):
+            t0 = time.perf_counter()
+            # its own process group: the twins start the launchers as
+            # their own subprocesses, and a timeout ends them all
+            proc = subprocess.Popen(
+                [sys.executable, "-m", f"repro_torch.examples.{name}",
+                 *args, "--device", "cuda"], env=env, cwd=str(HERE),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                start_new_session=True)
+            try:
+                out, _ = proc.communicate(timeout=EXAMPLE_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+                raise AssertionError(f"examples: {name} ran past "
+                                     f"{EXAMPLE_TIMEOUT} s")
+            tail = out.strip().splitlines()[-4:]
+            log(f"examples: {name} exited {proc.returncode} in "
+                f"{time.perf_counter() - t0:.1f} s; last lines: "
+                + " | ".join(tail))
+            if proc.returncode:
+                raise AssertionError(
+                    f"examples: {name} exited {proc.returncode}:\n"
+                    + out[-4000:])
+        with open(f"{run}/train_summary.json") as f:
+            summary = json.load(f)
+        log("examples: train_decentralized's experts " + json.dumps(
+            summary["experts"]))
+    finally:
+        shutil.rmtree(run)
 
 
 def phase_train_float32_gradients():
@@ -4440,6 +4646,47 @@ def _audio_kernel_cases(cases, rec, gen):
                     f"{c['dtype']}): max abs err {c['max_abs_err']:.3e}, "
                     f"device ms {c['device_ms']}, bound "
                     f"{c['bound_ms']:.4f} by {c['bound_by']}")
+
+
+def _hybrid_training_kernel_cases(cases, rec, gen):
+    """The flash forward and backward at the hybrid training path's shape
+    (Zamba2-2.7B's shared block: H = KV = 32, dh = 80, B = 1, S = 4096,
+    causal, bf16), each against its plain version run in float32 on the
+    same values, timed beside its bound (``new_config_shapes``)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import flash_attention_bwd as fbk
+
+    config, S, H, dh, name = "zamba2_2_7b", 4096, 32, 80, "bfloat16"
+    q, k, v = _flash_case(1, S, H, H, dh, torch.bfloat16, gen)
+    shape = f"B=1 S={S} H={H} KV={H} dh={dh} causal (training)"
+    pairs = S * (S + 1) // 2
+    want, want_lse = fk.flash_attention_with_lse_ref(*_up(q, k, v))
+    compare("flash_attention", fk.flash_attention_with_lse(q, k, v)[1],
+            want_lse, name, cases)
+    _new_shape_case(cases, rec, "flash_attention", config, shape, name,
+                    lambda: fk.flash_attention_with_lse(q, k, v)[0], want,
+                    (4 * S * H * dh) * 2 + S * H * 4, 4 * H * dh * pairs)
+    do = torch.randn((1, S, H, dh), generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    out, lse = _check_flash_bwd(fk, fbk, cases, name, q, k, v, do)
+    # q, out, do, k, v and lse read; dq, dk, dv written; five products
+    # over every (query, key) pair the causal mask keeps
+    t_bytes = (8 * S * H * dh * 2 + S * H * 4) / HBM_BPS * 1e3
+    t_ops = 10 * H * dh * pairs / PEAK_FLOPS[name] * 1e3
+    rec["flash_attention_bwd"].setdefault("new_config_shapes", []).append(
+        {"config": config, "shape": shape, "dtype": name,
+         "max_abs_err": max(c["max_abs_err"] for c in cases[-3:]),
+         "device_ms": device_ms(lambda: fbk.flash_attention_bwd(
+             q, k, v, out, lse, do), iters=5),
+         "bound_ms": max(t_bytes, t_ops),
+         "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+    for kname in ("flash_attention", "flash_attention_bwd"):
+        c = rec[kname]["new_config_shapes"][-1]
+        log(f"new-shape case {kname} ({config}, {c['shape']}, "
+            f"{c['dtype']}): max abs err {c['max_abs_err']:.3e}, device ms "
+            f"{c['device_ms']}, bound {c['bound_ms']:.4f} by "
+            f"{c['bound_by']}")
 
 
 def _flash_per_request(label, launches, n_req, per_request):
@@ -4676,8 +4923,16 @@ def main() -> int:
     moe_train_launches = timed(phase_train_path, "deepseek_moe_16b")
     torch.cuda.empty_cache()
     audio_train_launches = timed(phase_train_path, AUDIO_ARCH)
+    torch.cuda.empty_cache()
+    hybrid_train_launches = timed(phase_train_path, "zamba2_2_7b")
+    torch.cuda.empty_cache()
+    ssm_train_launches = timed(phase_train_path, SSM_ARCH)
+    torch.cuda.empty_cache()
     timed(phase_train_float32_gradients)
     torch.cuda.empty_cache()
+    timed(phase_remat)
+    torch.cuda.empty_cache()
+    timed(phase_examples)
     timed(phase_moe_launches)
     log(f"wall seconds by phase: {json.dumps(seconds)}")
     # each kernel's launches on the full-width path that runs it (the
@@ -4710,7 +4965,9 @@ def main() -> int:
                "audio": audio_launches,
                "audio contiguous": audio_contiguous_launches,
                "audio mixture": audio_mixture_launches,
-               "whisper_small training": audio_train_launches}
+               "whisper_small training": audio_train_launches,
+               "zamba2_2_7b training": hybrid_train_launches,
+               "xlstm_125m training": ssm_train_launches}
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():

@@ -2,9 +2,11 @@
 ``torch.profiler`` window over one step of the deployment of
 ``launch/train_path.py`` (the one ``chip_smoke.py`` trains: full-width
 Qwen3-8B cut to 8 layers, bf16, remat "full", one 4096-token sequence a
-step).
+step; ``--arch`` another config of ``train_path.DEPTH_CUTS`` at its
+depth there, e.g. ``zamba2_2_7b`` or ``xlstm_125m`` whole).
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_train [--steps 3]
+    PYTHONPATH=src python -m repro_torch.launch.profile_train \
+        [--arch zamba2_2_7b] [--steps 3]
 
 Expert 0 trains ``--steps`` unprofiled steps (the first builds the kernels
 and fills the allocator's pools), one step under the profiler, then
@@ -35,12 +37,14 @@ from repro_torch.train.trainer import make_train_step, to_batch
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--arch", default=train_path.ARCH,
+                    choices=sorted(train_path.DEPTH_CUTS))
     ap.add_argument("--smoke", action="store_true",
                     help="smoke-size config (script check on the CPU)")
     ap.add_argument("--steps", type=int, default=3,
                     help="unprofiled steps before and after the profiled one")
     args = ap.parse_args(argv)
-    tp = train_path.build(args.device, smoke=args.smoke)
+    tp = train_path.build(args.device, smoke=args.smoke, arch=args.arch)
     on_card = tp.device.type == "cuda"
     state = tp.init_state(0)
     step_fn = make_train_step(tp.model, tp.config)

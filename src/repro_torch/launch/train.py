@@ -12,12 +12,15 @@
 
 The flags are the reference launcher's, plus ``--device`` (the card unless
 ``--device cpu``). The model is the smoke config of ``--arch`` at
-``--vocab``, as in the reference; training is ported for the dense
-family (``qwen3_8b``, ``granite_3_8b``, ``llama3_405b``,
-``phi3_medium_14b``), the moe family and the audio family's model. The
-synthetic corpus has no images or audio, so ``--arch internvl2_2b`` and
-``--arch whisper_small`` fail at their first step, where the reference's
-do: the batch has no patches, or no frames.
+``--vocab``, as in the reference; every family trains: dense
+(``qwen3_8b``, ``granite_3_8b``, ``llama3_405b``, ``phi3_medium_14b``),
+moe, hybrid (``zamba2_2_7b``) and ssm (``xlstm_125m``, the end-to-end
+examples' default: ``repro_torch.examples.train_decentralized``), their
+chunked scans in their training form; each run dir serves through
+``repro_torch.launch.serve --run DIR --arch ARCH``. The synthetic corpus
+has no images or audio, so ``--arch internvl2_2b`` and ``--arch
+whisper_small`` fail at their first step, where the reference's do: the
+batch has no patches, or no frames.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_8b \\
         --mode decentralized --experts 2 --steps 200 --out /tmp/run \\

@@ -19,10 +19,20 @@ cosine). No checkpoint is written at full width (44.6 GB per expert).
 ``arch`` trains another ported config on the same deployment, cut to
 ``DEPTH_CUTS[arch]`` layers: ``deepseek_moe_16b`` (the moe family) at 4 of
 its 28 layers, 2.77 B params with its tables, the size of Qwen3-8B's 8
-layers; ``whisper_small`` (the audio family) whole, 12 encoder and 12
+layers; ``zamba2_2_7b`` (the hybrid family) whole, 54 Mamba2 layers in 9
+groups and the shared attention block, 2.42 B params (38.7 GB of train
+state), at the ``train_4k`` shape; ``xlstm_125m`` (the ssm family)
+whole, 12 layers, 0.19 B params, at ``SSM_SEQ_LEN`` tokens, its own
+2048-token training context (arXiv:2405.04517) — its one cut: at 4096 its
+sLSTM's per-position loop took 25–26 s a step on the card, too much of
+``chip_smoke.py``'s time limit; both with their scans in the training
+form;
+``whisper_small`` (the audio family) whole, 12 encoder and 12
 decoder layers, 0.33 B params an expert: each expert step takes
 ``AUDIO_BATCH`` sequences of ``AUDIO_SEQ_LEN`` tokens (Whisper's decoder
-context) and their frames, ``AUDIO_STEPS`` steps. The launcher's corpus
+context) and their frames. ``STEPS_BY_ARCH`` gives the configs that take
+fewer than ``STEPS`` steps (4: enough for the falling-loss check under the
+launcher's 5-step warmup). The launcher's corpus
 has no audio and the reference's launcher cannot make frames, so
 ``FramesLoader`` adds each batch's seeded (B, 1500, 768) float32 frames
 (30 s of audio at 50 frames a second), drawn on the device. ``smoke=True``
@@ -51,7 +61,8 @@ ARCH = "qwen3_8b"
 N_LAYERS = 8
 # each trained config's full-width depth: at 16 bytes of train state a
 # parameter, ~2.8 B parameters fit one card beside the activations
-DEPTH_CUTS = {ARCH: N_LAYERS, "deepseek_moe_16b": 4, "whisper_small": 12}
+DEPTH_CUTS = {ARCH: N_LAYERS, "deepseek_moe_16b": 4, "whisper_small": 12,
+              "zamba2_2_7b": 54, "xlstm_125m": 12}
 N_EXPERTS = 2
 BATCH = 2                 # the launcher's --batch: one sequence per expert
 SEQ_LEN = INPUT_SHAPES["train_4k"].seq_len
@@ -60,7 +71,8 @@ SMOKE_SEQ_LEN = 32
 SMOKE_STEPS = 3
 AUDIO_BATCH = 8           # sequences an expert step (the audio family)
 AUDIO_SEQ_LEN = 448       # Whisper's decoder context (n_text_ctx)
-AUDIO_STEPS = 4
+STEPS_BY_ARCH = {"whisper_small": 4, "zamba2_2_7b": 4, "xlstm_125m": 4}
+SSM_SEQ_LEN = 2048        # xLSTM's training context (the ssm family)
 FRAME_SEED = 7000         # expert k's step s: seeded 7000 + 1000·k + s
 
 
@@ -120,8 +132,9 @@ def build(device="cuda", *, smoke: bool = False, arch: str = ARCH
     cfg = get_smoke_config(arch) if smoke else \
         get_config(arch).reduced(n_layers=DEPTH_CUTS[arch])
     audio = cfg.family == "audio"
-    seq, steps = (SMOKE_SEQ_LEN, SMOKE_STEPS) if smoke else \
-        (AUDIO_SEQ_LEN, AUDIO_STEPS) if audio else (SEQ_LEN, STEPS)
+    seq = SMOKE_SEQ_LEN if smoke else AUDIO_SEQ_LEN if audio else \
+        SSM_SEQ_LEN if cfg.family == "ssm" else SEQ_LEN
+    steps = SMOKE_STEPS if smoke else STEPS_BY_ARCH.get(arch, STEPS)
     batch = AUDIO_BATCH * N_EXPERTS if audio and not smoke else BATCH
     args = train.parse_args(["--arch", arch, "--experts", str(N_EXPERTS),
                              "--batch", str(batch), "--steps", str(steps),

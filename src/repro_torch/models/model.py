@@ -32,9 +32,8 @@ blocks add cross-attention to the encoder's K/V; those per-layer K/V,
 families; the speculative span verify over the paged cache for the dense,
 vlm, moe and audio families (``speculative_capable``,
 ``verify_step_paged``, ``fused_verify_step``), also over an expert stack;
-the teacher-forced ``forward`` and ``loss`` with their gradient for the
-dense, vlm, moe and audio families (the hybrid and ssm families' forward
-without it).
+the teacher-forced ``forward`` and ``loss`` with their gradient for every
+family, under each of the reference's ``remat`` policies.
 
 The serving paths (``prefill``, ``embed_prompt``, ``init_chunk_carry``,
 ``prefill_chunk``, ``decode_step``, ``decode_step_paged``,
@@ -58,7 +57,8 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.tree import flat_leaves, tree_leaves, tree_map
@@ -110,6 +110,38 @@ def _unfold(t: Tensor, K: int, axis: int) -> Tensor:
 
 def _norm_spec(d):
     return ParamSpec((d,), (None,), "ones")
+
+
+#: the products ``remat="dots"`` keeps: matrix products with no batch
+#: dims (``linear``'s ``x @ w`` dispatches as these), JAX's
+#: ``dots_with_no_batch_dims_saveable``; batched products (the attention
+#: and scan einsums, ``aten.bmm``) are recomputed as there
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_save_products)
+
+
+def _remat(fn, mode: str, *args):
+    """``fn(*args)`` under the reference's ``_maybe_remat``
+    (``repro/models/model.py:51-57``) policy ``mode``: "none" keeps every
+    activation for the backward; "dots" keeps the outputs of
+    ``_SAVED_PRODUCTS`` and recomputes the rest in the backward; any other
+    value recomputes all of ``fn`` — non-reentrant
+    ``torch.utils.checkpoint``, so gradients also reach tensors ``fn``
+    closes over (the hybrid family's shared block)."""
+    if mode == "none":
+        return fn(*args)
+    if mode == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=_dots_context)
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 @dataclass(frozen=True)
@@ -460,7 +492,7 @@ class Model:
     # ------------------------------------------------------------------
 
     def _stack(self, params, x: Tensor, attend, recur=None, slstm=None, *,
-               cross=None, remat: bool = False) -> Tensor:
+               cross=None, remat: str = "none") -> Tensor:
         """Run the layer stack on x and return the final-normed rows.
         ``attend(i, attn_params, h)`` is the attention of layer (or, for
         the hybrid family, group) i on its normed input h (the audio
@@ -469,12 +501,13 @@ class Model:
         ``recur(g, m, params, h)`` recurrent layer m of group g (Mamba2,
         or the ssm family's mLSTM) and ``slstm(g, params, h)`` the ssm
         family's sLSTM layer closing group g; each reads and writes its
-        own cache or carry. ``remat``: each layer
-        (group) runs under non-reentrant ``torch.utils.checkpoint``, so
-        the backward recomputes its activations instead of keeping
-        them. The moe family's FFN routes each row of x as one group of
-        x's width, the site's: each caller's rows are what the reference
-        hands ``moe_ffn`` at the same site, padding included."""
+        own cache or carry. ``remat``: each layer (group) runs under
+        ``_remat``'s policy of that name, so the backward recomputes its
+        activations ("full"), all but its matrix products ("dots"), or
+        none of them ("none"). The moe family's FFN routes each row of x
+        as one group of x's width, the site's: each caller's rows are what
+        the reference hands ``moe_ffn`` at the same site, padding
+        included."""
         cfg = self.cfg
         eps = cfg.norm_eps
         shared = params.get("shared_attn")
@@ -506,8 +539,7 @@ class Model:
 
         for i in range(self.n_groups):
             layer = layer_slice(params["blocks"], i)
-            x = checkpoint(block, i, layer, x, use_reentrant=False) if remat \
-                else block(i, layer, x)
+            x = _remat(block, remat, i, layer, x)
         return rms_norm(x, params["final_norm"], eps)
 
     def _recur_in_place(self, states, K: int, step, slstm_step=None):
@@ -579,14 +611,13 @@ class Model:
         proj = F.gelu(linear(patches, p["w1"]), approximate="tanh")
         return torch.cat([linear(proj, p["w2"]), x], dim=1)
 
-    def _encode_audio(self, params, batch, *, remat: bool = False) -> Tensor:
+    def _encode_audio(self, params, batch, *, remat: str = "none") -> Tensor:
         """The audio family's encoder over ``batch["frames"]`` (B, F, Da):
         ``frames @ in_proj``, then ``n_enc_layers`` blocks of non-causal
         self-attention (``full_attention(causal=False)``: the flash kernel
         on the card) and SwiGLU, then the encoder norm → (B, F, D). An
         expert stack encodes the frames repeated K times, expert-major,
-        (K·B, F, D). ``remat`` recomputes each block in the backward, as
-        ``_stack`` does."""
+        (K·B, F, D). ``remat`` is ``_stack``'s, for each block."""
         cfg = self.cfg
         if "frames" not in batch:
             raise ValueError(
@@ -610,8 +641,7 @@ class Model:
 
         for i in range(cfg.n_enc_layers):
             layer = layer_slice(enc["blocks"], i)
-            x = checkpoint(block, layer, x, use_reentrant=False) if remat \
-                else block(layer, x)
+            x = _remat(block, remat, layer, x)
         return rms_norm(x, enc["norm"], eps)
 
     def _cross_kv(self, params, enc_out: Tensor) -> Dict[str, Tensor]:
@@ -646,21 +676,20 @@ class Model:
 
         Attention always goes through the kernel seam (``kernels.ops``):
         the CUDA kernels on the card, with the flash backward under
-        autograd. While autograd records a graph of the params,
-        ``cfg.remat="full"`` recomputes each layer in the backward
-        (non-reentrant ``torch.utils.checkpoint`` per layer of the stacked
-        ``blocks``) and ``"none"`` keeps every activation; ``"dots"`` and
-        the hybrid and ssm families are refused then."""
+        autograd. While autograd records a graph of the params (training),
+        each layer (a hybrid or ssm group, an audio encoder block) runs
+        under ``cfg.remat``'s policy, as the reference's ``_maybe_remat``:
+        "full" recomputes it in the backward, "dots" keeps only its
+        matrix products with no batch dims, "none" keeps every activation;
+        and the hybrid and ssm families' chunked scans take their training
+        form (``ssm.chunk_scan_differentiable``, the reference's jnp
+        branch), the chunk-scan kernel having no backward. Without a graph
+        (eval, serving) nothing is recomputed and the scans go through the
+        kernel seam."""
         cfg = self.cfg
         training = torch.is_grad_enabled() and any(
             p.requires_grad for _, p in tree_leaves(params))
-        if training and (self.hybrid or self.ssm):
-            raise ValueError(f"training family {cfg.family!r} is not ported "
-                             f"to repro_torch yet (see ROADMAP.md)")
-        if training and cfg.remat not in ("full", "none"):
-            raise ValueError(f"remat={cfg.remat!r} is not ported to "
-                             f"repro_torch yet (see ROADMAP.md)")
-        remat = training and cfg.remat == "full"
+        remat = cfg.remat if training else "none"
         cross = None
         if self.audio:
             enc_out = self._encode_audio(params, batch, remat=remat)
@@ -672,7 +701,7 @@ class Model:
         x = self._stack(
             params, self._embed_inputs(params, batch),
             lambda i, p, h: attn.full_attention(p, h, cfg),
-            lambda g, m, p, h: block(p, h, cfg),
+            lambda g, m, p, h: block(p, h, cfg, differentiable=training),
             lambda g, p, h: ssm_lib.slstm_scan(p, h, cfg)[0],
             cross=cross, remat=remat)
         return unembed(params["embed"], x, cfg.tie_embeddings, cfg.vocab)

@@ -3,10 +3,13 @@ Mamba2 (SSD) block (port of ``repro.models.ssm``).
 
 The recurrence y_t = q_t · Σ_{s≤t} (Π_{r=s+1..t} g_r) k_s v_sᵀ runs in
 chunks: the intra-chunk part goes through ``kernels.ops.chunk_scan`` (the
-CUDA kernel on the card, its plain version on the CPU), the carry between
-chunks is a loop over the chunks, as the reference's ``lax.scan``, and
-decode is the O(1)-per-token state update. The sLSTM is a sequential
-per-token loop with no kernel, as in the reference. Casts follow the
+CUDA kernel on the card, its plain version on the CPU), or, when the
+caller asks for a gradient (``differentiable=True``: training), through
+``chunk_scan_differentiable``, the reference model's jnp branch under
+autograd; the carry between chunks is a loop over the chunks, as the
+reference's ``lax.scan``, and decode is the O(1)-per-token state update.
+The sLSTM is a sequential per-token loop with no kernel, as in the
+reference; it runs under autograd as it is. Casts follow the
 reference: states and decays in float32, projections in the working
 dtype. Every block also takes a stack of K experts' parameters with K
 folded into the batch of the activations and states (``layers``'
@@ -28,12 +31,41 @@ from .params import ParamSpec
 Tensor = torch.Tensor
 
 
+def chunk_scan_differentiable(qc: Tensor, kc: Tensor, vc: Tensor,
+                              cum: Tensor) -> Tuple[Tensor, Tensor]:
+    """The intra-chunk outputs and chunk summaries of ``kops.chunk_scan``
+    (qc, kc (B,NC,L,H,dk); vc (B,NC,L,H,dv); cum (B,NC,L,H) float32
+    cumulative log decay) in the reference model's training arithmetic
+    (``repro/models/ssm.py:55-67``, its jnp branch), for autograd: the q·k
+    product in the input dtype, upcast after; the decay matrix masked to
+    −inf above the diagonal BEFORE the exp (masking after it would put
+    inf into the gradient, as NaN); the intra part and the summaries as
+    float32 products. Not the kernel's plain version (``chunk_scan_ref``
+    upcasts q and k before their product, another rounding in bf16)."""
+    L = qc.shape[2]
+    decay = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # (B,NC,L,L,H)
+    tri = torch.ones((L, L), dtype=torch.bool, device=qc.device).tril()
+    D = torch.exp(decay.masked_fill(~tri[None, None, :, :, None],
+                                    float("-inf")))
+    scores = torch.einsum("bclhd,bcmhd->bclmh", qc, kc).float()
+    vf = vc.float()
+    intra = torch.einsum("bclmh,bcmhv->bclhv", scores * D, vf)
+    total = cum[:, :, -1]
+    k_dec = kc.float() * torch.exp(total[:, :, None, :] - cum)[..., None]
+    chunk_kv = torch.einsum("bclhd,bclhv->bchdv", k_dec, vf)
+    return intra, chunk_kv
+
+
 def chunked_linear_attention(q: Tensor, k: Tensor, v: Tensor, log_g: Tensor,
-                             chunk: int, state: Optional[Tensor] = None
+                             chunk: int, state: Optional[Tensor] = None, *,
+                             differentiable: bool = False
                              ) -> Tuple[Tensor, Tensor]:
     """q, k: (B,S,H,dk); v: (B,S,H,dv); log_g: (B,S,H) per-step log decay
     ≤ 0; state: (B,H,dk,dv) float32 carried in (zeros when None). Returns
-    (y (B,S,H,dv) in v's dtype, final state (B,H,dk,dv) float32)."""
+    (y (B,S,H,dv) in v's dtype, final state (B,H,dk,dv) float32).
+    ``differentiable``: the intra-chunk part from
+    ``chunk_scan_differentiable`` (training) instead of the kernel seam,
+    whose chunk scan has no backward and refuses autograd."""
     B, S, H, dk = q.shape
     dv = v.shape[-1]
     pad = (-S) % chunk
@@ -48,7 +80,8 @@ def chunked_linear_attention(q: Tensor, k: Tensor, v: Tensor, log_g: Tensor,
     qc, kc, vc = cshape(q), cshape(k), cshape(v)
     cum = torch.cumsum(cshape(log_g).float(), dim=2)          # (B,NC,L,H)
     total = cum[:, :, -1]                                     # (B,NC,H)
-    intra, chunk_kv = kops.chunk_scan(qc, kc, vc, cum)
+    scan = chunk_scan_differentiable if differentiable else kops.chunk_scan
+    intra, chunk_kv = scan(qc, kc, vc, cum)
     if state is None:
         state = torch.zeros((B, H, dk, dv), dtype=torch.float32,
                             device=q.device)
@@ -133,24 +166,29 @@ def _with_ones(v: Tensor) -> Tensor:
 
 
 def mlstm_prefill(params, x: Tensor, cfg, state: Optional[Tensor] = None,
-                  length: Optional[int] = None):
+                  length: Optional[int] = None, *,
+                  differentiable: bool = False):
     """The full-sequence mLSTM that also returns the decode state (B,H,dh,
     dh+1) float32, from ``state`` (zeros when None). With ``length`` (a host
     int: a right-padded prefill chunk) rows at or past it are exact no-ops
-    on the state: their k is zeroed and their decay is 1."""
+    on the state: their k is zeroed and their decay is 1.
+    ``differentiable`` is ``chunked_linear_attention``'s."""
     q, k, v, log_f, z = _mlstm_qkvg(params, x, cfg)
     if length is not None:
         valid = torch.arange(x.shape[1], device=x.device) < length
         k = k * valid[None, :, None, None].to(k.dtype)
         log_f = torch.where(valid[None, :, None], log_f, 0.0)
     y, st = chunked_linear_attention(q, k, _with_ones(v), log_f,
-                                     cfg.ssm.chunk, state=state)
+                                     cfg.ssm.chunk, state=state,
+                                     differentiable=differentiable)
     return _mlstm_out(params, y, z, cfg), st
 
 
-def mlstm_block(params, x: Tensor, cfg) -> Tensor:
-    """Full-sequence mLSTM (pre-norm residual handled by the caller)."""
-    return mlstm_prefill(params, x, cfg)[0]
+def mlstm_block(params, x: Tensor, cfg, *,
+                differentiable: bool = False) -> Tensor:
+    """Full-sequence mLSTM (pre-norm residual handled by the caller);
+    ``differentiable`` for training."""
+    return mlstm_prefill(params, x, cfg, differentiable=differentiable)[0]
 
 
 def mlstm_step(params, x: Tensor, cfg, state: Tensor):
@@ -212,9 +250,13 @@ def slstm_scan(params, x: Tensor, cfg, state=None,
         state = slstm_init_state(B, _d_inner(cfg), x.device)
     c, n, m, h = state
     steps = S if length is None else min(S, length)
+    # one view a position, taken at once: under autograd their gradients
+    # are stacked in one op (a per-step ``pre[:, t]`` would add a full
+    # (B,S,4Di) zero-padded gradient a position, O(S²) in the backward)
+    pres = pre.unbind(1)
     hs = []
     for t in range(steps):
-        g = pre[:, t] + per_expert(torch.mul, h.repeat(1, 4), r)
+        g = pres[t] + per_expert(torch.mul, h.repeat(1, 4), r)
         i_pre, f_pre, z_pre, o_pre = g.chunk(4, dim=-1)
         log_f = F.logsigmoid(f_pre)
         m_new = torch.maximum(log_f + m, i_pre)
@@ -314,16 +356,19 @@ def _softplus_dt(params, dt_raw: Tensor) -> Tensor:
                                  params["dt_bias"].float()))
 
 
-def mamba2_block(params, x: Tensor, cfg) -> Tensor:
-    """Full-sequence Mamba2 (pre-norm residual handled by the caller)."""
-    y, _ = mamba2_prefill(params, x, cfg)
+def mamba2_block(params, x: Tensor, cfg, *,
+                 differentiable: bool = False) -> Tensor:
+    """Full-sequence Mamba2 (pre-norm residual handled by the caller);
+    ``differentiable`` for training."""
+    y, _ = mamba2_prefill(params, x, cfg, differentiable=differentiable)
     return y
 
 
-def mamba2_prefill(params, x: Tensor, cfg):
+def mamba2_prefill(params, x: Tensor, cfg, *, differentiable: bool = False):
     """``mamba2_block`` that also returns the decode state (ssm_state
     (B,H,N,P) float32, conv_carry (B,W−1,C)) — the reference model's
-    ``_mamba2_prefill``."""
+    ``_mamba2_prefill``. ``differentiable`` is
+    ``chunked_linear_attention``'s."""
     xs, z, Bm, Cm, dt_raw, _ = _mamba2_inner(params, x, cfg)
     conv_in = torch.cat([xs, Bm, Cm], dim=-1)
     conv_out, conv_carry = _causal_conv(conv_in,
@@ -333,7 +378,8 @@ def mamba2_prefill(params, x: Tensor, cfg):
         conv_carry = conv_in[:, -(W - 1):]
     dt = _softplus_dt(params, dt_raw)
     q, k, v, log_g = mamba2_scan_inputs(params, conv_out, dt, cfg, x.dtype)
-    y, st = chunked_linear_attention(q, k, v, log_g, cfg.ssm.chunk)
+    y, st = chunked_linear_attention(q, k, v, log_g, cfg.ssm.chunk,
+                                     differentiable=differentiable)
     return mamba2_out(params, y, v, z, cfg), (st, conv_carry)
 
 

@@ -30,10 +30,10 @@ BATCH_KEYS = ("tokens", "labels", "patches", "frames", "loss_mask")
 
 @dataclass(frozen=True)
 class TrainConfig:
+    """The reference's ``TrainConfig`` without its ``use_kernel``, which
+    it never reads: the port's forward always takes the kernel seam, and
+    ``Model.forward`` picks the scans' training form itself."""
     opt: AdamWConfig = field(default_factory=AdamWConfig)
-    # kept for parity with the reference, which declares it and never reads
-    # it; the port's forward always takes the kernel seam
-    use_kernel: bool = False
 
 
 def init_train_state(model: Model, gen: torch.Generator,

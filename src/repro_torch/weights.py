@@ -23,7 +23,9 @@ def to_tensor(a, device="cpu", dtype=None) -> torch.Tensor:
     if arr.dtype.name == "bfloat16" or arr.dtype == np.dtype("V2"):
         t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(arr).copy())
+        # a C-ordered copy that keeps a 0-d leaf 0-d (``ascontiguousarray``
+        # would make it 1-d: the optimizer's step count)
+        t = torch.from_numpy(np.array(arr, order="C", copy=True))
     return t.to(device=device, dtype=dtype or t.dtype)
 
 

@@ -196,20 +196,24 @@ def test_validate_dependency_errors_match_reference(override, window):
 
 def test_validate_refuses_other_families_and_sampling():
     """``build_model`` builds the audio family (``whisper_small``'s smoke
-    config), hybrid training is still refused; seeded sampling is served,
-    and the sampling controls the reference refuses (a negative top_k)
-    are refused with its message."""
+    config), and the hybrid family trains: its forward under autograd (the
+    scans in their training form) gives finite logits whose gradient
+    reaches the leaves; seeded sampling is served, and the sampling
+    controls the reference refuses (a negative top_k) are refused with
+    its message."""
     model = build_model(get_smoke_config("whisper_small"))
     assert model.audio and model.speculative_capable \
         and model.prefix_cacheable
     hybrid = build_model(get_smoke_config("zamba2_2_7b"))
     params = hybrid.init(torch.Generator().manual_seed(0))
-    for leaf in params["final_norm"], params["embed"]["embedding"]:
+    leaves = params["final_norm"], params["embed"]["embedding"]
+    for leaf in leaves:
         leaf.requires_grad_()
-    with pytest.raises(ValueError, match="training family 'hybrid' is not "
-                                         "ported"):
-        hybrid.forward(params, {"tokens": torch.zeros((1, 4),
-                                                      dtype=torch.long)})
+    logits = hybrid.forward(params, {"tokens": torch.zeros((1, 4),
+                                                           dtype=torch.long)})
+    assert bool(torch.isfinite(logits).all())
+    logits.sum().backward()
+    assert all(bool(leaf.grad.abs().amax() > 0) for leaf in leaves)
     sp = SamplingParams(temperature=0.7, top_k=5, seed=-3)
     assert (sp.temperature, sp.top_k, sp.seed) == (0.7, 5, -3)
     with pytest.raises(ValueError) as want:

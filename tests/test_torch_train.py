@@ -287,26 +287,33 @@ def test_remat_none_gives_the_same_gradients(dense):
 
 
 def test_training_refuses_unported_options():
-    """Under grad, remat="dots" and the hybrid family raise the port's
-    single "not ported" error; the hybrid forward without grad runs and
+    """remat="dots" (each layer keeps only its matrix products with no
+    batch dims and recomputes the rest) gives "none"'s loss and gradients
+    bit for bit, and matches the reference's ``jax.value_and_grad`` of
+    ``Model.loss`` under its own remat="dots" (loss 1e-5, every leaf 2e-5
+    of its largest element); the hybrid forward without grad runs and
     matches the reference's ``Model.forward``."""
-    cfg = get_smoke_config("qwen3_8b").reduced(remat="dots")
-    state = trainer.init_train_state(build_model(cfg),
-                                     torch.Generator().manual_seed(0),
-                                     adamw.AdamWConfig())
-    toks = torch.zeros((1, 8), dtype=torch.int64)
-    batch = {"tokens": toks, "labels": toks}
-    step = trainer.make_train_step(build_model(cfg), trainer.TrainConfig())
-    with pytest.raises(ValueError, match="remat='dots' is not ported to "
-                                         "repro_torch yet"):
-        step(state, batch)
+    cfg = get_smoke_config("qwen3_8b")
+    jm = jax_build(jax_smoke("qwen3_8b").reduced(remat="dots"))
+    jp = jm.init(jax.random.PRNGKey(4))
+    params = from_tree(jax.tree.map(np.asarray, jp))
+    toks = np.random.default_rng(5).integers(0, cfg.vocab, (2, 24)) \
+        .astype(np.int32)
+    (jl, _), jg = jax.value_and_grad(jm.loss, has_aux=True)(
+        jp, {"tokens": jnp.asarray(toks), "labels": jnp.asarray(toks)})
+    batch = {"tokens": torch.as_tensor(toks), "labels": torch.as_tensor(toks)}
+    loss, grads = port_loss_and_grads(
+        build_model(cfg.reduced(remat="dots")), params, batch)
+    loss_none, grads_none = port_loss_and_grads(
+        build_model(cfg.reduced(remat="none")), params, batch)
+    assert float(loss) == float(loss_none)
+    for path in grads:
+        np.testing.assert_array_equal(grads[path], grads_none[path])
+    assert float(loss) == pytest.approx(float(jl), rel=1e-5)
+    close_leaves(grads, jax_leaves(jg),
+                 atol_of=lambda w: 2e-5 * np.abs(w).max())
     hcfg = get_smoke_config("zamba2_2_7b")
     hm = build_model(hcfg)
-    hstate = trainer.init_train_state(hm, torch.Generator().manual_seed(0),
-                                      adamw.AdamWConfig())
-    with pytest.raises(ValueError, match="training family 'hybrid' is not "
-                                         "ported to repro_torch yet"):
-        trainer.make_train_step(hm, trainer.TrainConfig())(hstate, batch)
     jm = jax_build(jax_smoke("zamba2_2_7b"))
     jp = jm.init(jax.random.PRNGKey(1))
     htoks = np.random.default_rng(2).integers(0, hcfg.vocab, (1, 32)) \
@@ -623,6 +630,31 @@ def test_checkpoint_written_by_reference_reads_in_port(tmp_path):
     assert torch.equal(from_tree(again["params"])["h"], params["h"])
 
 
+def test_train_state_checkpoint_round_trips_bit_for_bit(tmp_path):
+    """A bf16 model's train state after a step (bf16 params, float32
+    masters, m and v, the 0-d int32 step count) written with
+    ``save_expert`` comes back from ``restore_expert`` and ``from_tree``
+    with every leaf's dtype, shape and bits (a 0-d leaf stays 0-d)."""
+    cfg = get_smoke_config("xlstm_125m").reduced(param_dtype="bfloat16",
+                                                 compute_dtype="bfloat16")
+    model = build_model(cfg)
+    opt = adamw.AdamWConfig()
+    state = trainer.init_train_state(model, torch.Generator().manual_seed(0),
+                                     opt)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 16)))
+    trainer.make_train_step(model, trainer.TrainConfig(opt=opt))(
+        state, {"tokens": toks, "labels": toks})
+    ckpt.save_expert(str(tmp_path), 0, 1, state)
+    back, step = ckpt.restore_expert(str(tmp_path), 0)
+    want, got = dict(tree_leaves(state)), dict(tree_leaves(from_tree(back)))
+    assert step == 1 and sorted(got) == sorted(want)
+    assert want["opt/count"].shape == () and "opt/master/final_norm" in want
+    for path, w in want.items():
+        assert got[path].dtype == w.dtype and got[path].shape == w.shape, path
+        assert torch.equal(got[path], w), path
+
+
 # ---------------------------------------------------------------------------
 # The launcher twin and the chip script's training deployment
 # ---------------------------------------------------------------------------
@@ -674,11 +706,27 @@ def test_launcher_twin_dense_mode(tmp_path):
 
 
 def test_launcher_twin_refuses_hybrid_training(tmp_path):
-    with pytest.raises(ValueError, match="training family 'hybrid' is not "
-                                         "ported to repro_torch yet"):
-        launch_train.main(["--arch", "zamba2_2_7b", "--steps", "1",
-                           "--seq-len", "16", "--batch", "2", "--samples",
-                           "64", "--out", str(tmp_path), "--device", "cpu"])
+    """``--arch zamba2_2_7b`` trains (the hybrid family, its scans in their
+    training form): 2 steps of each expert with finite losses, and
+    ``launch.serve --run`` serves that run (chunked prefill at the smoke
+    config's scan chunk)."""
+    run = str(tmp_path)
+    report = launch_train.main(["--arch", "zamba2_2_7b", "--steps", "2",
+                                "--seq-len", "16", "--batch", "2",
+                                "--samples", "64", "--out", run,
+                                "--device", "cpu"])
+    assert [e["expert"] for e in report["experts"]] == [0, 1]
+    assert all(np.isfinite(e["final_loss"]) for e in report["experts"])
+    state, step = ckpt.restore_expert(run, 1)
+    assert step == 2 and int(state["opt"]["count"]) == 2
+    served = launch_serve.main(["--run", run, "--arch", "zamba2_2_7b",
+                                "--requests", "3", "--prompt-len", "10",
+                                "--new-tokens", "4", "--slots", "2",
+                                "--paged", "--page-block", "8",
+                                "--chunked-prefill", "--prefill-chunk", "16",
+                                "--device", "cpu"])
+    assert sorted(served["tokens"]) == [0, 1, 2]
+    assert all(len(t) == 4 for t in served["tokens"].values())
 
 
 def test_train_path_rehearses_on_cpu():
@@ -700,16 +748,21 @@ def test_train_path_rehearses_on_cpu():
 
 
 def test_profile_train_rehearses_on_cpu(capsys):
-    """``launch/profile_train.py --smoke --device cpu``: the steps before,
-    under and after the profiler run with finite losses, and no device
-    number is reported from the CPU."""
+    """``launch/profile_train.py --smoke --device cpu``, for the default
+    config and with ``--arch zamba2_2_7b``: the steps before, under and
+    after the profiler run with finite losses, and no device number is
+    reported from the CPU."""
     from repro_torch.launch import profile_train
-    rep = profile_train.main(["--smoke", "--device", "cpu", "--steps", "1"])
-    assert json.loads(capsys.readouterr().out) == rep
-    assert rep["device"] == "cpu" and rep["layers"] == 2
-    assert len(rep["losses"]) == 2 and all(np.isfinite(rep["losses"]))
-    assert rep["device_busy_share"] == "not measured (CPU run)"
-    assert "device_ms" not in rep
+    for arch, config in (([], "qwen3_smoke"),
+                         (["--arch", "zamba2_2_7b"], "zamba2_smoke")):
+        rep = profile_train.main(["--smoke", "--device", "cpu", "--steps",
+                                  "1"] + arch)
+        assert json.loads(capsys.readouterr().out) == rep
+        assert rep["device"] == "cpu" and rep["layers"] == 2
+        assert rep["config"] == config
+        assert len(rep["losses"]) == 2 and all(np.isfinite(rep["losses"]))
+        assert rep["device_busy_share"] == "not measured (CPU run)"
+        assert "device_ms" not in rep
 
 
 def test_training_entry_points_default_to_the_card(monkeypatch, tmp_path):
