@@ -312,6 +312,24 @@ Phases, each fatal on failure:
    subprocess that must exit 0: ``train_decentralized`` (xLSTM-125M at
    the launchers' smoke size, ``EXAMPLE_STEPS`` steps), ``serve_ensemble``
    on its run, ``quickstart`` (``phase_examples``);
+13c. placed training — train_path's deployment (full-width Qwen3-8B,
+   bf16, cut to ``PLACED_LAYERS`` layers: two stacked experts' AdamW
+   state at its 8 would not fit the card), 2 experts stacked, through the
+   placed decentralized step on a (1, 1, 1) ("pod", "data", "model")
+   DeviceMesh over NCCL at world size 1 (``phase_placed_train``): the
+   state placed by ``state_shardings`` under the decentralized rules,
+   ``PLACED_STEPS`` steps against the unplaced step from the same seeds
+   and batches — losses, grad norms and params after them within
+   ``TRAIN_PARITY``, the flash forward and backward launched as often
+   through the kernel seam's DTensor path; both runs' ms a step and peak
+   GiB printed;
+13d. dry run — ``repro_torch.launch.dryrun`` of ``DRYRUN_CASE`` on the
+   multi-pod mesh (512 fake ranks, fake CPU tensors, ``--probe``),
+   decentralized and dense, each a subprocess started right after the
+   build and run beside the card's phases (``phase_dryrun``): the
+   decentralized case must record no collective whose group spans pods,
+   the dense control at least one; prints the three roofline terms at
+   the H100's data-sheet peaks and the per-device state GiB;
 14. moe launches — ``torch.profiler``'s count of the card's kernels in
    one ``moe_ffn`` call (decode rows, a chunk) and in one DeepSeek-MoE-16B
    decode layer (a paged decode step at 2 layers less one at 1), run last
@@ -325,7 +343,9 @@ there is no card or no checkout around the script.
 """
 from __future__ import annotations
 
+import atexit
 import json
+import os
 import subprocess
 import sys
 import time
@@ -4378,6 +4398,266 @@ def phase_remat():
                              f"worst {worst}, peaks full/dots/none {peaks}")
 
 
+# the placed training phase: train_path's deployment cut to this depth —
+# two stacked experts' AdamW state (16 bytes a parameter with the bf16
+# gradient) would be 2 x 41.5 GiB at train_path's 8 layers, more than the
+# card holds; at 4 layers it is 2 x 28.2 GB
+PLACED_LAYERS = 4
+PLACED_STEPS = 2
+# the dry run's case, run in both modes on the multi-pod mesh with the
+# depth probe (two shallow runs, G = 1 and 2, fitted to the full depth)
+DRYRUN_CASE = ("qwen3_8b", "train_4k")
+DRYRUN_TIMEOUT = 600
+
+
+def _stacked_expert_state(tp, K):
+    """``stack_expert_states`` of ``tp.init_state(k)`` for k < K, built
+    without holding K separate states beside the stack: the params drawn
+    from each expert's seed and stacked, then the AdamW state of the
+    stack (zero moments, the float32 masters, a step count an expert)."""
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import init_state
+    from repro_torch.tree import tree_map
+
+    params = [tp.model.init(train.expert_generator(tp.args, k, tp.device))
+              for k in range(K)]
+    stacked = tree_map(lambda *ps: torch.stack(ps), *params)
+    del params
+    opt = init_state(stacked)
+    opt["count"] = torch.zeros((K,), dtype=torch.int32, device=tp.device)
+    return {"params": stacked, "opt": opt}
+
+
+def _placed_run(tp, K, steps, mesh=None):
+    """``steps`` decentralized steps of the K stacked experts on
+    ``tp``'s loaders: the unplaced step, or with ``mesh`` the placed one
+    on DTensors. Returns (metrics a step, ms a step, peak GiB, launches,
+    final state)."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.kernels import ops
+    from repro_torch.sharding import rules as R
+    from repro_torch.train import trainer as T
+
+    dev = tp.device
+    state = _stacked_expert_state(tp, K)
+    batches = []
+    for _ in range(steps):
+        rows = [T.to_batch(next(tp.loaders[k]), dev) for k in range(K)]
+        batches.append({n: torch.stack([r[n] for r in rows])
+                        for n in rows[0]})
+    if mesh is None:
+        step = T.make_decentralized_train_step(tp.model, tp.config)
+    else:
+        rules = R.logical_rules(multi_pod=True, decentralized=True)
+        T.distribute_state(state, T.state_shardings(
+            tp.model, rules, mesh, K, count_over_experts=True), mesh)
+        spec = R.data_shardings(rules, mesh, tp.cfg, "train", K)
+        batches = [{n: distribute_tensor(b, mesh, R.placements(spec[n], mesh))
+                    for n, b in batch.items()} for batch in batches]
+        step = T.make_placed_decentralized_train_step(tp.model, tp.config,
+                                                      mesh)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    if dev.type == "cuda":
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    metrics, walls = [], []
+    for batch in batches:
+        t = time.perf_counter()
+        _, m = step(state, batch)
+        sync()
+        walls.append((time.perf_counter() - t) * 1e3)
+        metrics.append({n: (v.full_tensor() if hasattr(v, "full_tensor")
+                            else v).tolist() for n, v in m.items()})
+    launches = {n: fn.launches for n, fn in ops.KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30 \
+        if dev.type == "cuda" else 0.0
+    return metrics, walls, peak, launches, state
+
+
+def phase_placed_train(device="cuda", backend="nccl", smoke=False):
+    """train_path's deployment (Qwen3-8B at full width cut to
+    ``PLACED_LAYERS``, 2 experts, the same seeds and loaders) through the
+    placed decentralized step on a (1, 1, 1) ("pod", "data", "model")
+    mesh at world size 1: the state placed by ``state_shardings`` under
+    the decentralized rules, the flash kernels reached through the
+    DTensor seam. ``PLACED_STEPS`` steps must give the unplaced step's
+    losses and grad norms within ``TRAIN_PARITY``'s metrics tolerance, and
+    its params after them within its params tolerance (the float32
+    masters; the bf16 params within that plus one bf16 step of their
+    size), with the flash forward and backward launched as often; prints
+    both runs' ms a step and peak GiB. ``smoke=True`` with ``device="cpu"``
+    and ``backend="gloo"`` rehearses it at smoke size."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import train_path
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_leaves
+
+    K = train_path.N_EXPERTS
+
+    def deployment():
+        tp = train_path.build(device, smoke=smoke)
+        if not smoke:
+            tp.cfg = tp.cfg.reduced(n_layers=PLACED_LAYERS)
+            tp.model = build_model(tp.cfg)
+        return tp
+
+    tp = deployment()
+    want, want_ms, want_peak, want_launches, ref = _placed_run(
+        tp, K, PLACED_STEPS)
+    lr = tp.config.opt.lr
+    host = {key: {p: t.to("cpu") for p, t in tree_leaves(tree)}
+            for key, tree in (("params", ref["params"]),
+                              ("master", ref["opt"].get("master", {})))}
+    del ref
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.set_device(0)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1, 1), ("pod", "data", "model"), device)
+        got, got_ms, got_peak, got_launches, placed = _placed_run(
+            deployment(), K, PLACED_STEPS, mesh)
+        if device == "cuda":
+            log(f"placed training: {torch.cuda.memory_allocated() / 2**30:.2f}"
+                f" GiB held after the placed steps")
+        tol = TRAIN_PARITY
+        worst = {"metrics": 0.0, "params": 0.0, "masters": 0.0}
+        for a, b in zip(got, want):
+            for name in ("loss", "grad_norm", "lr"):
+                for x, y in zip(a[name], b[name]):
+                    worst["metrics"] = max(worst["metrics"],
+                                           abs(x - y) / abs(y))
+        bad = []
+        for key, tree in (("params", placed["params"]),
+                          ("master", placed["opt"].get("master", {}))):
+            for path, t in tree_leaves(tree):
+                # a bf16 param is its master rounded: one bf16 step
+                step = 2.0 ** -7 if t.dtype == torch.bfloat16 else 0.0
+                d_max, excess = 0.0, -1.0
+                # in slices of 2^26 elements: the card holds the state
+                for ours, theirs in zip(t.to_local().flatten().split(1 << 26),
+                                        host[key][path].flatten().split(
+                                            1 << 26)):
+                    ours = ours.float()
+                    theirs = theirs.to(ours.device).float()
+                    d = (ours - theirs).abs()
+                    d_max = max(d_max, float(d.max()))
+                    excess = max(excess, float((d - tol["params_of_lr"] * lr
+                                                - step * theirs.abs()).max()))
+                if key == "params":
+                    worst["params"] = max(worst["params"], d_max / lr)
+                    if excess > 0:
+                        bad.append(f"param {path}: {d_max:.3e}")
+                else:
+                    worst["masters"] = max(worst["masters"], d_max / lr)
+        del placed
+        if worst["metrics"] > tol["metrics_rtol"]:
+            bad.append(f"metrics differ by {worst['metrics']:.3e} (rel)")
+        if worst["masters"] > tol["params_of_lr"]:
+            bad.append(f"masters differ by {worst['masters']:.3e} of lr")
+        for name in TRAIN_KERNELS:
+            if device == "cuda" and not got_launches[name]:
+                bad.append(f"{name} never launched on the placed path")
+            if got_launches[name] != want_launches[name]:
+                bad.append(f"{name}: {got_launches[name]} launches placed, "
+                           f"{want_launches[name]} unplaced")
+        log(f"placed training: {tp.cfg.arch_id} at full width cut to "
+            f"{tp.cfg.n_layers} layers, {K} stacked experts on mesh "
+            f"(pod=1, data=1, model=1), {PLACED_STEPS} steps; losses "
+            f"{[m['loss'] for m in got]} (unplaced "
+            f"{[m['loss'] for m in want]}), grad norms "
+            f"{[m['grad_norm'] for m in got]}; largest difference: "
+            f"metrics {worst['metrics']:.3e} rel, masters "
+            f"{worst['masters']:.3e} of lr, params "
+            f"{worst['params']:.3e} of lr; ms a step placed "
+            f"{[round(w, 1) for w in got_ms]} vs unplaced "
+            f"{[round(w, 1) for w in want_ms]}, peak GiB placed "
+            f"{got_peak:.2f} vs unplaced {want_peak:.2f}; launches "
+            f"{ {n: got_launches[n] for n in TRAIN_KERNELS} } (unplaced "
+            f"{ {n: want_launches[n] for n in TRAIN_KERNELS} })")
+        if bad:
+            raise AssertionError("placed training: " + "; ".join(bad[:8]))
+        return got_launches
+    finally:
+        dist.destroy_process_group()
+
+
+def _stop(procs):
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def start_dryruns(out_dir):
+    """The dry run of ``DRYRUN_CASE`` on the multi-pod mesh, both modes,
+    each in a subprocess of its own started now: it runs on fake CPU
+    tensors, beside the card's phases."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    arch, shape = DRYRUN_CASE
+    procs = {}
+    for mode in ("decentralized", "dense"):
+        procs[mode] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "multi", "--mode", mode,
+             "--probe", "--out", str(out_dir)],
+            env=env, cwd=str(HERE), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    return procs
+
+
+def phase_dryrun(procs, out_dir):
+    """The dry runs ``start_dryruns`` started: both must exit 0; the
+    decentralized case must show no collective whose group spans pods,
+    and the dense case (batch and FSDP over ("pod", "data")) at least
+    one. Prints the three roofline terms against the H100's data-sheet
+    peaks and the per-device state GiB."""
+    arch, shape = DRYRUN_CASE
+    bad = []
+    for mode, proc in procs.items():
+        try:
+            out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise AssertionError(f"dry run {mode}: past {DRYRUN_TIMEOUT} s")
+        if proc.returncode != 0:
+            raise AssertionError(f"dry run {mode} exited {proc.returncode}: "
+                                 f"{out[-1500:]}")
+        path = Path(out_dir) / f"{arch}.{shape}.multi.{mode}.probe.json"
+        rec = json.loads(path.read_text())
+        c, r = rec["collectives"], rec["roofline"]
+        log(f"dry run {arch} {shape} multi {mode} (--probe, "
+            f"{rec['n_devices']} fake ranks): compute {r['compute_s']:.4f} s, "
+            f"memory {r['memory_s']:.4f} s (unfused bytes), collective "
+            f"{r['collective_s']:.4f} s at {r['link_bw'] / 1e9:.0f} GB/s, "
+            f"bottleneck {r['bottleneck']}; state "
+            f"{rec['memory']['argument_size_in_bytes'] / 2**30:.3f} GiB a "
+            f"device; collectives {c['total_bytes']:.4g} B, cross-pod "
+            f"{c['cross_pod_bytes']:.4g} B in {c['cross_pod_ops']:g} ops")
+        if rec["status"] != "ok" or rec["n_devices"] != 512:
+            bad.append(f"{mode}: status {rec['status']}, "
+                       f"{rec['n_devices']} devices")
+        if mode == "decentralized" and (c["cross_pod_bytes"]
+                                        or c["cross_pod_ops"]):
+            bad.append(f"decentralized crosses pods: {c}")
+        if mode == "dense" and not c["cross_pod_ops"] > 0:
+            bad.append(f"dense control shows no cross-pod collective: {c}")
+    if bad:
+        raise AssertionError("dry run: " + "; ".join(bad))
+
+
 def phase_examples():
     """The end-to-end example twins on the card, each a subprocess that
     must exit 0: ``train_decentralized --steps EXAMPLE_STEPS`` (xLSTM-125M
@@ -4854,6 +5134,11 @@ def main() -> int:
                     log(f"  {name}: {line.strip()}")
 
     seconds = {"build": round(time.perf_counter() - t0, 1)}
+    # the dry runs need no card: they run beside the card's phases
+    dry_out = build.build_dir().parent / "dryrun"
+    dry_out.mkdir(parents=True, exist_ok=True)
+    dry_procs = start_dryruns(dry_out)
+    atexit.register(_stop, dry_procs)
 
     def timed(phase, *args):
         """Run one phase, keeping its wall seconds for the record."""
@@ -4932,7 +5217,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed(phase_remat)
     torch.cuda.empty_cache()
+    placed_launches = timed(phase_placed_train)
+    torch.cuda.empty_cache()
     timed(phase_examples)
+    timed(phase_dryrun, dry_procs, dry_out)
     timed(phase_moe_launches)
     log(f"wall seconds by phase: {json.dumps(seconds)}")
     # each kernel's launches on the full-width path that runs it (the
@@ -4967,7 +5255,8 @@ def main() -> int:
                "audio mixture": audio_mixture_launches,
                "whisper_small training": audio_train_launches,
                "zamba2_2_7b training": hybrid_train_launches,
-               "xlstm_125m training": ssm_train_launches}
+               "xlstm_125m training": ssm_train_launches,
+               "placed training": placed_launches}
 
     kernels = []
     for name, (source, replaces) in KERNEL_META.items():

@@ -17,6 +17,19 @@ Otherwise it makes the forward-only call. Every other entry's kernel has
 no backward, so it raises when autograd records and an input requires
 grad, on both devices: a kernel output that autograd cannot see would
 silently cut the gradient.
+
+DTensors (a model placed on a ``DeviceMesh``, ``train/trainer.py``): an
+entry given DTensors runs the same function on each device's local shards
+through ``local_map`` (``on_shards``, which the audio family's plain
+cross-attention takes too) — attention is local to a device when its
+batch is split over the data axes and its heads over ``model``, with
+sequence and head_dim whole. A placement that cuts sequence or head_dim
+raises; nothing is redistributed here. Query heads split where the K/V
+heads are whole (a KV head count the ``model`` axis does not divide: the
+rules leave ``wk``, ``wv`` whole) take, on each device, the KV heads of
+its own query heads, and their K/V gradients are partial sums over that
+axis. ``flash_attention`` under autograd runs ``FlashAttention`` inside
+the local function, so both flash kernels see plain tensors.
 """
 from __future__ import annotations
 
@@ -29,6 +42,91 @@ from . import flash_attention_bwd as _bwd
 from . import router_scores as _router
 
 Tensor = torch.Tensor
+
+
+def _is_dtensor(t) -> bool:
+    if not isinstance(t, Tensor) or type(t) is Tensor:
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def on_shards(what: str, fn, q, k, v, rest=(), *, q_head: int,
+               kv_head: int):
+    """``fn(q, k, v, *rest)`` on each device's shards of DTensors q (batch
+    at dim 0, heads at ``q_head``), k and v (batch at 0, KV heads at
+    ``kv_head``) and ``rest`` (batch at dim 0) — see the module's
+    docstring. The output is placed as q."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    names = mesh.mesh_dim_names or tuple(map(str, range(mesh.ndim)))
+
+    def allowed(t, name, dims):
+        if not _is_dtensor(t) or t.device_mesh != mesh:
+            raise ValueError(f"{what}: {name} is not a DTensor on q's mesh")
+        for i, p in enumerate(t.placements):
+            if p.is_partial() or (p.is_shard() and p.dim not in dims):
+                raise ValueError(
+                    f"{what}: {name} {tuple(t.shape)} is placed {p} over "
+                    f"mesh axis {names[i]!r} — the kernel needs sequence "
+                    f"and head_dim whole on each device (batch and heads "
+                    f"may be split); redistribute at the call site")
+        return list(t.placements)
+
+    qp = allowed(q, "q", (0, q_head))
+    kp = allowed(k, "k", (0, kv_head))
+    if allowed(v, "v", (0, kv_head)) != kp:
+        raise ValueError(f"{what}: k and v are placed differently")
+    batch = [p.is_shard(0) for p in qp]
+    if [p.is_shard(0) for p in kp] != batch:
+        raise ValueError(f"{what}: q {qp} and k {kp} split the batch "
+                         f"differently")
+    rest_p = [Shard(0) if b else Replicate() for b in batch]
+    for t in rest:
+        if allowed(t, "a batch operand", (0,)) != rest_p:
+            raise ValueError(f"{what}: a batch operand is placed "
+                             f"{t.placements}, q's batch {rest_p}")
+    head_q = [p.is_shard(q_head) for p in qp]
+    head_k = [p.is_shard(kv_head) for p in kp]
+    if any(head_k) and head_k != head_q:
+        raise ValueError(f"{what}: q {qp} and k {kp} split heads "
+                         f"differently")
+    sliced = [hq and not hk for hq, hk in zip(head_q, head_k)]
+    lo = hi = None
+    if any(sliced):
+        H, KV = q.shape[q_head], k.shape[kv_head]
+        Hl = q.to_local().shape[q_head]
+        g = H // KV
+        if (Hl % g if Hl >= g else g % Hl) or H % KV:
+            raise ValueError(f"{what}: {Hl} of {H} query heads a device do "
+                             f"not align with groups of {g} per KV head")
+        coord, idx = mesh.get_coordinate(), 0
+        for i, s in enumerate(sliced):
+            if s:
+                idx = idx * mesh.size(i) + coord[i]
+        lo, hi = idx * Hl // g, (idx * Hl + Hl - 1) // g + 1
+    k_grad = [Partial() if s else p for s, p in zip(sliced, kp)]
+
+    def local(ql, kl, vl, *rl):
+        if lo is not None:
+            kl = kl.narrow(kv_head, lo, hi - lo).contiguous()
+            vl = vl.narrow(kv_head, lo, hi - lo).contiguous()
+        return fn(ql, kl, vl, *rl)
+
+    return local_map(local, out_placements=qp,
+                     in_placements=(qp, kp, kp, *([rest_p] * len(rest))),
+                     in_grad_placements=(qp, k_grad, k_grad,
+                                         *([rest_p] * len(rest))),
+                     device_mesh=mesh)(q, k, v, *rest)
+
+
+def _no_dtensor(what: str, *ts) -> None:
+    if any(_is_dtensor(t) for t in ts):
+        raise NotImplementedError(
+            f"{what} has no DTensor seam: call it on each device's local "
+            f"tensors")
 
 
 def _on_card(t: Tensor) -> bool:
@@ -93,6 +191,12 @@ class FlashAttention(torch.autograd.Function):
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                     window: int = 0) -> Tensor:
+    if _is_dtensor(q):
+        return on_shards(
+            "flash_attention",
+            lambda ql, kl, vl: flash_attention(ql, kl, vl, causal=causal,
+                                               window=window),
+            q, k, v, q_head=2, kv_head=2)
     if _records_grad(q, k, v):
         return FlashAttention.apply(q, k, v, causal, window)
     if _on_card(q):
@@ -102,6 +206,12 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
 
 def decode_attention(q: Tensor, k: Tensor, v: Tensor, pos: Tensor, *,
                      window: int = 0) -> Tensor:
+    if _is_dtensor(q):
+        return on_shards(
+            "decode_attention",
+            lambda ql, kl, vl, pl: decode_attention(ql, kl, vl, pl,
+                                                    window=window),
+            q, k, v, (pos,), q_head=1, kv_head=2)
     _no_backward("decode_attention", q, k, v)
     if _on_card(q):
         return _decode.decode_attention(q, k, v, pos, window=window)
@@ -111,6 +221,8 @@ def decode_attention(q: Tensor, k: Tensor, v: Tensor, pos: Tensor, *,
 def paged_decode_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
                            pos: Tensor, block_tables: Tensor, *,
                            window: int = 0) -> Tensor:
+    _no_dtensor("paged_decode_attention", q, k_pool, v_pool, pos,
+                block_tables)
     _no_backward("paged_decode_attention", q, k_pool, v_pool)
     if _on_card(q):
         return _decode.paged_decode_attention(q, k_pool, v_pool, pos,
@@ -121,6 +233,8 @@ def paged_decode_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
 
 def paged_verify_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
                            pos: Tensor, block_tables: Tensor) -> Tensor:
+    _no_dtensor("paged_verify_attention", q, k_pool, v_pool, pos,
+                block_tables)
     _no_backward("paged_verify_attention", q, k_pool, v_pool)
     if _on_card(q):
         return _decode.paged_verify_attention(q, k_pool, v_pool, pos,
@@ -131,6 +245,7 @@ def paged_verify_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
 
 def chunk_prefill_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
                             start: int, block_table: Tensor) -> Tensor:
+    _no_dtensor("chunk_prefill_attention", q, k_pool, v_pool, block_table)
     _no_backward("chunk_prefill_attention", q, k_pool, v_pool)
     if _on_card(q):
         return _decode.chunk_prefill_attention(q, k_pool, v_pool, start,
@@ -141,6 +256,7 @@ def chunk_prefill_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
 
 def router_scores(x: Tensor, centroids: Tensor,
                   temperature: float) -> Tensor:
+    _no_dtensor("router_scores", x, centroids)
     _no_backward("router_scores", x, centroids)
     if _on_card(x):
         return _router.router_scores(x, centroids, temperature)
@@ -148,6 +264,7 @@ def router_scores(x: Tensor, centroids: Tensor,
 
 
 def chunk_scan(qc: Tensor, kc: Tensor, vc: Tensor, cum: Tensor):
+    _no_dtensor("chunk_scan", qc, kc, vc, cum)
     _no_backward("chunk_scan", qc, kc, vc, cum)
     if _on_card(qc):
         return _scan.chunk_scan(qc, kc, vc, cum)

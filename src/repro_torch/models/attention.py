@@ -155,13 +155,43 @@ def decode_attention(params, x: Tensor, cfg, cache: Tuple[Tensor, Tensor],
     q, k_new, v_new = _qkv(params, x, cfg, pos_b[:, None], rope=rope)
     slot = pos_b % S_cache if cfg.sliding_window > 0 \
         else pos_b.clamp(max=S_cache - 1)
-    rows = torch.arange(B, device=x.device)
-    k_cache.index_put_((rows, slot.long()), k_new[:, 0].to(k_cache.dtype))
-    v_cache.index_put_((rows, slot.long()), v_new[:, 0].to(v_cache.dtype))
+    _write_rows(k_cache, slot, k_new[:, 0])
+    _write_rows(v_cache, slot, v_new[:, 0])
     out = kops.decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
                                 pos_b.contiguous(),
                                 window=cfg.sliding_window)
     return _project_out(params, out[:, None], x.dtype), (k_cache, v_cache)
+
+
+def _write_rows(cache: Tensor, slot: Tensor, new: Tensor) -> None:
+    """cache[b, slot[b]] = new[b] for every row b, in place. A DTensor
+    cache (a placed decode step) is written on each device's shards: its
+    batch rows are local, so each device writes its own rows; a cache
+    whose sequence dim is split raises, as the decode kernel does."""
+    if not hasattr(cache, "device_mesh"):
+        rows = torch.arange(cache.shape[0], device=cache.device)
+        cache.index_put_((rows, slot.long()), new.to(cache.dtype))
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    cp = list(cache.placements)
+    if any(p.is_partial() or (p.is_shard() and p.dim == 1) for p in cp):
+        raise ValueError(f"a decode cache placed {cp} is split along its "
+                         f"sequence: each device must hold whole rows")
+    rows = [Shard(0) if p.is_shard(0) else Replicate() for p in cp]
+    new_p = [Shard(p.dim - 1) if p.is_shard() and p.dim > 1 else r
+             for p, r in zip(cp, rows)]
+
+    def write(c, s, n):
+        c.index_put_((torch.arange(c.shape[0], device=c.device), s.long()),
+                     n.to(c.dtype))
+        return c
+
+    local_map(write, out_placements=cp, in_placements=(cp, rows, new_p),
+              device_mesh=cache.device_mesh)(
+        cache, slot.redistribute(cache.device_mesh, rows),
+        new.redistribute(cache.device_mesh, new_p))
 
 
 def paged_decode_attention(params, x: Tensor, cfg,
@@ -288,8 +318,15 @@ def cross_attention(params, x: Tensor, enc_kv: Tuple[Tensor, Tensor],
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
     k, v = enc_kv
-    out = gqa_sdpa(q, k.to(dt), v.to(dt), None,
-                   getattr(torch, cfg.attn_softmax_dtype))
+    softmax_dtype = getattr(torch, cfg.attn_softmax_dtype)
+
+    def attend(q, k, v):
+        return gqa_sdpa(q, k, v, None, softmax_dtype)
+
+    k, v = k.to(dt), v.to(dt)
+    out = kops.on_shards("cross_attention", attend, q, k, v, q_head=2,
+                         kv_head=2) if hasattr(q, "device_mesh") \
+        else attend(q, k, v)
     return _project_out(params, out, dt)
 
 

@@ -67,7 +67,7 @@ from . import attention as attn
 from . import moe as moe_lib
 from . import ssm as ssm_lib
 from .layers import (cross_entropy_loss, embed, embedding_specs, linear,
-                     rms_norm, swiglu, swiglu_specs, unembed)
+                     on_local_rows, rms_norm, swiglu, swiglu_specs, unembed)
 from .params import ParamSpec, init_params, is_spec
 
 Tensor = torch.Tensor
@@ -270,6 +270,16 @@ class CacheSpec:
                                       device=full.device)
                 full.index_copy_(ax, idx, row)
         return cache
+
+
+def _project_patches(p, patches: Tensor) -> Tensor:
+    """The vlm projector ``gelu(patches @ w1) @ w2`` (tanh gelu). On
+    DTensors each device projects its own rows (``on_local_rows``): left to
+    DTensor, its backward splits the patch rows over ``model``."""
+    if hasattr(patches, "device_mesh"):
+        return on_local_rows(_project_patches, p, patches)
+    proj = F.gelu(linear(patches, p["w1"]), approximate="tanh")
+    return linear(proj, p["w2"])
 
 
 class Model:
@@ -487,6 +497,21 @@ class Model:
         return {**self._direct_leaves(n_slots, device, experts),
                 **self._kv_leaves((n_blocks, block_size), experts, device)}
 
+    def cache_shapes(self, batch: int, cache_len: int,
+                     experts: int = 0) -> Dict[str, Tensor]:
+        """``init_cache``'s leaves as ``meta`` tensors (shapes and dtypes,
+        no allocation): the reference's ``ShapeDtypeStruct`` tree."""
+        return self.init_cache(batch, cache_len, device="meta",
+                               experts=experts)
+
+    def paged_cache_shapes(self, n_slots: int, n_blocks: int,
+                           block_size: int, cache_len: int,
+                           experts: int = 0) -> Dict[str, Tensor]:
+        """``init_paged_cache``'s leaves as ``meta`` tensors."""
+        return self.init_paged_cache(n_slots, n_blocks, block_size,
+                                     cache_len, device="meta",
+                                     experts=experts)
+
     # ------------------------------------------------------------------
     # The layer stack
     # ------------------------------------------------------------------
@@ -608,8 +633,7 @@ class Model:
         K = n_stacked(params)
         if K:
             patches = patches.repeat(K, 1, 1)
-        proj = F.gelu(linear(patches, p["w1"]), approximate="tanh")
-        return torch.cat([linear(proj, p["w2"]), x], dim=1)
+        return torch.cat([_project_patches(p, patches), x], dim=1)
 
     def _encode_audio(self, params, batch, *, remat: str = "none") -> Tensor:
         """The audio family's encoder over ``batch["frames"]`` (B, F, Da):

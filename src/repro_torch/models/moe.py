@@ -39,7 +39,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .layers import expert_matmul, swiglu_specs
+from .layers import expert_matmul, on_local_rows, swiglu_specs
 from .params import ParamSpec
 
 Tensor = torch.Tensor
@@ -125,7 +125,13 @@ def moe_ffn(params: Dict[str, Tensor], x: Tensor, cfg,
             stack: int = 0) -> Tensor:
     """x (R, S, D) → (R, S, D) in x's dtype; each row a routing group.
     ``stack`` = K for a stack of K models' parameters (rows expert-major,
-    R = K·B), 0 for one model's."""
+    R = K·B), 0 for one model's. Placed on a mesh (DTensors), it runs on
+    each device's rows with the expert weights gathered whole
+    (``layers.on_local_rows``): DTensor has no placement for the capacity
+    dispatch's scatter."""
+    if hasattr(x, "device_mesh"):
+        return on_local_rows(lambda p, h: moe_ffn(p, h, cfg, stack),
+                             params, x)
     R, S, D = x.shape
     E, top_k = cfg.moe.n_experts, cfg.moe.top_k
     C = _capacity(S, E, top_k, cfg.moe.capacity_factor)

@@ -13,7 +13,9 @@ reference; it runs under autograd as it is. Casts follow the
 reference: states and decays in float32, projections in the working
 dtype. Every block also takes a stack of K experts' parameters with K
 folded into the batch of the activations and states (``layers``'
-expert-stack convention).
+expert-stack convention). On DTensors (a model placed on a mesh) each
+block runs on each device's batch rows with its params gathered whole
+(``layers.placed_rows``): DTensor has no placement for the scans.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 
-from .layers import linear, per_expert, rms_norm
+from .layers import linear, per_expert, placed_rows, rms_norm
 from .params import ParamSpec
 
 Tensor = torch.Tensor
@@ -165,6 +167,7 @@ def _with_ones(v: Tensor) -> Tensor:
     return torch.cat([v, torch.ones_like(v[..., :1])], dim=-1)
 
 
+@placed_rows
 def mlstm_prefill(params, x: Tensor, cfg, state: Optional[Tensor] = None,
                   length: Optional[int] = None, *,
                   differentiable: bool = False):
@@ -191,6 +194,7 @@ def mlstm_block(params, x: Tensor, cfg, *,
     return mlstm_prefill(params, x, cfg, differentiable=differentiable)[0]
 
 
+@placed_rows
 def mlstm_step(params, x: Tensor, cfg, state: Tensor):
     """x: (B, 1, D); state: (B, H, dh, dh+1) float32 matrix memory with
     its normalizer column. Returns (y (B,1,D), new state)."""
@@ -229,6 +233,7 @@ def slstm_init_state(batch: int, Di: int, device) -> Tuple[Tensor, ...]:
     return z, z.clone(), torch.full_like(z, -1e30), z.clone()
 
 
+@placed_rows
 def slstm_scan(params, x: Tensor, cfg, state=None,
                length: Optional[int] = None):
     """Sequential sLSTM with stabilized exponential gating, one step a
@@ -364,6 +369,7 @@ def mamba2_block(params, x: Tensor, cfg, *,
     return y
 
 
+@placed_rows
 def mamba2_prefill(params, x: Tensor, cfg, *, differentiable: bool = False):
     """``mamba2_block`` that also returns the decode state (ssm_state
     (B,H,N,P) float32, conv_carry (B,W−1,C)) — the reference model's
@@ -383,6 +389,7 @@ def mamba2_prefill(params, x: Tensor, cfg, *, differentiable: bool = False):
     return mamba2_out(params, y, v, z, cfg), (st, conv_carry)
 
 
+@placed_rows
 def mamba2_chunk(params, x: Tensor, cfg, state, length: int):
     """``mamba2_prefill`` of one right-padded prompt chunk with the carry
     (ssm_state, conv_carry) flowing in from the previous chunk — the
@@ -407,6 +414,7 @@ def mamba2_chunk(params, x: Tensor, cfg, state, length: int):
     return mamba2_out(params, y, v, z, cfg), (st, conv_carry)
 
 
+@placed_rows
 def mamba2_step(params, x: Tensor, cfg, state):
     """One token per row. x: (B,1,D); state: (ssm_state (B,H,N,P) float32,
     conv_carry (B,W−1,C)). Returns (y (B,1,D), new state)."""

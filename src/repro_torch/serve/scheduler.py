@@ -834,6 +834,7 @@ class _SlotTable:
                        ) -> Dict[str, Tensor]:
         """``CacheSpec.swap_out`` moved to host memory: the park's one
         readback."""
+        # repro: allow-host-sync swap-out to host memory
         return {name: t.cpu() for name, t in
                 self.spec.swap_out(self.cache, slot, blocks).items()}
 
@@ -1247,6 +1248,7 @@ class _SlotTable:
             return
         n = int(self.n_alloc[slot])
         if n:
+            # repro: allow-host-sync host numpy table
             blocks = self.block_tables[slot, :n].tolist()
             for i, b in enumerate(blocks):
                 self.allocator.assert_live(
@@ -1507,9 +1509,11 @@ class _SlotTable:
         probabilities). One readback."""
         sp = req.params
         if sp.temperature <= 0:
+            # repro: allow-host-sync admission's first token
             return int(pick_first(row[None], from_probs=from_probs).cpu()[0])
         fn = sample_tokens_probs if from_probs else sample_tokens
         dev = row.device
+        # repro: allow-host-sync admission's first token
         return int(fn(
             row[None],
             torch.tensor([sp.temperature], dtype=torch.float32, device=dev),
@@ -1566,6 +1570,7 @@ class _SlotTable:
                                              pick)
                 t1 = self._obs_chunk_span(slot, start, t0)
                 retired = self._after_chunk_tok(
+                    # repro: allow-host-sync the chunk step's readback
                     slot, length, lambda: int(first.cpu()[0]))
                 self.obs.step_timing("chunk", t0, t1)
                 return retired
@@ -2109,6 +2114,7 @@ class SlotServer(_SlotTable):
             return False
         logits, row_cache = self._prefill(self.params,
                                           req.batch(self.device))
+        # repro: allow-host-sync admission's first token
         first = int(pick_first(logits[0, -1:],
                                *self._pick_args(req)).cpu()[0])
         if width == self.cache_len:
@@ -2233,6 +2239,7 @@ class MixtureSlotServer(_SlotTable):
                                               req.batch(self.device))
         probs = mix_expert_logits(logits[:, :, -1], torch.as_tensor(
             w[None], device=self.device))                       # (1, V)
+        # repro: allow-host-sync admission's first token
         first = int(pick_first(probs, *self._pick_args(req),
                                from_probs=True).cpu()[0])
         if width == self.cache_len:
@@ -2371,6 +2378,7 @@ class DecentralizedSlotServer:
         req.t_submit = req.t_submit or time.perf_counter()
         if self.strategy == "mixture":
             return self.core.add_request(req)
+        # repro: allow-host-sync routing at submission
         k = int(self.router.top1(self._features(req.features[None])).cpu()[0])
         return self.pods[k].add_request(req)
 

@@ -1254,3 +1254,24 @@ def test_audio_serves_as_on_the_cpu(cuda, strategy, speculative):
                     out[o.rid] = (o.token_ids, o.finish_reason)
         res.append(out)
     assert res[0] == res[1] and len(res[1]) == 4
+
+
+@pytest.mark.gpu
+def test_placed_decentralized_step_on_a_one_card_mesh(cuda):
+    """The placed decentralized step on a (1, 1, 1) mesh over NCCL equals
+    the unplaced step (``chip_smoke.phase_placed_train`` at smoke size:
+    float32, 2 experts, 2 steps; losses, grad norms and params within its
+    ``TRAIN_PARITY``, the flash kernels launched as often). The process
+    group lives in a subprocess, so none leaks into this one."""
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import sys; sys.path[:0] = [sys.argv[1], sys.argv[1] + '/src']; "
+            "import chip_smoke as c; "
+            "c.phase_placed_train('cuda', 'nccl', smoke=True)")
+    proc = subprocess.run([sys.executable, "-c", code, repo],
+                          capture_output=True, text=True, timeout=600,
+                          cwd=repo)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    assert "placed training:" in proc.stdout + proc.stderr
