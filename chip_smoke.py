@@ -78,7 +78,17 @@ Phases, each fatal on failure:
    at S = 1500), both dtypes, each with device ms and bound; and the
    flash forward and backward at the hybrid training path's shape
    (``_hybrid_training_kernel_cases``: Zamba2's 32/32 heads of dh 80, S =
-   4096, causal, bf16), each with device ms and bound;
+   4096, causal, bf16), each with device ms and bound; and the contiguous
+   decode's lse (``_split_decode_kernel_cases``): out and lse with
+   ``return_lse`` against the plain version in bf16 and float32 at the
+   contiguous path's shape and at a device's shard of ``decode_32k`` as
+   the dry run places it (``SHARD_DECODE``), rows with an empty fence (pos
+   −1: a 0 row, lse −inf) among them, the lse within ``LSE_TOL``; the
+   output without ``return_lse`` bit for bit that with it; the seam's
+   split-and-merge on the card (4 key ranges of the shard's row, one of
+   them an empty fence for a row, rows whose ring is full, merged by
+   ``ops.merge_key_ranges``) against the whole-row kernel; and the device
+   ms of the shard's decode with the lse and without it;
 3a. theory — the paper's §4 theory in float64 on the card
    (``phase_theory``): the walkthrough twin, then the reference tests'
    grids (``THEORY_DFM_GRID``, ``THEORY_SPLIT_GRID``); every CE
@@ -325,11 +335,16 @@ Phases, each fatal on failure:
    GiB printed;
 13d. dry run — ``repro_torch.launch.dryrun`` of ``DRYRUN_CASE`` on the
    multi-pod mesh (512 fake ranks, fake CPU tensors, ``--probe``),
-   decentralized and dense, each a subprocess started right after the
-   build and run beside the card's phases (``phase_dryrun``): the
-   decentralized case must record no collective whose group spans pods,
-   the dense control at least one; prints the three roofline terms at
-   the H100's data-sheet peaks and the per-device state GiB;
+   decentralized and dense, and of ``DRYRUN_DECODE_CASES`` (decode on a
+   cache split along its sequence), decentralized, each a subprocess
+   started right after the build and run beside the card's phases
+   (``phase_dryrun``): every case must be ``ok``, the decentralized ones
+   must record no collective whose group spans pods, the dense control at
+   least one; the decode cases' schedules must hold the seam's merge (a
+   SUM all-reduce of the (B, H, dh + 1) float32 numerator) and
+   ``decode_32k``'s device shard must be ``SHARD_DECODE``'s; prints the
+   three roofline terms at the H100's data-sheet peaks and the
+   per-device state GiB;
 14. moe launches — ``torch.profiler``'s count of the card's kernels in
    one ``moe_ffn`` call (decode rows, a chunk) and in one DeepSeek-MoE-16B
    decode layer (a paged decode step at 2 layers less one at 1), run last
@@ -1501,6 +1516,139 @@ def _prefix_kernel_cases(cases, gen):
         "tolerance")
 
 
+# a device's shard of decode_32k as the dry run places it on the multi-pod
+# mesh, decentralized (its record's kv_local: 8 of the 128 slots, 2048 of
+# the 32768 positions, the 8 KV heads of 128), with Qwen3-8B's 32 query
+# heads whole there (the seam gathers them): B, S, H, KV, dh
+SHARD_DECODE = (8, 2048, 32, 8, 128)
+# the lse against the plain version's on the same float32 values: both are
+# float32 sums of the exponentials of the same scores (|lse| < ~20 here),
+# the bf16 kernel's in log2 units and over its own split plan, so they
+# should be a few float32 ulps of the lse apart; 1e-4 (atol = rtol) leaves
+# two orders of that, and a fault (a key tile dropped or counted twice, a
+# natural-log/log2 slip) moves it by 1e-2 or more
+LSE_TOL = 1e-4
+
+
+def _check_lse(label, got, got_lse, want, want_lse, pos, dtype_name, cases):
+    """out and lse of the decode with ``return_lse`` against the plain
+    version's: rows with an empty fence (pos < 0) exactly 0 and −inf, the
+    others within the dtype's tolerance (out) and ``LSE_TOL`` (lse)."""
+    import torch
+    empty = pos < 0
+    if not (bool((got[empty] == 0).all())
+            and bool(torch.isneginf(got_lse[empty]).all())):
+        raise AssertionError(f"{label} ({dtype_name}): an empty fence gave "
+                             f"no 0 row or no −inf lse")
+    compare(label, got[~empty], want[~empty], dtype_name, cases)
+    compare(label + " lse", got_lse[~empty], want_lse[~empty], dtype_name,
+            cases, tol=LSE_TOL)
+
+
+def _split_decode_kernel_cases(cases, rec, gen):
+    """The contiguous decode's lse output (the seam's decode over a cache
+    split along its sequence runs it on every key range): out and lse
+    with ``return_lse`` against the plain version (run in float32 on the
+    same values) at the contiguous path's shape and at ``SHARD_DECODE``,
+    bf16 and float32, with empty fences and fences past S; the output
+    without ``return_lse`` bit for bit that with it; the seam's
+    split-and-merge on the card — the shard's rows cut into 4 key ranges
+    of 512, each run with the fence min(pos, S − 1) − s0 (−1 at least),
+    merged by ``ops.merge_key_ranges`` — against the whole-row kernel with
+    a window of S (rows 6 and 7 past it: their ring is full; row 0 sees
+    only the first range, an empty fence in the other three), and the
+    device ms of the shard's bf16 decode with and without the lse. Adds
+    ``rec["decode_attention"]["lse"]``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import ops
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, S, H, KV, dh = SHARD_DECODE
+    shapes = {
+        "contiguous path": (8, 1088, [-1, 0, 1087, 500, 63, 64, 200, 5000]),
+        "decode_32k shard": (B, S, [-1, 0, 2047, 700, 64, 1500, 5000, -1])}
+    for label, (b, s, pos) in shapes.items():
+        for dtype, name in ((bf16, "bfloat16"), (f32, "float32")):
+            q, k, v, pos_t = _decode_case(b, s, H, KV, dh, pos, dtype, gen)
+            out, lse = dk.decode_attention(q, k, v, pos_t, return_lse=True)
+            _check_lse("decode_attention (lse)", out, lse,
+                       *dk.decode_attention_ref(*_up(q, k, v, pos_t),
+                                                return_lse=True),
+                       pos_t, name, cases)
+            if not torch.equal(dk.decode_attention(q, k, v, pos_t), out):
+                raise AssertionError(f"decode_attention at the {label} "
+                                     f"({name}): the output without the lse "
+                                     f"differs from the output with it")
+    log("decode_attention return_lse: out and lse against the plain version "
+        "at the contiguous path's shape and the decode_32k shard, bf16 and "
+        "float32, empty fences 0 and -inf; without the lse bit for bit")
+
+    bounds = (0, 512, 1024, 1536, S)
+    pos = [100, 600, 1023, 1024, 2047, 1500, 3000, 5000]
+
+    def stacked(t, op):
+        return t.amax(0) if op == "max" else t.sum(0)
+
+    for dtype, name in ((bf16, "bfloat16"), (f32, "float32")):
+        q, k, v, pos_t = _decode_case(B, S, H, KV, dh, pos, dtype, gen)
+        parts = [dk.decode_attention(
+            q, k[:, s0:s1].contiguous(), v[:, s0:s1].contiguous(),
+            (pos_t.clamp(max=S - 1) - s0).clamp(min=-1), return_lse=True)
+            for s0, s1 in zip(bounds[:-1], bounds[1:])]
+        if not all(bool(torch.isneginf(lse[0]).all())
+                   for _, lse in parts[1:]):
+            raise AssertionError("split decode: row 0's empty fences gave "
+                                 "no −inf lse")
+        merged, merged_lse = ops.merge_key_ranges(
+            torch.stack([o for o, _ in parts]),
+            torch.stack([lse for _, lse in parts]), stacked)
+        whole, whole_lse = dk.decode_attention(q, k, v, pos_t, window=S,
+                                               return_lse=True)
+        compare("decode_attention (split and merge)", merged, whole, name,
+                cases)
+        compare("decode_attention (split and merge) lse", merged_lse,
+                whole_lse, name, cases, tol=LSE_TOL)
+        compare("decode_attention (split and merge)", merged,
+                dk.decode_attention_ref(*_up(q, k, v, pos_t), window=S),
+                name, cases)
+    log("decode_attention split and merge: 4 key ranges of the decode_32k "
+        "shard (an empty fence among them, two full rings) against the "
+        "whole-row kernel and the plain version, bf16 and float32")
+
+    pos = np.random.default_rng(3).integers(0, S, B)
+    pos[0] = S - 1
+    q, k, v, pos_t = _decode_case(B, S, H, KV, dh, pos.tolist(), bf16, gen)
+    timed = {}
+    for lse_on in (False, True, False, True):      # off, on, off, on
+        timed.setdefault(lse_on, []).append(device_ms(
+            lambda: dk.decode_attention(q, k, v, pos_t, return_lse=lse_on)))
+    keys = int((pos + 1).sum())
+    nbytes = 2 * B * H * dh * 2 + keys * KV * dh * 2 * 2 + B * 4 + B * H * 4
+
+    def worst(label):
+        return max(c["max_abs_err"] for c in cases if c["kernel"] == label)
+
+    r = rec["decode_attention"]["lse"] = {
+        "shape": f"B={B} S={S} H={H} KV={KV} dh={dh} pos<= {int(pos.max())} "
+                 f"bf16 (a decode_32k shard)",
+        "device_ms_with_lse": timed[True], "device_ms_without": timed[False],
+        "splits": list(dk.decode_splits(S, B * KV)),
+        "bound_ms": max(nbytes / HBM_BPS,
+                        4 * H * dh * keys / PEAK_FLOPS["bfloat16"]) * 1e3,
+        "max_abs_err": {n: worst(n) for n in (
+            "decode_attention (lse)", "decode_attention (lse) lse",
+            "decode_attention (split and merge)",
+            "decode_attention (split and merge) lse")},
+        "tol": {"bfloat16": TOL["bfloat16"], "float32": TOL["float32"],
+                "lse": LSE_TOL}}
+    log(f"decode_attention lse at {r['shape']}: device ms with the lse "
+        f"{r['device_ms_with_lse']}, without {r['device_ms_without']} "
+        f"(bound {r['bound_ms']:.4f}, splits {r['splits']}); max abs err "
+        f"{json.dumps(r['max_abs_err'])}")
+
+
 def phase_kernels():
     """Compare and time every kernel; returns {name: record}."""
     import numpy as np
@@ -1933,6 +2081,7 @@ def phase_kernels():
     _audio_kernel_cases(cases, rec, gen)
     _hybrid_training_kernel_cases(cases, rec, gen)
     _prefix_kernel_cases(cases, gen)
+    _split_decode_kernel_cases(cases, rec, gen)
     torch.cuda.synchronize()
 
     for name, r in rec.items():
@@ -4407,6 +4556,9 @@ PLACED_STEPS = 2
 # the dry run's case, run in both modes on the multi-pod mesh with the
 # depth probe (two shallow runs, G = 1 and 2, fitted to the full depth)
 DRYRUN_CASE = ("qwen3_8b", "train_4k")
+# decode on a cache the rules split along its sequence (multi-pod mesh,
+# decentralized): over ``model`` at decode_32k, over ``data`` at long_500k
+DRYRUN_DECODE_CASES = (("qwen3_8b", "decode_32k"), ("qwen3_8b", "long_500k"))
 DRYRUN_TIMEOUT = 600
 
 
@@ -4601,59 +4753,86 @@ def _stop(procs):
 
 
 def start_dryruns(out_dir):
-    """The dry run of ``DRYRUN_CASE`` on the multi-pod mesh, both modes,
-    each in a subprocess of its own started now: it runs on fake CPU
-    tensors, beside the card's phases."""
+    """The dry runs of ``DRYRUN_CASE`` on the multi-pod mesh, both modes,
+    and of ``DRYRUN_DECODE_CASES``, decentralized (their depth-1
+    schedules kept), each in a subprocess of its own started now: they
+    run on fake CPU tensors, beside the card's phases."""
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
-    arch, shape = DRYRUN_CASE
+    cases = [(*DRYRUN_CASE, mode) for mode in ("decentralized", "dense")]
+    cases += [(arch, shape, "decentralized")
+              for arch, shape in DRYRUN_DECODE_CASES]
     procs = {}
-    for mode in ("decentralized", "dense"):
-        procs[mode] = subprocess.Popen(
+    for arch, shape, mode in cases:
+        extra = ["--save-schedule"] if (arch, shape) != DRYRUN_CASE else []
+        procs[arch, shape, mode] = subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
              arch, "--shape", shape, "--mesh", "multi", "--mode", mode,
-             "--probe", "--out", str(out_dir)],
+             "--probe", "--out", str(out_dir), *extra],
             env=env, cwd=str(HERE), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
     return procs
 
 
+def _merge_sums(path, dh):
+    """The seam's merge in a dry run's schedule: the SUM all-reduces of the
+    packed (B, H, dh + 1) float32 numerator and weight."""
+    return [o for o in json.loads(path.read_text())
+            if o["op"] == "all-reduce" and o["bytes"] % (4 * (dh + 1)) == 0]
+
+
 def phase_dryrun(procs, out_dir):
-    """The dry runs ``start_dryruns`` started: both must exit 0; the
-    decentralized case must show no collective whose group spans pods,
-    and the dense case (batch and FSDP over ("pod", "data")) at least
-    one. Prints the three roofline terms against the H100's data-sheet
-    peaks and the per-device state GiB."""
-    arch, shape = DRYRUN_CASE
+    """The dry runs ``start_dryruns`` started: each must exit 0 with
+    status ok on 512 devices; a decentralized case must show no collective
+    whose group spans pods, and the dense case (batch and FSDP over
+    ("pod", "data")) at least one; a decode case's depth-1 schedule must
+    hold the merge of partial softmaxes, and ``decode_32k``'s device
+    shard of the K cache must be the one the kernel phase checked
+    (``SHARD_DECODE``). Prints the three roofline terms against the
+    H100's data-sheet peaks and the per-device state GiB."""
     bad = []
-    for mode, proc in procs.items():
+    for (arch, shape, mode), proc in procs.items():
+        name = f"{arch} {shape} {mode}"
         try:
             out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.communicate()
-            raise AssertionError(f"dry run {mode}: past {DRYRUN_TIMEOUT} s")
+            raise AssertionError(f"dry run {name}: past {DRYRUN_TIMEOUT} s")
         if proc.returncode != 0:
-            raise AssertionError(f"dry run {mode} exited {proc.returncode}: "
+            raise AssertionError(f"dry run {name} exited {proc.returncode}: "
                                  f"{out[-1500:]}")
-        path = Path(out_dir) / f"{arch}.{shape}.multi.{mode}.probe.json"
-        rec = json.loads(path.read_text())
+        cid = f"{arch}.{shape}.multi.{mode}.probe"
+        rec = json.loads((Path(out_dir) / f"{cid}.json").read_text())
         c, r = rec["collectives"], rec["roofline"]
+        decode = (arch, shape) != DRYRUN_CASE
+        merges = _merge_sums(Path(out_dir) / f"{cid}.schedule.json",
+                             SHARD_DECODE[-1]) if decode else []
         log(f"dry run {arch} {shape} multi {mode} (--probe, "
-            f"{rec['n_devices']} fake ranks): compute {r['compute_s']:.4f} s, "
-            f"memory {r['memory_s']:.4f} s (unfused bytes), collective "
-            f"{r['collective_s']:.4f} s at {r['link_bw'] / 1e9:.0f} GB/s, "
+            f"{rec['n_devices']} fake ranks): compute {r['compute_s']:.4g} s, "
+            f"memory {r['memory_s']:.4g} s (unfused bytes), collective "
+            f"{r['collective_s']:.4g} s at {r['link_bw'] / 1e9:.0f} GB/s, "
             f"bottleneck {r['bottleneck']}; state "
             f"{rec['memory']['argument_size_in_bytes'] / 2**30:.3f} GiB a "
             f"device; collectives {c['total_bytes']:.4g} B, cross-pod "
-            f"{c['cross_pod_bytes']:.4g} B in {c['cross_pod_ops']:g} ops")
+            f"{c['cross_pod_bytes']:.4g} B in {c['cross_pod_ops']:g} ops"
+            + (f"; K cache shard {tuple(rec['kv_local'])}, merge sums "
+               f"{[o['bytes'] for o in merges]} B over "
+               f"{sorted({len(o['ranks']) for o in merges})} ranks"
+               if decode else ""))
         if rec["status"] != "ok" or rec["n_devices"] != 512:
-            bad.append(f"{mode}: status {rec['status']}, "
+            bad.append(f"{name}: status {rec['status']}, "
                        f"{rec['n_devices']} devices")
         if mode == "decentralized" and (c["cross_pod_bytes"]
                                         or c["cross_pod_ops"]):
-            bad.append(f"decentralized crosses pods: {c}")
+            bad.append(f"{name} crosses pods: {c}")
         if mode == "dense" and not c["cross_pod_ops"] > 0:
             bad.append(f"dense control shows no cross-pod collective: {c}")
+        if decode and not merges:
+            bad.append(f"{name}: no merge of partial softmaxes recorded")
+        if shape == "decode_32k" and rec["kv_local"] != [
+                SHARD_DECODE[0], SHARD_DECODE[1], *SHARD_DECODE[3:]]:
+            bad.append(f"{name}: device shard {rec['kv_local']}, the kernel "
+                       f"phase checked {SHARD_DECODE}")
     if bad:
         raise AssertionError("dry run: " + "; ".join(bad))
 
@@ -5276,7 +5455,7 @@ def main() -> int:
             "new_config_shapes": r.get("new_config_shapes", []),
             **{k: r[k] for k in ("float32_ms", "float32_device_ms",
                                  "batched", "by_batch",
-                                 "launch_floor_device_ms") if k in r}})
+                                 "launch_floor_device_ms", "lse") if k in r}})
         if name == "chunk_scan":
             # the hybrid path's calls by route, and the ssm path's (every
             # one scalar at mLSTM's widths)

@@ -103,7 +103,7 @@ def load(name: str) -> ctypes.CDLL:
         lib.paged_decode_attention.restype = I
         lib.chunk_prefill_attention.argtypes = [P] * 5 + [I] * 10 + [F, P]
         lib.chunk_prefill_attention.restype = I
-        lib.decode_attention.argtypes = [P] * 6 + [I] * 9 + [F, P]
+        lib.decode_attention.argtypes = [P] * 7 + [I] * 9 + [F, P]
         lib.decode_attention.restype = I
         lib.paged_verify_attention.argtypes = [P] * 7 + [I] * 11 + [F, P]
         lib.paged_verify_attention.restype = I

@@ -98,13 +98,16 @@ constexpr int kContiguousBlock = 64;   // cache positions per key tile
 // (q.reshape(B, KV, group, dh), as the reference regroups them) attend over
 // key tiles 0..last of the slot's span of s_len positions. Keys at
 // position <= pos are live; with window > 0 the span is a ring and every
-// key is live once pos >= s_len.
+// key is live once pos >= s_len. A negative pos sees no key (the
+// contiguous decode's empty fence): no tile is walked, so the row is 0.
+// With lse (B, H), each row's natural-log log-sum-exp, -inf when empty.
 template <typename Rows>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const int* __restrict__ pos,
-              Rows rows, float* __restrict__ out, int H, int KV, int dh,
-              int block, int nk, int s_len, int window, float scale) {
+              Rows rows, float* __restrict__ out, float* __restrict__ lse,
+              int H, int KV, int dh, int block, int nk, int s_len,
+              int window, float scale) {
   extern __shared__ float smem[];
   const int b = blockIdx.x, kvh = blockIdx.y, group = H / KV;
   const Tile t = carve(smem, group, block, dh);
@@ -119,7 +122,7 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   init_state(t, group, dh);
   __syncthreads();
-  const int last = wrapped ? nk - 1 : min(p / block, nk - 1);
+  const int last = p < 0 ? -1 : wrapped ? nk - 1 : min(p / block, nk - 1);
   for (int ki = 0; ki <= last; ++ki) {
     load_kv(t, k, v, rows, b, ki, kvh, block, KV, dh);
     __syncthreads();
@@ -127,6 +130,10 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   for (int i = threadIdx.x; i < group * dh; i += blockDim.x)
     out[q0 + i] = t.acc[i] / fmaxf(t.l[i / dh], 1e-30f);
+  if (lse)
+    for (int r = threadIdx.x; r < group; r += blockDim.x)
+      lse[q0 / dh + r] =
+          t.l[r] > 0.f ? t.m[r] + logf(t.l[r]) : sm90::neg_infinity();
 }
 
 // grid (KV, ceil(C * group / kRows), B): rows are chunk b's (c, g) query
@@ -224,16 +231,17 @@ paged_verify_kernel(const float* __restrict__ q,
 
 template <typename Rows>
 int launch_decode(const void* q, const void* k, const void* v,
-                  const void* pos, Rows rows, void* out, int B, int H,
-                  int KV, int dh, int block, int nk, int s_len, int window,
-                  float scale, cudaStream_t stream) {
+                  const void* pos, Rows rows, void* out, void* lse, int B,
+                  int H, int KV, int dh, int block, int nk, int s_len,
+                  int window, float scale, cudaStream_t stream) {
   const size_t bytes = tile_bytes(H / KV, block, dh);
   cudaError_t err = set_smem(decode_kernel<Rows>, bytes);
   if (err != cudaSuccess) return int(err);
   decode_kernel<Rows><<<dim3(B, KV), kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int*>(pos), rows,
-      static_cast<float*>(out), H, KV, dh, block, nk, s_len, window, scale);
+      static_cast<float*>(out), static_cast<float*>(lse), H, KV, dh, block,
+      nk, s_len, window, scale);
   return int(cudaGetLastError());
 }
 
@@ -470,16 +478,19 @@ int launch_decode_slabs(bool paged_kv, const CUtensorMap& mq,
                      kDecodeThreads, smem, mq, mk, mv, w, B, stream);
 }
 
-// bf16 decode over the maps of either cache: one query row a slot.
+// bf16 decode over the maps of either cache: one query row a slot; with
+// lse, each row's log-sum-exp too (the split kernel's epilogue writes it
+// with one split, merge_rows with several).
 int launch_decode_sm90(bool paged_kv, const CUtensorMap& mk,
                        const CUtensorMap& mv, const void* q, const void* pos,
-                       const void* tables, void* out, void* workspace, int B,
-                       int H, int KV, int dh, int block, int NB, int keys,
-                       int splits, int tps, float scale,
-                       cudaStream_t stream) {
-  const paged::Work w =
+                       const void* tables, void* out, void* lse,
+                       void* workspace, int B, int H, int KV, int dh,
+                       int block, int NB, int keys, int splits, int tps,
+                       float scale, cudaStream_t stream) {
+  paged::Work w =
       make_work(out, workspace, pos, tables, 0, B, 1, H, KV, dh, block, NB,
                 keys, splits, tps, scale);
+  w.lse = static_cast<float*>(lse);
   CUtensorMap mq;
   const int err = make_q_map(&mq, q, B, w);
   if (err) return err;
@@ -508,8 +519,8 @@ extern "C" int paged_decode_attention(const void* q, const void* k_pool,
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     const PagedRows rows{static_cast<const int*>(tables), NB, block};
-    return launch_decode(q, k_pool, v_pool, pos, rows, out, B, H, KV, dh,
-                         block, NB, NB * block, window, scale, s);
+    return launch_decode(q, k_pool, v_pool, pos, rows, out, nullptr, B, H,
+                         KV, dh, block, NB, NB * block, window, scale, s);
   }
   if (dtype != 1 || !sm90_shape_ok(H, KV, dh, block) ||
       !splits_ok(NB * block, splits, tps, workspace))
@@ -518,21 +529,23 @@ extern "C" int paged_decode_attention(const void* q, const void* k_pool,
   int err = paged::make_pool_map(&mk, k_pool, P, block, KV, dh);
   if (!err) err = paged::make_pool_map(&mv, v_pool, P, block, KV, dh);
   if (err) return err;
-  return launch_decode_sm90(true, mk, mv, q, pos, tables, out, workspace, B,
-                            H, KV, dh, block, NB, NB * block, splits, tps,
-                            scale, s);
+  return launch_decode_sm90(true, mk, mv, q, pos, tables, out, nullptr,
+                            workspace, B, H, KV, dh, block, NB, NB * block,
+                            splits, tps, scale, s);
 }
 
+// lse: (B, H) float32, each row's natural-log log-sum-exp, or nullptr.
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
-                                const void* pos, void* out, void* workspace,
-                                int dtype, int B, int H, int KV, int dh,
-                                int S, int window, int splits, int tps,
-                                float scale, void* stream) {
+                                const void* pos, void* out, void* lse,
+                                void* workspace, int dtype, int B, int H,
+                                int KV, int dh, int S, int window,
+                                int splits, int tps, float scale,
+                                void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     const int block = kContiguousBlock;
     const ContiguousRows rows{S, block};
-    return launch_decode(q, k, v, pos, rows, out, B, H, KV, dh, block,
+    return launch_decode(q, k, v, pos, rows, out, lse, B, H, KV, dh, block,
                          (S + block - 1) / block, S, window, scale, s);
   }
   if (dtype != 1 || !sm90_shape_ok(H, KV, dh, 0) ||
@@ -542,8 +555,9 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
   int err = sm90::make_map(&mk, k, B, S, KV, dh, 1, sm90::kTile);
   if (!err) err = sm90::make_map(&mv, v, B, S, KV, dh, 1, sm90::kTile);
   if (err) return err;
-  return launch_decode_sm90(false, mk, mv, q, pos, nullptr, out, workspace,
-                            B, H, KV, dh, 0, 0, S, splits, tps, scale, s);
+  return launch_decode_sm90(false, mk, mv, q, pos, nullptr, out, lse,
+                            workspace, B, H, KV, dh, 0, 0, S, splits, tps,
+                            scale, s);
 }
 
 // Chunk prefill of B chunks at one start, table (B, NB): one split, so no

@@ -45,6 +45,10 @@ constexpr int kConsumers = 2;      // consumer warpgroups of a block
 constexpr int kThreads = 128 * (kConsumers + 1);   // + producer warpgroup
 constexpr int kSlabBytes = kTile * 128;           // one 64-row slab
 constexpr float kNegInf = -1e30f;  // the masking constant of the reference
+// -inf: the log-sum-exp of a row that sees no key
+__device__ __forceinline__ float neg_infinity() {
+  return __int_as_float(0xff800000);
+}
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 // cuTensorMapEncodeTiled's failures are returned as kEncodeError + CUresult

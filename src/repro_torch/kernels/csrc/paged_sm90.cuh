@@ -83,6 +83,7 @@ struct Work {
   float* part_l;
   const int* pos;         // (B,) on the device, or nullptr: p = start
   const int* tables;      // (B, NB), the paged loader's
+  float* lse;             // (B, n_off, H) natural-log lse, or nullptr
   int start, n_off, H, KV, dh, block, NB;
   int keys;               // key positions of a slot: NB * block, or S
   int splits, tps;        // key tiles [s * tps, s * tps + tps) per split
@@ -201,11 +202,16 @@ __device__ __forceinline__ void paged_body(const CUtensorMap& mq,
   const int p = w.pos ? w.pos[b] : w.start;
   const int s_log = w.keys;
   // a split wholly past the slot's last visible key exits (merge_rows
-  // counts the same live splits)
+  // counts the same live splits); split 0 stays where no key is visible
+  // (decode's empty fence, pos < 0) and, walking no tile, writes a 0 row
+  // and lse -inf, or partials of l = 0
   const int kt_begin = split * w.tps;
-  if (kt_begin * kTile > min(p + w.n_off - 1, s_log - 1)) return;
-  const int kt_end = min(kt_begin + w.tps,
-                         min(p + off_last, s_log - 1) / kTile + 1);
+  if (split > 0 && kt_begin * kTile > min(p + w.n_off - 1, s_log - 1))
+    return;
+  const int last_key = min(p + off_last, s_log - 1);
+  const int kt_end = last_key < 0 ? kt_begin
+                                  : min(kt_begin + w.tps,
+                                        last_key / kTile + 1);
   const int n_kt = max(0, kt_end - kt_begin);
   const int wg = threadIdx.x / 128;
   if (threadIdx.x == 0) {
@@ -388,6 +394,8 @@ __device__ __forceinline__ void paged_body(const CUtensorMap& mq,
     if (w.splits == 1) {
       const size_t row = (size_t(b) * w.n_off + off) * w.H + kvh * group + g;
       const float inv = 1.f / fmaxf(lh, 1e-30f);
+      if (w.lse && quad == 0)
+        w.lse[row] = lh > 0.f ? (m[h] + log2f(lh)) * kLn2 : neg_infinity();
 #pragma unroll
       for (int s = 0; s < NS; ++s)
 #pragma unroll
@@ -425,9 +433,12 @@ __device__ __forceinline__ void paged_body(const CUtensorMap& mq,
 // slot's horizon, as paged_body decides), lane s holding split s (splits
 // <= 32): one round of loads for every m and l, then each lane sums four
 // columns over the splits. M = max m_s, out = sum 2^(m_s - M) O_s /
-// max(sum 2^(m_s - M) l_s, 1e-30), in bf16. A split in which a row sees
-// no key has m_s = -1e30 and weight 0; key 0 is always visible, so every
-// row has a live split. Launched with ceil(B * L * H / 4) blocks of 128.
+// max(sum 2^(m_s - M) l_s, 1e-30), in bf16, and with w.lse the row's
+// natural-log lse (M + log2 of that sum) * ln 2. A split in which a row
+// sees no key has m_s = -1e30 and weight 0; key 0 is visible whenever pos
+// >= 0, so every row has a live split. With pos < 0 (decode's empty
+// fence) split 0 is the live one and its l = 0 gives a 0 row and lse
+// -inf. Launched with ceil(B * L * H / 4) blocks of 128.
 __device__ __forceinline__ void merge_rows(const Work& w, int B) {
   const int L = w.n_off, lane = threadIdx.x % 32;
   const int row = blockIdx.x * 4 + threadIdx.x / 32;
@@ -451,6 +462,8 @@ __device__ __forceinline__ void merge_rows(const Work& w, int B) {
   for (int o = 16; o > 0; o >>= 1)
     den += __shfl_xor_sync(0xffffffff, den, o);
   const float inv = 1.f / fmaxf(den, 1e-30f);
+  if (w.lse && lane == 0)
+    w.lse[row] = den > 0.f ? (M + log2f(den)) * kLn2 : neg_infinity();
   for (int c0 = 0; c0 < w.dh; c0 += 128) {
     const int c = c0 + 4 * lane;
     float4 num = make_float4(0.f, 0.f, 0.f, 0.f);

@@ -215,15 +215,22 @@ paged_decode_attention.launches = 0
 
 
 def decode_attention(q: Tensor, k: Tensor, v: Tensor, pos: Tensor, *,
-                     window: int = 0) -> Tensor:
+                     window: int = 0, return_lse: bool = False):
     """CUDA kernel. q: (B,H,dh); k,v: (B,S,KV,dh) contiguous cache rows;
-    pos: (B,) int32 → (B,H,dh) in q.dtype.
+    pos: (B,) int32 → (B,H,dh) in q.dtype, and with ``return_lse`` also
+    lse: (B,H) float32, the natural-log log-sum-exp of each row's scaled
+    scores over its live keys (as ``flash_attention_with_lse`` returns
+    it).
 
     Keys at index ≤ pos are live; with ``window > 0`` the row is a ring of
     S positions and every key is live once pos ≥ S (both the fence min(pos,
-    S − 1)). Any S: the float32 kernel masks a ragged last key tile, the
-    bf16 kernel's loads read zeros past S under the fence. In bf16 the keys
-    are split and merged as in ``paged_decode_attention``."""
+    S − 1)). A negative pos is an empty fence: no key is live, the output
+    row is 0 and its lse −inf (a device's key range wholly past pos in the
+    seam's sequence-split decode, ``ops.decode_attention``). Any S: the
+    float32 kernel masks a ragged last key tile, the bf16 kernel's loads
+    read zeros past S under the fence. In bf16 the keys are split and
+    merged as in ``paged_decode_attention``: with one split the kernel
+    writes the lse itself, with several the merge does."""
     code = check_operands(q, k, v, (("pos", pos),), "decode_attention")
     B, H, dh = q.shape
     _, S, KV, _ = k.shape
@@ -233,17 +240,19 @@ def decode_attention(q: Tensor, k: Tensor, v: Tensor, pos: Tensor, *,
             f"{tuple(k.shape)}, pos {tuple(pos.shape)} do not agree")
     work, splits, tps = _decode_plan("decode_attention", q, k, v, S)
     out = torch.empty_like(q)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     lib = build.load("decode_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = lib.decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-            out.data_ptr(), None if work is None else work.data_ptr(), code,
-            B, H, KV, dh, S, window, splits, tps, 1.0 / math.sqrt(dh),
-            stream)
+            out.data_ptr(), None if lse is None else lse.data_ptr(),
+            None if work is None else work.data_ptr(), code, B, H, KV, dh, S,
+            window, splits, tps, 1.0 / math.sqrt(dh), stream)
     build.check(lib, err, "decode_attention")
     decode_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 decode_attention.launches = 0
@@ -362,17 +371,32 @@ def paged_decode_attention_ref(q: Tensor, k_pool: Tensor, v_pool: Tensor,
 
 
 def decode_attention_ref(q: Tensor, k: Tensor, v: Tensor, pos: Tensor, *,
-                         window: int = 0) -> Tensor:
+                         window: int = 0, return_lse: bool = False):
     """Plain version (after ``repro/kernels/ref.py:38``): grouped softmax
     attention of each slot's query over its cache row under the position
-    (or ring) rule."""
-    from repro_torch.models.attention import gqa_sdpa
+    (or ring) rule; with ``return_lse`` also the log-sum-exp of each row's
+    masked, scaled scores, (B,H) float32. A slot whose pos is negative sees
+    no key: a 0 row, lse −inf (see ``decode_attention``). The softmax and
+    the lse are taken in float32, or in float64 for float64 inputs."""
+    from repro_torch.models.attention import NEG_INF, gqa_sdpa
+    B, H, dh = q.shape
+    KV = k.shape[2]
+    acc = torch.promote_types(q.dtype, torch.float32)
     keys = torch.arange(k.shape[1], device=q.device)[None, :]
     p = pos.long()[:, None]
     valid = keys <= p
     if window > 0:
         valid = valid | (p >= k.shape[1])
-    return gqa_sdpa(q[:, None], k, v, valid[:, None, :])[:, 0]
+    empty = p < 0                                                # (B, 1)
+    out = gqa_sdpa(q[:, None], k, v, valid[:, None, :], acc)[:, 0] \
+        .masked_fill(empty[:, :, None], 0.0)
+    if not return_lse:
+        return out
+    logits = torch.einsum("bkgd,bskd->bkgs", q.reshape(B, KV, H // KV, dh),
+                          k).to(acc) / math.sqrt(dh)
+    lse = torch.logsumexp(
+        logits.masked_fill(~valid[:, None, None, :], NEG_INF), dim=-1)
+    return out, lse.reshape(B, H).masked_fill(empty, float("-inf"))
 
 
 def chunk_prefill_attention_ref(q: Tensor, k_pool: Tensor, v_pool: Tensor,
@@ -425,7 +449,9 @@ def split_partials_ref(q: Tensor, k: Tensor, v: Tensor, pos: Tensor,
     acc (the unnormalised output). Returns (m, l, acc, live): (B, KV,
     splits, L·group), the same, (B, KV, splits, L·group, dh), and (B,) the
     live splits of each slot, those that start at or before its horizon
-    min(pos + L − 1, S − 1)."""
+    min(pos + L − 1, S − 1). A slot whose horizon is negative (decode's
+    empty fence) walks no key tile: split 0 stays live with l = 0 and acc
+    = 0, as in the kernel."""
     from repro_torch.models.attention import NEG_INF
     B, L, H, dh = q.shape
     S, KV = k.shape[1], k.shape[2]
@@ -450,9 +476,11 @@ def split_partials_ref(q: Tensor, k: Tensor, v: Tensor, pos: Tensor,
         ls.append(p.sum(-1))
         accs.append(p @ vf[:, :, s * span:(s + 1) * span])
     horizon = (pos.long() + L - 1).clamp(max=S - 1)
-    live = (horizon // span + 1).clamp(max=splits)
-    return (torch.stack(ms, 2), torch.stack(ls, 2), torch.stack(accs, 2),
-            live)
+    live = (torch.div(horizon, span, rounding_mode="trunc") + 1) \
+        .clamp(max=splits)
+    walked = (horizon >= 0)[:, None, None, None].to(x.dtype)
+    return (torch.stack(ms, 2), torch.stack(ls, 2) * walked,
+            torch.stack(accs, 2) * walked[..., None], live)
 
 
 def verify_partials_ref(q: Tensor, k_pool: Tensor, v_pool: Tensor,

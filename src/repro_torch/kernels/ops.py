@@ -23,15 +23,34 @@ entry given DTensors runs the same function on each device's local shards
 through ``local_map`` (``on_shards``, which the audio family's plain
 cross-attention takes too) — attention is local to a device when its
 batch is split over the data axes and its heads over ``model``, with
-sequence and head_dim whole. A placement that cuts sequence or head_dim
-raises; nothing is redistributed here. Query heads split where the K/V
-heads are whole (a KV head count the ``model`` axis does not divide: the
-rules leave ``wk``, ``wv`` whole) take, on each device, the KV heads of
-its own query heads, and their K/V gradients are partial sums over that
-axis. ``flash_attention`` under autograd runs ``FlashAttention`` inside
-the local function, so both flash kernels see plain tensors.
+sequence and head_dim whole. Query heads split where the K/V heads are
+whole (a KV head count the ``model`` axis does not divide: the rules
+leave ``wk``, ``wv`` whole) take, on each device, the KV heads of its own
+query heads, and their K/V gradients are partial sums over that axis.
+``flash_attention`` under autograd runs ``FlashAttention`` inside the
+local function, so both flash kernels see plain tensors.
+
+``decode_attention`` also takes a cache split along its sequence over
+any mesh axes (``sharding.rules`` does so where the KV heads do not
+divide ``model``, or at batch 1): each device runs the kernel over its
+own key range [s0, s0 + S_local) — the fence ``min(pos, S − 1) − s0``,
+−1 (an empty fence) where the range lies wholly past pos, which also
+covers a full ring — with ``return_lse``, and the partial softmaxes are
+merged over the axes that split the sequence (``merge_key_ranges``: M =
+max lse, w = exp(lse − M), out = Σ w·o / Σ w, in float32). The merge is
+two functional all-reduces on each such axis's group, MAX of the (B, H)
+lse then SUM of the packed (B, H, dh + 1) float32 numerator and weight,
+so a layer makes 2 collectives per sequence axis, plus one all-gather of
+q where the same axis also splits q's heads (each device then computes
+every head over its keys, and keeps its own heads of the merged output).
+Decode runs under ``no_grad`` (``_no_backward`` refuses it otherwise), so
+no gradient placement of the merge is ever read. A cut of head_dim, a
+sequence cut of any other entry's operands, and a partial k or v raise
+with the placement named; nothing else is redistributed here.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -51,34 +70,91 @@ def _is_dtensor(t) -> bool:
     return isinstance(t, DTensor)
 
 
+def split_offset(t, dim: int):
+    """(mesh dims, first index, local length) of this device's slice of
+    DTensor ``t``'s dim ``dim``: the mesh dims that split it, in mesh order
+    (the first outermost, as ``sharding.rules.placements`` places a dim
+    over several axes), the global index of its first element here, and
+    the slice's length. An uneven split raises."""
+    mesh = t.device_mesh
+    axes = [i for i, p in enumerate(t.placements) if p.is_shard(dim)]
+    n = math.prod(mesh.size(i) for i in axes)
+    if t.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not divide "
+                         f"over its {n} shards")
+    coord, idx = mesh.get_coordinate(), 0
+    for i in axes:
+        idx = idx * mesh.size(i) + coord[i]
+    local = t.shape[dim] // n
+    return axes, idx * local, local
+
+
+def merge_key_ranges(out: Tensor, lse: Tensor, reduce):
+    """Merge attention over disjoint key ranges from each range's output
+    ``out`` (..., dh) and natural-log ``lse`` (...), −inf for a range
+    with no live key: M = max lse, w = exp(lse − M), out = Σ w·o / Σ w
+    and lse = M + log Σ w, in float32 (float64 for float64 inputs), the
+    output cast to out's dtype.
+    ``reduce(t, op)`` reduces t over the ranges, op "max" or "sum": the
+    seam's all-reduces over the mesh axes that split the keys, or a
+    reduction over a leading stacked dim. A row with no live key in any
+    range gets a 0 row and lse −inf."""
+    m = reduce(lse, "max")
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.exp(lse - m)[..., None]
+    acc = torch.promote_types(out.dtype, torch.float32)
+    tot = reduce(torch.cat([w * out.to(acc), w.to(acc)], -1), "sum")
+    den = tot[..., -1:]
+    merged = tot[..., :-1] / den.clamp_min(1e-30)
+    return merged.to(out.dtype), m + torch.log(den[..., 0])
+
+
 def on_shards(what: str, fn, q, k, v, rest=(), *, q_head: int,
-               kv_head: int):
+               kv_head: int, key_range=None):
     """``fn(q, k, v, *rest)`` on each device's shards of DTensors q (batch
     at dim 0, heads at ``q_head``), k and v (batch at 0, KV heads at
     ``kv_head``) and ``rest`` (batch at dim 0) — see the module's
-    docstring. The output is placed as q."""
+    docstring. The output is placed as q.
+
+    With ``key_range``, k and v (sequence at dim 1) may also be split
+    along their sequence: where they are, each device calls
+    ``key_range(q, k, v, *rest, s0, S)`` — its keys are positions [s0, s0
+    + k.shape[1]) of S — for (out, lse), and the ranges are merged over
+    the axes that split the sequence (``merge_key_ranges`` on their
+    groups)."""
+    from torch.distributed import _functional_collectives as funcol
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     mesh = q.device_mesh
     names = mesh.mesh_dim_names or tuple(map(str, range(mesh.ndim)))
+    seq = () if key_range is None else (1,)
 
     def allowed(t, name, dims):
         if not _is_dtensor(t) or t.device_mesh != mesh:
             raise ValueError(f"{what}: {name} is not a DTensor on q's mesh")
         for i, p in enumerate(t.placements):
             if p.is_partial() or (p.is_shard() and p.dim not in dims):
+                whole = "head_dim" if seq else "sequence and head_dim"
                 raise ValueError(
                     f"{what}: {name} {tuple(t.shape)} is placed {p} over "
-                    f"mesh axis {names[i]!r} — the kernel needs sequence "
-                    f"and head_dim whole on each device (batch and heads "
-                    f"may be split); redistribute at the call site")
+                    f"mesh axis {names[i]!r} — the kernel needs {whole} "
+                    f"whole on each device (batch and heads may be "
+                    f"split); redistribute at the call site")
         return list(t.placements)
 
     qp = allowed(q, "q", (0, q_head))
-    kp = allowed(k, "k", (0, kv_head))
-    if allowed(v, "v", (0, kv_head)) != kp:
+    kp = allowed(k, "k", (0, kv_head, *seq))
+    if allowed(v, "v", (0, kv_head, *seq)) != kp:
         raise ValueError(f"{what}: k and v are placed differently")
+    seq_axes, s0, _ = split_offset(k, 1) if seq else ([], 0, 0)
+    out_p = qp
+    if any(qp[i].is_shard(q_head) for i in seq_axes):
+        # an axis that splits the keys and q's heads: every device there
+        # takes every head over its keys (an all-gather of q), and keeps
+        # its own heads of the merged output
+        qp = [Replicate() if i in seq_axes else p for i, p in enumerate(qp)]
+        q = q.redistribute(mesh, qp)
     batch = [p.is_shard(0) for p in qp]
     if [p.is_shard(0) for p in kp] != batch:
         raise ValueError(f"{what}: q {qp} and k {kp} split the batch "
@@ -109,17 +185,26 @@ def on_shards(what: str, fn, q, k, v, rest=(), *, q_head: int,
         lo, hi = idx * Hl // g, (idx * Hl + Hl - 1) // g + 1
     k_grad = [Partial() if s else p for s, p in zip(sliced, kp)]
 
+    def reduce(t, op):
+        for i in seq_axes:
+            t = funcol.all_reduce(t, op, (mesh, i))
+        return t
+
     def local(ql, kl, vl, *rl):
         if lo is not None:
             kl = kl.narrow(kv_head, lo, hi - lo).contiguous()
             vl = vl.narrow(kv_head, lo, hi - lo).contiguous()
-        return fn(ql, kl, vl, *rl)
+        if not seq_axes:
+            return fn(ql, kl, vl, *rl)
+        out, lse = key_range(ql, kl, vl, *rl, s0, k.shape[1])
+        return merge_key_ranges(out, lse, reduce)[0]
 
-    return local_map(local, out_placements=qp,
-                     in_placements=(qp, kp, kp, *([rest_p] * len(rest))),
-                     in_grad_placements=(qp, k_grad, k_grad,
-                                         *([rest_p] * len(rest))),
-                     device_mesh=mesh)(q, k, v, *rest)
+    out = local_map(local, out_placements=qp,
+                    in_placements=(qp, kp, kp, *([rest_p] * len(rest))),
+                    in_grad_placements=(qp, k_grad, k_grad,
+                                        *([rest_p] * len(rest))),
+                    device_mesh=mesh)(q, k, v, *rest)
+    return out if qp == out_p else out.redistribute(mesh, out_p)
 
 
 def _no_dtensor(what: str, *ts) -> None:
@@ -205,17 +290,30 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
 
 
 def decode_attention(q: Tensor, k: Tensor, v: Tensor, pos: Tensor, *,
-                     window: int = 0) -> Tensor:
+                     window: int = 0, return_lse: bool = False):
+    """The contiguous decode (``return_lse``: with its (B, H) lse, plain
+    tensors only). DTensors may split the cache along its sequence: see
+    the module's docstring."""
     if _is_dtensor(q):
+        if return_lse:
+            raise NotImplementedError("decode_attention: return_lse on "
+                                      "DTensors")
+
+        def key_range(ql, kl, vl, pl, s0, S):
+            fence = (pl.clamp(max=S - 1) - s0).clamp(min=-1)
+            return decode_attention(ql, kl, vl, fence, return_lse=True)
+
         return on_shards(
             "decode_attention",
             lambda ql, kl, vl, pl: decode_attention(ql, kl, vl, pl,
                                                     window=window),
-            q, k, v, (pos,), q_head=1, kv_head=2)
+            q, k, v, (pos,), q_head=1, kv_head=2, key_range=key_range)
     _no_backward("decode_attention", q, k, v)
     if _on_card(q):
-        return _decode.decode_attention(q, k, v, pos, window=window)
-    return _decode.decode_attention_ref(q, k, v, pos, window=window)
+        return _decode.decode_attention(q, k, v, pos, window=window,
+                                        return_lse=return_lse)
+    return _decode.decode_attention_ref(q, k, v, pos, window=window,
+                                        return_lse=return_lse)
 
 
 def paged_decode_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,

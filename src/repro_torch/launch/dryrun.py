@@ -286,7 +286,16 @@ def _measure(arch, shape_name, mesh_name, mode, n_experts, depth_probe=0):
             run(*args)
     return {"model": model, "cfg": cfg, "mesh": mesh, "shape": shape,
             "rec": rec, "arg_bytes": arg_bytes,
-            "step_s": time.time() - t0}
+            "step_s": time.time() - t0, "kv_local": _kv_local(shape, args)}
+
+
+def _kv_local(shape: InputShape, args) -> Optional[list]:
+    """A decode case's device shard of one layer's K cache, (B, S, KV,
+    dh): the shape its decode kernel runs at (the sequence cut where the
+    rules split it); None for other cases and caches without K."""
+    if shape.kind != "decode" or "k" not in args[1]:
+        return None
+    return list(args[1]["k"].to_local().shape[-4:])
 
 
 def _roofline(arch, shape_name, mesh_name, mode, cfg, model, n_dev, flops,
@@ -334,13 +343,16 @@ def run_case(arch: str, shape_name: str, mesh_name: str, mode: str,
                  "bytes accessed": float(rec.bytes_accessed)},
         "collectives": csum,
         "roofline": asdict(report),
+        "kv_local": m["kv_local"],
     }
 
 
 def run_probe(arch: str, shape_name: str, mesh_name: str, mode: str,
-              n_experts: int = 2) -> Dict:
+              n_experts: int = 2, save_schedule: Optional[str] = None
+              ) -> Dict:
     """Two shallow runs (G = 1, 2) → per-group + outside costs →
-    depth-corrected roofline terms for the FULL config."""
+    depth-corrected roofline terms for the FULL config. ``save_schedule``
+    keeps the collectives of the G = 1 run."""
     shape = INPUT_SHAPES[shape_name]
     skip = is_skipped(arch, shape)
     case_id = f"{arch}.{shape_name}.{mesh_name}.{mode}"
@@ -349,6 +361,9 @@ def run_probe(arch: str, shape_name: str, mesh_name: str, mode: str,
     meas, t0, bw, arg = {}, time.time(), [], {}
     for G in (1, 2):
         m = _measure(arch, shape_name, mesh_name, mode, n_experts, G)
+        if save_schedule and G == 1:
+            with open(save_schedule, "w") as f:
+                json.dump([asdict(c) for c in m["rec"].ops], f)
         csum = collective_summary(m["rec"].ops)
         meas[G] = {"flops": float(m["rec"].flops),
                    "bytes": float(m["rec"].bytes_accessed),
@@ -357,7 +372,7 @@ def run_probe(arch: str, shape_name: str, mesh_name: str, mode: str,
                    "xpod_ops": float(csum["cross_pod_ops"]),
                    "args": float(m["arg_bytes"])}
         bw.append(link_bw(m["rec"].ops))
-        n_dev = m["mesh"].size()
+        n_dev, kv_local = m["mesh"].size(), m["kv_local"]
     full_model = build_model(shape_cfg(get_config(arch), shape))
     G_full = full_model.n_groups
 
@@ -383,7 +398,7 @@ def run_probe(arch: str, shape_name: str, mesh_name: str, mode: str,
                             "cross_pod_bytes": corr["xpod"],
                             "cross_pod_ops": corr["xpod_ops"]},
             "wall_s": round(time.time() - t0, 1),
-            "roofline": asdict(report)}
+            "roofline": asdict(report), "kv_local": kv_local}
 
 
 def _case_argv(args, arch, shape) -> list:
@@ -414,7 +429,8 @@ def main(argv=None) -> None:
     ap.add_argument("--out", default="experiments/dryrun")
     ap.add_argument("--save-schedule", action="store_true",
                     help="write the recorded collectives (op, bytes, ranks, "
-                         "crosses_pod) beside the case's JSON")
+                         "crosses_pod) beside the case's JSON (with "
+                         "--probe: those of the depth-1 run)")
     ap.add_argument("--skip-existing", action="store_true")
     ap.add_argument("--probe", action="store_true",
                     help="depth-corrected costs from two shallow runs "
@@ -462,7 +478,7 @@ def main(argv=None) -> None:
     try:
         if args.probe:
             rec = run_probe(args.arch, args.shape, args.mesh, args.mode,
-                            args.experts)
+                            args.experts, save_schedule=schedule)
         else:
             rec = run_case(args.arch, args.shape, args.mesh, args.mode,
                            args.experts, save_schedule=schedule)
@@ -482,6 +498,8 @@ def main(argv=None) -> None:
                  f" xpod={rec['collectives']['cross_pod_bytes']}"
                  f" args_GiB="
                  f"{rec['memory']['argument_size_in_bytes'] / 2**30:.3f}")
+        if rec.get("kv_local"):
+            extra += f" kv_local={tuple(rec['kv_local'])}"
     elif status == "error":
         extra = " " + rec["error"][:300]
     print(f"[{status:7s}] {cid}{extra}", flush=True)

@@ -166,8 +166,10 @@ def decode_attention(params, x: Tensor, cfg, cache: Tuple[Tensor, Tensor],
 def _write_rows(cache: Tensor, slot: Tensor, new: Tensor) -> None:
     """cache[b, slot[b]] = new[b] for every row b, in place. A DTensor
     cache (a placed decode step) is written on each device's shards: its
-    batch rows are local, so each device writes its own rows; a cache
-    whose sequence dim is split raises, as the decode kernel does."""
+    batch rows are local, so each device writes its own rows. Where the
+    sequence dim is split (``kops.split_offset``: this device holds
+    positions [s0, s0 + S_local)), the device that holds position slot[b]
+    writes it, at slot[b] − s0; the others write back what they hold."""
     if not hasattr(cache, "device_mesh"):
         rows = torch.arange(cache.shape[0], device=cache.device)
         cache.index_put_((rows, slot.long()), new.to(cache.dtype))
@@ -176,16 +178,21 @@ def _write_rows(cache: Tensor, slot: Tensor, new: Tensor) -> None:
     from torch.distributed.tensor.experimental import local_map
 
     cp = list(cache.placements)
-    if any(p.is_partial() or (p.is_shard() and p.dim == 1) for p in cp):
-        raise ValueError(f"a decode cache placed {cp} is split along its "
-                         f"sequence: each device must hold whole rows")
+    if any(p.is_partial() for p in cp):
+        raise ValueError(f"a decode cache placed {cp} is partial")
+    seq_axes, s0, S_local = kops.split_offset(cache, 1)
     rows = [Shard(0) if p.is_shard(0) else Replicate() for p in cp]
     new_p = [Shard(p.dim - 1) if p.is_shard() and p.dim > 1 else r
              for p, r in zip(cp, rows)]
 
     def write(c, s, n):
-        c.index_put_((torch.arange(c.shape[0], device=c.device), s.long()),
-                     n.to(c.dtype))
+        b = torch.arange(c.shape[0], device=c.device)
+        at, n = s.long(), n.to(c.dtype)
+        if seq_axes:
+            mine = (at >= s0) & (at < s0 + S_local)
+            at = (at - s0).clamp(0, S_local - 1)
+            n = torch.where(mine[:, None, None], n, c[b, at])
+        c.index_put_((b, at), n)
         return c
 
     local_map(write, out_placements=cp, in_placements=(cp, rows, new_p),

@@ -528,6 +528,35 @@ def test_contiguous_decode_split_key_on_card(cuda, B, S, H, KV, dh, pos,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,pos,window", [
+    (300, (-1, 0, 63, 299, 1000), 0),          # an empty fence, pos past S
+    (100, (-1, 50, 100, 350, 99), 100),        # ring: full rows, -1
+    (2048, (-1, 2047, 700, 64, 5000), 0),      # a decode_32k shard's row
+])
+def test_contiguous_decode_lse_on_card(cuda, dtype, S, pos, window):
+    """``return_lse``: out as without it, bit for bit; the lse (natural
+    log, float32) against the plain version's on the same values; a row
+    with pos < 0 gives 0 and −inf."""
+    rng = np.random.default_rng(16)
+    B, H, KV, dh = len(pos), 32, 8, 128
+    q, k, v = (torch.tensor(a, device=cuda).to(getattr(torch, dtype))
+               for a in (f32(rng, B, H, dh), f32(rng, B, S, KV, dh),
+                         f32(rng, B, S, KV, dh)))
+    p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    out, lse = dk.decode_attention(q, k, v, p, window=window,
+                                   return_lse=True)
+    assert torch.equal(out, dk.decode_attention(q, k, v, p, window=window))
+    want, want_lse = dk.decode_attention_ref(*up(q, k, v), p, window=window,
+                                             return_lse=True)
+    assert bool((out[0] == 0).all()) and bool(torch.isneginf(lse[0]).all())
+    tol = BF16_TOL if dtype == "bfloat16" else 5e-5
+    torch.testing.assert_close(out[1:].float(), want[1:], rtol=tol,
+                               atol=tol)
+    torch.testing.assert_close(lse[1:], want_lse[1:], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
 def test_paged_tensor_core_refuses_shapes_on_card(cuda):
     """A page block or head size the bf16 kernels do not take raises with
     the shape named, on the card as on the CPU: no other kernel runs it."""
