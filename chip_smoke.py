@@ -20,10 +20,10 @@ Phases, each fatal on failure:
    small float32 edge shapes (the chunk scan's include mLSTM's H = 4,
    dk = 384, dv = 385, and run in bf16 too: on the tensor cores where
    ``tensor_core_route`` sends them, with a steep-decay case and two
-   column slices of dv, each call's route checked, every tensor-core case
-   also with each part count of ``SCAN_PART_COUNTS``; the odd widths on
-   the scalar route; the flash forward's and backward's run in bf16 as
-   well, on the tensor-core kernels; the flash backward also at the
+   column slices of dv, each call's route checked, every TMA-kernel case
+   also with each part count of ``SCAN_PART_COUNTS``; the flash
+   forward's and backward's run in bf16 as well, on the tensor-core
+   kernels; the flash backward also at the
    contiguous path's and Zamba2's prefill shapes; the paged kernels' and
    contiguous decode's run in bf16 as well, on the tensor-core kernels,
    with more bf16 edges: page blocks 8 to 128, groups of 1 to 64 rows, dh
@@ -70,8 +70,9 @@ Phases, each fatal on failure:
    chunk prefill as a prefix
    hit launches it (2 rows at start 512 whose tables share their first 32
    permuted blocks), in both dtypes; the chunk scan at mLSTM's
-   full-width shape (``MLSTM_SCAN``), both dtypes on its scalar route,
-   with device ms and bound; and the kernels at Whisper-small's shapes
+   full-width shape (``MLSTM_SCAN``: bf16 on the tensor cores' wide
+   kernel, float32 scalar), with device ms and bound, and at the wide
+   kernel's edges in both dtypes; and the kernels at Whisper-small's shapes
    (``_audio_kernel_cases``: 12/12 heads of dh 64; the five serving
    attention kernels at 8 slots over 448 positions, and the encoder's
    flash forward, non-causal and causal, and its backward, non-causal,
@@ -242,7 +243,8 @@ Phases, each fatal on failure:
    deployment and traffic (paged, which serves its per-slot states) with
    ``SSM_NEW_TOKENS`` a request, top-1 then under the Eq. 27 mixture: the
    main path's checks with the chunk-scan and router kernels launched,
-   every chunk-scan call on the scalar route; ms a step, tokens/s, peak
+   every chunk-scan call on the tensor cores, the first mLSTM layer's
+   operands held against the plain version; ms a step, tokens/s, peak
    GiB and the dispatch / device_get split printed;
 10b. vlm paths — full-width InternVL2-2B (24 layers, bf16, 2 experts of
    seeded random weights, 256 rows of seeded image patches ahead of each
@@ -332,7 +334,9 @@ Phases, each fatal on failure:
    and batches — losses, grad norms and params after them within
    ``TRAIN_PARITY``, the flash forward and backward launched as often
    through the kernel seam's DTensor path; both runs' ms a step and peak
-   GiB printed;
+   GiB printed; the first placed step under the dry run's memory counter
+   (``roofline.LocalMemory``), its arguments + peak within
+   ``MEMORY_COUNTER_TOL`` of ``torch.cuda.max_memory_allocated()``;
 13d. dry run — ``repro_torch.launch.dryrun`` of ``DRYRUN_CASE`` on the
    multi-pod mesh (512 fake ranks, fake CPU tensors, ``--probe``),
    decentralized and dense, and of ``DRYRUN_DECODE_CASES`` (decode on a
@@ -768,6 +772,51 @@ def _check_scan(cs, cases, dtype_name, args):
         compare("chunk_scan", g, w, dtype_name, cases, tol=SCAN_TOL)
 
 
+def _check_scan_exact(cs, dtype_name, args):
+    """The chunk scan on operands whose float32 arithmetic is itself off
+    by more than ``SCAN_TOL`` (the ssm path's own: random gates put cum
+    in the −10⁴s and q·k sums of ~1e6-sized terms near 0, so the float32
+    plain version lies up to ~130 from float64 there): the kernel and the
+    float32 plain version are each held against the plain version in
+    float64, per element, at ``SCAN_TOL`` plus the float32 error bound of
+    the computation, γ_n times the same sums over absolute values (|q|·|k|,
+    |v|; Higham's |fl(x·y) − x·y| ≤ γ_n |x|·|y|, γ_n = n u / (1 − n u), u =
+    2⁻²⁴, n = dk + L + 2: the dot product, the sum over keys, the exp and
+    the weight). The call must take ``tensor_core_route``'s route.
+    Returns {"kernel"/"plain": (max abs err, largest share of the
+    allowance)}."""
+    import torch
+    qc, _, vc, cum = args
+    tensor_cores = cs.tensor_core_route(qc.dtype, qc.shape[-1],
+                                        vc.shape[-1])
+    before = cs.chunk_scan.tensor_core_launches
+    got = cs.chunk_scan(*args)
+    if cs.chunk_scan.tensor_core_launches - before != int(tensor_cores):
+        raise AssertionError(f"chunk_scan {dtype_name}: not the route "
+                             f"tensor_core_route gives")
+    exact = cs.chunk_scan_ref(*(t.double() for t in args))
+    mag = cs.chunk_scan_ref(*(t.double().abs() for t in args[:3]),
+                            cum.double())
+    n, u = qc.shape[-1] + qc.shape[2] + 2, 2.0 ** -24
+    gamma = n * u / (1 - n * u)
+    out = {}
+    for who, res in (("kernel", got), ("plain", cs.chunk_scan_ref(*args))):
+        err, share = 0.0, 0.0
+        for g, w, m in zip(res, exact, mag):
+            e = (g.double() - w).abs()
+            bound = SCAN_TOL + SCAN_TOL * w.abs() + gamma * m
+            err = max(err, e.max().item())
+            share = max(share, (e / bound).max().item())
+            if who == "kernel" and (not bool(torch.isfinite(g).all())
+                                    or bool((e > bound).any())):
+                raise AssertionError(
+                    f"chunk_scan ({dtype_name}): {int((e > bound).sum())} "
+                    f"elements beyond SCAN_TOL + γ_n·|terms| of float64 "
+                    f"(max abs err {e.max().item():.3e})")
+        out[who] = (err, share)
+    return out
+
+
 def _scan_parts(cs, cases, shapes, gen, timed):
     """Every part count of ``SCAN_PART_COUNTS`` on each bf16 tensor-core
     case of ``shapes`` ((B, NC, L, H, dk, dv, decay)): the largest error,
@@ -861,8 +910,8 @@ def _hybrid_kernel_cases(cases, rec, gen):
     rec["chunk_scan"]["parts"] = _scan_parts(
         cs, cases, [(1, 1, L, H, N, P, 0.1), (1, 4, L, H, N, P, 0.1)]
         + tc_scan, gen, timed)
-    # the scalar route: float32 at every edge, and the bf16 widths TMA
-    # cannot describe (odd dv; mLSTM's dv = 385)
+    # the scalar route: float32 at every edge (the wide tensor-core
+    # kernel's bf16 edges are _mlstm_scan_cases')
     edge_scan = [
         # B, NC, L, H, dk, dv
         (1, 2, 16, 4, 16, 16),        # L = 16, the smoke config's chunk
@@ -875,10 +924,6 @@ def _hybrid_kernel_cases(cases, rec, gen):
     for B, NC, Ls, Hh, dkk, dvv in edge_scan:
         _check_scan(cs, cases, "float32",
                     _scan_case(B, NC, Ls, Hh, dkk, dvv, f32, gen))
-    for B, NC, Ls, Hh, dkk, dvv in ((1, 1, 128, 2, 64, 65),
-                                    (1, 1, 256, 4, 384, 385)):
-        _check_scan(cs, cases, "bfloat16",
-                    _scan_case(B, NC, Ls, Hh, dkk, dvv, bf16, gen))
 
     # -- the attention kernels at Zamba2's heads. The plain versions run in
     #    float32 on the same (bf16) input values: in bf16 they round the
@@ -944,18 +989,42 @@ def _hybrid_kernel_cases(cases, rec, gen):
 
 
 def _mlstm_scan_cases(cases, rec, gen):
-    """The chunk scan at mLSTM's full-width shape (``MLSTM_SCAN``: one
-    256-position chunk of the ssm path's chunked prefill), bf16 and
-    float32, both on the scalar route (dv = 385 rows are no TMA box, dk =
-    384 is past the tensor-core route's 128): each against its plain
-    version at ``SCAN_TOL``, its device ms beside its bound (the bytes of
-    its inputs and outputs over the HBM rate, the causal q·k and P·v
-    products and the dk × dv summary over the peak rate of its inputs'
-    type), kept in the record's ``new_config_shapes``."""
+    """The chunk scan at mLSTM's widths (``MLSTM_SCAN``: one 256-position
+    chunk of the ssm path's chunked prefill, dk = 384, dv = 385 with the
+    ones channel): bf16 on the tensor cores' wide kernel (V through
+    registers, K a slab at a time) and float32 on the scalar kernels, each
+    against its plain version at ``SCAN_TOL`` — at that shape and at the
+    wide kernel's edges (odd dv, ragged L, NC > 1, the mixture's B = 2,
+    dk of three and four slabs, the steep and the slow decay, dk at
+    ``TC_MAX_DK``), each in both dtypes. At mLSTM's shape each dtype's ms,
+    device ms, plain ms and bound (the bytes of its inputs and outputs
+    over the HBM rate, the causal q·k and P·v products and the dk × dv
+    summary over the peak rate of its inputs' type) are kept in the
+    record's ``new_config_shapes``."""
     import torch
     from repro_torch.kernels import chunk_scan as cs
 
     L, H, dk, dv = MLSTM_SCAN
+    wide_scan = [
+        # B, NC, L, H, dk, dv, decay
+        (1, 1, 128, 2, 64, 65, 0.1),            # odd dv
+        (1, 1, 200, H, dk, dv, 0.1),            # ragged L
+        (1, 3, L, H, dk, dv, 0.1),              # NC > 1
+        (2, 1, L, H, dk, dv, 0.1),              # B = 2: the mixture's
+        (1, 1, L, 2, 192, dv, 0.1),             # dk of three slabs
+        (1, 1, L, 2, 256, dv, 0.1),             # dk of four slabs
+        (1, 1, L, H, dk, dv, 5.0),              # steep decay
+        (1, 1, L, H, dk, dv, 0.001),            # slow decay
+        (1, 1, 64, 1, cs.TC_MAX_DK, 24, 0.1),   # dk at the route's limit
+    ]
+    for B, NC, Ls, Hh, dkk, dvv, decay in wide_scan:
+        # (float32 at dk = TC_MAX_DK: the scalar kernels' tiles pass a
+        # block's shared memory, and the wrapper refuses the shape)
+        for dtype, name in ((torch.bfloat16, "bfloat16"),
+                            (torch.float32, "float32"))[
+                                :1 if dkk == cs.TC_MAX_DK else 2]:
+            _check_scan(cs, cases, name, _scan_case(B, NC, Ls, Hh, dkk, dvv,
+                                                    dtype, gen, decay))
     flops = H * (L * (L + 1) // 2 * 2 * (dk + dv) + 2 * L * dk * dv)
     for dtype, name in ((torch.bfloat16, "bfloat16"),
                         (torch.float32, "float32")):
@@ -972,6 +1041,7 @@ def _mlstm_scan_cases(cases, rec, gen):
             "dtype": name, "route": "tensor cores" if cs.tensor_core_route(
                 dtype, dk, dv) else "scalar",
             "max_abs_err": max(c["max_abs_err"] for c in cases[-2:]),
+            "ms": cuda_ms(lambda a=args: cs.chunk_scan(*a)),
             "device_ms": device_ms(lambda a=args: cs.chunk_scan(*a)),
             "plain_ms": cuda_ms(lambda a=args: cs.chunk_scan_ref(*a)),
             "bound_ms": max(t_bytes, t_ops),
@@ -979,8 +1049,8 @@ def _mlstm_scan_cases(cases, rec, gen):
         rec["chunk_scan"].setdefault("new_config_shapes", []).append(entry)
         log(f"new-shape case chunk_scan {entry['config']} {entry['shape']} "
             f"{name} ({entry['route']} route): max abs err "
-            f"{entry['max_abs_err']:.3e}, device ms {entry['device_ms']}, "
-            f"plain {entry['plain_ms']:.4f} ms, bound "
+            f"{entry['max_abs_err']:.3e}, ms {entry['ms']:.4f}, device ms "
+            f"{entry['device_ms']}, plain {entry['plain_ms']:.4f} ms, bound "
             f"{entry['bound_ms']:.4f} by {entry['bound_by']}")
 
 
@@ -1246,6 +1316,26 @@ def _check_flash_bwd(fk, fbk, cases, dtype_name, q, k, v, do, causal=True,
     return out, lse
 
 
+def _sdpa_flash_bwd_device_ms(q, k, v, do):
+    """Device ms of SDPA's flash-backend backward on these heads-first
+    causal operands, called as its aten op so that its launches land on
+    the capturing stream (autograd would launch them on the forward's).
+    None, with the reason printed, where the op refuses the operands."""
+    import torch
+    aten = torch.ops.aten
+    q, k, v, do = (t.detach() for t in (q, k, v, do))
+    try:
+        out, lse, cq, ck, mq, mk, seed, offset, _ = \
+            aten._scaled_dot_product_flash_attention(q, k, v, 0.0, True)
+    except RuntimeError as e:
+        log(f"SDPA's flash backward: not measured ({e})")
+        return None
+    return device_ms(
+        lambda: aten._scaled_dot_product_flash_attention_backward(
+            do, q, k, v, out, lse, cq, ck, mq, mk, 0.0, True, seed, offset),
+        iters=5)
+
+
 def _training_kernel_cases(cases, rec, gen):
     """The flash-attention forward and backward against their plain
     versions at the training path's shape (one 4096-token sequence of
@@ -1287,6 +1377,14 @@ def _training_kernel_cases(cases, rec, gen):
             "library_ms": cuda_ms(lambda: torch.autograd.grad(
                 oh, (qh, kh, vh), doh, retain_graph=True), iters=5,
                 warmup=1),
+            # autograd launches SDPA's backward (cuDNN's on this card) on
+            # the streams its forward and leaves were made on, not the
+            # capturing one, and the capture is invalidated: no device ms
+            # for it. SDPA's flash backend's backward, called as its aten
+            # op, is graphed instead
+            "library_device_ms": None,
+            "library_flash_device_ms": _sdpa_flash_bwd_device_ms(
+                qh, kh, vh, doh),
             # q, out, do, k, v and lse read; dq, dk, dv written
             "bytes": (4 * B * S * H * dh + 4 * B * S * KV * dh) * 2
             + B * S * H * 4,
@@ -3646,12 +3744,17 @@ def phase_ssm_path():
     slots a pod, prompts of 256-1024 tokens in chunks of 256; paged, which
     for this family serves its per-slot states) with ``SSM_NEW_TOKENS`` a
     request; then the same under the Eq. 27 mixture. Every chunk-scan
-    call takes the scalar route (mLSTM's dv = 385, dk = 384). Returns the
-    two runs' launch counts."""
+    call takes the tensor cores (mLSTM's dk = 384, dv = 385 on the wide
+    kernel). The operands of the top-1 run's first chunk-scan call (the
+    first mLSTM layer's first chunk) are kept and held against the plain
+    version in float64 (``_check_scan_exact``), as the path passes them
+    (bf16, tensor cores) and in float32 (scalar). Returns the two runs'
+    launch counts and their tensor-core chunk-scan counts."""
     from dataclasses import replace
 
     import torch
     from repro_torch.kernels import chunk_scan as cs
+    from repro_torch.kernels import ops
     from repro_torch.launch import main_path
 
     t0 = time.perf_counter()
@@ -3665,28 +3768,51 @@ def phase_ssm_path():
         f"initialized in {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card; "
         f"pods paged: {[p.paged for p in mp.engine.pods]}")
-    out = []
+    scan, first = ops.chunk_scan, []
+
+    def capture(*args):
+        if not first:
+            first.extend(t.clone() for t in args)
+        return scan(*args)
+
+    out, on_tc = [], []
     for label in ("ssm path", "ssm mixture path"):
         if label == "ssm mixture path":
             mp.engine = None
             mp = _mixture_of(mp)
             mp = replace(mp, sampling=replace(mp.sampling,
                                               max_new=SSM_NEW_TOKENS))
-        _, launches = _serve_watched(
-            label, mp, (("decode_step", lambda x: x),
-                        ("prefill_chunk", lambda x: x)), SSM_KERNELS)
+        ops.chunk_scan = capture
+        try:
+            _, launches = _serve_watched(
+                label, mp, (("decode_step", lambda x: x),
+                            ("prefill_chunk", lambda x: x)), SSM_KERNELS)
+        finally:
+            ops.chunk_scan = scan
         tc = cs.chunk_scan.tensor_core_launches
         log(f"{label}: chunk_scan launches {launches['chunk_scan']}, of "
             f"them on the tensor cores {tc}; ms a step "
             f"{PATH_STATS[label]['step_ms']:.2f}, dispatch / device_get "
             f"ms a step by pod {json.dumps(PATH_STATS[label]['step_split'])}")
-        if tc:
-            raise AssertionError(f"{label}: {tc} chunk-scan calls took the "
-                                 f"tensor-core route at mLSTM's widths")
+        if tc != launches["chunk_scan"]:
+            raise AssertionError(
+                f"{label}: {launches['chunk_scan'] - tc} of "
+                f"{launches['chunk_scan']} chunk-scan calls took the scalar "
+                f"route at mLSTM's widths")
         out.append(launches)
+        on_tc.append(tc)
     mp.engine = None
+    held = {name: _check_scan_exact(cs, name, a) for name, a in
+            (("bfloat16", first), ("float32", _up(*first)))}
+    log(f"ssm path: the first mLSTM layer's chunk-scan operands "
+        f"{[tuple(t.shape) for t in first]} (cum down to "
+        f"{first[3].min().item():.6g}) against the plain version in "
+        f"float64, at SCAN_TOL {SCAN_TOL} + the float32 bound γ_n·|terms|: "
+        f"(max abs err, largest share of the allowance) "
+        f"{json.dumps(held)}")
+    del first[:]
     torch.cuda.empty_cache()
-    return out
+    return out, on_tc
 
 
 def phase_hybrid_float32_agreement():
@@ -4553,6 +4679,9 @@ def phase_remat():
 # card holds; at 4 layers it is 2 x 28.2 GB
 PLACED_LAYERS = 4
 PLACED_STEPS = 2
+# the dry run's memory counter (arguments + peak) against the card's
+# max_memory_allocated on the placed step, relative
+MEMORY_COUNTER_TOL = 0.10
 # the dry run's case, run in both modes on the multi-pod mesh with the
 # depth probe (two shallow runs, G = 1 and 2, fitted to the full depth)
 DRYRUN_CASE = ("qwen3_8b", "train_4k")
@@ -4581,14 +4710,19 @@ def _stacked_expert_state(tp, K):
     return {"params": stacked, "opt": opt}
 
 
-def _placed_run(tp, K, steps, mesh=None):
+def _placed_run(tp, K, steps, mesh=None, count_first=False):
     """``steps`` decentralized steps of the K stacked experts on
     ``tp``'s loaders: the unplaced step, or with ``mesh`` the placed one
-    on DTensors. Returns (metrics a step, ms a step, peak GiB, launches,
-    final state)."""
+    on DTensors. With ``count_first`` the first step runs under the dry
+    run's memory counter (``roofline.LocalMemory``), right after the
+    peak-memory reset. Returns (metrics a step, ms a step, peak GiB,
+    launches, final state, the counter's record or None: its memory keys,
+    its peak, the bytes allocated before the step and the card's peak
+    after it)."""
     import torch
     from torch.distributed.tensor import distribute_tensor
     from repro_torch.kernels import ops
+    from repro_torch.launch.roofline import LocalMemory
     from repro_torch.sharding import rules as R
     from repro_torch.train import trainer as T
 
@@ -4615,10 +4749,22 @@ def _placed_run(tp, K, steps, mesh=None):
         sync()
         torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    metrics, walls = [], []
-    for batch in batches:
+    metrics, walls, counted = [], [], None
+    for i, batch in enumerate(batches):
         t = time.perf_counter()
-        _, m = step(state, batch)
+        if count_first and i == 0:
+            held = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+            with LocalMemory() as counter:
+                out = step(state, batch)
+            sync()
+            counted = {"memory": counter.memory((state, batch), out),
+                       "peak": counter.peak, "held": held,
+                       "max_allocated": torch.cuda.max_memory_allocated()
+                       if dev.type == "cuda" else None}
+            _, m = out
+            del out
+        else:
+            _, m = step(state, batch)
         sync()
         walls.append((time.perf_counter() - t) * 1e3)
         metrics.append({n: (v.full_tensor() if hasattr(v, "full_tensor")
@@ -4626,7 +4772,37 @@ def _placed_run(tp, K, steps, mesh=None):
     launches = {n: fn.launches for n, fn in ops.KERNELS.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30 \
         if dev.type == "cuda" else 0.0
-    return metrics, walls, peak, launches, state
+    return metrics, walls, peak, launches, state, counted
+
+
+def _check_counted(counted):
+    """The dry run's memory counter on the placed step: its arguments +
+    peak against ``torch.cuda.max_memory_allocated()`` after the step
+    (the peak was reset just before it), both printed, with the bytes the
+    card held before the step beside the arguments; more than
+    ``MEMORY_COUNTER_TOL`` apart is a fault. Returns the faults."""
+    mem, gib = counted["memory"], 2 ** 30
+    args = mem["argument_size_in_bytes"]
+    total = args + counted["peak"]
+    line = (f"placed training: memory counter on step 1: arguments "
+            f"{args / gib:.4f} + peak {counted['peak'] / gib:.4f} = "
+            f"{total / gib:.4f} GiB (outputs {mem['output_size_in_bytes']} "
+            f"B, temp {mem['temp_size_in_bytes'] / gib:.4f} GiB)")
+    alloc = counted["max_allocated"]
+    if alloc is None:
+        log(line)
+        return []
+    held = counted["held"]
+    log(f"{line} against torch.cuda.max_memory_allocated() "
+        f"{alloc / gib:.4f} GiB ({(total - alloc) / alloc:+.2%}); held "
+        f"before the step {held / gib:.4f} GiB ({(held - args) / 2**20:.1f} "
+        f"MiB besides the arguments), the allocator's peak above it "
+        f"{(alloc - held) / gib:.4f} GiB against the counter's "
+        f"{counted['peak'] / gib:.4f}")
+    if abs(total - alloc) > MEMORY_COUNTER_TOL * alloc:
+        return [f"memory counter {total / gib:.4f} GiB against "
+                f"max_memory_allocated {alloc / gib:.4f} GiB"]
+    return []
 
 
 def phase_placed_train(device="cuda", backend="nccl", smoke=False):
@@ -4640,7 +4816,10 @@ def phase_placed_train(device="cuda", backend="nccl", smoke=False):
     its params after them within its params tolerance (the float32
     masters; the bf16 params within that plus one bf16 step of their
     size), with the flash forward and backward launched as often; prints
-    both runs' ms a step and peak GiB. ``smoke=True`` with ``device="cpu"``
+    both runs' ms a step and peak GiB. The first placed step runs under
+    the dry run's memory counter, whose arguments + peak must lie within
+    ``MEMORY_COUNTER_TOL`` of ``torch.cuda.max_memory_allocated()``
+    (``_check_counted``). ``smoke=True`` with ``device="cpu"``
     and ``backend="gloo"`` rehearses it at smoke size."""
     import socket
 
@@ -4661,7 +4840,7 @@ def phase_placed_train(device="cuda", backend="nccl", smoke=False):
         return tp
 
     tp = deployment()
-    want, want_ms, want_peak, want_launches, ref = _placed_run(
+    want, want_ms, want_peak, want_launches, ref, _ = _placed_run(
         tp, K, PLACED_STEPS)
     lr = tp.config.opt.lr
     host = {key: {p: t.to("cpu") for p, t in tree_leaves(tree)}
@@ -4678,11 +4857,12 @@ def phase_placed_train(device="cuda", backend="nccl", smoke=False):
                             rank=0, world_size=1)
     try:
         mesh = make_mesh((1, 1, 1), ("pod", "data", "model"), device)
-        got, got_ms, got_peak, got_launches, placed = _placed_run(
-            deployment(), K, PLACED_STEPS, mesh)
+        got, got_ms, got_peak, got_launches, placed, counted = _placed_run(
+            deployment(), K, PLACED_STEPS, mesh, count_first=True)
         if device == "cuda":
             log(f"placed training: {torch.cuda.memory_allocated() / 2**30:.2f}"
                 f" GiB held after the placed steps")
+        bad = _check_counted(counted)
         tol = TRAIN_PARITY
         worst = {"metrics": 0.0, "params": 0.0, "masters": 0.0}
         for a, b in zip(got, want):
@@ -4690,7 +4870,6 @@ def phase_placed_train(device="cuda", backend="nccl", smoke=False):
                 for x, y in zip(a[name], b[name]):
                     worst["metrics"] = max(worst["metrics"],
                                            abs(x - y) / abs(y))
-        bad = []
         for key, tree in (("params", placed["params"]),
                           ("master", placed["opt"].get("master", {}))):
             for path, t in tree_leaves(tree):
@@ -4788,7 +4967,11 @@ def phase_dryrun(procs, out_dir):
     hold the merge of partial softmaxes, and ``decode_32k``'s device
     shard of the K cache must be the one the kernel phase checked
     (``SHARD_DECODE``). Prints the three roofline terms against the
-    H100's data-sheet peaks and the per-device state GiB."""
+    H100's data-sheet peaks, the per-device state GiB and the device's
+    peak GiB; every record must hold the reference's four memory keys
+    (three counted and above 0, the generated code's null)."""
+    from repro_torch.launch.dryrun import MEMORY_KEYS, device_peak
+
     bad = []
     for (arch, shape, mode), proc in procs.items():
         name = f"{arch} {shape} {mode}"
@@ -4813,7 +4996,9 @@ def phase_dryrun(procs, out_dir):
             f"{r['collective_s']:.4g} s at {r['link_bw'] / 1e9:.0f} GB/s, "
             f"bottleneck {r['bottleneck']}; state "
             f"{rec['memory']['argument_size_in_bytes'] / 2**30:.3f} GiB a "
-            f"device; collectives {c['total_bytes']:.4g} B, cross-pod "
+            f"device, peak {device_peak(rec['memory']) / 2**30:.3f} GiB "
+            f"(arguments + temp + outputs); collectives "
+            f"{c['total_bytes']:.4g} B, cross-pod "
             f"{c['cross_pod_bytes']:.4g} B in {c['cross_pod_ops']:g} ops"
             + (f"; K cache shard {tuple(rec['kv_local'])}, merge sums "
                f"{[o['bytes'] for o in merges]} B over "
@@ -4822,6 +5007,10 @@ def phase_dryrun(procs, out_dir):
         if rec["status"] != "ok" or rec["n_devices"] != 512:
             bad.append(f"{name}: status {rec['status']}, "
                        f"{rec['n_devices']} devices")
+        mem = rec["memory"]
+        if not all(mem[k] > 0 for k in MEMORY_KEYS) or \
+                mem.get("generated_code_size_in_bytes", 0) is not None:
+            bad.append(f"{name}: memory record {mem}")
         if mode == "decentralized" and (c["cross_pod_bytes"]
                                         or c["cross_pod_ops"]):
             bad.append(f"{name} crosses pods: {c}")
@@ -5350,6 +5539,7 @@ def main() -> int:
     preemption_launches = timed(phase_preemption_path, mp)
     xp, mixture_launches = timed(phase_mixture_path, mp, main_res)
     del mp                           # the bf16 experts
+    torch.cuda.empty_cache()         # their segments, for the second stack
     mixspec_launches = timed(phase_mixture_speculative_path, xp)
     del xp
     torch.cuda.empty_cache()
@@ -5362,7 +5552,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed(phase_hybrid_float32_agreement)
     torch.cuda.empty_cache()
-    ssm_launches, ssm_mix_launches = timed(phase_ssm_path)
+    (ssm_launches, ssm_mix_launches), ssm_on_tc = timed(phase_ssm_path)
     torch.cuda.empty_cache()
     vlm_launches, vlm_contiguous_launches, vlm_mixture_launches = \
         timed(phase_vlm_paths)
@@ -5455,17 +5645,21 @@ def main() -> int:
             "new_config_shapes": r.get("new_config_shapes", []),
             **{k: r[k] for k in ("float32_ms", "float32_device_ms",
                                  "batched", "by_batch",
-                                 "launch_floor_device_ms", "lse") if k in r}})
+                                 "launch_floor_device_ms", "lse",
+                                 "library_flash_device_ms") if k in r}})
         if name == "chunk_scan":
-            # the hybrid path's calls by route, and the ssm path's (every
-            # one scalar at mLSTM's widths)
+            # the hybrid path's calls by route, and the ssm paths' (every
+            # one on the tensor cores at mLSTM's widths)
             kernels[-1].update(
                 tensor_core_launches=scan_tensor_core,
                 scalar_launches=launches[name] - scan_tensor_core,
                 scan_parts=r["parts"],
-                ssm_path={"launches": ssm_launches[name],
-                          "tensor_core_launches": 0,
-                          "scalar_launches": ssm_launches[name]})
+                **{key: {"launches": n[name], "tensor_core_launches": tc,
+                         "scalar_launches": n[name] - tc}
+                   for key, n, tc in (("ssm_path", ssm_launches,
+                                       ssm_on_tc[0]),
+                                      ("ssm_mixture_path", ssm_mix_launches,
+                                       ssm_on_tc[1]))})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -124,6 +124,8 @@ def load(name: str) -> ctypes.CDLL:
         lib.chunk_scan_sm90.restype = I
         lib.chunk_scan_smem_bytes.argtypes = [I, I]
         lib.chunk_scan_smem_bytes.restype = ctypes.c_longlong
+        lib.chunk_scan_wide_smem_bytes.argtypes = [I]
+        lib.chunk_scan_wide_smem_bytes.restype = ctypes.c_longlong
     lib.kernel_error_string.argtypes = [I]
     lib.kernel_error_string.restype = ctypes.c_char_p
     _loaded[name] = lib

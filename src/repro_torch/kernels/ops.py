@@ -234,13 +234,27 @@ def _no_backward(what: str, *ts: Tensor) -> None:
             f"torch.no_grad() or on detached inputs")
 
 
+#: Set by an observer that counts a kernel's memory as the card's kernel
+#: allocates it (``launch.roofline.LocalMemory``): called as
+#: ``PLAIN_CALL(fn, *args, **kwargs)`` in place of each plain version that
+#: stands in for a kernel on CPU tensors, and returns its result.
+PLAIN_CALL = None
+
+
+def _plain(fn, *args, **kwargs):
+    """A kernel's plain version, through ``PLAIN_CALL`` where one is set."""
+    if PLAIN_CALL is not None:
+        return PLAIN_CALL(fn, *args, **kwargs)
+    return fn(*args, **kwargs)
+
+
 def _flash_fwd(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
                window: int):
     if _on_card(q):
         return _flash.flash_attention_with_lse(q, k, v, causal=causal,
                                                window=window)
-    return _flash.flash_attention_with_lse_ref(q, k, v, causal=causal,
-                                               window=window)
+    return _plain(_flash.flash_attention_with_lse_ref, q, k, v, causal=causal,
+                  window=window)
 
 
 def _flash_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse: Tensor,
@@ -248,8 +262,8 @@ def _flash_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse: Tensor,
     if _on_card(q):
         return _bwd.flash_attention_bwd(q, k, v, out, lse, do,
                                         causal=causal, window=window)
-    return _bwd.flash_attention_bwd_ref(q, k, v, out, lse, do,
-                                        causal=causal, window=window)
+    return _plain(_bwd.flash_attention_bwd_ref, q, k, v, out, lse, do,
+                  causal=causal, window=window)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -286,7 +300,8 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
         return FlashAttention.apply(q, k, v, causal, window)
     if _on_card(q):
         return _flash.flash_attention(q, k, v, causal=causal, window=window)
-    return _flash.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return _plain(_flash.flash_attention_ref, q, k, v, causal=causal,
+                  window=window)
 
 
 def decode_attention(q: Tensor, k: Tensor, v: Tensor, pos: Tensor, *,
@@ -312,8 +327,8 @@ def decode_attention(q: Tensor, k: Tensor, v: Tensor, pos: Tensor, *,
     if _on_card(q):
         return _decode.decode_attention(q, k, v, pos, window=window,
                                         return_lse=return_lse)
-    return _decode.decode_attention_ref(q, k, v, pos, window=window,
-                                        return_lse=return_lse)
+    return _plain(_decode.decode_attention_ref, q, k, v, pos, window=window,
+                  return_lse=return_lse)
 
 
 def paged_decode_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
@@ -325,8 +340,8 @@ def paged_decode_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
     if _on_card(q):
         return _decode.paged_decode_attention(q, k_pool, v_pool, pos,
                                               block_tables, window=window)
-    return _decode.paged_decode_attention_ref(q, k_pool, v_pool, pos,
-                                              block_tables, window=window)
+    return _plain(_decode.paged_decode_attention_ref, q, k_pool, v_pool, pos,
+                  block_tables, window=window)
 
 
 def paged_verify_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
@@ -337,8 +352,8 @@ def paged_verify_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
     if _on_card(q):
         return _decode.paged_verify_attention(q, k_pool, v_pool, pos,
                                               block_tables)
-    return _decode.paged_verify_attention_ref(q, k_pool, v_pool, pos,
-                                              block_tables)
+    return _plain(_decode.paged_verify_attention_ref, q, k_pool, v_pool, pos,
+                  block_tables)
 
 
 def chunk_prefill_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
@@ -348,8 +363,8 @@ def chunk_prefill_attention(q: Tensor, k_pool: Tensor, v_pool: Tensor,
     if _on_card(q):
         return _decode.chunk_prefill_attention(q, k_pool, v_pool, start,
                                                block_table)
-    return _decode.chunk_prefill_attention_ref(q, k_pool, v_pool, start,
-                                               block_table)
+    return _plain(_decode.chunk_prefill_attention_ref, q, k_pool, v_pool,
+                  start, block_table)
 
 
 def router_scores(x: Tensor, centroids: Tensor,
@@ -358,7 +373,7 @@ def router_scores(x: Tensor, centroids: Tensor,
     _no_backward("router_scores", x, centroids)
     if _on_card(x):
         return _router.router_scores(x, centroids, temperature)
-    return _router.router_scores_ref(x, centroids, temperature)
+    return _plain(_router.router_scores_ref, x, centroids, temperature)
 
 
 def chunk_scan(qc: Tensor, kc: Tensor, vc: Tensor, cum: Tensor):
@@ -366,7 +381,7 @@ def chunk_scan(qc: Tensor, kc: Tensor, vc: Tensor, cum: Tensor):
     _no_backward("chunk_scan", qc, kc, vc, cum)
     if _on_card(qc):
         return _scan.chunk_scan(qc, kc, vc, cum)
-    return _scan.chunk_scan_ref(qc, kc, vc, cum)
+    return _plain(_scan.chunk_scan_ref, qc, kc, vc, cum)
 
 
 def reset_launch_counts() -> None:

@@ -1,9 +1,9 @@
 """Multi-pod dry run (port of ``repro.launch.dryrun``): run one step of
 every (arch × input shape × mesh) case on fake tensors placed on the
-production mesh (no allocation), and report the per-device memory of the
-placed arguments, the FLOPs and bytes each device's shards go through, the
-collective schedule, the roofline terms against the H100's data-sheet
-peaks, and the decentralized mode's zero-cross-pod property.
+production mesh (no allocation), and report a device's memory, the FLOPs
+and bytes each device's shards go through, the collective schedule, the
+roofline terms against the H100's data-sheet peaks, and the decentralized
+mode's zero-cross-pod property.
 
 Inside ``main()`` (never at import) it starts ``torch.distributed`` with
 the fake backend at the mesh's world size (256 or 512 ranks, this process
@@ -15,8 +15,18 @@ serving rules' ``fsdp=False``, as the reference's ``build_case`` does.
 What a device does is counted by ``roofline.CollectiveRecorder`` on the
 local shards: FLOPs by ``torch.utils.flop_counter``'s formulas, bytes as an
 unfused operand + result count (it overstates what the fused kernels
-move), and each collective with its group's ranks. The world size is fixed
-per process, so ``--all`` runs each case in a process of its own.
+move), and each collective with its group's ranks. A device's memory is
+counted by ``roofline.LocalMemory`` on the same local shards, under the
+reference's keys: ``argument_size_in_bytes`` (its shard of the placed
+state and inputs), ``output_size_in_bytes`` (what the step returns beyond
+its arguments: a train step updates its state in place), and
+``temp_size_in_bytes`` (the peak of everything else it holds during the
+step, autograd's saved tensors and collectives' results included), so
+that a device's peak is their sum; ``generated_code_size_in_bytes`` is
+``null``: the port compiles no program per case, and the reference's
+``getattr(mem, k, None)`` gives ``None`` the same way for a field its
+memory analysis lacks. The world size is fixed per process, so ``--all``
+runs each case in a process of its own.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3_8b \\
@@ -41,18 +51,28 @@ import torch
 
 from repro_torch.configs.base import (INPUT_SHAPES, PORTED_ARCH_IDS,
                                       InputShape, ModelConfig, get_config)
-from repro_torch.launch.roofline import (CollectiveRecorder, RooflineReport,
-                                         active_params, collective_summary,
-                                         link_bw, model_flops)
+from repro_torch.launch.roofline import (CollectiveRecorder, LocalMemory,
+                                         RooflineReport, active_params,
+                                         collective_summary, link_bw,
+                                         model_flops)
 from repro_torch.models import build_model
 from repro_torch.models.params import (count_params, mesh_sizes, norm_axes,
                                        tree_shapes, tree_shardings)
 from repro_torch.sharding import rules as R
 from repro_torch.train import trainer as T
-from repro_torch.tree import flat_leaves, tree_map
+from repro_torch.tree import tree_map
 
 LONG_DECODE_WINDOW = 8192      # sliding window applied at long_500k
 POD_SIZE = 256
+#: The memory record's counted keys (``generated_code_size_in_bytes`` is
+#: always None).
+MEMORY_KEYS = ("argument_size_in_bytes", "output_size_in_bytes",
+               "temp_size_in_bytes")
+
+
+def device_peak(memory: Dict) -> float:
+    """A device's peak bytes during the step: arguments + temp + outputs."""
+    return sum(memory[k] for k in MEMORY_KEYS)
 
 
 def shape_cfg(cfg: ModelConfig, shape: InputShape) -> ModelConfig:
@@ -191,11 +211,6 @@ def place_tree(shapes, specs, mesh):
     return tree_map(lambda t, s: _place(t, s, mesh), shapes, specs)
 
 
-def _local_bytes(tree) -> int:
-    return sum(t.to_local().numel() * t.element_size()
-               for t in flat_leaves(tree))
-
-
 def build_case(arch: str, shape_name: str, mesh_name: str, mode: str,
                n_experts: int = 2, depth_probe: int = 0):
     """Returns (run, make, model, cfg, mesh, shape): ``run(*make())`` is
@@ -281,11 +296,12 @@ def _measure(arch, shape_name, mesh_name, mode, n_experts, depth_probe=0):
     t0 = time.time()
     with FakeTensorMode():
         args = make()
-        arg_bytes = _local_bytes(args)
-        with CollectiveRecorder(pod_size=POD_SIZE, count_costs=True) as rec:
-            run(*args)
+        with CollectiveRecorder(pod_size=POD_SIZE, count_costs=True) as rec, \
+                LocalMemory() as mem:
+            out = run(*args)
+        memory = mem.memory(args, out)
     return {"model": model, "cfg": cfg, "mesh": mesh, "shape": shape,
-            "rec": rec, "arg_bytes": arg_bytes,
+            "rec": rec, "memory": memory,
             "step_s": time.time() - t0, "kv_local": _kv_local(shape, args)}
 
 
@@ -338,7 +354,7 @@ def run_case(arch: str, shape_name: str, mesh_name: str, mode: str,
         "n_devices": n_dev,
         "params_total": total_p, "params_active": act_p,
         "step_s": round(m["step_s"], 1),
-        "memory": {"argument_size_in_bytes": m["arg_bytes"]},
+        "memory": m["memory"],
         "cost": {"flops": float(rec.flops),
                  "bytes accessed": float(rec.bytes_accessed)},
         "collectives": csum,
@@ -370,7 +386,7 @@ def run_probe(arch: str, shape_name: str, mesh_name: str, mode: str,
                    "coll": float(csum["total_bytes"]),
                    "xpod": float(csum["cross_pod_bytes"]),
                    "xpod_ops": float(csum["cross_pod_ops"]),
-                   "args": float(m["arg_bytes"])}
+                   **{k: float(m["memory"][k]) for k in MEMORY_KEYS}}
         bw.append(link_bw(m["rec"].ops))
         n_dev, kv_local = m["mesh"].size(), m["kv_local"]
     full_model = build_model(shape_cfg(get_config(arch), shape))
@@ -382,7 +398,7 @@ def run_probe(arch: str, shape_name: str, mesh_name: str, mode: str,
         return max(outside, 0.0) + G_full * max(per, 0.0)
 
     corr = {k: fit(k) for k in ("flops", "bytes", "coll", "xpod",
-                                "xpod_ops", "args")}
+                                "xpod_ops", *MEMORY_KEYS)}
     cfg = shape_cfg(get_config(arch), shape)
     total_p, act_p, report = _roofline(
         arch, shape_name, mesh_name, mode, cfg, full_model, n_dev,
@@ -392,7 +408,8 @@ def run_probe(arch: str, shape_name: str, mesh_name: str, mode: str,
             "params_total": total_p, "params_active": act_p,
             "measured": meas, "corrected": corr,
             "xpod_corrected": corr["xpod"],
-            "memory": {"argument_size_in_bytes": corr["args"]},
+            "memory": {**{k: corr[k] for k in MEMORY_KEYS},
+                       "generated_code_size_in_bytes": None},
             "cost": {"flops": corr["flops"], "bytes accessed": corr["bytes"]},
             "collectives": {"total_bytes": corr["coll"],
                             "cross_pod_bytes": corr["xpod"],
@@ -490,14 +507,14 @@ def main(argv=None) -> None:
         json.dump(rec, f, indent=1)
     status, extra = rec["status"], ""
     if status == "ok":
-        r = rec["roofline"]
+        r, mem = rec["roofline"], rec["memory"]
         extra = (f" bottleneck={r['bottleneck']}"
                  f" compute={r['compute_s']:.4f}s"
                  f" mem={r['memory_s']:.4f}s"
                  f" coll={r['collective_s']:.4f}s"
                  f" xpod={rec['collectives']['cross_pod_bytes']}"
-                 f" args_GiB="
-                 f"{rec['memory']['argument_size_in_bytes'] / 2**30:.3f}")
+                 f" args_GiB={mem['argument_size_in_bytes'] / 2**30:.3f}"
+                 f" peak_GiB={device_peak(mem) / 2**30:.3f}")
         if rec.get("kv_local"):
             extra += f" kv_local={tuple(rec['kv_local'])}"
     elif status == "error":

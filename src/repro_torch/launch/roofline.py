@@ -16,14 +16,19 @@ parser's counterpart: a ``TorchDispatchMode`` that sees the
 the op, its result's bytes, the ranks of its group, and whether that group
 holds ranks of more than one pod — so the paper's zero-cross-pod property
 of decentralized training is checked from the collectives themselves.
+``LocalMemory`` is the counterpart of XLA's memory analysis: the bytes a
+device holds during a step, counted on its local shards.
 """
 from __future__ import annotations
 
+import threading
+import weakref
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 # NVIDIA H100 SXM5 80GB, dense figures from its data sheet ("NVIDIA H100
 # Tensor Core GPU" datasheet, SXM5 column; the sparse figures are twice
@@ -73,40 +78,30 @@ def group_ranks(group_name: str) -> List[int]:
     return dist.get_process_group_ranks(_resolve_process_group(group_name))
 
 
-class CollectiveRecorder(TorchDispatchMode):
-    """Records every ``_c10d_functional`` collective issued while it is
-    active (``ops``). With ``count_costs`` it also counts, over every other
-    aten op on plain (local) tensors, the FLOPs by
-    ``torch.utils.flop_counter``'s per-op formulas (``flops``: those of
-    ``FlopCounterMode``, which itself would count a DTensor op at its
-    global shape) and the operand and result bytes (``bytes_accessed``: an
-    unfused count — every op reads its inputs from and writes its output
-    to memory, so it overstates what fused kernels move). DTensor ops are
-    passed on to DTensor, so the recorder sees each device's local ops and
-    the collectives they lower to. DTensor infers an op's output shape by
-    running it on fake tensors of the global shape (cached, so only at
-    times): the recorder counts nothing while that inference runs."""
+class LocalOpsMode(TorchDispatchMode):
+    """A dispatch mode that sees each device's local ops: DTensor ops are
+    passed on to DTensor, which runs them on the local shards (and issues
+    the collectives they lower to) inside this mode, so ``local_op`` sees
+    plain tensors only. DTensor infers an op's output shape by running it
+    on fake tensors of the global shape (cached, so only at times):
+    ``local_op`` is not called while that inference runs."""
 
-    def __init__(self, *, pod_size: int = 256, count_costs: bool = False):
+    def __init__(self):
         super().__init__()
-        self.pod_size, self.count_costs = pod_size, count_costs
-        self.ops: List[CollectiveOp] = []
-        self.flops = 0
-        self.bytes_accessed = 0
         self._inferring = 0
 
     def __enter__(self):
         from torch.distributed.tensor._sharding_prop import ShardingPropagator
         name = "_propagate_tensor_meta_non_cached"
         infer = getattr(ShardingPropagator, name)
-        recorder = self
+        mode = self
 
         def quiet(prop, *args, **kwargs):
-            recorder._inferring += 1
+            mode._inferring += 1
             try:
                 return infer(prop, *args, **kwargs)
             finally:
-                recorder._inferring -= 1
+                mode._inferring -= 1
 
         self._restore = (ShardingPropagator, name, infer)
         setattr(ShardingPropagator, name, quiet)
@@ -123,8 +118,32 @@ class CollectiveRecorder(TorchDispatchMode):
             return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if self._inferring:
-            return out
+        if not self._inferring:
+            self.local_op(func, args, kwargs, out)
+        return out
+
+    def local_op(self, func, args, kwargs, out) -> None:
+        """Called with every op on plain (local) tensors and its result."""
+
+
+class CollectiveRecorder(LocalOpsMode):
+    """Records every ``_c10d_functional`` collective issued while it is
+    active (``ops``). With ``count_costs`` it also counts, over every other
+    aten op on plain (local) tensors, the FLOPs by
+    ``torch.utils.flop_counter``'s per-op formulas (``flops``: those of
+    ``FlopCounterMode``, which itself would count a DTensor op at its
+    global shape) and the operand and result bytes (``bytes_accessed``: an
+    unfused count — every op reads its inputs from and writes its output
+    to memory, so it overstates what fused kernels move)."""
+
+    def __init__(self, *, pod_size: int = 256, count_costs: bool = False):
+        super().__init__()
+        self.pod_size, self.count_costs = pod_size, count_costs
+        self.ops: List[CollectiveOp] = []
+        self.flops = 0
+        self.bytes_accessed = 0
+
+    def local_op(self, func, args, kwargs, out) -> None:
         name = func._overloadpacket.__name__
         if func.namespace == "_c10d_functional" and name in _COLLECTIVES:
             group = [a for a in (*args, *kwargs.values())
@@ -140,7 +159,116 @@ class CollectiveRecorder(TorchDispatchMode):
                 self.flops += count(*args, **kwargs, out_val=out)
             self.bytes_accessed += _bytes(out) + sum(
                 _bytes(a) for a in (*args, *kwargs.values()))
+
+
+def local_storages(tree) -> Dict[int, int]:
+    """{storage id: bytes} of the device's tensors in ``tree`` (a DTensor's
+    local shard, never its global shape): each untyped storage once, so
+    that views are not counted twice."""
+    out = {}
+    for t in tree_leaves(tree):
+        if isinstance(t, torch.Tensor):
+            t = getattr(t, "_local_tensor", t)
+            st = t.untyped_storage()
+            out[st._cdata] = st.nbytes()
+    return out
+
+
+class LocalMemory(LocalOpsMode):
+    """The bytes one device allocates while it is active, counted on local
+    tensors, beneath DTensor: each op's result that does not share an
+    input's storage is a new allocation, its untyped storage counted once
+    (views are not counted again) and subtracted when that storage is
+    freed. Autograd's saved tensors and collectives' results count like
+    any other tensor. ``live`` and ``peak`` are the bytes of the storages
+    allocated since it was entered that are alive now and at most.
+
+    ``memory(args, out)`` gives XLA's memory-analysis keys for a step that
+    took ``args`` and returned ``out``: the arguments' bytes; the returned
+    bytes that are not the arguments' (a step that updates its state in
+    place and returns it holds that state once, as an argument); the peak
+    of everything else the step held (``temp``: the peak less the returned
+    storages it allocated), so that arguments + temp + outputs is the
+    device's peak; and no generated code (``None``: nothing is compiled
+    per step, as ``getattr`` on a memory analysis without the field gives
+    in the reference). Works on fake tensors and on the card alike.
+
+    A kernel's plain version, standing in for it on CPU tensors (the
+    dry run), counts as the card's kernel: its outputs only, not the
+    intermediates it materialises (flash attention's (S, S) scores) that
+    the kernel keeps in registers and shared memory (``ops.PLAIN_CALL``).
+    On the card the wrappers' own allocations are seen: outputs, and the
+    split decodes' partials. A storage may be freed on autograd's thread:
+    the counts change under a lock."""
+
+    def __init__(self):
+        super().__init__()
+        self.live = 0
+        self.peak = 0
+        self._sizes: Dict[int, int] = {}
+        self._in_plain = 0
+        self._lock = threading.RLock()   # a free may run inside an update
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self._plain_call = ops.PLAIN_CALL
+        ops.PLAIN_CALL = self._as_kernel
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.PLAIN_CALL = self._plain_call
+        return super().__exit__(*exc)
+
+    def _as_kernel(self, fn, *args, **kwargs):
+        self._in_plain += 1
+        try:
+            out = fn(*args, **kwargs)
+        finally:
+            self._in_plain -= 1
+        self.local_op(None, args, kwargs, out)
         return out
+
+    def local_op(self, func, args, kwargs, out) -> None:
+        if self._in_plain:
+            return
+        if func is torch.ops._c10d_functional.wait_tensor.default:
+            # the collective's result itself (on fake tensors a new
+            # storage): the bytes move over, nothing is allocated
+            src = args[0].untyped_storage()._cdata
+            st = out.untyped_storage()
+            with self._lock:
+                if st._cdata != src and src in self._sizes:
+                    self._track(st, self._sizes.pop(src))
+            return
+        given = local_storages((args, kwargs))
+        for t in tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                st = t.untyped_storage()
+                with self._lock:
+                    if st._cdata in given or st._cdata in self._sizes:
+                        continue
+                    self.live += st.nbytes()
+                    self.peak = max(self.peak, self.live)
+                    self._track(st, st.nbytes())
+
+    def _track(self, st, nbytes: int) -> None:
+        self._sizes[st._cdata] = nbytes
+        weakref.finalize(st, self._free, st._cdata)
+
+    def _free(self, key: int) -> None:
+        with self._lock:
+            self.live -= self._sizes.pop(key, 0)
+
+    def memory(self, args, out) -> Dict[str, Any]:
+        given = local_storages(args)
+        returned = {k: n for k, n in local_storages(out).items()
+                    if k not in given}
+        held = sum(self._sizes.get(k, 0) for k in returned)
+        return {"argument_size_in_bytes": sum(given.values()),
+                "output_size_in_bytes": sum(returned.values()),
+                "temp_size_in_bytes": self.peak - held,
+                "generated_code_size_in_bytes": None}
 
 
 def collective_summary(ops: List[CollectiveOp]) -> Dict:

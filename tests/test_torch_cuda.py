@@ -729,12 +729,12 @@ def test_chunk_scan_tensor_cores_on_card(cuda, B, NC, L, H, dk, dv, decay):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,dk,dv", [(torch.float32, 64, 160),
-                                         (torch.bfloat16, 64, 65),
-                                         (torch.bfloat16, 384, 385)])
+                                         (torch.float32, 384, 385),
+                                         (torch.bfloat16, 20, 64)])
 def test_chunk_scan_scalar_route_on_card(cuda, dtype, dk, dv):
-    """float32, and bf16 widths TMA cannot describe (odd dv, mLSTM's
-    full-width dk = 384, dv = 385), take the scalar kernels: the call is
-    counted, the tensor-core counter does not move."""
+    """float32 (mLSTM's full-width dk = 384, dv = 385 too), and bf16 with dk
+    not a multiple of 8, take the scalar kernels: the call is counted, the
+    tensor-core counter does not move."""
     args = _scan_inputs(cuda, dtype, 14, 1, 1, 128, 2, dk, dv)
     calls = cs.chunk_scan.launches, cs.chunk_scan.tensor_core_launches
     got = cs.chunk_scan(*args)
@@ -742,6 +742,48 @@ def test_chunk_scan_scalar_route_on_card(cuda, dtype, dk, dv):
         == (calls[0] + 1, calls[1])
     for g, w in zip(got, cs.chunk_scan_ref(*args)):
         torch.testing.assert_close(g, w, rtol=5e-5, atol=5e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,NC,L,H,dk,dv,decay", [
+    (1, 1, 128, 2, 64, 65, 0.1),       # odd dv: V through registers
+    (1, 1, 256, 4, 384, 385, 0.1),     # mLSTM at full width
+    (1, 1, 200, 4, 384, 385, 0.1),     # ragged L
+    (1, 3, 256, 4, 384, 385, 0.1),     # NC > 1
+    (2, 1, 256, 4, 384, 385, 0.1),     # B = 2: the mixture's stack
+    (1, 1, 192, 2, 192, 100, 0.1),     # dk of three slabs
+    (1, 1, 256, 2, 256, 256, 0.1),     # dk of four slabs, dv by slabs
+    (1, 1, 256, 4, 384, 385, 5.0),     # steep decay: cum reaches -1000s
+    (1, 1, 256, 4, 384, 385, 0.001),   # slow decay: 256 unit-size terms
+    (1, 1, 64, 1, 1408, 24, 0.1),      # dk at TC_MAX_DK
+    (1, 1, 40, 3, 8, 1, 0.1),          # the narrowest widths
+])
+def test_chunk_scan_wide_tensor_cores_on_card(cuda, B, NC, L, H, dk, dv,
+                                              decay):
+    """bf16 at widths whose V rows TMA cannot describe (odd dv) or whose dk
+    is past two slabs take the tensor-core route too: both counters move,
+    and the result holds 5e-5 against the plain version."""
+    assert cs.tensor_core_route(torch.bfloat16, dk, dv)
+    assert not cs.v_by_tma(dk, dv)
+    args = _scan_inputs(cuda, torch.bfloat16, 16, B, NC, L, H, dk, dv,
+                        decay)
+    calls = cs.chunk_scan.launches, cs.chunk_scan.tensor_core_launches
+    got = cs.chunk_scan(*args)
+    assert (cs.chunk_scan.launches, cs.chunk_scan.tensor_core_launches) \
+        == (calls[0] + 1, calls[1] + 1)
+    for g, w in zip(got, cs.chunk_scan_ref(*args)):
+        assert g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g, w, rtol=5e-5, atol=5e-5)
+
+
+@pytest.mark.gpu
+def test_chunk_scan_wide_smem_limit_on_card(cuda):
+    """``TC_MAX_DK`` is the largest dk whose wide tiles fit a Hopper block's
+    shared memory: one slab more does not."""
+    from repro_torch.kernels import build
+    lib = build.load("chunk_scan")
+    assert lib.chunk_scan_wide_smem_bytes(cs.TC_MAX_DK) <= cs.MAX_SMEM
+    assert lib.chunk_scan_wide_smem_bytes(cs.TC_MAX_DK + 8) > cs.MAX_SMEM
 
 
 @pytest.mark.gpu

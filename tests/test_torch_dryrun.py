@@ -35,6 +35,11 @@ def test_dryrun_multi_pod_case(tmp_path, mode):
     roof = rec["roofline"]
     assert roof["bottleneck"] in ("compute", "memory", "collective")
     assert rec["cost"]["flops"] > 0
+    mem = rec["memory"]      # the reference's four keys, fitted by depth
+    assert mem["generated_code_size_in_bytes"] is None
+    assert all(mem[k] > 0 for k in ("argument_size_in_bytes",
+                                    "output_size_in_bytes",
+                                    "temp_size_in_bytes"))
     coll = rec["collectives"]
     if mode == "decentralized":
         assert coll["cross_pod_bytes"] == 0 and coll["cross_pod_ops"] == 0

@@ -139,20 +139,29 @@ def test_chunk_scan_dispatch_and_wrapper_guard():
 @pytest.mark.parametrize("dtype,dk,dv,tensor_cores", [
     (torch.bfloat16, 64, 160, True),     # Zamba2 at full width
     (torch.bfloat16, 16, 64, True),      # the smoke config's N and P
-    (torch.bfloat16, 128, 200, True),    # dk at its limit, dv in 2 slices
+    (torch.bfloat16, 128, 200, True),    # dk at the TMA kernel's limit
     (torch.bfloat16, 24, 72, True),      # multiples of 8, not of 16
     (torch.float32, 64, 160, False),     # float32: scalar
     (torch.float32, 16, 64, False),
-    (torch.bfloat16, 64, 65, False),     # odd dv
-    (torch.bfloat16, 384, 385, False),   # mLSTM at full width
-    (torch.bfloat16, 136, 64, False),    # dk past 128
+    (torch.float32, 384, 385, False),
+    (torch.bfloat16, 64, 65, True),      # odd dv: V through registers
+    (torch.bfloat16, 384, 385, True),    # mLSTM at full width
+    (torch.bfloat16, 136, 64, True),     # dk past 128
+    (torch.bfloat16, 192, 100, True),    # dk of three slabs
+    (torch.bfloat16, 256, 385, True),    # dk of four slabs
+    (torch.bfloat16, cs.TC_MAX_DK, 1, True),         # dk at the limit
+    (torch.bfloat16, cs.TC_MAX_DK + 64, 64, False),  # one slab past it
     (torch.bfloat16, 20, 64, False),     # dk not a multiple of 8
 ])
 def test_chunk_scan_route_rule(dtype, dk, dv, tensor_cores):
-    """The CUDA wrapper's route, from dtype and widths alone: bf16 with dk,
-    dv multiples of 8 (TMA's 16-byte row strides) and dk ≤ 128 take the
-    tensor cores, everything else the scalar kernels."""
+    """The CUDA wrapper's route, from dtype and widths alone: bf16 with dk
+    a multiple of 8 (TMA's 16-byte row strides of Q and K) up to
+    ``TC_MAX_DK`` (1408: the wide kernel's tiles fill a block's shared
+    memory), and any dv, take the tensor cores; everything else the scalar
+    kernels. V goes by TMA only at dk ≤ 128 with dv a multiple of 8."""
+    assert cs.TC_MAX_DK == 1408
     assert cs.tensor_core_route(dtype, dk, dv) is tensor_cores
+    assert cs.v_by_tma(dk, dv) is (dk <= 128 and dv % 8 == 0)
 
 
 def _split_pv_error(parts, decay):
