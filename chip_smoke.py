@@ -2745,7 +2745,7 @@ def _serve_watched(label, mp, watch, kernels):
     for name, rows in watch:
         setattr(model, name, watched(getattr(model, name), rows))
     mixture = mp.engine.config.strategy == "mixture"
-    calls, fused = {"_fstep": 0, "_fstep_chunk": 0, "_vstep": 0}, {}
+    calls, fused = {"_fstep": 0, "_vstep": 0}, {}
     if mixture:                   # each fused step runs one stacked decode
         core = mp.engine.core
         fused = {name: getattr(core, name) for name in calls
@@ -2802,8 +2802,7 @@ def _serve_watched(label, mp, watch, kernels):
     if mixture:
         # the attention layers (the ssm family has none)
         n = 0 if model.cfg.family == "ssm" else model.n_groups
-        decodes, verifies = (calls["_fstep"] + calls["_fstep_chunk"],
-                             calls["_vstep"])
+        decodes, verifies = calls["_fstep"], calls["_vstep"]
         drafts = verifies * (SPEC_LEN - 1) if core._can_spec \
             and core._ngram is None else 0
         stats.update(experts=core.K, decode_steps=decodes,

@@ -173,23 +173,21 @@ def make_stacked_chunk_fns(model, cache_len: int):
 
 
 def make_stacked_fused(model, cache_len: int, *, paged: bool):
-    """``(step, step_chunk, chunk_only)`` over an expert stack, the
-    mixture's twins of ``serve.scheduler.make_fused_fns``:
+    """``(step, chunk_only)`` over an expert stack, the mixture's twins
+    of ``serve.scheduler.make_fused_fns``; a decode + chunk step runs the
+    one, then the other:
 
     * ``step(stacked, cache, state)`` → ``(cache, state, next_tok, done)``:
       one stacked decode forward (contiguous, or paged through
       ``state["tables"]``), the Eq. 27 mixture under ``state["weights"]``
       ((n_slots, K) router weights) and the serving epilogue over the
       mixed probabilities;
-    * ``step_chunk(stacked, cache, state, carry, xc, start, length, cbt,
-      w_row, temp, top_k, seed)`` → the same plus the chunk's first-token
-      pick from the mixture of its (K, 1, V) logits under ``w_row`` (1,
-      K) — count 0 of the request's seeded stream under the (1,)-tensors
-      ``temp, top_k, seed``, or the argmax when they are left out (a
-      greedy request) — and the carry;
     * ``chunk_only(stacked, cache, carry, xc, start, length, cbt, w_row,
-      temp, top_k, seed)`` → ``(first, carry, cache)`` when nothing is
-      decoding.
+      temp, top_k, seed)`` → ``(first, carry, cache)``: one stacked
+      prefill chunk and its first-token pick from the mixture of its (K,
+      1, V) logits under ``w_row`` (1, K) — count 0 of the request's
+      seeded stream under the (1,)-tensors ``temp, top_k, seed``, or the
+      argmax when they are left out (a greedy request).
     """
     # function-level import: serve.fused imports PROB_FLOOR from here
     from repro_torch.serve.fused import decode_epilogue, pick_first
@@ -208,13 +206,7 @@ def make_stacked_fused(model, cache_len: int, *, paged: bool):
         probs, carry, c = chunk_all(sp, c, carry, xc, start, ln, cbt, w_row)
         return pick_first(probs, *pick, from_probs=True), carry, c
 
-    def step_chunk(sp, c, st, carry, xc, start, ln, cbt, w_row, *pick):
-        c, st, nxt, done = step(sp, c, st)
-        first, carry, c = chunk_only(sp, c, carry, xc, start, ln, cbt, w_row,
-                                     *pick)
-        return c, st, nxt, done, first, carry
-
-    return step, step_chunk, chunk_only
+    return step, chunk_only
 
 
 def make_stacked_verify(model, cache_len: int, spec_len: int):

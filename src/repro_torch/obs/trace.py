@@ -43,7 +43,6 @@ object format ``ui.perfetto.dev`` and ``chrome://tracing`` both load.
 from __future__ import annotations
 
 import json
-import time
 from collections import deque
 from typing import Dict, Iterable, List, Optional
 
@@ -135,7 +134,6 @@ class TraceRecorder(NullRecorder):
         self.capacity = capacity
         self._ring: "deque[dict]" = deque(maxlen=capacity)
         self._meta: Dict[tuple, dict] = {}
-        self._t0 = time.perf_counter()  # kept for reference; ts are absolute
 
     def _push(self, ev: dict) -> None:
         if len(self._ring) == self.capacity:

@@ -49,9 +49,12 @@ The serving host layer rides on those paths:
   ``stats()``.
 * telemetry (``obs``): every engine's private metrics registry (always
   on; ``stats()`` is a view over it), span tracing with ``trace=True``
-  and the per-step ``dispatch`` / ``device_get`` split, taken with no
-  device synchronisation of its own; ``sanitize=True`` shadows the pool
-  with the ``analysis.sanitizer.PoolSanitizer``.
+  and the pod step's phases (``admit``, ``prepare``, the dispatch's
+  ``decode_dispatch`` and ``chunk_dispatch`` halves, ``device_get``,
+  ``finish``; ``EngineObs.step_begin``), taken with no device
+  synchronisation of their own and named as ``repro.serve.<phase>``
+  ranges while a ``torch.profiler`` records; ``sanitize=True`` shadows
+  the pool with the ``analysis.sanitizer.PoolSanitizer``.
 * ``serve(queue, max_steps=...)``: the drain loop over the incremental
   API.
 
@@ -79,7 +82,7 @@ sits in the layer loop. The unfused step uploads the tokens, positions
 and tables each step and reads back the picked tokens, and a final
 chunk's first token in a second readback, as the reference does. Both
 steps record the registry's ``dispatch`` / ``device_get`` split
-(``EngineObs.step_timing``).
+(``EngineObs.phase``, ``EngineObs.step_timing``).
 """
 from __future__ import annotations
 
@@ -101,7 +104,7 @@ from repro_torch.core.ensemble import (make_stacked_chunk_fns,
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
 from repro_torch.obs import metrics as _obs_metrics
-from repro_torch.obs.engine import EngineObs
+from repro_torch.obs.engine import SERVE_RANGE, EngineObs, host_range
 from repro_torch.obs.trace import ADMIT_TID, merge_chrome
 from repro_torch.serve.api import (EngineConfig, RequestOutput,
                                    SamplingParams, TokenDelta,
@@ -562,23 +565,30 @@ class _SlotTable:
         chunk / lockstep decode dispatch. Streams back an output for every
         request that progressed: this step's retirements first, then the
         live deltas in slot order."""
-        t_start = time.perf_counter()
-        self._chunk_pick = None      # this step's chunk pick, not made yet
-        self._admit_waiting()
-        finished, self.admit_retired = self.admit_retired, []
-        if self.active:
-            if self.sanitizer is not None:
-                self.sanitizer.begin_step()
-            finished += self._decode_step()
-            if self.sanitizer is not None:
-                self.sanitizer.check_step()
-        outs = [self._output(r) for r in finished]
-        for req in self.slot_req:
-            if req is not None and req.emitted < len(req.out):
-                outs.append(self._output(req))
-        self._obs_step()
+        obs = self.obs
+        obs.step_begin()
+        try:
+            self._chunk_pick = None  # this step's chunk pick, not made yet
+            self._admit_waiting()
+            finished, self.admit_retired = self.admit_retired, []
+            if self.active:
+                obs.phase("prepare")
+                if self.sanitizer is not None:
+                    self.sanitizer.begin_step()
+                finished += self._decode_step()
+                if self.sanitizer is not None:
+                    self.sanitizer.check_step()
+            obs.phase("finish")      # none where the readback began it
+            outs = [self._output(r) for r in finished]
+            for req in self.slot_req:
+                if req is not None and req.emitted < len(req.out):
+                    outs.append(self._output(req))
+            self._obs_step()
+        except BaseException:
+            obs.abort_step()
+            raise
         # the EWMA step time feeds the admission-control TTFT model
-        dt = time.perf_counter() - t_start
+        dt = obs.step_end()
         self._step_ewma = dt if self._step_ewma == 0.0 \
             else 0.9 * self._step_ewma + 0.1 * dt
         return outs
@@ -1037,18 +1047,16 @@ class _SlotTable:
                        args={"rid": req.rid,
                              "finish_reason": req.finish_reason})
 
-    def _obs_chunk_span(self, slot: int, start: int, t0: float) -> float:
-        """Stamp the end of a chunk step's launches and (tracing) emit its
-        ``prefill_chunk[i]`` span. Returns the stamp: the dispatch half of
-        the step timing."""
-        t1 = time.perf_counter()
+    def _obs_chunk_span(self, slot: int, start: int, t0: float,
+                        t1: float) -> None:
+        """(tracing) The ``prefill_chunk[i]`` span of a step's chunk half,
+        ``t0`` to ``t1``, on the slot's track."""
         tr = self.obs.trace
         if tr.enabled:
             req = self.slot_req[slot]
             tr.complete(f"prefill_chunk[{start // self.chunk}]", t0, t1,
                         self.obs.slot_tid(slot),
                         args={"rid": req.rid, "start": start})
-        return t1
 
     def _obs_phase_flip(self, slot: int, req: Request) -> None:
         """Prefill → decode: close the ``prefill`` span and open the
@@ -1417,40 +1425,44 @@ class _SlotTable:
         checks stop ids, budgets and the context bound (``_advance``); a
         final chunk's first token is picked from its scores
         (``_after_chunk``). The step's ``dispatch`` time ends when the
-        forward's launches are queued, its ``device_get`` time covers the
-        pick and its readback."""
+        forward's launches are queued, its decode half (``_run_decode``)
+        then its chunk half (``_run_chunk``); its ``device_get`` time
+        covers the pick and its readback."""
         if self.fused:
             return self._decode_step_fused()
         dec = self.decoding
         do_chunk = self.chunked and self._schedule_chunk()
         if not dec and not do_chunk:
             return []
+        obs = self.obs
         if do_chunk:
             slot, xc, start, length, cbt = self._chunk_args()
             if not dec:
-                t0 = time.perf_counter()
+                t0 = obs.phase("chunk_dispatch")
                 c_out = self._run_chunk(slot, xc, start, length, cbt)
-                t1 = self._obs_chunk_span(slot, start, t0)
+                self._obs_chunk_span(slot, start, t0,
+                                     obs.phase("device_get"))
                 retired = self._after_chunk(slot, length, c_out)
-                self.obs.step_timing("chunk", t0, t1)
+                obs.step_timing("chunk")
                 return retired
             self._grow_active()
             args = self._decode_args()
-            t0 = time.perf_counter()
-            scores, c_out = self._run_decode_chunk(args, slot, xc, start,
-                                                   length, cbt)
-            t1 = self._obs_chunk_span(slot, start, t0)
+            obs.phase("decode_dispatch")
+            scores = self._run_decode(args)
+            t0 = obs.phase("chunk_dispatch")
+            c_out = self._run_chunk(slot, xc, start, length, cbt)
+            self._obs_chunk_span(slot, start, t0, obs.phase("device_get"))
             nxt = self._next_tokens(scores, from_probs=self._from_probs)
-            self.obs.step_timing("decode+chunk", t0, t1)
+            obs.step_timing("decode+chunk")
             retired = self._advance(nxt)
             return retired + self._after_chunk(slot, length, c_out)
         self._grow_active()
         args = self._decode_args()
-        t0 = time.perf_counter()
+        obs.phase("decode_dispatch")
         scores = self._run_decode(args)
-        t1 = time.perf_counter()
+        obs.phase("device_get")
         nxt = self._next_tokens(scores, from_probs=self._from_probs)
-        self.obs.step_timing("decode", t0, t1)
+        obs.step_timing("decode")
         return self._advance(nxt)
 
     def _decode_args(self) -> Tuple[Tensor, ...]:
@@ -1469,11 +1481,6 @@ class _SlotTable:
     def _run_decode(self, args) -> Tensor:
         """The unfused lockstep decode: (n_slots, V) scores (mixture
         probabilities for the mixture core); keeps the new cache."""
-        raise NotImplementedError
-
-    def _run_decode_chunk(self, args, slot, xc, start, length, cbt):
-        """The unfused decode beside one prefill chunk: (decode scores,
-        the chunk's (1, V) scores); keeps the new cache and carry."""
         raise NotImplementedError
 
     def _run_chunk(self, slot, xc, start, length, cbt) -> Tensor:
@@ -1555,34 +1562,39 @@ class _SlotTable:
         """One scheduler step: the fused decode of every decoding slot plus,
         when the budget allows, one prefill chunk — then ONE readback. The
         step's ``dispatch`` time ends when its launches are queued, its
+        decode half (``_run_fused``) then its chunk half
+        (``_run_chunk_only``); its
         ``device_get`` time is the readback (``EngineObs.step_timing``)."""
         dec = self.decoding
         self._step_span = 1          # chunk and vanilla steps write one
         do_chunk = self.chunked and self._schedule_chunk()
         if not dec and not do_chunk:
             return []
+        obs = self.obs
         if do_chunk:
             slot, xc, start, length, cbt = self._chunk_args()
             pick = self._pick_args(self.slot_req[slot])
             if not dec:
-                t0 = time.perf_counter()
+                t0 = obs.phase("chunk_dispatch")
                 first = self._run_chunk_only(slot, xc, start, length, cbt,
                                              pick)
-                t1 = self._obs_chunk_span(slot, start, t0)
+                self._obs_chunk_span(slot, start, t0,
+                                     obs.phase("device_get"))
                 retired = self._after_chunk_tok(
                     # repro: allow-host-sync the chunk step's readback
                     slot, length, lambda: int(first.cpu()[0]))
-                self.obs.step_timing("chunk", t0, t1)
+                obs.step_timing("chunk")
                 return retired
             self._grow_active()
             dec = self.decoding      # growth may have parked a victim
             st = self._device_state()
-            t0 = time.perf_counter()
-            nxt, done, first = self._run_fused_chunk(st, slot, xc, start,
-                                                     length, cbt, pick)
-            t1 = self._obs_chunk_span(slot, start, t0)
+            obs.phase("decode_dispatch")
+            nxt, done = self._run_fused(st)
+            t0 = obs.phase("chunk_dispatch")
+            first = self._run_chunk_only(slot, xc, start, length, cbt, pick)
+            self._obs_chunk_span(slot, start, t0, obs.phase("device_get"))
             host = torch.cat([nxt, done, first]).cpu().numpy()
-            self.obs.step_timing("decode+chunk", t0, t1)
+            obs.step_timing("decode+chunk")
             n = self.n_slots
             retired = self._advance_fused(dec, host[:n], host[n:2 * n])
             retired += self._after_chunk_tok(slot, length,
@@ -1596,11 +1608,11 @@ class _SlotTable:
         self._grow_active()
         dec = self.decoding          # growth may have parked a victim
         st = self._device_state()
-        t0 = time.perf_counter()
+        obs.phase("decode_dispatch")
         nxt, done = self._run_fused(st)
-        t1 = time.perf_counter()
+        obs.phase("device_get")
         host = torch.stack([nxt, done]).cpu().numpy()
-        self.obs.step_timing("decode", t0, t1)
+        obs.step_timing("decode")
         return self._advance_fused(dec, host[0], host[1])
 
     # ------------------------------------------------------------------
@@ -1620,12 +1632,12 @@ class _SlotTable:
         self._step_span = span       # widens the _nb_live horizon
         st = self._device_state()
         drafts = self._draft_tokens(dec) if self._ngram is not None else None
-        t0 = time.perf_counter()
+        self.obs.phase("decode_dispatch")
         toks, n_emit, done = self._run_verify(st, drafts)
-        t1 = time.perf_counter()
+        self.obs.phase("device_get")
         n = self.n_slots
         host = torch.cat([toks.reshape(-1), n_emit, done]).cpu().numpy()
-        self.obs.step_timing("spec_verify", t0, t1)
+        self.obs.step_timing("spec_verify")
         return self._advance_span(dec, host[:n * span].reshape(n, span),
                                   host[n * span:n * span + n],
                                   host[n * span + n:])
@@ -1995,16 +2007,14 @@ def make_serve_fns(model: Model, cache_len: int, *, paged: bool = False):
     return prefill, decode
 
 
-def make_chunk_fns(model: Model, cache_len: int, *, paged: bool = False):
-    """``(prep, fused, chunk_only)`` of chunked prefill: ``prep(params,
-    batch)`` embeds the padded prompt and builds the carry; the unfused
-    step's ``fused(params, cache, tokens, pos, [tables,] carry, xc, start,
-    length, cbt)`` → ``(decode logits, chunk logits, carry, cache)`` runs
-    the lockstep decode and one prefill chunk, and ``chunk_only(params,
-    cache, carry, xc, start, length, cbt)`` → ``(chunk logits, carry,
-    cache)`` the chunk alone. The two halves touch disjoint state: decode
-    writes land in the decoding slots' own blocks (the chunk slot's table
-    row is masked to scratch), the chunk's in its reserved blocks and its
+def make_chunk_fns(model: Model, cache_len: int):
+    """``(prep, chunk_only)`` of chunked prefill: ``prep(params, batch)``
+    embeds the padded prompt and builds the carry; the unfused step's
+    ``chunk_only(params, cache, carry, xc, start, length, cbt)`` →
+    ``(chunk logits, carry, cache)`` runs one prefill chunk, alone or
+    after the lockstep decode. The two touch disjoint state: decode writes
+    land in the decoding slots' own blocks (the chunk slot's table row is
+    masked to scratch), the chunk's in its reserved blocks and its
     carry."""
     def prep(p, b):
         return model.embed_prompt(p, b), model.init_chunk_carry(p, b,
@@ -2013,49 +2023,29 @@ def make_chunk_fns(model: Model, cache_len: int, *, paged: bool = False):
     def chunk_only(p, c, carry, xc, start, ln, cbt):
         return model.prefill_chunk(p, c, carry, xc, start, ln, cbt)
 
-    if paged:
-        def fused(p, c, toks, pos, dbt, carry, xc, start, ln, cbt):
-            d_logits, c = model.decode_step_paged(p, c, toks, pos, dbt)
-            c_logits, carry, c = chunk_only(p, c, carry, xc, start, ln, cbt)
-            return d_logits, c_logits, carry, c
-    else:
-        def fused(p, c, toks, pos, carry, xc, start, ln, cbt):
-            d_logits, c = model.decode_step(p, c, toks, pos)
-            c_logits, carry, c = chunk_only(p, c, carry, xc, start, ln, cbt)
-            return d_logits, c_logits, carry, c
-    return prep, fused, chunk_only
+    return prep, chunk_only
 
 
 def make_fused_fns(model: Model, cache_len: int, *, paged: bool):
-    """``(step, step_chunk, chunk_only)`` — plain functions one SlotServer
-    runs on (shared by the pods of a top-1 deployment):
+    """``(step, chunk_only)`` — plain functions one SlotServer runs on
+    (shared by the pods of a top-1 deployment); a decode + chunk step runs
+    the one, then the other:
 
     * ``step(params, cache, state)`` → ``(cache, state, next_tok, done)``;
-    * ``step_chunk(params, cache, state, carry, xc, start, length, cbt,
-      temp, top_k, seed)`` → the same plus ``first`` (the chunk's
-      first-token pick: count 0 of the request's seeded stream, or the
-      argmax when ``temp, top_k, seed`` are left out) and the carry — the
-      decode and one prefill chunk in one step;
     * ``chunk_only(params, cache, carry, xc, start, length, cbt, temp,
-      top_k, seed)`` → ``(first, carry, cache)`` when nothing is
-      decoding.
+      top_k, seed)`` → ``(first, carry, cache)``: one prefill chunk and
+      its first-token pick (count 0 of the request's seeded stream, or
+      the argmax when ``temp, top_k, seed`` are left out).
     """
     def step(p, c, st):
         return model.fused_decode_step(p, c, st, cache_len=cache_len,
                                        paged=paged)
 
-    def step_chunk(p, c, st, carry, xc, start, ln, cbt, *pick):
-        c, st, nxt, done = model.fused_decode_step(p, c, st,
-                                                   cache_len=cache_len,
-                                                   paged=paged)
-        c_out, carry, c = model.prefill_chunk(p, c, carry, xc, start, ln, cbt)
-        return c, st, nxt, done, pick_first(c_out, *pick), carry
-
     def chunk_only(p, c, carry, xc, start, ln, cbt, *pick):
         c_out, carry, c = model.prefill_chunk(p, c, carry, xc, start, ln, cbt)
         return pick_first(c_out, *pick), carry, c
 
-    return step, step_chunk, chunk_only
+    return step, chunk_only
 
 
 def make_verify_fns(model: Model, cache_len: int):
@@ -2088,12 +2078,10 @@ class SlotServer(_SlotTable):
         self.spec = model.cache_spec(self.block_size)
         self._prefill, self._decode = make_serve_fns(
             model, self.cache_len, paged=self.paged)
-        self._prep, self._fused_chunk, self._chunk_only = make_chunk_fns(
-            model, self.cache_len, paged=self.paged)
+        self._prep, self._chunk_only = make_chunk_fns(model, self.cache_len)
         if self.fused:
-            self._fstep, self._fstep_chunk, self._fchunk_only = \
-                fused_fns or make_fused_fns(model, self.cache_len,
-                                            paged=self.paged)
+            self._fstep, self._fchunk_only = fused_fns or make_fused_fns(
+                model, self.cache_len, paged=self.paged)
         self._init_speculation(config, model,
                                make_verify_fns(model, self.cache_len))
 
@@ -2133,13 +2121,6 @@ class SlotServer(_SlotTable):
             self.params, self.cache, st, drafts)
         return toks, n_emit, done
 
-    def _run_fused_chunk(self, st, slot, xc, start, length, cbt, pick):
-        (self.cache, self._dstate, nxt, done, first,
-         self.prefill_carry[slot]) = self._fstep_chunk(
-            self.params, self.cache, st, self.prefill_carry[slot], xc,
-            start, length, cbt, *pick)
-        return nxt, done, first
-
     def _run_chunk_only(self, slot, xc, start, length, cbt, pick):
         first, self.prefill_carry[slot], self.cache = self._fchunk_only(
             self.params, self.cache, self.prefill_carry[slot], xc, start,
@@ -2149,13 +2130,6 @@ class SlotServer(_SlotTable):
     def _run_decode(self, args):
         logits, self.cache = self._decode(self.params, self.cache, *args)
         return logits
-
-    def _run_decode_chunk(self, args, slot, xc, start, length, cbt):
-        d_logits, c_logits, self.prefill_carry[slot], self.cache = \
-            self._fused_chunk(self.params, self.cache, *args,
-                              self.prefill_carry[slot], xc, start, length,
-                              cbt)
-        return d_logits, c_logits
 
     def _run_chunk(self, slot, xc, start, length, cbt):
         c_logits, self.prefill_carry[slot], self.cache = self._chunk_only(
@@ -2201,8 +2175,8 @@ class MixtureSlotServer(_SlotTable):
         self._prep, self._chunk_all = make_stacked_chunk_fns(
             model, self.cache_len)
         if self.fused:
-            self._fstep, self._fstep_chunk, self._fchunk_only = \
-                make_stacked_fused(model, self.cache_len, paged=self.paged)
+            self._fstep, self._fchunk_only = make_stacked_fused(
+                model, self.cache_len, paged=self.paged)
         self._init_speculation(
             config, model,
             make_stacked_verify(model, self.cache_len, config.spec_len))
@@ -2276,13 +2250,6 @@ class MixtureSlotServer(_SlotTable):
             self.stacked, self.cache, st, drafts)
         return toks, n_emit, done
 
-    def _run_fused_chunk(self, st, slot, xc, start, length, cbt, pick):
-        (self.cache, self._dstate, nxt, done, first,
-         self.prefill_carry[slot]) = self._fstep_chunk(
-            self.stacked, self.cache, st, self.prefill_carry[slot], xc,
-            start, length, cbt, self._weights_row(slot), *pick)
-        return nxt, done, first
-
     def _run_chunk_only(self, slot, xc, start, length, cbt, pick):
         first, self.prefill_carry[slot], self.cache = self._fchunk_only(
             self.stacked, self.cache, self.prefill_carry[slot], xc, start,
@@ -2295,10 +2262,6 @@ class MixtureSlotServer(_SlotTable):
             self.stacked, self.cache, tok, pos,
             torch.tensor(self.weights, device=self.device), *tables)
         return probs
-
-    def _run_decode_chunk(self, args, slot, xc, start, length, cbt):
-        return self._run_decode(args), self._run_chunk(slot, xc, start,
-                                                       length, cbt)
 
     def _run_chunk(self, slot, xc, start, length, cbt):
         c_probs, self.prefill_carry[slot], self.cache = self._chunk_all(
@@ -2383,10 +2346,12 @@ class DecentralizedSlotServer:
         return self.pods[k].add_request(req)
 
     def step(self) -> List[RequestOutput]:
-        """One step of every pod, in pod order."""
+        """One step of every pod, in pod order (one profiler range over
+        them while a profiler records)."""
         outs: List[RequestOutput] = []
-        for pod in self.pods:
-            outs += pod.step()
+        with host_range(SERVE_RANGE + "engine_step"):
+            for pod in self.pods:
+                outs += pod.step()
         return outs
 
     def abort(self, rid: int) -> Optional[RequestOutput]:

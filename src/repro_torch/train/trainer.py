@@ -8,6 +8,11 @@ and one in-place AdamW update; it returns the same state object. Metrics
 stay on the device; ``train_host_loop`` reads them back only at log
 steps, as the reference does.
 
+While a ``torch.profiler`` records, the step's forward, backward and
+update run inside ``repro.train.forward``, ``repro.train.backward`` and
+``repro.train.optimizer`` ranges (``obs.engine.host_range``; with no
+profiler, one check each).
+
 Decentralized (experts): states carry a leading K dim; the step runs each
 expert's slice in turn with nothing shared between them, so experts never
 exchange gradients.
@@ -31,6 +36,7 @@ import torch
 
 from repro_torch.models.model import Model
 from repro_torch.models.params import norm_axes, tree_shardings
+from repro_torch.obs.engine import host_range
 from repro_torch.optim.adamw import AdamWConfig, apply_updates, init_state
 from repro_torch.tree import (flat_leaves, tree_from_leaves, tree_leaves,
                               tree_map)
@@ -74,14 +80,19 @@ def _train_step(model: Model, cfg: TrainConfig, placed: bool = False):
         paths, leaves = zip(*tree_leaves(params))
         live = [p.detach().requires_grad_() for p in leaves]
         with torch.enable_grad():
-            used = list(map(_gather_fsdp(batch), live)) if placed else live
-            loss, _ = model.loss(tree_from_leaves(paths, used), batch)
-            grads = torch.autograd.grad(loss, live)
-        if placed:
-            grads = [g.redistribute(p.device_mesh, p.placements)
-                     for g, p in zip(grads, leaves)]
-        _, _, opt_metrics = apply_updates(
-            params, tree_from_leaves(paths, grads), state["opt"], cfg.opt)
+            with host_range("repro.train.forward"):
+                used = list(map(_gather_fsdp(batch), live)) if placed \
+                    else live
+                loss, _ = model.loss(tree_from_leaves(paths, used), batch)
+            with host_range("repro.train.backward"):
+                grads = torch.autograd.grad(loss, live)
+                if placed:
+                    grads = [g.redistribute(p.device_mesh, p.placements)
+                             for g, p in zip(grads, leaves)]
+        with host_range("repro.train.optimizer"):
+            _, _, opt_metrics = apply_updates(
+                params, tree_from_leaves(paths, grads), state["opt"],
+                cfg.opt)
         return state, {"loss": loss.detach(), **opt_metrics}
 
     return train_step

@@ -176,11 +176,10 @@ def test_mixture_serves_as_on_the_cpu_with_one_launch_a_layer(cuda):
         eng = make_engine(model, experts=experts, router=router, config=ecfg,
                           device=dev)
         core, n = eng.core, [0]
-        for name in ("_fstep", "_fstep_chunk"):
-            def counted(*a, _fn=getattr(core, name)):
-                n[0] += 1
-                return _fn(*a)
-            setattr(core, name, counted)
+        def counted(*a, _fn=core._fstep):
+            n[0] += 1
+            return _fn(*a)
+        core._fstep = counted
         ops.reset_launch_counts()
         for i, p in enumerate(prompts):
             eng.add_request(p, SamplingParams(max_new=10), features=feats[i],

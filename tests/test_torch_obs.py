@@ -15,10 +15,19 @@ reference.
   pool-starved queue; a second ``serve()`` starts its ``aborted`` and
   ``stopped`` at zero; the decentralized export keeps one pid per pod.
 * ``export_metrics``: after one queue, top-1 and under the mixture, every
-  counter and gauge series — names, labels and values — equals the
-  reference engine's, and every histogram's count (its sum too where it
-  is not a time).
+  counter and gauge series of the reference engine — names, labels and
+  values — is the port's too, and every histogram's count (its sum too
+  where it is not a time); the port adds the pod step's phase histograms
+  alone.
+* The pod step's phases (``EngineObs.step_begin``): fused, unfused,
+  mixture and speculative, the dispatch's halves sum to the dispatch and
+  the phases to the step; the chunk half counts the chunks; a collection
+  inside a step shows in its histogram; under ``torch.profiler`` a step
+  gives the ``repro.serve.*`` ranges, nested as the recorder's spans,
+  with the forward's ops inside the halves, and the same tokens; with no
+  profiler no range is entered.
 """
+import gc
 import json
 import math
 
@@ -39,6 +48,7 @@ from repro.serve import scheduler as jsched  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core.router import CentroidRouter, RouterConfig  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.obs import engine as obs_engine  # noqa: E402
 from repro_torch.obs.metrics import (MetricsRegistry, log_buckets,  # noqa: E402
                                      prometheus, snapshot)
 from repro_torch.obs.trace import (ADMIT_TID, SLOT_TID0, STEP_TID,  # noqa: E402
@@ -299,6 +309,7 @@ def test_trace_schema_and_span_taxonomy(dep):
     names = {e["name"] for e in evs if e["ph"] == "X"}
     assert {"admission", "prefix_match", "prefill", "decode", "dispatch",
             "device_get"} <= names
+    assert set(obs_engine.PHASES) | {"pod_step"} <= names
     assert any(n.startswith("prefill_chunk[") for n in names)
     assert {n for n in names if n.startswith("step:")} >= \
         {"step:chunk", "step:decode+chunk", "step:decode"}
@@ -465,8 +476,226 @@ def test_export_metrics_counters_equal_reference(dep, strategy):
     assert outs[0] == outs[1]
     got, want = _series(port.export_metrics()), \
         _series(ref.export_metrics())
-    assert got == want
+    assert {k: v for k, v in got.items() if k in want} == want
+    # the extra series: the seven phase histograms, each under exactly
+    # the labels of the reference's dispatch histogram (one per pod)
+    pods = {lab for name, lab in want
+            if name == "serve_step_dispatch_seconds"}
+    assert pods
+    assert set(got) - set(want) == {(name, lab) for name in PHASE_SERIES
+                                    for lab in pods}
     assert sum(v for (name, _), v in got.items()
                if name == "serve_prefix_skipped_tokens_total") > 0
     assert sum(v for (name, _), v in got.items()
                if name == "serve_spec_steps_total") > 0
+
+
+# ---------------------------------------------------------------------------
+# The pod step's phases
+# ---------------------------------------------------------------------------
+
+PHASE_SERIES = {"serve_step_admit_seconds", "serve_step_prepare_seconds",
+                "serve_step_decode_dispatch_seconds",
+                "serve_step_chunk_dispatch_seconds",
+                "serve_step_finish_seconds", "serve_step_gc_seconds",
+                "serve_step_seconds"}
+FORWARD_OPS = ("aten::mm", "aten::addmm", "aten::matmul", "aten::linear",
+               "aten::bmm", "aten::einsum")
+def _phase_pods(dep, kind):
+    if kind == "mixture":
+        return decentralized(dep, "mixture").pods
+    over = {"fused": {}, "unfused": dict(fused_step=False),
+            "speculative": dict(speculative="ngram", spec_len=3)}[kind]
+    return [slot_server(dep, **over)]
+
+
+def _serve_pods(dep, pods, lens=(12, 9, 14, 7, 11), max_new=6):
+    """Serve a queue on each pod (or engine); repetitive prompts so that
+    n-gram drafts are accepted."""
+    rng = np.random.default_rng(3)
+    feats = rng.normal(size=(len(lens), FEAT)).astype(np.float32)
+    ps = [np.tile(p[:4], 4)[:n] for p, n in
+          zip(prompts_of(dep["vocab"], lens), lens)]
+    for pod in pods:
+        pod.serve([sched.Request(i, p, max_new, features=feats[i])
+                   for i, p in enumerate(ps)])
+
+
+@pytest.mark.parametrize("kind", ["fused", "unfused", "mixture",
+                                  "speculative"])
+def test_step_phases_tile_the_pod_step(dep, kind):
+    """The dispatch's decode and chunk halves sum to the dispatch, and
+    admit + prepare + dispatch + device_get + finish to the step, over
+    every step; the chunk half is observed once per chunk consumed."""
+    pods = _phase_pods(dep, kind)
+    chunks0 = [p.n_chunks for p in pods]
+    _serve_pods(dep, pods)
+    for pod, c0 in zip(pods, chunks0):
+        o = pod.obs
+        ph = o.phase_s
+        steps = int(o.steps.value)
+        assert steps > 0
+        assert o.step_s.count == o.gc_s.count == ph["admit"].count == \
+            ph["finish"].count == steps
+        assert o.dispatch_s.count == o.readback_s.count > 0
+        assert ph["decode_dispatch"].count > 0 and \
+            ph["chunk_dispatch"].count > 0
+        assert ph["decode_dispatch"].sum + ph["chunk_dispatch"].sum == \
+            pytest.approx(o.dispatch_s.sum, rel=1e-12, abs=1e-12)
+        five = ph["admit"].sum + ph["prepare"].sum + o.dispatch_s.sum + \
+            o.readback_s.sum + ph["finish"].sum
+        assert five == pytest.approx(o.step_s.sum, rel=1e-12, abs=1e-12)
+        assert ph["chunk_dispatch"].count == pod.n_chunks - c0
+        if kind == "speculative":
+            assert o.n_spec_steps > 0
+
+
+def test_a_collection_inside_a_step_shows_in_its_histogram(dep):
+    srv = slot_server(dep)
+    srv.add_request(prompts_of(dep["vocab"], (10,))[0],
+                    SamplingParams(max_new=4), rid=0)
+    finish = srv._obs_step
+
+    def collecting():
+        gc.collect()
+        finish()
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        srv.step()
+        quiet = srv.obs.gc_s.sum
+        srv._obs_step = collecting
+        srv.step()
+    finally:
+        if was:
+            gc.enable()
+    assert quiet == 0.0
+    assert srv.obs.gc_s.count == 2 and srv.obs.gc_s.sum > 0.0
+    assert srv.obs.gc_s.sum <= srv.obs.step_s.sum
+
+
+def _profiled_steps(srv, n_steps):
+    """Run ``n_steps`` steps under a CPU profiler; the ``repro.serve.*``
+    and forward ranges of the host thread, as (start, end, name)."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n_steps):
+            srv.step()
+    return sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events()
+                  if e.name.startswith(obs_engine.SERVE_RANGE)
+                  or e.name in FORWARD_OPS)
+
+
+def _inside(a, b):
+    return a[0] <= b[0] and b[1] <= a[1]
+
+
+def test_profiler_ranges_nest_as_the_recorded_spans(dep):
+    """One decode + chunk step under ``torch.profiler``: its ranges are
+    the recorder's step-track spans (but ``step:<kind>``), each pair
+    nested alike, and every matrix product of the forward lies inside
+    the decode or the chunk half."""
+    srv = slot_server(dep, trace=True)
+    for i, p in enumerate(prompts_of(dep["vocab"], (7, 20))):
+        srv.add_request(p, SamplingParams(max_new=8), rid=i)
+    srv.step()                       # the first prompt's only chunk
+    n_spans = len(srv.export_trace()["traceEvents"])
+    evs = _profiled_steps(srv, 1)    # decode + the second prompt's chunk
+    ranges = {n[len(obs_engine.SERVE_RANGE):]: (a, b)
+              for a, b, n in evs if n.startswith(obs_engine.SERVE_RANGE)}
+    assert set(ranges) == {"pod_step", "dispatch", *obs_engine.PHASES}
+    spans = {e["name"]: (e["ts"], e["ts"] + e["dur"])
+             for e in srv.export_trace()["traceEvents"][n_spans:]
+             if e["ph"] == "X" and e["tid"] == STEP_TID}
+    assert set(spans) == set(ranges) | {"step:decode+chunk"}
+    for x in ranges:
+        for y in ranges:
+            if x != y:
+                assert _inside(ranges[x], ranges[y]) == \
+                    _inside(spans[x], spans[y]), (x, y)
+    order = [ranges[p] for p in obs_engine.PHASES]
+    assert all(a[1] <= b[0] for a, b in zip(order, order[1:]))
+    ops = [e for e in evs if e[2] in FORWARD_OPS]
+    assert ops and all(_inside(ranges["decode_dispatch"], op)
+                       or _inside(ranges["chunk_dispatch"], op)
+                       for op in ops)
+    assert any(_inside(ranges["decode_dispatch"], op) for op in ops)
+    assert any(_inside(ranges["chunk_dispatch"], op) for op in ops)
+
+
+def test_engine_step_range_covers_every_pod(dep):
+    srv = decentralized(dep)
+    feats = np.stack([dep["cent"][0], dep["cent"][1]])
+    for i, p in enumerate(prompts_of(dep["vocab"], (9, 9))):
+        srv.add_request(p, SamplingParams(max_new=4), features=feats[i],
+                        rid=i)
+    evs = _profiled_steps(srv, 1)
+    engine = [e for e in evs if e[2] == "repro.serve.engine_step"]
+    pods = [e for e in evs if e[2] == "repro.serve.pod_step"]
+    assert len(engine) == 1 and len(pods) == 2
+    assert all(_inside(engine[0], p) for p in pods)
+
+
+class _CountingRange(torch.autograd.profiler.record_function):
+    entered = 0
+
+    def __enter__(self):
+        type(self).entered += 1
+        return super().__enter__()
+
+
+def test_no_range_is_entered_without_a_profiler(dep, monkeypatch):
+    monkeypatch.setattr(torch.autograd.profiler, "record_function",
+                        _CountingRange)
+    _CountingRange.entered = 0
+    _serve_pods(dep, [decentralized(dep)] + _phase_pods(dep, "unfused"))
+    with obs_engine.host_range("repro.train.forward"):
+        pass
+    assert _CountingRange.entered == 0
+    srv = slot_server(dep)
+    srv.add_request(prompts_of(dep["vocab"], (9,))[0],
+                    SamplingParams(max_new=4), rid=0)
+    _profiled_steps(srv, 1)
+    assert _CountingRange.entered > 0    # the ranges go through it
+
+
+def test_tokens_are_the_same_under_the_profiler(dep):
+    ps = prompts_of(dep["vocab"], (12, 9, 14, 7))
+
+    def serve():
+        return slot_server(dep, prefix_cache=True).serve(
+            [sched.Request(i, p, 6) for i, p in enumerate(ps)])
+    off = serve()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        on = serve()
+    assert on == off
+
+
+def test_a_step_that_raises_closes_its_ranges(dep, monkeypatch):
+    """Under a profiler, a pod step that raises inside its dispatch
+    closes the ranges it opened and observes neither the phase it broke
+    off nor the step; the next step runs whole."""
+    srv = slot_server(dep)
+    srv.add_request(prompts_of(dep["vocab"], (9,))[0],
+                    SamplingParams(max_new=4), rid=0)
+    run = srv._run_chunk_only
+
+    def boom(*a):
+        raise RuntimeError("dispatch failed")
+    monkeypatch.setattr(srv, "_run_chunk_only", boom)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        with pytest.raises(RuntimeError, match="dispatch failed"):
+            srv.step()
+        assert srv.obs._ranges == [] and srv.obs.phase_name == ""
+        monkeypatch.setattr(srv, "_run_chunk_only", run)
+        srv.step()
+    o = srv.obs
+    assert o.step_s.count == o.dispatch_s.count == 1
+    assert o.phase_s["admit"].count == o.phase_s["prepare"].count == 2
+    assert o.phase_s["chunk_dispatch"].count == 1
+    names = [e.name for e in prof.events()]
+    assert names.count("repro.serve.pod_step") == 2
+    assert names.count("repro.serve.chunk_dispatch") == 2

@@ -366,15 +366,15 @@ def _spec_totals(engine):
             sum(p["spec_tokens"] for p in st))
 
 
-def _counting(engine, method):
-    """Wrap ``method`` of every pod to count its calls; returns the count
-    box."""
+def _counting(engine, method, when=lambda pod: True):
+    """Wrap ``method`` of every pod to count its calls made while
+    ``when(pod)`` holds; returns the count box."""
     box = [0]
     for pod in engine.pods:
         fn = getattr(pod, method)
 
-        def run(*a, fn=fn, **kw):
-            box[0] += 1
+        def run(*a, fn=fn, pod=pod, **kw):
+            box[0] += bool(when(pod))
             return fn(*a, **kw)
         setattr(pod, method, run)
     return box
@@ -433,7 +433,8 @@ def test_spec_under_chunked_co_scheduling(deployment):
                             SamplingParams, prompts, feats, {})
         eng = _port_engine(deployment, token_budget=budget,
                            speculative="ngram", spec_len=SPEC_LEN)
-        mixed = _counting(eng, "_run_fused_chunk")
+        mixed = _counting(eng, "_run_chunk_only",
+                          when=lambda pod: pod.decoding)
         got, _ = _drive(eng, SamplingParams, prompts, feats, {})
         assert got == vanilla
         assert mixed[0] > 0 and _spec_totals(eng)[0] > 0

@@ -491,6 +491,37 @@ def test_decentralized_step_equals_independent_steps():
         assert float(metrics["loss"][k]) == float(expected[k][1]["loss"])
 
 
+def test_train_step_ranges_under_the_profiler():
+    """Under ``torch.profiler`` one train step gives the forward, backward
+    and optimizer ranges in that order, one each, and the same state bit
+    for bit as the step without a profiler."""
+    cfg = get_smoke_config("qwen3_8b").reduced(vocab=VOCAB)
+    model = build_model(cfg)
+    corpus = TSynthetic(TSyntheticConfig(vocab=VOCAB, seq_len=SEQ,
+                                         n_samples=64, n_latent=2,
+                                         cluster_sep=6.0, seed=0))
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10,
+                            schedule="constant")
+    step = trainer.make_train_step(model, trainer.TrainConfig(opt=opt))
+    batch = _batches(corpus, 1)[0]
+    plain, traced = (trainer.init_train_state(
+        model, torch.Generator().manual_seed(0), opt) for _ in range(2))
+    _, m_plain = step(plain, batch)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        _, m_traced = step(traced, batch)
+    ranges = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in prof.events()
+                    if e.name.startswith("repro.train."))
+    assert [n for _, _, n in ranges] == [
+        "repro.train.forward", "repro.train.backward",
+        "repro.train.optimizer"]
+    assert all(a[1] <= b[0] for a, b in zip(ranges, ranges[1:]))
+    for (path, a), (_, b) in zip(tree_leaves(plain), tree_leaves(traced)):
+        assert torch.equal(a, b), path
+    assert torch.equal(m_plain["loss"], m_traced["loss"])
+
+
 def test_train_loss_decreases():
     """``train_host_loop`` (``test_e2e.py``'s run): the loss falls by more
     than 0.2 over 40 steps and the grad norm stays finite."""
