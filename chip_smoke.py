@@ -89,7 +89,13 @@ Phases, each fatal on failure:
    split-and-merge on the card (4 key ranges of the shard's row, one of
    them an empty fence for a row, rows whose ring is full, merged by
    ``ops.merge_key_ranges``) against the whole-row kernel; and the device
-   ms of the shard's decode with the lse and without it;
+   ms of the shard's decode with the lse and without it; and the fused
+   AdamW (``_adamw_kernel_cases``) at the training cell's head and
+   stacked gate leaves (``ADAMW_LEAVES``), one step against the plain
+   version within ``ADAMW_TOL``, device ms beside the bound of
+   ``ADAMW_BYTES`` a parameter (the head's within ``ADAMW_BOUND_RATIO`` of
+   it), and one whole ``apply_updates`` of the cell's leaves through the
+   kernel and through the plain version, and the global norm alone;
 3a. theory — the paper's §4 theory in float64 on the card
    (``phase_theory``): the walkthrough twin, then the reference tests'
    grids (``THEORY_DFM_GRID``, ``THEORY_SPLIT_GRID``); every CE
@@ -299,7 +305,8 @@ Phases, each fatal on failure:
    the first, a parameter leaf whose step-1 gradient is missing or zero
    (its m after step 1 has no nonzero element), or launch counts other
    than layers with attention x steps x experts (backward) and twice that
-   (forward, run again by the recomputation), or any chunk-scan launch;
+   (forward, run again by the recomputation), or any chunk-scan launch,
+   or AdamW launches other than leaves x steps x experts;
    then the same for DeepSeek-MoE-16B cut to 4 layers (its dropped share
    printed), for Whisper-small whole (4 steps of 8 sequences of 448
    tokens and their frames; the encoder's 12 layers count among the
@@ -332,9 +339,10 @@ Phases, each fatal on failure:
    state placed by ``state_shardings`` under the decentralized rules,
    ``PLACED_STEPS`` steps against the unplaced step from the same seeds
    and batches — losses, grad norms and params after them within
-   ``TRAIN_PARITY``, the flash forward and backward launched as often
-   through the kernel seam's DTensor path; both runs' ms a step and peak
-   GiB printed; the first placed step under the dry run's memory counter
+   ``TRAIN_PARITY``, the flash forward and backward and the fused AdamW
+   launched as often through the kernel seam's DTensor path; both runs'
+   ms a step and peak GiB printed; the first placed step under the dry
+   run's memory counter
    (``roofline.LocalMemory``), its arguments + peak within
    ``MEMORY_COUNTER_TOL`` of ``torch.cuda.max_memory_allocated()``;
 13d. dry run — ``repro_torch.launch.dryrun`` of ``DRYRUN_CASE`` on the
@@ -420,6 +428,10 @@ KERNEL_META = {
     "flash_attention_bwd": (
         "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "src/repro/kernels/flash_attention_bwd.py:121"),
+    "adamw_update": (
+        "src/repro_torch/kernels/csrc/adamw.cu",
+        "none: the reference's AdamW (src/repro/optim/adamw.py) is plain "
+        "jnp, fused by XLA under jit"),
 }
 # full-width float32 logits (std ~1) of two paths that differ only by
 # summation order: measured within 1e-4 of each other; ten times that
@@ -492,7 +504,28 @@ REMAT_SEQ = 4096
 # steps of each expert in the examples phase's train_decentralized run
 EXAMPLE_STEPS = 20
 EXAMPLE_TIMEOUT = 300     # seconds an example twin may take
-TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd")
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "adamw_update")
+# the training cell's AdamW (Qwen3-8B at full width cut to
+# ADAMW_LAYERS layers, bf16 params with float32 masters): its largest
+# leaves, the untied head (vocab x D) and the stacked SwiGLU gate (layers x
+# D x d_ff), each checked and timed alone, then every leaf in one
+# ``apply_updates``
+ADAMW_ARCH, ADAMW_LAYERS = "qwen3_8b", 8
+ADAMW_LEAVES = {"head": (151936, 4096), "stacked gate": (8, 4096, 12288)}
+# bytes a bf16 parameter with a float32 master moves: the bf16 gradient and
+# float32 m, v and master read, m, v, master and the bf16 parameter written
+ADAMW_BYTES = 28
+# float32 operations an element: the clip scale, m (3), v (4), the
+# denominator (3), the step (2), the weight decay (2), the master (2)
+ADAMW_FLOPS = 17
+# the kernel's device ms at the head leaf may be at most this many times
+# its bound
+ADAMW_BOUND_RATIO = 1.25
+# the kernel against its plain version: each operation is rounded where
+# the eager passes round it, so m, v and master agree to float32's last
+# bits (rtol) and exact zeros stay zeros (atol); a bf16 parameter is its
+# master rounded, one bf16 step apart where the masters' last bits differ
+ADAMW_TOL = {"rtol": 1e-6, "atol": 1e-12, "bf16_steps": 1}
 # the libraries whose bf16 kernels run on the tensor cores (wgmma)
 TENSOR_CORE_LIBS = ("decode_attention", "flash_attention",
                     "flash_attention_bwd", "chunk_scan")
@@ -1747,6 +1780,143 @@ def _split_decode_kernel_cases(cases, rec, gen):
         f"{json.dumps(r['max_abs_err'])}")
 
 
+def _check_adamw(cases, label, got, want):
+    """One AdamW leaf of the kernel against the plain version's, within
+    ``ADAMW_TOL``; returns the share of elements equal bit for bit."""
+    import torch
+    if got.dtype == torch.bfloat16:
+        steps = (got.view(torch.int16).int()
+                 - want.view(torch.int16).int()).abs()
+        err = (got.float() - want.float()).abs().max().item()
+        ok = steps.max().item() <= ADAMW_TOL["bf16_steps"]
+        dtype = "bfloat16"
+    else:
+        diff = (got - want).abs()
+        err = diff.max().item()
+        ok = bool((diff <= ADAMW_TOL["atol"]
+                   + ADAMW_TOL["rtol"] * want.abs()).all())
+        dtype = "float32"
+    ok = ok and bool(torch.isfinite(got).all())
+    cases.append({"kernel": "adamw_update", "max_abs_err": err,
+                  "dtype": dtype, "ok": ok})
+    if not ok:
+        raise AssertionError(f"adamw_update {label}: beyond {ADAMW_TOL} "
+                             f"(max abs err {err:.3e})")
+    return (got == want).float().mean().item()
+
+
+def _adamw_kernel_cases(cases, rec, gen):
+    """The fused AdamW kernel at the training cell's leaves (bf16 params,
+    float32 masters): at each of ``ADAMW_LEAVES`` one step against the
+    plain version from the same random state, then the device ms of both
+    (replayed from a CUDA graph) beside the bound of ``ADAMW_BYTES`` a
+    parameter; the head's must lie within ``ADAMW_BOUND_RATIO`` of it. Then
+    every leaf of the cell's model in one ``apply_updates``, through the
+    kernel and through the plain version, and the global norm alone, each
+    in device ms a step."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import adamw as ak
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves
+
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    scalars = [torch.tensor(x, dtype=torch.float32, device="cuda")
+               for x in (1e-3, 0.7, 1 - 0.9 ** 3, 1 - 0.95 ** 3)]
+    by_leaf = {}
+    for label, shape in ADAMW_LEAVES.items():
+        def draw(scale=1.0, dtype=torch.float32):
+            return (torch.randn(shape, generator=gen, device="cuda")
+                    * scale).to(dtype)
+        p, g = draw(dtype=torch.bfloat16), draw(dtype=torch.bfloat16)
+        m, v = draw(1e-2), draw(1e-2).square_()
+        master = p.float()
+        mine = [p.clone(), m.clone(), v.clone(), master.clone()]
+        ak.adamw_update(mine[0], g, *mine[1:], *scalars, **kw)
+        ak.adamw_update_ref(p, g, m, v, master, *scalars, **kw)
+        equal = {name: _check_adamw(cases, f"{label} {name}", a, b)
+                 for name, a, b in zip(("p", "m", "v", "master"), mine,
+                                       (p, m, v, master))}
+        n = p.numel()
+
+        def kernel():
+            ak.adamw_update(mine[0], g, *mine[1:], *scalars, **kw)
+
+        def plain():
+            ak.adamw_update_ref(p, g, m, v, master, *scalars, **kw)
+
+        r = by_leaf[label] = {
+            "shape": f"{label} {tuple(shape)} bf16, float32 master",
+            "ms": cuda_ms(kernel, iters=10, warmup=2),
+            "device_ms": device_ms(kernel, iters=10),
+            "plain_ms": cuda_ms(plain, iters=3, warmup=1),
+            "plain_device_ms": device_ms(plain, iters=3),
+            "library_ms": None,
+            "bytes": ADAMW_BYTES * n, "flops": ADAMW_FLOPS * n,
+            "dtype": "bfloat16", "rate_dtype": "float32",
+            "bound_ms": ADAMW_BYTES * n / HBM_BPS * 1e3,
+            "bit_equal_share": equal}
+        log(f"adamw_update {r['shape']}: device {r['device_ms']} ms (bound "
+            f"{r['bound_ms']:.4f}, plain {r['plain_device_ms']}); events "
+            f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}); share of "
+            f"elements equal bit for bit {equal}")
+        del p, g, m, v, master, mine
+        torch.cuda.empty_cache()
+    head = by_leaf["head"]
+    if head["device_ms"] is None or \
+            head["device_ms"] > ADAMW_BOUND_RATIO * head["bound_ms"]:
+        raise AssertionError(f"adamw_update at the head: {head['device_ms']}"
+                             f" device ms against a bound of "
+                             f"{head['bound_ms']:.4f}")
+
+    # every leaf of the training cell's model, one apply_updates
+    model = build_model(get_config(ADAMW_ARCH).reduced(
+        n_layers=ADAMW_LAYERS))
+    params = {path: torch.randn(spec.shape, generator=gen, device="cuda",
+                                dtype=torch.bfloat16)
+              for path, spec in tree_leaves(model.param_specs())}
+    grads = {path: torch.randn(t.shape, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) * 1e-3
+             for path, t in params.items()}
+    state = adamw.init_state(params)
+    cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=10_000)
+    n = sum(t.numel() for t in params.values())
+    ops.reset_launch_counts()
+    adamw.apply_updates(params, grads, state, cfg)
+    if ops.KERNELS["adamw_update"].launches != len(params):
+        raise AssertionError(f"apply_updates launched the kernel "
+                             f"{ops.KERNELS['adamw_update'].launches} times "
+                             f"for {len(params)} leaves")
+    step = {"leaves": len(params), "params": n,
+            "bound_ms": ADAMW_BYTES * n / HBM_BPS * 1e3,
+            "device_ms": device_ms(
+                lambda: adamw.apply_updates(params, grads, state, cfg),
+                iters=3),
+            "global_norm_device_ms": device_ms(
+                lambda: adamw.global_norm(grads), iters=5)}
+    kernel_update = ops.adamw_update
+    ops.adamw_update = ak.adamw_update_ref
+    try:
+        # one call a graph: its float32 temporaries of every leaf would
+        # otherwise be held for each call of the capture
+        step["plain_device_ms"] = device_ms(
+            lambda: adamw.apply_updates(params, grads, state, cfg), iters=1)
+    finally:
+        ops.adamw_update = kernel_update
+    log(f"adamw_update: a whole apply_updates of {ADAMW_ARCH} at "
+        f"{ADAMW_LAYERS} layers ({step['leaves']} leaves, {n} params): "
+        f"device {step['device_ms']} ms through the kernel (bound "
+        f"{step['bound_ms']:.4f}), {step['plain_device_ms']} ms through the "
+        f"plain version; global norm alone {step['global_norm_device_ms']} "
+        f"ms")
+    del params, grads, state
+    torch.cuda.empty_cache()
+    rec["adamw_update"] = dict(head, by_leaf=by_leaf, step=step,
+                               tol=ADAMW_TOL)
+
+
 def phase_kernels():
     """Compare and time every kernel; returns {name: record}."""
     import numpy as np
@@ -2180,6 +2350,7 @@ def phase_kernels():
     _hybrid_training_kernel_cases(cases, rec, gen)
     _prefix_kernel_cases(cases, gen)
     _split_decode_kernel_cases(cases, rec, gen)
+    _adamw_kernel_cases(cases, rec, gen)
     torch.cuda.synchronize()
 
     for name, r in rec.items():
@@ -3066,7 +3237,8 @@ PREEMPT_SEED = 5000
 def _step_split_by_kind(doc):
     """Mean host ms of each step kind's ``dispatch`` (launches queued) and
     ``device_get`` (the one readback) from an exported trace: on every
-    pod's step track a ``step:<kind>`` span encloses one of each."""
+    pod's step track a ``step:<kind>`` span encloses one of each (and the
+    dispatch's halves; the step's other phase spans lie beside it)."""
     from repro_torch.obs.trace import STEP_TID
     spans = sorted((e for e in doc["traceEvents"]
                     if e["ph"] == "X" and e["tid"] == STEP_TID),
@@ -3078,7 +3250,7 @@ def _step_split_by_kind(doc):
             split.setdefault(kind, {"steps": 0, "dispatch": 0.0,
                                     "device_get": 0.0})
             split[kind]["steps"] += 1
-        elif kind is not None:
+        elif kind is not None and e["name"] in ("dispatch", "device_get"):
             split[kind][e["name"]] += e["dur"] / 1e3
     return {k: {"steps": v["steps"],
                 "dispatch_ms": v["dispatch"] / v["steps"],
@@ -4507,6 +4679,7 @@ def phase_train_path(arch="qwen3_8b"):
     for k in range(tp.args.experts):
         state = tp.init_state(k)
         n_params = sum(p.numel() for _, p in tree_leaves(state["params"]))
+        n_leaves = len(tree_leaves(state["params"]))
 
         def first_step_grads(step, state=state, k=k):
             if step != 0:
@@ -4551,6 +4724,10 @@ def phase_train_path(arch="qwen3_8b"):
     if launches["chunk_scan"]:
         bad.append(f"{launches['chunk_scan']} chunk-scan launches: training "
                    f"takes the scan's training form")
+    want_adamw = n_leaves * tp.steps * tp.args.experts
+    if launches["adamw_update"] != want_adamw:
+        bad.append(f"{launches['adamw_update']} AdamW launches: want "
+                   f"{want_adamw} (leaves x steps x experts)")
     stats = {"experts": experts,
              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
              "launches": launches}
@@ -4814,7 +4991,8 @@ def phase_placed_train(device="cuda", backend="nccl", smoke=False):
     losses and grad norms within ``TRAIN_PARITY``'s metrics tolerance, and
     its params after them within its params tolerance (the float32
     masters; the bf16 params within that plus one bf16 step of their
-    size), with the flash forward and backward launched as often; prints
+    size), with the flash forward and backward and the fused AdamW
+    launched as often (``TRAIN_KERNELS``); prints
     both runs' ms a step and peak GiB. The first placed step runs under
     the dry run's memory counter, whose arguments + peak must lie within
     ``MEMORY_COUNTER_TOL`` of ``torch.cuda.max_memory_allocated()``
@@ -5602,7 +5780,8 @@ def main() -> int:
                         "paged_verify_attention"],
                     chunk_scan=hybrid_launches["chunk_scan"],
                     flash_attention_bwd=train_launches[
-                        "flash_attention_bwd"])
+                        "flash_attention_bwd"],
+                    adamw_update=train_launches["adamw_update"])
     # every full-width path's count of each kernel, for the record
     by_path = {"main": main_launches, "unfused": unfused_launches,
                "batch top1": batch_launches["top1"],

@@ -22,7 +22,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("decode_attention", "flash_attention", "router_scores",
-           "chunk_scan", "flash_attention_bwd")
+           "chunk_scan", "flash_attention_bwd", "adamw")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -126,6 +126,10 @@ def load(name: str) -> ctypes.CDLL:
         lib.chunk_scan_smem_bytes.restype = ctypes.c_longlong
         lib.chunk_scan_wide_smem_bytes.argtypes = [I]
         lib.chunk_scan_wide_smem_bytes.restype = ctypes.c_longlong
+    elif name == "adamw":
+        lib.adamw_update.argtypes = [P] * 9 + [I, I, ctypes.c_longlong] \
+            + [F] * 6 + [P]
+        lib.adamw_update.restype = I
     lib.kernel_error_string.argtypes = [I]
     lib.kernel_error_string.restype = ctypes.c_char_p
     _loaded[name] = lib

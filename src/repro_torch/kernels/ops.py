@@ -47,6 +47,9 @@ Decode runs under ``no_grad`` (``_no_backward`` refuses it otherwise), so
 no gradient placement of the merge is ever read. A cut of head_dim, a
 sequence cut of any other entry's operands, and a partial k or v raise
 with the placement named; nothing else is redistributed here.
+
+``adamw_update`` is elementwise: on DTensors it runs on each device's
+local shards, its leaves placed alike, its 0-d scalars taken whole.
 """
 from __future__ import annotations
 
@@ -54,6 +57,7 @@ import math
 
 import torch
 
+from . import adamw as _adamw
 from . import chunk_scan as _scan
 from . import decode_attention as _decode
 from . import flash_attention as _flash
@@ -384,6 +388,40 @@ def chunk_scan(qc: Tensor, kc: Tensor, vc: Tensor, cum: Tensor):
     return _plain(_scan.chunk_scan_ref, qc, kc, vc, cum)
 
 
+def adamw_update(p: Tensor, g: Tensor, m: Tensor, v: Tensor, master,
+                 lr: Tensor, scale: Tensor, b1c: Tensor, b2c: Tensor, *,
+                 b1: float, b2: float, eps: float,
+                 weight_decay: float) -> None:
+    """One AdamW step of one leaf, in place (``kernels/adamw.py``).
+    DTensors: the update is elementwise, so it runs on each device's local
+    shards when p, g, m, v and master (or None) are placed alike on one
+    mesh, and raises otherwise; the 0-d scalars are taken whole
+    (``full_tensor``) where they are DTensors."""
+    if _is_dtensor(p):
+        leaves = {"g": g, "m": m, "v": v}
+        if master is not None:
+            leaves["master"] = master
+        for name, t in leaves.items():
+            if not _is_dtensor(t) or t.device_mesh != p.device_mesh \
+                    or t.placements != p.placements or t.shape != p.shape:
+                got = t.placements if _is_dtensor(t) else "a plain tensor"
+                raise ValueError(
+                    f"adamw_update: {name} is placed {got}, p "
+                    f"{p.placements} on its mesh: the update takes the "
+                    f"leaves of one placement")
+        p, g, m, v = (t.to_local() for t in (p, g, m, v))
+        master = None if master is None else master.to_local()
+        lr, scale, b1c, b2c = (t.full_tensor() if _is_dtensor(t) else t
+                               for t in (lr, scale, b1c, b2c))
+    _no_backward("adamw_update", p, g, m, v)
+    kw = dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+    if _on_card(p):
+        return _adamw.adamw_update(p, g, m, v, master, lr, scale, b1c, b2c,
+                                   **kw)
+    return _plain(_adamw.adamw_update_ref, p, g, m, v, master, lr, scale,
+                  b1c, b2c, **kw)
+
+
 def reset_launch_counts() -> None:
     """Zero every kernel wrapper's launch counter, and the chunk scan's
     count of calls that took the tensor cores."""
@@ -403,4 +441,5 @@ KERNELS = {
     "paged_verify_attention": _decode.paged_verify_attention,
     "chunk_scan": _scan.chunk_scan,
     "flash_attention_bwd": _bwd.flash_attention_bwd,
+    "adamw_update": _adamw.adamw_update,
 }

@@ -5,9 +5,10 @@ The reference is functional: ``apply_updates`` returns new params and a
 new state. Here the state is a dict of tensors updated IN PLACE under
 ``torch.no_grad()`` — a functional copy would double the 41.5 GiB of
 params, moments and masters that a full-width 8-layer Qwen3-8B expert
-holds. Each gradient leaf is upcast to float32 one at a time. ``count``,
-the learning rate and the clip scale stay on the device: nothing here
-reads back to the host.
+holds. Each leaf is updated by one ``kernels.ops.adamw_update`` (the fused
+kernel on the card, its plain version on the CPU). ``count``, the learning
+rate, the clip scale and the bias corrections stay on the device: nothing
+here reads back to the host.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.tree import tree_leaves, tree_map
 
 Tensor = torch.Tensor
@@ -96,20 +98,12 @@ def apply_updates(params, grads, state, cfg: AdamWConfig
     cf = count.float()
     b1c = 1 - cfg.b1 ** cf
     b2c = 1 - cfg.b2 ** cf
-    masters = state.get("master", params)
-    for (_, p), (_, g), (_, m), (_, v), (_, master) in zip(
-            *(tree_leaves(t) for t in (params, grads, state["m"],
-                                       state["v"], masters))):
-        g32 = g.float() * scale
-        m.mul_(cfg.b1).add_(g32, alpha=1 - cfg.b1)
-        v.mul_(cfg.b2).addcmul_(g32, g32, value=1 - cfg.b2)
-        denom = torch.div(v, b2c, out=g32).sqrt_().add_(cfg.eps)
-        step = (m / b1c).div_(denom)
-        del g32, denom
-        step.add_(master.float(), alpha=cfg.weight_decay)
-        if "master" in state:
-            master.sub_(step.mul_(lr))
-            p.copy_(master)
-        else:
-            p.copy_(master.float() - step.mul_(lr))
+    leaves = [[t for _, t in tree_leaves(tree)]
+              for tree in (params, grads, state["m"], state["v"])]
+    masters = [t for _, t in tree_leaves(state["master"])] \
+        if "master" in state else [None] * len(leaves[0])
+    for p, g, m, v, master in zip(*leaves, masters):
+        ops.adamw_update(p, g, m, v, master, lr, scale, b1c, b2c, b1=cfg.b1,
+                         b2=cfg.b2, eps=cfg.eps,
+                         weight_decay=cfg.weight_decay)
     return params, state, {"lr": lr, "grad_norm": gnorm}

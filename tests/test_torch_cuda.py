@@ -17,6 +17,9 @@ The bf16 tensor-core chunk-prefill,
 verify and decode kernels are also held at 8e-3 against the plain version
 run in float32 on the same bf16 values (``chip_smoke.py``'s tolerance):
 there the kernel's error is its own rounding of P and of the output.
+The fused AdamW kernel rounds each operation where its plain version's
+eager passes do: m, v and masters at rtol 1e-6 / atol 1e-12, bf16
+parameters within one bf16 step.
 """
 import numpy as np
 import pytest
@@ -1345,3 +1348,123 @@ def test_placed_decentralized_step_on_a_one_card_mesh(cuda):
                           cwd=repo)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
     assert "placed training:" in proc.stdout + proc.stderr
+
+
+# AdamW: (param dtype, grad dtype, with a float32 master, leaf shape, the
+# stacked leading dim the leaf is a slice of (0: a leaf of its own), the
+# element offset of the leaf in its storage)
+ADAMW_CASES = {
+    "bf16_master": (torch.bfloat16, torch.bfloat16, True, (640, 96), 0, 0),
+    "f32_no_master": (torch.float32, torch.float32, False, (640, 96), 0, 0),
+    "bf16_grad_f32_param": (torch.float32, torch.bfloat16, False, (333, 48),
+                            0, 0),
+    "length_not_a_multiple_of_8": (torch.bfloat16, torch.bfloat16, True,
+                                   (1000003,), 0, 0),
+    "stacked_view": (torch.bfloat16, torch.bfloat16, True, (100, 40), 3, 0),
+    "unaligned": (torch.bfloat16, torch.bfloat16, True, (4099,), 0, 1),
+}
+
+
+def _bf16_ulps(a, b):
+    """Largest distance in bf16 steps between same-signed a and b."""
+    ia, ib = (t.view(torch.int16).int() for t in (a, b))
+    return int((ia - ib).abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(ADAMW_CASES))
+def test_adamw_update_kernel_on_card(cuda, case):
+    """Three steps of the fused AdamW kernel against its plain version on
+    the card: m, v and master within rtol 1e-6 / atol 1e-12 (the kernel
+    rounds each operation where the eager passes do), bf16 params within
+    one bf16 step (the rounding of a master that differs in its last
+    bits); nothing allocated by the call; a fourth step captured into a
+    CUDA graph (no host readback) and replayed gives the plain fourth
+    step. A stacked leaf's other slices stay untouched."""
+    from repro_torch.kernels import adamw as ak
+    pdt, gdt, with_master, shape, K, offset = ADAMW_CASES[case]
+    rng = np.random.default_rng(21)
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    full = ((K,) if K else ()) + shape
+    n = int(np.prod(full))
+
+    def leaf(src, dtype=None):
+        """A copy of ``src`` (a host array or a card tensor) at ``offset``
+        elements into its storage."""
+        src = torch.as_tensor(src, device=cuda)
+        t = torch.empty(n + offset, dtype=dtype or src.dtype,
+                        device=cuda)[offset:].view(full)
+        return t.copy_(src.reshape(full))
+
+    p0 = leaf(f32(rng, n), pdt)
+    zeros = np.zeros(n, np.float32)
+    state0 = [p0, leaf(zeros), leaf(zeros),
+              leaf(p0, torch.float32) if with_master else None]
+    mine, plain = ([None if t is None else leaf(t) for t in state0]
+                   for _ in range(2))
+    assert (mine[0].data_ptr() % 16 != 0) == bool(offset)
+    grads = [leaf(3 * f32(rng, n), gdt) for _ in range(4)]
+    k = 1 if K else None
+
+    def pick(t):
+        return t if t is None or k is None else t[k]
+
+    def scalars(step):
+        return [torch.tensor(x, dtype=torch.float32, device=cuda)
+                for x in (1e-2 * step, 0.7, 1 - 0.9 ** step,
+                          1 - 0.95 ** step)]
+
+    def check():
+        for name, got, want in zip(("p", "m", "v", "master"), mine, plain):
+            if got is None:
+                continue
+            if got.dtype == torch.bfloat16:
+                assert _bf16_ulps(got, want) <= 1, name
+            else:
+                torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-12,
+                                           msg=name)
+
+    ops.reset_launch_counts()
+    for step in (1, 2, 3):
+        s = scalars(step)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(cuda)
+        ops.adamw_update(*map(pick, [mine[0], grads[step - 1]] + mine[1:]),
+                         *s, **kw)
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated(cuda) == held
+        ak.adamw_update_ref(*map(pick, [plain[0], grads[step - 1]]
+                                 + plain[1:]), *s, **kw)
+        check()
+    assert ops.KERNELS["adamw_update"].launches == 3
+    if K:
+        for got, was in zip(mine, state0):
+            if got is not None:
+                assert torch.equal(got[0], was[0])
+                assert torch.equal(got[2:], was[2:])
+    s = scalars(4)
+    args = list(map(pick, [mine[0], grads[3]] + mine[1:])) + s
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ops.adamw_update(*args, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    ak.adamw_update_ref(*map(pick, [plain[0], grads[3]] + plain[1:]), *s,
+                        **kw)
+    check()
+
+
+@pytest.mark.gpu
+def test_adamw_update_refuses_on_card(cuda):
+    """A CUDA leaf never takes the plain version: a non-contiguous leaf, a
+    moment that is not float32 or a scalar on another device raises."""
+    p = torch.zeros(8, 6, device=cuda)
+    m, v = torch.zeros_like(p), torch.zeros_like(p)
+    s = [torch.ones((), device=cuda) for _ in range(4)]
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    with pytest.raises(ValueError, match="not contiguous"):
+        ops.adamw_update(p.t(), p.t(), m.t(), v.t(), None, *s, **kw)
+    with pytest.raises(TypeError, match="not float32"):
+        ops.adamw_update(p, p, m.bfloat16(), v, None, *s, **kw)
+    with pytest.raises(ValueError, match="on cpu"):
+        ops.adamw_update(p, p, m, v, None, torch.ones(()), *s[1:], **kw)

@@ -14,7 +14,8 @@ Tolerances, all float32 and stated where they are used:
   sides run the same float32 arithmetic in another summation order:
   measured 2e-6);
 * AdamW on the same gradients: lr, grad_norm, m, v and masters 1e-5
-  relative;
+  relative; ``ops.adamw_update`` on CPU tensors (the fused kernel's plain
+  version) against the eager loop it replaced: bit for bit;
 * the train step, whose gradients differ by summation order: loss,
   grad_norm and lr 1e-5 relative; m and v 1e-4 of each leaf's largest
   element (v is quadratic in the gradient: a small element's relative
@@ -408,6 +409,148 @@ def test_adamw_master_weights_bf16():
     # master accumulates sub-bf16 steps; params stay bf16
     assert p1["w"].dtype == torch.bfloat16
     assert float((s1["master"]["w"] - 1.0).abs().max()) > 0
+
+
+@torch.no_grad()
+def _eager_apply_updates(params, grads, state, cfg):
+    """``apply_updates`` as it was before the fused kernel: its per-leaf
+    eager loop, kept here as the yardstick of ``ops.adamw_update``."""
+    count = state["count"]
+    count += 1
+    lr = adamw.lr_at(cfg, count)
+    gnorm = adamw.global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
+                        max=1.0) if cfg.clip_norm > 0 \
+        else torch.ones((), device=gnorm.device)
+    cf = count.float()
+    b1c = 1 - cfg.b1 ** cf
+    b2c = 1 - cfg.b2 ** cf
+    masters = state.get("master", params)
+    for (_, p), (_, g), (_, m), (_, v), (_, master) in zip(
+            *(tree_leaves(t) for t in (params, grads, state["m"],
+                                       state["v"], masters))):
+        g32 = g.float() * scale
+        m.mul_(cfg.b1).add_(g32, alpha=1 - cfg.b1)
+        v.mul_(cfg.b2).addcmul_(g32, g32, value=1 - cfg.b2)
+        denom = torch.div(v, b2c, out=g32).sqrt_().add_(cfg.eps)
+        step = (m / b1c).div_(denom)
+        del g32, denom
+        step.add_(master.float(), alpha=cfg.weight_decay)
+        if "master" in state:
+            master.sub_(step.mul_(lr))
+            p.copy_(master)
+        else:
+            p.copy_(master.float() - step.mul_(lr))
+    return params, state, {"lr": lr, "grad_norm": gnorm}
+
+
+def _clone(tree):
+    return {k: _clone(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("param_dtype,grad_dtype", [
+    (torch.float32, torch.float32),     # no master
+    (torch.bfloat16, torch.bfloat16),   # float32 masters
+    (torch.float32, torch.bfloat16),    # a bf16 gradient, no master
+])
+@pytest.mark.parametrize("clip_norm", [0.5, 0.0])
+def test_adamw_update_is_the_eager_loop_bit_for_bit(param_dtype, grad_dtype,
+                                                    clip_norm):
+    """``apply_updates`` through ``ops.adamw_update`` on CPU tensors (the
+    plain version) gives, bit for bit, the eager loop it replaced: params,
+    m, v, masters, count and metrics over three steps, clipping on and
+    off, with leaves whose lengths are not multiples of 8."""
+    cfg = adamw.AdamWConfig(lr=0.05, warmup_steps=2, total_steps=5,
+                            clip_norm=clip_norm)
+    rng = np.random.default_rng(11)
+    p0 = {"w": torch.as_tensor(f32(rng, 7, 9)).to(param_dtype),
+          "b": {"x": torch.as_tensor(f32(rng, 13)).to(param_dtype)}}
+    got_p, want_p = _clone(p0), _clone(p0)
+    got_s, want_s = adamw.init_state(got_p), adamw.init_state(want_p)
+    assert ("master" in got_s) == (param_dtype == torch.bfloat16)
+    for _ in range(3):
+        g = {"w": torch.as_tensor(3 * f32(rng, 7, 9)).to(grad_dtype),
+             "b": {"x": torch.as_tensor(3 * f32(rng, 13)).to(grad_dtype)}}
+        _, _, got_m = adamw.apply_updates(got_p, g, got_s, cfg)
+        _, _, want_m = _eager_apply_updates(want_p, _clone(g), want_s, cfg)
+        for name in ("lr", "grad_norm"):
+            assert torch.equal(got_m[name], want_m[name])
+    for got, want in ((got_p, want_p), (got_s, want_s)):
+        got, want = dict(tree_leaves(got)), dict(tree_leaves(want))
+        assert sorted(got) == sorted(want)
+        for path, t in want.items():
+            assert got[path].dtype == t.dtype, path
+            assert torch.equal(got[path], t), path
+
+
+def test_adamw_update_on_a_leading_dim_view_updates_only_its_slice():
+    """The decentralized step updates expert k through views ``a[k]`` of
+    the stacked leaves: only slice k moves, exactly as a separate leaf."""
+    rng = np.random.default_rng(12)
+    K, k = 3, 1
+    p = torch.as_tensor(f32(rng, K, 5, 6)).bfloat16()
+    g = torch.as_tensor(f32(rng, K, 5, 6)).bfloat16()
+    m, v = torch.as_tensor(f32(rng, K, 5, 6)), \
+        torch.as_tensor(np.abs(f32(rng, K, 5, 6)))
+    master = p.float()
+    scalars = [torch.tensor(x) for x in (0.01, 0.7, 0.19, 0.0975)]
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    before = [t.clone() for t in (p, m, v, master)]
+    alone = [t[k].clone() for t in (p, g, m, v, master)]
+    ops.adamw_update(p[k], g[k], m[k], v[k], master[k], *scalars, **kw)
+    ops.adamw_update(*alone, *scalars, **kw)
+    others = [j for j in range(K) if j != k]
+    for now, was, single in zip((p, m, v, master), before,
+                                alone[:1] + alone[2:]):
+        assert torch.equal(now[others], was[others])
+        assert not torch.equal(now[k], was[k])
+        assert torch.equal(now[k], single)
+    assert ops.KERNELS["adamw_update"].launches == 0
+
+
+@pytest.fixture
+def one_rank_mesh():
+    """A one-device CPU mesh over a one-rank gloo group (an in-memory
+    store), taken down after the test."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    if dist.is_initialized():
+        pytest.skip("a process group is already up in this process")
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield init_device_mesh("cpu", (1,))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_adamw_update_dtensor_seam(one_rank_mesh):
+    """On DTensors placed alike the seam updates the local shards as the
+    plain version updates plain tensors, its scalars DTensors or not; a
+    leaf placed otherwise than p raises."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    mesh = one_rank_mesh
+    rng = np.random.default_rng(13)
+    plain = [torch.as_tensor(f32(rng, 4, 6)).bfloat16(),
+             torch.as_tensor(f32(rng, 4, 6)).bfloat16(),
+             torch.zeros(4, 6), torch.zeros(4, 6)]
+    plain.append(plain[0].float())
+    scalars = [torch.tensor(x) for x in (0.01, 0.7, 0.1, 0.05)]
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    placed = [distribute_tensor(t.clone(), mesh, [Shard(0)]) for t in plain]
+    lr = distribute_tensor(scalars[0].clone(), mesh, [Replicate()])
+    ops.adamw_update(*placed, lr, *scalars[1:], **kw)
+    ops.adamw_update(*plain, *scalars, **kw)
+    for got, want in zip(placed, plain):
+        assert torch.equal(got.to_local(), want)
+    wrong = distribute_tensor(plain[2].clone(), mesh, [Replicate()])
+    with pytest.raises(ValueError, match="placed"):
+        ops.adamw_update(placed[0], placed[1], wrong, *placed[3:], *scalars,
+                         **kw)
+    with pytest.raises(ValueError, match="plain tensor"):
+        ops.adamw_update(placed[0], placed[1], placed[2], placed[3],
+                         plain[4], *scalars, **kw)
 
 
 # ---------------------------------------------------------------------------
